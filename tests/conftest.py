@@ -56,6 +56,9 @@ def pytest_configure(config):
         "markers", "traffic: open-loop traffic/SLO plane tests "
         "(seeded arrival schedules, deadline-aware early flush, "
         "tenant quotas, virtual-clock load replay)")
+    config.addinivalue_line(
+        "markers", "gpu: needs an sm_90 CUDA device (the port's kernels); "
+        "skips elsewhere")
 
 
 @pytest.fixture(scope="session")
