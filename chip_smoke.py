@@ -5,33 +5,49 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``gossip_protocol_tpu_torch/csrc/``,
-holds each kernel against its plain PyTorch version on the card, drives
-the port's dense main path at full width, checks the results, times
-every kernel, and prints one line per phase:
+It builds the CUDA kernels from ``gossip_protocol_tpu_torch/csrc/`` (one
+nvcc per source, in parallel), holds each kernel against its plain
+PyTorch version on the card, drives the port's dense and overlay main
+paths at full width, checks the results, times every kernel, and prints
+one line per phase:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. kernel vs plain version on the card, bit-exact, on random inputs:
    ``masked_max3`` + ``tick_epilogue`` at N in {64, 1024, 2816}, dense
    and sparse (empty delivery slabs); ``dense_mega_ticks`` at N in
-   {64, 512} (S=16) and N=896 (S=8);
+   {64, 512} (S=16) and N=896 (S=8); ``fused_overlay_tick`` (K3) on
+   random valid states at N=64, 4096 and 65,536 (K=64, F=3) and on the
+   real tick-136 state of the N=2^20 power-law run (F=8);
+   ``mega_overlay_ticks`` (K4) at N=64 and 4096 (S=16, churn, drop,
+   power-law degrees) and on a 12-tick remainder launch;
 3. the graded path: the three N=10 testcases on ``cuda`` must grade 90;
 4. card vs CPU: N=64 multifailure and N=64 drop, 700 ticks — the
    ``dbg.log`` and ``msgcount.log`` bytes of a ``cuda`` run must equal
-   those of the port's own ``cpu`` run;
+   those of the port's own ``cpu`` run; overlay N=64 churn (200 ticks)
+   and N=128 drop (120 ticks) through ``OverlaySimulation``: final state
+   and every metric equal on ``cuda`` and ``cpu``;
 5. full-width runs with closed-form oracles: N=512 multifailure trace
    (K2), N=1024 multifailure 10% drop trace (K1 at full width), and
    bench N=4096 10% drop at 700 ticks (corner 2816, K1) and 200 ticks
-   (corner 896, K2), with node-ticks/s;
+   (corner 896, K2), with node-ticks/s; then BASELINE's overlay configs
+   (5e) — N=4096 10% drop, 608 ticks (K4, 38 launches), N=65,536 20%
+   churn, 608 ticks (K3 per tick) and N=2^20 power-law single failure,
+   272 ticks (K3, F=8) — each validated as bench.py validates it (all
+   in the group, no victim slot or entry left, every member uncovered
+   at the end covered again within SLOT_EPOCH + 1 ticks), with
+   node-ticks/s; and the overlay cross-paths (5f): the N=4096 run
+   through K4 equals it through per-tick K3, and the first 48 ticks of
+   the N=65,536 run through K3 equal the plain per-tick path;
 6. each kernel held against its plain version and timed on the input
    of a launch the main path makes (the run stopped one launch early:
    tick 699 of the 700-tick corner for K1, the last full K2 launch of
-   the 200-tick corner and of the N=512 trace), then a ``kernels`` JSON
-   line: per kernel its launches on the main path (phases 3-5, counters
-   zeroed before each path and read after it, bench warm-ups not
-   counted), its time, its plain version's time, and the least time
-   the card could take (bytes over 3.35 TB/s or int32 operations over
-   the card's int32 rate, whichever is larger).
+   the 200-tick corner and of the N=512 trace, tick 607 of the N=65,536
+   churn run for K3, the launch at tick 592 of the N=4096 drop run for
+   K4), then a ``kernels`` JSON line: per kernel its launches on the
+   main path (phases 3-5, counters zeroed before each path and read
+   after it, bench warm-ups not counted), its time, its plain version's
+   time, and the least time the card could take (bytes over 3.35 TB/s
+   or int32 operations over the card's int32 rate, whichever is larger).
 
 Any failure raises and exits non-zero; no phase catches and continues.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -413,25 +429,232 @@ def time_k2(x: dict, s_ticks: int, cfg, with_events: bool,
                 bound=bound(nbytes, ops))
 
 
+# ------------------------------------------------------ overlay inputs
+
+def overlay_cfg(name: str, **over):
+    """The overlay configurations the script drives: BASELINE's three
+    (bench.py:319-349, 625-629, 936-937) and two small ones of the JAX
+    package's tests (tests/test_overlay_mega.py:27-50)."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    kw = {
+        "drop4096": dict(max_nnb=4096, single_failure=True, drop_msg=True,
+                         msg_drop_prob=0.1, total_ticks=608, fail_tick=304,
+                         step_rate=40.0 / 4096),
+        "churn65k": dict(max_nnb=65536, single_failure=False,
+                         total_ticks=608, churn_rate=0.2, rejoin_after=40,
+                         step_rate=64.0 / 65536),
+        "powerlaw1m": dict(max_nnb=1 << 20, single_failure=True,
+                           total_ticks=272, fail_tick=136,
+                           step_rate=40.0 / (1 << 20), topology="powerlaw"),
+        "churn64": dict(max_nnb=64, single_failure=False, seed=7,
+                        total_ticks=200, churn_rate=0.25, rejoin_after=30,
+                        step_rate=40.0 / 64),
+        "drop128": dict(max_nnb=128, single_failure=True, drop_msg=True,
+                        msg_drop_prob=0.3, seed=5, total_ticks=120,
+                        fail_tick=60, step_rate=0.25, drop_open_tick=10,
+                        drop_close_tick=100),
+    }[name]
+    kw.setdefault("seed", 0)
+    return SimConfig(model="overlay", **{**kw, **over})
+
+
+def overlay_state(cfg, t: int, seed: int, device):
+    """A random valid overlay state at tick ``t`` (numpy seed): 70% of
+    the slots hold entries observed 1 to 25 ticks ago (some stale), and
+    random flags."""
+    import torch
+
+    from gossip_protocol_tpu_torch.models.overlay import resolved_dims
+    from gossip_protocol_tpu_torch.ops.overlay_rules import OverlayState
+    rng = np.random.default_rng(seed)
+    n = cfg.n
+    k, f = resolved_dims(cfg)
+    ids = rng.integers(0, n, (n, k)).astype(np.int32)
+    ids[rng.random((n, k)) < 0.3] = -1
+    occ = ids >= 0
+    hb = np.where(occ, rng.integers(0, 300, (n, k)), 0).astype(np.int32)
+    ts = np.where(occ, rng.integers(max(t - 25, 0), max(t, 1), (n, k)),
+                  0).astype(np.int32)
+
+    def t_(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return OverlayState(
+        tick=t, ids=t_(ids), hb=t_(hb), ts=t_(ts),
+        in_group=t_(rng.random(n) < 0.9),
+        own_hb=t_(rng.integers(0, 300, n).astype(np.int32)),
+        send_flags=t_(rng.random((n, f)) < 0.8),
+        send_hist=t_(np.zeros((n, f), np.int32)),
+        joinreq=t_(rng.random(n) < 0.05), joinrep=t_(rng.random(n) < 0.05))
+
+
+def k3_launch_input(cfg, state) -> dict:
+    """K3's input at ``state``'s next tick, as the tick builds it (the
+    tick runs with K3 replaced by a function that keeps its arguments)."""
+    import torch
+
+    from gossip_protocol_tpu_torch.models.overlay import (
+        make_overlay_schedule, make_overlay_tick)
+    got = {}
+
+    def keep(idsaux, pw, intro, masks, scalars, **kw):
+        got.update(args=(idsaux, pw, intro, list(masks), list(scalars)),
+                   kw=kw)
+        z = torch.zeros_like(pw)
+        return z, z, z, torch.zeros((pw.shape[0], 6), dtype=torch.int32,
+                                    device=pw.device)
+
+    make_overlay_tick(cfg, exchange=keep)(state, make_overlay_schedule(cfg))
+    return got
+
+
+def compare_k3(x: dict) -> float:
+    """fused_overlay_tick vs its plain version on the same input."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
+        fused_overlay_tick, fused_overlay_tick_plain)
+    o_k = fused_overlay_tick(*x["args"], **x["kw"])
+    o_p = fused_overlay_tick_plain(*x["args"], **x["kw"])
+    return max(max_abs_err(a, b) for a, b in zip(o_k, o_p))
+
+
+def k4_launch_input(cfg, state, s_ticks: int) -> dict:
+    """K4's input for ``s_ticks`` ticks from ``state``, packed as the K4
+    route packs it."""
+    from gossip_protocol_tpu_torch.models import overlay_mega as om
+    from gossip_protocol_tpu_torch.models.overlay import make_overlay_schedule
+    sched = make_overlay_schedule(cfg)
+    kw = om.mega_kernel_kwargs(cfg, sched)
+    return dict(
+        st=om._pack_state(cfg, state, sched),
+        sp=om._sp_vector(cfg, sched, state.tick, s_ticks, cfg.n,
+                         kw["f_rounds"]),
+        kw=dict(kw, s_ticks=s_ticks))
+
+
+def compare_k4(x: dict) -> float:
+    """mega_overlay_ticks vs its plain version on the same input."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import (
+        mega_overlay_ticks, mega_overlay_ticks_plain)
+    o_k = mega_overlay_ticks(x["st"], x["sp"], **x["kw"])
+    o_p = mega_overlay_ticks_plain(x["st"], x["sp"], **x["kw"])
+    return max(max_abs_err(a, b) for a, b in zip(o_k, o_p))
+
+
+def k3_ops(n: int, k: int, f: int) -> float:
+    """Integer operations one K3 tick needs: about 8 per merge candidate
+    and 40 per slot for extraction, detection and the subject's fail
+    schedule.  Each slot takes F partner entries and the JOINREP
+    broadcast entry; the F partner self-entries and the introducer's
+    self-entry land in one slot of a row each; the JOINREQ aggregate
+    merges into row 0 only."""
+    return n * k * ((f + 1) * 8 + 40) + n * (f + 1) * 8 + 8 * k
+
+
+def k3_bound(n: int, k: int, f: int) -> tuple[float, str]:
+    """K3's least time: idsaux, pw and intro read once, ids/hb/ts and
+    the counters written once, against :func:`k3_ops`."""
+    nbytes = 4 * (n * (k + 2 + f) + n * k + 8 * k + 3 * n * k + 6 * n)
+    return bound(nbytes, k3_ops(n, k, f))
+
+
+def k4_bound(n: int, k: int, f: int, s_ticks: int,
+             reslots: int) -> tuple[float, str]:
+    """K4's least time: the plane read once and written once, the
+    metric rows; per tick K3's operations plus about 30 a row for the
+    decisions, send flags and joins, and at each re-slot one merge
+    candidate (8 operations) per slot: subject ids are unique within a
+    row, so the per-slot max is over K entries a row."""
+    w = 2 * k + 16
+    nbytes = 4 * (2 * n * w + s_ticks * 128 + 14 + s_ticks * f)
+    ops = s_ticks * (k3_ops(n, k, f) + 30 * n) + reslots * n * 8 * k
+    return bound(nbytes, ops)
+
+
+def validate_overlay(res) -> dict:
+    """bench.py's validation of an overlay run (bench.py:365-381 and
+    _check_recover :255-316): every peer in the group at the end, no
+    victim slot and no victim entry left, and every member uncovered at
+    the end covered again within SLOT_EPOCH + 1 continuation ticks."""
+    import torch
+
+    from gossip_protocol_tpu_torch.models.overlay import make_overlay_run
+    from gossip_protocol_tpu_torch.ops.overlay_rules import (
+        SLOT_EPOCH, covered_histogram)
+    cfg, m = res.cfg, res.metrics
+    if int(m.in_group[-1]) != cfg.n:
+        raise AssertionError("overlay: join/rejoin incomplete")
+    if int(m.victim_slots[-1]) != 0:
+        raise AssertionError("overlay: victims not purged")
+    _, victims_left = res.final_coverage()
+    if victims_left:
+        raise AssertionError("overlay: victim entries left")
+    before = res.uncovered_members()
+    if before.size:
+        run1 = make_overlay_run(cfg, 1)
+        state = res.final_state
+        covered = torch.zeros(cfg.n, dtype=torch.bool, device=state.device)
+        for _ in range(SLOT_EPOCH + 1):
+            state, _ = run1(state, res.sched)
+            covered |= covered_histogram(state.ids, cfg.n)
+        still = before[~covered.cpu().numpy()[before]]
+        if still.size:
+            raise AssertionError(
+                f"overlay: members {still[:5].tolist()} stayed uncovered "
+                f"past the {SLOT_EPOCH + 1}-tick re-cover bound")
+    return {"in_group_final": int(m.in_group[-1]),
+            "victim_slots_final": int(m.victim_slots[-1]),
+            "victim_entries_final": victims_left,
+            "uncovered_final_recovered": int(before.size),
+            "removals_total": int(m.removals.sum()),
+            "false_removals_total": int(m.false_removals.sum())}
+
+
+def overlay_equal(a, b, ma, mb, skip=()) -> list:
+    """Fields of two overlay states / metrics that differ."""
+    import torch
+
+    from gossip_protocol_tpu_torch.models.overlay import METRIC_FIELDS
+    bad = [f for f in ("ids", "hb", "ts", "in_group", "own_hb", "send_flags",
+                       "joinreq", "joinrep")
+           if not torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())]
+    if a.tick != b.tick:
+        bad.append("tick")
+    for f in METRIC_FIELDS:
+        if f in skip:
+            continue
+        x, y = getattr(ma, f), getattr(mb, f)
+        x = x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+        y = y.cpu().numpy() if hasattr(y, "cpu") else np.asarray(y)
+        if not np.array_equal(x, y):
+            bad.append(f)
+    return bad
+
+
 # ------------------------------------------------------------- phases
 
-def reset_counts():
+def wrappers() -> dict:
+    """Every kernel wrapper of the port, by name."""
     from gossip_protocol_tpu_torch.ops.cuda.dense_mega import \
         dense_mega_ticks
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import \
+        fused_overlay_tick
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import \
+        mega_overlay_ticks
     from gossip_protocol_tpu_torch.ops.cuda.tickfused import tick_epilogue
     from gossip_protocol_tpu_torch.ops.merge import masked_max3
-    for fn in (masked_max3, tick_epilogue, dense_mega_ticks):
+    return {"masked_max3": masked_max3, "tick_epilogue": tick_epilogue,
+            "dense_mega_ticks": dense_mega_ticks,
+            "fused_overlay_tick": fused_overlay_tick,
+            "mega_overlay_ticks": mega_overlay_ticks}
+
+
+def reset_counts():
+    for fn in wrappers().values():
         fn.launches = 0
 
 
 def read_counts() -> dict:
-    from gossip_protocol_tpu_torch.ops.cuda.dense_mega import \
-        dense_mega_ticks
-    from gossip_protocol_tpu_torch.ops.cuda.tickfused import tick_epilogue
-    from gossip_protocol_tpu_torch.ops.merge import masked_max3
-    return {"masked_max3": masked_max3.launches,
-            "tick_epilogue": tick_epilogue.launches,
-            "dense_mega_ticks": dense_mega_ticks.launches}
+    return {name: fn.launches for name, fn in wrappers().items()}
 
 
 class MainPath:
@@ -439,8 +662,7 @@ class MainPath:
     each and read just after, and totals them."""
 
     def __init__(self):
-        self.total = {"masked_max3": 0, "tick_epilogue": 0,
-                      "dense_mega_ticks": 0}
+        self.total = dict.fromkeys(wrappers(), 0)
 
     def drive(self, fn, expect: tuple):
         import torch
@@ -499,8 +721,9 @@ def main(argv=None) -> int:
                     help="also write every measured number to this JSON")
     ap.add_argument("--profile", action="store_true",
                     help="profile one more run of each phase-5 "
-                         "configuration (device busy share, kernels by "
-                         "device time) into the details")
+                         "configuration, overlay runs included (device "
+                         "busy share, kernels by device time) into the "
+                         "details")
     args = ap.parse_args(argv)
 
     import torch
@@ -525,16 +748,17 @@ def main(argv=None) -> int:
     say(smi)
     details["nvidia_smi"] = smi
     tb = time.perf_counter()
-    lib = _build.build(verbose=True)
-    _build.library()
+    libs = _build.build(verbose=True)
+    for source in _build.SOURCES:
+        _build.library(source)
     build_s = time.perf_counter() - tb
     details["build_s"] = build_s
     say(f"phase 1: {torch.cuda.get_device_name(0)} (torch {torch.__version__},"
         f" CUDA {torch.version.cuda}); kernels built in {build_s:.1f} s "
-        f"-> {os.path.relpath(lib, REPO)}")
+        f"-> {', '.join(os.path.relpath(p, REPO) for p in libs)}")
 
     # ---- phase 2: kernel vs plain on the card ------------------------
-    errs = {"masked_max3": 0.0, "tick_epilogue": 0.0, "dense_mega_ticks": 0.0}
+    errs = dict.fromkeys(wrappers(), 0.0)
     for n in (64, 1024, 2816):
         for sparse in (False, True):
             e = compare_k1(k1_inputs(n, n, dev, sparse=sparse), t_remove=20)
@@ -547,6 +771,34 @@ def main(argv=None) -> int:
         errs["dense_mega_ticks"] = max(
             errs["dense_mega_ticks"],
             compare_k2(k2_inputs(n, s, n, dev), kws))
+    # K3 on random valid states, built by the tick's own code
+    # (churn at tick 300: wipes and rejoins; drop at tick 100: drops)
+    for name, n, t in (("churn64", 64, 150), ("drop4096", 4096, 100),
+                       ("churn65k", 65536, 300)):
+        cfg = overlay_cfg(name, max_nnb=n) if name == "churn64" \
+            else overlay_cfg(name)
+        x = k3_launch_input(cfg, overlay_state(cfg, t, n, dev))
+        errs["fused_overlay_tick"] = max(errs["fused_overlay_tick"],
+                                         compare_k3(x))
+    # K4 at N=64 and 4096 (S=16, a re-slot inside the launch) and a
+    # 12-tick remainder launch; churn, drop and power-law degrees
+    for name, over, t, s in (
+            ("churn64", {}, 60, 16),
+            ("churn65k", dict(max_nnb=4096, step_rate=40.0 / 4096), 300, 16),
+            ("drop4096", {}, 100, 12),
+            ("churn64", dict(topology="powerlaw", fanout=5), 60, 16)):
+        cfg = overlay_cfg(name, **over)
+        x = k4_launch_input(cfg, overlay_state(cfg, t, cfg.n + t, dev), s)
+        errs["mega_overlay_ticks"] = max(errs["mega_overlay_ticks"],
+                                         compare_k4(x))
+    # K3 at N=2^20, F=8 on a real mid-run state (tick 136, the fail tick)
+    from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    cfg1m = overlay_cfg("powerlaw1m")
+    mid = OverlaySimulation(cfg1m, device="cuda").run(ticks=136)
+    errs["fused_overlay_tick"] = max(
+        errs["fused_overlay_tick"],
+        compare_k3(k3_launch_input(cfg1m, mid.final_state)))
+    del mid
     torch.cuda.synchronize()
     if any(v != 0 for v in errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
@@ -591,6 +843,23 @@ def main(argv=None) -> int:
         out4[name] = {"dbg_bytes": len(logs["cuda"][0]), "launches": counts}
     say(f"phase 4: N=64 multifailure and drop logs byte-identical on "
         f"cuda and cpu {out4}")
+    from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    for name in ("churn64", "drop128"):
+        cfg = overlay_cfg(name)
+        (r_gpu, counts) = main_path.drive(
+            lambda: OverlaySimulation(cfg, device="cuda").run(),
+            ("mega_overlay_ticks",))
+        r_cpu = OverlaySimulation(cfg, device="cpu").run()
+        bad = overlay_equal(r_gpu.final_state, r_cpu.final_state,
+                            r_gpu.metrics, r_cpu.metrics)
+        if bad:
+            raise AssertionError(f"overlay {name}: cuda != cpu in {bad}")
+        out4[f"overlay_{name}"] = {
+            "ticks": cfg.total_ticks, "launches": counts,
+            "removals_total": int(r_gpu.metrics.removals.sum())}
+    say(f"phase 4: overlay N=64 churn (200 ticks) and N=128 drop (120 "
+        f"ticks): final state and every metric equal on cuda and cpu "
+        f"{ {k: v for k, v in out4.items() if k.startswith('overlay')} }")
     details["phase4"] = out4
 
     # ---- phase 5: full-width runs -------------------------------------
@@ -639,6 +908,51 @@ def main(argv=None) -> int:
             f"node-ticks/s (wall {r.wall_seconds:.3f} s); {o}; "
             f"launches {counts}")
         del r
+
+    # overlay: BASELINE's three configurations at full width, each held
+    # to bench.py's validation; K4 at N=4096, K3 per tick above
+    ocfg = {name: overlay_cfg(name)
+            for name in ("drop4096", "churn65k", "powerlaw1m")}
+    ores = {}
+    for name, expect in (("drop4096", "mega_overlay_ticks"),
+                         ("churn65k", "fused_overlay_tick"),
+                         ("powerlaw1m", "fused_overlay_tick")):
+        cfg = ocfg[name]
+        (r, counts) = main_path.drive(
+            lambda: OverlaySimulation(cfg, device="cuda").run(), (expect,))
+        o = validate_overlay(r)
+        ores[name] = r
+        runs[f"overlay_{name}"] = dict(
+            n=cfg.n, ticks=cfg.total_ticks, wall_s=r.wall_seconds,
+            node_ticks_per_s=r.node_ticks_per_second, launches=counts, **o)
+        say(f"phase 5e: overlay {name} N={cfg.n}, {cfg.total_ticks} ticks: "
+            f"{r.node_ticks_per_second:.1f} node-ticks/s (wall "
+            f"{r.wall_seconds:.3f} s); {o}; launches {counts}")
+    # cross-paths on the card: K4 == K3 per tick over the whole N=4096
+    # run (live_uncovered is -1 on the K4 route), and K3 == the plain
+    # per-tick path over the first 48 ticks of the N=65,536 churn run
+    from gossip_protocol_tpu_torch.models.overlay import (
+        init_overlay_state, make_overlay_run, make_overlay_schedule)
+    cfg = ocfg["drop4096"]
+    f_k3, m_k3 = make_overlay_run(cfg, mega=False)(
+        init_overlay_state(cfg, dev), make_overlay_schedule(cfg))
+    r = ores["drop4096"]
+    bad = overlay_equal(r.final_state, f_k3, r.metrics, m_k3,
+                        skip=("live_uncovered",))
+    if bad:
+        raise AssertionError(f"overlay N=4096: K4 != K3 in {bad}")
+    cfg = ocfg["churn65k"]
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
+        fused_overlay_tick, fused_overlay_tick_plain)
+    outs = [make_overlay_run(cfg, 48, exchange=k3)(
+        init_overlay_state(cfg, dev), make_overlay_schedule(cfg))
+        for k3 in (fused_overlay_tick, fused_overlay_tick_plain)]
+    bad = overlay_equal(outs[0][0], outs[1][0], outs[0][1], outs[1][1])
+    if bad:
+        raise AssertionError(f"overlay N=65536: K3 != plain in {bad}")
+    del outs, f_k3, m_k3, r
+    say("phase 5f: overlay cross-paths on cuda: N=4096 drop K4 == per-tick "
+        "K3 (608 ticks), N=65536 churn K3 == plain (48 ticks)")
     details["phase5"] = runs
     if args.profile:
         prof = {
@@ -650,6 +964,9 @@ def main(argv=None) -> int:
             prof[f"bench_n4096_t{ticks}"] = profile_run(
                 lambda: Simulation(bench_cfg(ticks), device="cuda")
                 .run_bench(warmup=False))
+        for name, cfg in ocfg.items():
+            prof[f"overlay_{name}"] = profile_run(
+                lambda: OverlaySimulation(cfg, device="cuda").run())
         details["profile"] = prof
         say("phase 5d: profiled; device idle share " + json.dumps(
             {k: v.get("idle_share") for k, v in prof.items()}))
@@ -668,6 +985,45 @@ def main(argv=None) -> int:
     x, s = k2_launch_input(cfg512, cfg512.n, dev)
     timing["k2_trace512"] = time_k2(x, s, cfg512, with_events=True, reps=10)
     del x
+    # K3 on the input of the last tick of the N=65,536 churn run, K4 on
+    # the last full launch of the N=4096 drop run (each run stopped there)
+    from gossip_protocol_tpu_torch.models.overlay import resolved_dims
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
+        fused_overlay_tick, fused_overlay_tick_plain)
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import (
+        MEGA_TICKS, mega_overlay_ticks, mega_overlay_ticks_plain)
+    cfg = ocfg["churn65k"]
+    t_last = cfg.total_ticks - 1
+    x = k3_launch_input(cfg, OverlaySimulation(cfg, device="cuda").run(
+        ticks=t_last).final_state)
+    k, f = resolved_dims(cfg)
+    timing["k3"] = dict(
+        n=cfg.n, k=k, f=f, tick=t_last, max_abs_err=compare_k3(x),
+        ms=cuda_ms(lambda: fused_overlay_tick(*x["args"], **x["kw"]), 50),
+        plain_ms=cuda_ms(
+            lambda: fused_overlay_tick_plain(*x["args"], **x["kw"]), 3),
+        bound=k3_bound(cfg.n, k, f))
+    cfg = ocfg["drop4096"]
+    t0 = (cfg.total_ticks // MEGA_TICKS - 1) * MEGA_TICKS
+    x = k4_launch_input(cfg, OverlaySimulation(cfg, device="cuda").run(
+        ticks=t0).final_state, MEGA_TICKS)
+    k, f = resolved_dims(cfg)
+    timing["k4"] = dict(
+        n=cfg.n, k=k, f=f, s_ticks=MEGA_TICKS, sp=t0,
+        max_abs_err=compare_k4(x),
+        ms=cuda_ms(lambda: mega_overlay_ticks(x["st"], x["sp"], **x["kw"]),
+                   20),
+        plain_ms=cuda_ms(lambda: mega_overlay_ticks_plain(
+            x["st"], x["sp"], **x["kw"]), 1, warm=0),
+        bound=k4_bound(cfg.n, k, f, MEGA_TICKS, reslots=1))
+    del x
+    errs["fused_overlay_tick"] = max(errs["fused_overlay_tick"],
+                                     timing["k3"]["max_abs_err"])
+    errs["mega_overlay_ticks"] = max(errs["mega_overlay_ticks"],
+                                     timing["k4"]["max_abs_err"])
+    if errs["fused_overlay_tick"] or errs["mega_overlay_ticks"]:
+        raise AssertionError(f"overlay kernel != plain on a launch input: "
+                             f"{errs}")
     errs["masked_max3"] = max(errs["masked_max3"],
                               timing["k1"]["max_abs_err"]["masked_max3"])
     errs["tick_epilogue"] = max(errs["tick_epilogue"],
@@ -678,6 +1034,7 @@ def main(argv=None) -> int:
     details["timing"] = timing
     details["max_abs_err"] = errs
     src = "gossip_protocol_tpu_torch/csrc/dense_tick.cu"
+    osrc = "gossip_protocol_tpu_torch/csrc/overlay_tick.cu"
     kernels = []
     for name, replaces, tm, shape in (
             ("masked_max3", "gossip_protocol_tpu/ops/merge.py:179",
@@ -688,9 +1045,17 @@ def main(argv=None) -> int:
             ("dense_mega_ticks",
              "gossip_protocol_tpu/ops/pallas/dense_mega.py:302",
              timing["k2"], {"n": timing["k2"]["n"],
-                            "s_ticks": timing["k2"]["s_ticks"]})):
+                            "s_ticks": timing["k2"]["s_ticks"]}),
+            ("fused_overlay_tick",
+             "gossip_protocol_tpu/ops/pallas/overlay_exchange.py:267",
+             timing["k3"], {k: timing["k3"][k] for k in ("n", "k", "f")}),
+            ("mega_overlay_ticks",
+             "gossip_protocol_tpu/ops/pallas/overlay_mega.py:456",
+             timing["k4"], {k: timing["k4"][k]
+                            for k in ("n", "k", "f", "s_ticks")})):
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
+            "name": name, "route": "cuda",
+            "source": osrc if "overlay" in name else src,
             "replaces": replaces, "launches": main_path.total[name],
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],

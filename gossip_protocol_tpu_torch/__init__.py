@@ -1,13 +1,17 @@
-"""gossip_protocol_tpu_torch — the dense full-view gossip simulator in
-PyTorch, with hand-written CUDA kernels for the H100.
+"""gossip_protocol_tpu_torch — the gossip simulator in PyTorch, with
+hand-written CUDA kernels for the H100.
 
 A port of ``gossip_protocol_tpu`` (the JAX/Pallas package, which stays
-the reference).  The state is a handful of tensors and one tick is a
-few kernel launches: the three gossip merge maxima (``masked_max3``),
-the post-merge epilogue (``tick_epilogue``, the TPU's K1) and, for
-N <= 512 (1024 in bench mode), ``dense_mega_ticks`` (K2), 16 or 8
-whole ticks per call.  Runs go to the card unless ``device="cpu"`` is
-asked for; on the CPU every kernel runs its plain PyTorch version.
+the reference).  The dense full-view model's state is a handful of
+tensors and one tick is a few kernel launches: the three gossip merge
+maxima (``masked_max3``), the post-merge epilogue (``tick_epilogue``,
+the TPU's K1) and, for N <= 512 (1024 in bench mode),
+``dense_mega_ticks`` (K2), 16 or 8 whole ticks per call.  The bounded
+partial-view overlay (``models/overlay.py``, up to N = 2^20) runs one
+tick's whole (N, K) phase in ``fused_overlay_tick`` (K3) and, for
+N <= 4096, 16 whole ticks per call in ``mega_overlay_ticks`` (K4).
+Runs go to the card unless ``device="cpu"`` is asked for; on the CPU
+every kernel runs its plain PyTorch version.
 
 This package never imports JAX or ``gossip_protocol_tpu``.
 """

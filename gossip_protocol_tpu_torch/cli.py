@@ -7,7 +7,11 @@ byte-identical to ``python -m gossip_protocol_tpu`` for the same config
 and seed.  Flags are the JAX CLI's (``--seed``, ``-n``, ``--ticks``,
 ``--outdir``, ``--bench``, ``--quiet``, ``--model``, ``--topology``)
 with ``--device`` (default ``cuda``) in place of ``--platform``.
-``--model overlay`` raises: the overlay family is not ported yet.
+``--model overlay`` runs the bounded partial-view overlay and prints
+the JAX CLI's one summary-metrics JSON line (no logs):
+
+    python -m gossip_protocol_tpu_torch testcases/singlefailure.conf \
+        --model overlay -n 4096 --ticks 608 [--topology powerlaw]
 """
 
 from __future__ import annotations
@@ -42,10 +46,13 @@ def main(argv=None) -> int:
                     help="run on the card (default; raises when none is "
                          "visible) or on the CPU with the plain versions")
     ap.add_argument("--model", default=None, choices=["full_view", "overlay"],
-                    help="protocol family (only full_view is ported)")
+                    help="protocol family: full_view (reference-faithful, "
+                         "dbg.log output) or overlay (bounded partial-view "
+                         "for large N; prints one summary-metrics JSON line)")
     ap.add_argument("--topology", default=None,
                     choices=["uniform", "powerlaw"],
-                    help="overlay exchange-degree family (overlay only)")
+                    help="overlay exchange-degree family (uniform fanout "
+                         "or scale-free Pareto out-degrees)")
     args = ap.parse_args(argv)
 
     overrides = {}
@@ -69,6 +76,9 @@ def main(argv=None) -> int:
         print(f"gossip_protocol_tpu_torch: {e}", file=sys.stderr)
         return 2
 
+    if cfg.model == "overlay":
+        return _run_overlay(cfg, args.device)
+
     from .core.sim import Simulation
 
     sim = Simulation(cfg, device=args.device)
@@ -90,6 +100,25 @@ def main(argv=None) -> int:
 
     res = sim.run()
     res.write_logs(args.outdir)
+    return 0
+
+
+def _run_overlay(cfg: SimConfig, device: str) -> int:
+    """The JAX CLI's overlay summary line (same keys)."""
+    from .models.overlay import OverlaySimulation
+    res = OverlaySimulation(cfg, device=device).run()
+    m = res.metrics
+    uncovered, victims_left = res.final_coverage()
+    print(json.dumps({
+        "n": cfg.n, "ticks": cfg.total_ticks,
+        "wall_s": round(res.wall_seconds, 6),
+        "node_ticks_per_s": round(res.node_ticks_per_second, 1),
+        "in_group_final": int(m.in_group[-1]),
+        "victim_slots_final": int(m.victim_slots[-1]),
+        "live_uncovered_final": uncovered,
+        "victim_entries_final": victims_left,
+        "removals_total": int(m.removals.sum()),
+    }))
     return 0
 
 

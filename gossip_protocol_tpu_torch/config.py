@@ -3,9 +3,10 @@
 The port keeps its own copy so it never imports the JAX package.  The
 fields, defaults, validation and ``to_dict`` are identical, so a config
 built by either package compares equal field for field.  One addition:
-the port runs only the dense full-view model on the course worlds, so
-``model="overlay"`` and every adversarial world raise
-``NotImplementedError`` instead of silently computing something else.
+the port runs the dense full-view model and the overlay on the course
+worlds only, so every adversarial world (and any other model name)
+raises ``NotImplementedError`` instead of silently computing something
+else.
 
 Replacement for the reference's ``Params`` class
 (reference: Params.h:21-36, Params.cpp:19-50).  The reference reads a
@@ -153,11 +154,10 @@ class SimConfig:
 
     def __post_init__(self):
         self._validate()
-        if self.model != "full_view":
+        if self.model not in ("full_view", "overlay"):
             raise NotImplementedError(
-                f"model={self.model!r} is not yet ported to "
-                "gossip_protocol_tpu_torch (only the dense full_view model "
-                "is); use gossip_protocol_tpu for the overlay family")
+                f"model={self.model!r} is not a model of "
+                "gossip_protocol_tpu_torch (full_view or overlay)")
         if self.has_worlds:
             raise NotImplementedError(
                 f"adversarial worlds {self.worlds_key()} are not yet "

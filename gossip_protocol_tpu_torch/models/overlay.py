@@ -1,0 +1,432 @@
+"""Bounded partial-view overlay (port of ``gossip_protocol_tpu/models/overlay.py``).
+
+The overlay is the scale family: O(N·K) view tables, O(N·F·K) work a
+tick, up to N = 2^20 peers.  Its protocol and its bits are the JAX
+package's (read that module's docstring for the design): per tick every
+in-group node exchanges its whole K-slot view plus a self-entry with
+the F partners ``i ^ m_f(t)``; tables share one epoch-slotted map, so a
+merge is a lane-aligned lexicographic (key, payload) max; staleness
+detection is the reference's TREMOVE rule; every draw is a ``mix32``
+counter hash of (seed, id, tick).
+
+The per-tick rules (entry packing, slot map, merge, schedule, re-slot,
+the tick ``overlay_step``) live in
+``ops/overlay_rules.py``, shared with the kernels' plain versions; this
+module builds the schedule and routes the run.
+
+What differs here, none of it in the bits:
+
+* ``OverlayState`` is a dataclass of tensors with the clock as a host
+  int; the schedule is host scalars.  Everything a tick decides from
+  the clock alone (the XOR masks, the drop window, the slot epoch) is
+  host arithmetic, so a run never waits on the card to learn it.
+* ``x[i ^ m]`` is a plain index: the permutation matmuls of the JAX
+  tick existed only to avoid TPU gathers, and ``LocalOverlayComm`` goes
+  (the sharded path is later work).
+* The (N, K) phase of every tick is K3 (``ops/cuda/overlay_exchange.py``
+  ``fused_overlay_tick``): the CUDA kernel for CUDA tensors, its plain
+  PyTorch version for CPU tensors.  The plain version IS the port's form
+  of the JAX package's XLA phases, so there is one tick, not two.
+* Routing (:func:`make_overlay_run`): K4 (``models/overlay_mega.py``,
+  16 ticks a call) where :func:`~.overlay_mega.mega_supported` holds,
+  else the per-tick tick with K3, on either device.  **Deliberate
+  difference:** a config the JAX package routes to its grid kernel (K5)
+  on a TPU runs K3 per tick here until K5 is ported.  The JAX package's
+  own tests hold the grid, mega and per-tick kernel paths bit-identical
+  to its XLA tick (tests/test_overlay_grid.py, test_overlay_mega.py,
+  test_overlay_pallas.py), so the route changes no bit.
+
+The adversarial worlds are not ported: their configs raise in
+``config.py``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..config import INTRODUCER, SimConfig
+from ..core.sim import _sync
+from ..ops.cuda.overlay_exchange import fused_overlay_tick
+from ..ops.overlay_rules import (_SALT_DEGREE, ID_BITS, METRIC_FIELDS,
+                                 OverlaySchedule, OverlayState, RowColumns,
+                                 exchange_mask, overlay_step)
+from ..state import NEVER, resolve_device
+from ..utils.hash32 import MASK32, mix32_t, threshold32
+
+#: track the live-coverage histogram per tick only up to this N
+COVERAGE_N_LIMIT = 4096
+
+# ------------------------------------------------------- schedule
+
+def make_overlay_schedule(cfg: SimConfig) -> OverlaySchedule:
+    """The JAX ``make_overlay_schedule`` on the course worlds."""
+    from ..utils.prng import fail_schedule_uniform
+    from .segments import step_fraction
+    n = cfg.n
+    step_num, step_den = step_fraction(cfg.step_rate)
+    if cfg.churn_rate > 0:
+        # the churn window must not overlap the start ramp (a churned
+        # peer failing before its start would be introduced while failed)
+        last_start = (n - 1) * step_num // step_den
+        churn_lo = cfg.total_ticks // 4
+        if last_start >= churn_lo:
+            raise ValueError(
+                f"start ramp ends at t={last_start} but churn opens at "
+                f"t={churn_lo}; lower step_rate (e.g. {churn_lo / (2 * n)}) "
+                "or lengthen the run")
+    victim_lo, victim_hi = 0, 0
+    if cfg.churn_rate <= 0:
+        u = fail_schedule_uniform(cfg.seed)
+        if cfg.single_failure:
+            victim_lo = int(u * n) % n
+            victim_hi = victim_lo + 1
+        else:
+            victim_lo = (int(u * n) % n) // 2
+            victim_hi = victim_lo + n // 2
+    flap_lo = cfg.total_ticks // 4 if cfg.flap_open_tick < 0 \
+        else cfg.flap_open_tick
+    return OverlaySchedule(
+        seed=cfg.seed & MASK32, step_num=step_num, step_den=step_den,
+        victim_lo=victim_lo, victim_hi=victim_hi, fail_tick=cfg.fail_tick,
+        rejoin_after=(cfg.rejoin_after if cfg.rejoin_after is not None
+                      else int(NEVER)),
+        churn_thr=threshold32(cfg.churn_rate) if cfg.churn_rate > 0 else 0,
+        churn_lo=cfg.total_ticks // 4,
+        churn_span=max(cfg.total_ticks // 2, 1),
+        churn_after=(cfg.rejoin_after if cfg.rejoin_after is not None
+                     else 40),
+        drop_on=bool(cfg.drop_msg), drop_open=cfg.drop_open_tick,
+        drop_close=cfg.drop_close_tick,
+        drop_thr=threshold32(cfg.msg_drop_prob),
+        deg_thr=tuple(int(x) for x in
+                      degree_thresholds(cfg, resolved_dims(cfg)[1])),
+        part_open=cfg.partition_open_tick,
+        part_close=cfg.partition_close_tick,
+        wave_speed=max(cfg.wave_speed, 1), wave_mod=n,
+        flap_period=max(cfg.flap_period, 1), flap_down=cfg.flap_down,
+        flap_open=flap_lo, byz_boost=cfg.byz_boost)
+
+
+@dataclass
+class OverlayMetrics:
+    """Per-tick counters, each [T] (tensors or numpy arrays)."""
+
+    in_group: object
+    view_slots: object
+    adds: object
+    removals: object
+    false_removals: object
+    victim_slots: object
+    live_uncovered: object      # -1 where not tracked
+    sent: object
+    recv: object
+
+    @classmethod
+    def from_rows(cls, rows) -> "OverlayMetrics":
+        """From (T, 9) rows in :data:`METRIC_FIELDS` order."""
+        return cls(**{f: rows[:, j] for j, f in enumerate(METRIC_FIELDS)})
+
+    def to_numpy(self) -> "OverlayMetrics":
+        return OverlayMetrics(**{
+            f: np.asarray(getattr(self, f).cpu() if torch.is_tensor(
+                getattr(self, f)) else getattr(self, f))
+            for f in METRIC_FIELDS})
+
+
+def resolved_dims(cfg: SimConfig):
+    """(K, F): view slots (auto ~4·log2 N, 16..64) and exchange fanout
+    (auto 3, or 8 for the power-law hub cap)."""
+    b = int(math.ceil(math.log2(max(cfg.n, 4))))
+    k = cfg.overlay_view if cfg.overlay_view > 0 \
+        else min(64, max(16, 8 * ((b + 1) // 2)))
+    if cfg.fanout > 0:
+        f = cfg.fanout
+    elif cfg.topology == "powerlaw":
+        f = 8
+    else:
+        f = 3
+    return k, f
+
+
+def degree_thresholds(cfg: SimConfig, f: int) -> np.ndarray:
+    """uint32 CDF thresholds of the bounded Pareto out-degree draw:
+    ``deg(i) = 1 + sum_k [mix32(seed, i, SALT_DEGREE) < thr_k]``."""
+    if cfg.topology == "uniform":
+        return np.full(max(f - 1, 1), 0xFFFFFFFF, np.uint32)
+    if cfg.topology != "powerlaw":
+        raise ValueError(f"unknown overlay topology {cfg.topology!r}")
+    a = float(cfg.powerlaw_alpha)
+    if a <= 1.0:
+        raise ValueError("powerlaw_alpha must be > 1")
+    thr = [min(0xFFFFFFFF, int(round(4294967296.0 * k ** (-(a - 1.0)))))
+           for k in range(2, f + 1)]
+    return np.asarray(thr if thr else [0], np.uint32)
+
+
+def degree_of(sched: OverlaySchedule, rows: torch.Tensor) -> torch.Tensor:
+    """i32 out-degree of each row (F for every row of a uniform graph,
+    up to the rare hash equal to 0xFFFFFFFF)."""
+    du = mix32_t(sched.seed, rows.to(torch.int64) & MASK32, _SALT_DEGREE)
+    thr = torch.tensor(sched.deg_thr, dtype=torch.int64, device=rows.device)
+    return (1 + (du[:, None] < thr[None, :]).sum(1)).to(torch.int32)
+
+
+def init_overlay_state(cfg: SimConfig, device=None) -> OverlayState:
+    dev = resolve_device(device)
+    n = cfg.n
+    k, f = resolved_dims(cfg)
+
+    def z(*shape, dtype=torch.int32):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    return OverlayState(
+        tick=0, ids=torch.full((n, k), -1, dtype=torch.int32, device=dev),
+        hb=z(n, k), ts=z(n, k), in_group=z(n, dtype=torch.bool),
+        own_hb=z(n), send_flags=z(n, f, dtype=torch.bool),
+        send_hist=z(n, f), joinreq=z(n, dtype=torch.bool),
+        joinrep=z(n, dtype=torch.bool))
+
+
+# ---------------------------------------------------------------- columns
+
+def schedule_columns(sched: OverlaySchedule, n: int, device) -> RowColumns:
+    rows = torch.arange(n, dtype=torch.int64, device=device)
+    return RowColumns(rows=rows, is_intro=rows == INTRODUCER,
+                      start=sched.start_of(rows), fail=sched.fail_of(rows),
+                      rejoin=sched.rejoin_of(rows),
+                      deg=degree_of(sched, rows))
+
+
+# ------------------------------------------------------------------- tick
+
+def tick_flags(cfg: SimConfig) -> dict:
+    """The config's static switches of the tick: whether peers rejoin
+    (churn or ``rejoin_after``) and whether out-degrees are power-law."""
+    return dict(can_rejoin=cfg.churn_rate > 0 or cfg.rejoin_after is not None,
+                powerlaw=cfg.topology == "powerlaw")
+
+
+def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick):
+    """Build ``tick(state, sched, cols=None) -> (state', metrics i32[9])``.
+
+    ``exchange`` is K3 (the kernel for CUDA tensors, its plain version
+    for CPU tensors); passing ``fused_overlay_tick_plain`` runs the plain
+    version on any device (the kernel's yardstick), and any function of
+    K3's contract may stand in to capture or compare its inputs.  The
+    per-tick ``live_uncovered`` histogram is tracked for N <=
+    COVERAGE_N_LIMIT, else reported as -1.
+    """
+    n = cfg.n
+    k, f = resolved_dims(cfg)
+    if n & (n - 1) or n > 1 << ID_BITS:
+        raise ValueError("overlay peer count must be a power of two "
+                         f"<= {1 << ID_BITS}")
+    if cfg.total_ticks > 4094:
+        raise ValueError("the packed (ts, hb) winner payload caps runs at "
+                         "4094 ticks")
+    kw = dict(k=k, f=f, t_remove=cfg.t_remove, exchange=exchange,
+              with_coverage=n <= COVERAGE_N_LIMIT, **tick_flags(cfg))
+    intro_cache = {}
+
+    def tick(state: OverlayState, sched: OverlaySchedule,
+             cols: RowColumns | None = None):
+        if cols is None:
+            cols = schedule_columns(sched, n, state.device)
+        if sched not in intro_cache:
+            i0 = torch.zeros(1, dtype=torch.int64)
+            intro_cache[sched] = (int(sched.fail_of(i0)[0]),
+                                  int(sched.rejoin_of(i0)[0]))
+        fail0, rejoin0 = intro_cache[sched]
+        masks = [exchange_mask(sched.seed, state.tick - 1, fi, n)
+                 for fi in range(f)]
+        return overlay_step(state, sched, cols, masks, fail0=fail0,
+                            rejoin0=rejoin0, **kw)
+
+    return tick
+
+
+def make_overlay_run(cfg: SimConfig, length: int | None = None, *,
+                     mega: bool | None = None, exchange=fused_overlay_tick):
+    """``run(state, sched) -> (final, OverlayMetrics[length])`` with the
+    metrics as tensors on the run's device.
+
+    Routing: K4 (16 ticks a call, ``models/overlay_mega.py``) where
+    ``mega_supported(cfg)`` holds (``mega`` overrides), else the
+    per-tick tick with K3.  On CUDA tensors the kernels run, on CPU
+    tensors their plain versions.  K4 reports ``live_uncovered`` = -1.
+    The schedule is closed-form in the clock carried in the state, so a
+    shorter run resumes mid-run bit-identically.  ``exchange`` replaces
+    K3 on the per-tick route (:func:`make_overlay_tick`).
+    """
+    from .overlay_mega import make_mega_run, mega_supported
+    length = cfg.total_ticks if length is None else length
+    if mega is None:
+        mega = mega_supported(cfg)
+    if mega:
+        if exchange is not fused_overlay_tick:
+            raise ValueError("exchange replaces K3 on the per-tick route "
+                             "only; pass mega=False")
+        return make_mega_run(cfg, length)
+    tick = make_overlay_tick(cfg, exchange)
+
+    def run(state: OverlayState, sched: OverlaySchedule):
+        cols = schedule_columns(sched, cfg.n, state.device)
+        rows = []
+        for _ in range(length):
+            state, m = tick(state, sched, cols)
+            rows.append(m)
+        met = torch.stack(rows) if rows else torch.zeros(
+            (0, len(METRIC_FIELDS)), dtype=torch.int32, device=state.device)
+        return state, OverlayMetrics.from_rows(met)
+
+    return run
+
+
+# ------------------------------------------------------------ checkpoints
+
+_FIELDS = tuple(f.name for f in dataclasses.fields(OverlayState))
+
+
+def _overlay_expect(host) -> dict:
+    n, k = np.asarray(host["ids"]).shape
+    f = np.asarray(host["send_flags"]).shape[1]
+    return {"tick": (), "ids": (n, k), "hb": (n, k), "ts": (n, k),
+            "in_group": (n,), "own_hb": (n,), "send_flags": (n, f),
+            "send_hist": (n, f), "joinreq": (n,), "joinrep": (n,)}
+
+
+def overlay_state_to_host(state: OverlayState) -> dict:
+    """State -> the JAX package's host dict / npz schema."""
+    return {name: (np.asarray(state.tick, np.int32) if name == "tick"
+                   else getattr(state, name).detach().cpu().numpy())
+            for name in _FIELDS}
+
+
+def overlay_state_from_host(host: dict, device=None) -> OverlayState:
+    """Inverse of :func:`overlay_state_to_host`; accepts the dict of the
+    JAX ``overlay_state_to_host`` (schema-checked as there)."""
+    dev = resolve_device(device)
+    missing = set(_FIELDS) - host.keys()
+    if missing:
+        raise ValueError(f"checkpoint is missing fields: {sorted(missing)}")
+    extra = host.keys() - set(_FIELDS)
+    if extra:
+        raise ValueError(
+            f"checkpoint has unknown fields {sorted(extra)} — written by an "
+            "incompatible OverlayState schema?")
+    for name, shape in _overlay_expect(host).items():
+        got = np.asarray(host[name]).shape
+        if got != shape:
+            raise ValueError(
+                f"checkpoint field {name!r} has shape {got}, expected {shape}")
+    if np.asarray(host["send_hist"]).any():
+        raise ValueError("checkpoint carries a send history (the latency "
+                         "world), which the port does not run")
+    return OverlayState(**{
+        name: (int(np.asarray(host[name])) if name == "tick"
+               else torch.from_numpy(np.array(host[name])).to(dev))
+        for name in _FIELDS})
+
+
+def save_overlay_checkpoint(state: OverlayState, path: str) -> None:
+    """Write a mid-run checkpoint; the path is used verbatim."""
+    with open(path, "wb") as f:
+        np.savez(f, **overlay_state_to_host(state))
+
+
+def load_overlay_checkpoint(path: str, device=None) -> OverlayState:
+    with np.load(path) as z:
+        return overlay_state_from_host({k: z[k] for k in z.files}, device)
+
+
+# --------------------------------------------------- result and simulation
+
+@dataclass
+class OverlayResult:
+    cfg: SimConfig
+    sched: OverlaySchedule
+    final_state: OverlayState
+    metrics: OverlayMetrics      # numpy arrays, each [T]
+    wall_seconds: float
+
+    @property
+    def ticks_run(self) -> int:
+        return int(np.asarray(self.metrics.in_group).shape[0])
+
+    @property
+    def node_ticks_per_second(self) -> float:
+        if self.ticks_run == 0 or self.wall_seconds <= 0.0:
+            return 0.0
+        return self.cfg.n * self.ticks_run / self.wall_seconds
+
+    def _failed_at_end(self):
+        i = torch.arange(self.cfg.n, dtype=torch.int64)
+        t_end = self.final_state.tick
+        return self.sched.failed_at(i, t_end).numpy()
+
+    def uncovered_members(self) -> np.ndarray:
+        """ids of live members present in NO view of the final tables,
+        judged at the state's own clock."""
+        ids = self.final_state.ids.cpu().numpy()
+        n = self.cfg.n
+        if ids.max() >= n:
+            raise AssertionError(
+                f"corrupt view table: id {ids.max()} >= N={n}")
+        present = np.zeros(n, bool)
+        present[ids[ids >= 0]] = True
+        i = np.arange(n)
+        live = self.final_state.in_group.cpu().numpy() \
+            & ~self._failed_at_end() & (i != INTRODUCER)
+        return np.flatnonzero(live & ~present)
+
+    def final_coverage(self):
+        """(live_uncovered_count, victim_entries_left) of the final
+        tables; see :meth:`uncovered_members`."""
+        ids = self.final_state.ids.cpu().numpy()
+        victim_left = int(self._failed_at_end()[ids[ids >= 0]].sum())
+        return int(self.uncovered_members().size), victim_left
+
+
+class OverlaySimulation:
+    """Orchestrator for cfg.model == "overlay" runs (metrics mode), on
+    ``cuda`` unless ``device="cpu"``."""
+
+    def __init__(self, cfg: SimConfig, device=None):
+        if cfg.model != "overlay":
+            raise ValueError("OverlaySimulation requires cfg.model='overlay'")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    def run(self, resume_from: OverlayState | None = None,
+            ticks: int | None = None) -> OverlayResult:
+        """Run the scenario; ``resume_from`` continues a (checkpointed)
+        state bit-identically, ``ticks`` stops the segment early."""
+        cfg = self.cfg
+        sched = make_overlay_schedule(cfg)
+        state = init_overlay_state(cfg, self.device) if resume_from is None \
+            else resume_from.to(self.device)
+        first = state.tick
+        if first > cfg.total_ticks:
+            raise ValueError(f"resume_from is at tick {first}, past "
+                             f"total_ticks={cfg.total_ticks}")
+        if ticks is not None and ticks < 0:
+            raise ValueError(f"ticks must be >= 0, got {ticks}")
+        t_end = cfg.total_ticks if ticks is None \
+            else min(cfg.total_ticks, first + ticks)
+        run = make_overlay_run(cfg, t_end - first)
+        _sync(self.device)
+        t0 = time.perf_counter()
+        final, metrics = run(state, sched)
+        _sync(self.device)
+        wall = time.perf_counter() - t0
+        if final.tick != t_end:
+            raise RuntimeError("overlay run did not complete")
+        return OverlayResult(cfg=cfg, sched=sched, final_state=final,
+                             metrics=metrics.to_numpy(), wall_seconds=wall)
+

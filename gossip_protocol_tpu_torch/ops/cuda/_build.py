@@ -7,7 +7,8 @@ interface and are compiled at first use with
          -Xcompiler -fPIC
 
 into ``csrc/build/`` (ignored by git), one shared library per source
-hash, so an edited source rebuilds and an unchanged one loads at once.
+and source hash, so an edited source rebuilds and an unchanged one
+loads at once.  The sources compile in parallel, one nvcc each.
 Nothing here includes PyTorch's headers, so a build takes seconds.
 
 Pointers cross as ``ctypes.c_void_p`` (``tensor.data_ptr()``), the
@@ -29,19 +30,25 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES = ("dense_tick.cu",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_SIGNATURES = {
-    "gp_masked_max3": [_P] * 8 + [_I] * 3 + [_P],
-    "gp_tick_epilogue": [_P] * 21 + [_I] * 3 + [_P],
-    "gp_dense_mega_ticks": [_P] * 15 + [_I] * 5 + [_P],
+#: each source is one library: its C entry points and their arguments
+SOURCES = {
+    "dense_tick.cu": {
+        "gp_masked_max3": [_P] * 8 + [_I] * 3 + [_P],
+        "gp_tick_epilogue": [_P] * 21 + [_I] * 3 + [_P],
+        "gp_dense_mega_ticks": [_P] * 15 + [_I] * 5 + [_P],
+    },
+    "overlay_tick.cu": {
+        "gp_fused_overlay_tick": [_P] * 8 + [_I] * 6 + [_P],
+        "gp_mega_overlay_ticks": [_P] * 5 + [_I] * 9 + [_P],
+    },
 }
 
-_lib = None
+_libs: dict = {}
 
 
 def nvcc_path() -> str:
@@ -55,48 +62,60 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _digest() -> str:
+def lib_path(source: str) -> Path:
+    """Where the library of one source lives (named by its hash)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    return h.hexdigest()[:16]
+    h.update((CSRC / source).read_bytes())
+    return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels if this source hash has no library yet;
-    returns the library's path."""
-    out = BUILD_DIR / f"libgossip_dense_{_digest()}.so"
-    if out.exists():
-        return out
+def build(verbose: bool = False) -> list[Path]:
+    """Compile every source whose hash has no library yet, one nvcc
+    process per source, all started together; returns the libraries'
+    paths."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", str(tmp)] + [str(CSRC / s) for s in SOURCES]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half
-    return out
+    outs = [lib_path(s) for s in SOURCES]
+    procs = []
+    for source, out in zip(SOURCES, outs):
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS]
+        if verbose:
+            cmd += ["-Xptxas", "-v"]
+        cmd += ["-o", str(tmp), str(CSRC / source)]
+        procs.append((out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for out, tmp, proc in procs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{out.name}: nvcc failed ({proc.returncode}):\n"
+                          f"{stdout}\n{stderr}")
+            continue
+        if verbose:
+            print(stderr, end="")
+        os.replace(tmp, out)   # atomic: a concurrent loader never sees half
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built at first use)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
+def library(source: str = "dense_tick.cu") -> ctypes.CDLL:
+    """The loaded library of one source (all are built at first use)."""
+    if source not in _libs:
+        path = lib_path(source)
+        if not path.exists():
+            build()
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SOURCES[source].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.gp_error_string.argtypes = [ctypes.c_int]
         lib.gp_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+        _libs[source] = lib
+    return _libs[source]
 
 
 def check(code: int, what: str) -> None:

@@ -1,7 +1,12 @@
 """32-bit counter-based hashing (copy of ``gossip_protocol_tpu/utils/hash32.py``).
 
-Kept as numpy: the port's slice uses it only on the host.  The text
-below is the reference module's.
+:func:`mix32` is the numpy original (host draws: the overlay's XOR
+masks, the schedule).  :func:`mix32_t` is its torch twin for tensors on
+either device: torch has no logical ``>>`` on uint32 on the CPU, so the
+values ride int64 tensors masked to 32 bits, and each 32x32-bit product
+is split in two 16-bit halves so that no int64 product overflows.  The
+CUDA kernels (csrc/overlay_tick.cu) compute the same hash in
+``uint32_t``.  The text below is the reference module's.
 
 The overlay model (models/overlay.py) derives all of its per-tick
 randomness — per-receiver slot assignment, gossip target draws, drop
@@ -59,3 +64,25 @@ def threshold32(prob: float) -> int:
     oracle (float64) behavior bit-identical — no float round-off at the
     decision boundary."""
     return min(0xFFFFFFFF, max(0, int(round(prob * 4294967296.0))))
+
+
+MASK32 = 0xFFFFFFFF
+_GOLD_INT = (0x9E3779B1, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F, 0x165667B1)
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2^32`` for ``x`` in [0, 2^33) (int or int64 tensor)."""
+    if isinstance(x, int):
+        return (x * c) & MASK32
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & MASK32
+
+
+def mix32_t(seed, *keys):
+    """:func:`mix32` on int64 tensors holding uint32 values (python ints
+    broadcast); returns an int64 tensor in [0, 2^32)."""
+    x = seed & MASK32
+    for k, g in zip(keys, _GOLD_INT):
+        x = (x + _mul32(k + 1, g)) & MASK32
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)

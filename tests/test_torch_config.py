@@ -85,7 +85,7 @@ def test_addressing():
         assert addressing.parse_addr(s) == jax_addressing.parse_addr(s) == i
 
 
-@pytest.mark.parametrize("kw", [dict(model="overlay"),
+@pytest.mark.parametrize("kw", [dict(model="overlay", flap_rate=0.25),
                                 dict(partition_groups=2,
                                      partition_open_tick=10,
                                      partition_close_tick=50),

@@ -9,7 +9,8 @@ and a GPU host running the port need not have JAX:
 
 Elsewhere every test here skips: a CUDA kernel has no CPU mode, and its
 arithmetic is held against the JAX package on the CPU through the plain
-versions (tests/test_torch_tickfused.py, tests/test_torch_dense_mega.py).
+versions (tests/test_torch_tickfused.py, tests/test_torch_dense_mega.py,
+tests/test_torch_overlay_exchange.py, tests/test_torch_overlay_mega.py).
 Every comparison is exact: all state is integer or boolean.
 """
 
@@ -120,3 +121,75 @@ def test_simulation_cuda_equals_cpu(dev, kw):
     for name in ("added", "removed", "sent", "recv"):
         assert np.array_equal(getattr(a, name), getattr(b, name)), name
     assert torch.equal(a.final_state.hb.cpu(), b.final_state.hb)
+
+
+OVERLAY = {
+    "churn64": dict(max_nnb=64, single_failure=False, seed=7,
+                    total_ticks=200, churn_rate=0.25, rejoin_after=30,
+                    step_rate=40.0 / 64),
+    "drop128": dict(max_nnb=128, single_failure=True, drop_msg=True,
+                    msg_drop_prob=0.3, seed=5, total_ticks=120, fail_tick=60,
+                    step_rate=0.25, drop_open_tick=10, drop_close_tick=100),
+    # F=8: outside K4's envelope, so K3 per tick
+    "powerlaw64_f8": dict(max_nnb=64, single_failure=True, seed=6,
+                          total_ticks=100, fail_tick=40, topology="powerlaw",
+                          drop_msg=True, msg_drop_prob=0.1,
+                          drop_open_tick=20, drop_close_tick=80),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OVERLAY))
+def test_overlay_kernels_equal_plain(dev, name):
+    """K3 and K4 against their plain versions on the card, on the inputs
+    a run gives them at tick 60 (mid-churn, inside the drop window)."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_mega as pmega
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
+        fused_overlay_tick, fused_overlay_tick_plain)
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import (
+        mega_overlay_ticks, mega_overlay_ticks_plain)
+    cfg = SimConfig(model="overlay", **OVERLAY[name])
+    sched = pov.make_overlay_schedule(cfg)
+    state = pov.OverlaySimulation(cfg, device="cuda").run(
+        ticks=60).final_state
+    got = {}
+
+    def keep(*args, **kw):
+        got.update(args=args, kw=kw)
+        return fused_overlay_tick(*args, **kw)
+
+    pov.make_overlay_tick(cfg, exchange=keep)(state, sched)
+    before = fused_overlay_tick.launches
+    a = fused_overlay_tick(*got["args"], **got["kw"])
+    assert fused_overlay_tick.launches == before + 1
+    b = fused_overlay_tick_plain(*got["args"], **got["kw"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    if not pmega.mega_supported(cfg):
+        return
+    f = pov.resolved_dims(cfg)[1]
+    st = pmega._pack_state(cfg, state, sched)
+    kw = pmega.mega_kernel_kwargs(cfg, sched)
+    for s_ticks in (16, 5):
+        sp = pmega._sp_vector(cfg, sched, state.tick, s_ticks, cfg.n, f)
+        a = mega_overlay_ticks(st, sp, s_ticks=s_ticks, **kw)
+        b = mega_overlay_ticks_plain(st, sp, s_ticks=s_ticks, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("name", sorted(OVERLAY))
+def test_overlay_simulation_cuda_equals_cpu(dev, name):
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    cfg = SimConfig(model="overlay", **OVERLAY[name])
+    a = pov.OverlaySimulation(cfg, device="cuda").run()
+    b = pov.OverlaySimulation(cfg, device="cpu").run()
+    for f in ("ids", "hb", "ts", "in_group", "own_hb", "send_flags",
+              "joinreq", "joinrep"):
+        assert torch.equal(getattr(a.final_state, f).cpu(),
+                           getattr(b.final_state, f)), f
+    for f in pov.METRIC_FIELDS:
+        assert np.array_equal(getattr(a.metrics, f),
+                              getattr(b.metrics, f)), f

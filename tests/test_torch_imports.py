@@ -58,6 +58,33 @@ def test_no_jax_imports():
     assert not bad, bad
 
 
+def test_ops_layer_imports_no_model_layer():
+    """The kernels, their plain versions and the shared rules under
+    ``ops/`` sit below the orchestration: nothing there imports
+    ``models/`` or ``core/``, at module level or inside a function."""
+    bad = []
+    for path in _port_files():
+        rel = os.path.relpath(path, REPO)
+        if not rel.startswith(os.path.join("gossip_protocol_tpu_torch",
+                                           "ops")):
+            continue
+        pkg = os.path.dirname(rel).split(os.sep)
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.ImportFrom):
+                base = pkg[:len(pkg) - node.level + 1] if node.level else []
+                names = [".".join(base + (node.module or "").split("."))]
+            elif isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                continue
+            bad += [(rel, node.lineno, n) for n in names
+                    if n.startswith(("gossip_protocol_tpu_torch.models",
+                                     "gossip_protocol_tpu_torch.core"))]
+    assert not bad, bad
+
+
 def test_package_imports_without_jax(tmp_path):
     """Import every port module in a fresh interpreter where ``jax`` and
     ``gossip_protocol_tpu`` cannot be imported at all."""
@@ -84,9 +111,14 @@ def _no_card():
 
 def test_cuda_without_a_card_raises():
     _no_card()
+    from gossip_protocol_tpu_torch.models.overlay import (OverlaySimulation,
+                                                          init_overlay_state)
     cfg = SimConfig(max_nnb=16)
+    ocfg = SimConfig(max_nnb=16, model="overlay")
     for call in (lambda: resolve_device(None), lambda: resolve_device("cuda"),
-                 lambda: Simulation(cfg), lambda: init_state(cfg)):
+                 lambda: Simulation(cfg), lambda: init_state(cfg),
+                 lambda: OverlaySimulation(ocfg),
+                 lambda: init_overlay_state(ocfg)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     assert resolve_device("cpu").type == "cpu"
@@ -103,6 +135,36 @@ def test_cli_defaults_to_cuda(tmp_path):
     assert proc.returncode != 0
     assert "CUDA is not available" in proc.stderr
     assert not (tmp_path / "dbg.log").exists()
+
+
+def test_overlay_cli_defaults_to_cuda(tmp_path):
+    _no_card()
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run(
+        [sys.executable, "-m", "gossip_protocol_tpu_torch",
+         os.path.join(TESTCASES, "singlefailure.conf"), "--model", "overlay",
+         "-n", "16", "--ticks", "20"],
+        env=env, cwd=str(tmp_path), capture_output=True, text=True)
+    assert proc.returncode != 0
+    assert "CUDA is not available" in proc.stderr
+
+
+def test_overlay_wrappers_on_cpu_count_no_launch():
+    from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import \
+        fused_overlay_tick
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import \
+        mega_overlay_ticks
+    before = [f.launches for f in (fused_overlay_tick, mega_overlay_ticks)]
+    cfg = SimConfig(max_nnb=16, model="overlay", total_ticks=40)
+    res = OverlaySimulation(cfg, device="cpu").run()            # K4 route
+    OverlaySimulation(cfg.replace(topology="powerlaw"),        # K3 route
+                      device="cpu").run()
+    after = [f.launches for f in (fused_overlay_tick, mega_overlay_ticks)]
+    assert after == before
+    assert res.final_state.device.type == "cpu"
+    assert int(res.metrics.in_group[-1]) == 16
 
 
 def test_wrappers_on_cpu_count_no_launch():
