@@ -20,6 +20,10 @@ one line per phase:
    real tick-136 state of the N=2^20 power-law run (F=8);
    ``mega_overlay_ticks`` (K4) at N=64 and 4096 (S=16, churn, drop,
    power-law degrees) and on a 12-tick remainder launch;
+   ``grid_overlay_ticks`` (K5) at N=64, 4096 and 65,536 on the
+   ``churn65k`` and ``powerlaw1m`` shapes: each flag combination their
+   segment plans use, all-live launches at ticks 300 and 17 (off the
+   slot-epoch grid), a 12-tick remainder and a B=2 fleet launch;
 3. the graded path: the three N=10 testcases on ``cuda`` must grade 90;
 4. card vs CPU: N=64 multifailure and N=64 drop, 700 ticks — the
    ``dbg.log`` and ``msgcount.log`` bytes of a ``cuda`` run must equal
@@ -31,23 +35,28 @@ one line per phase:
    bench N=4096 10% drop at 700 ticks (corner 2816, K1) and 200 ticks
    (corner 896, K2), with node-ticks/s; then BASELINE's overlay configs
    (5e) — N=4096 10% drop, 608 ticks (K4, 38 launches), N=65,536 20%
-   churn, 608 ticks (K3 per tick) and N=2^20 power-law single failure,
-   272 ticks (K3, F=8) — each validated as bench.py validates it (all
-   in the group, no victim slot or entry left, every member uncovered
-   at the end covered again within SLOT_EPOCH + 1 ticks), with
-   node-ticks/s; and the overlay cross-paths (5f): the N=4096 run
-   through K4 equals it through per-tick K3, and the first 48 ticks of
-   the N=65,536 run through K3 equal the plain per-tick path;
+   churn, 608 ticks (K5, 38 launches) and N=2^20 power-law single
+   failure, 272 ticks (K5, F=8, 17 launches; no K3 launch on either) —
+   each validated as bench.py validates it (all in the group, no victim
+   slot or entry left, every member uncovered at the end covered again
+   within SLOT_EPOCH + 1 ticks), with node-ticks/s; and the overlay
+   cross-paths (5f): the per-tick K3 route of each of the three runs
+   equals it through K4 or K5, the first 48 ticks of the N=65,536 run
+   through K3 equal the plain per-tick path, and a B=4 K5 fleet of the
+   N=65,536 run (seeds 0-3, 64 ticks) equals its lanes' solo K5 runs;
 6. each kernel held against its plain version and timed on the input
    of a launch the main path makes (the run stopped one launch early:
    tick 699 of the 700-tick corner for K1, the last full K2 launch of
    the 200-tick corner and of the N=512 trace, tick 607 of the N=65,536
    churn run for K3, the launch at tick 592 of the N=4096 drop run for
-   K4), then a ``kernels`` JSON line: per kernel its launches on the
-   main path (phases 3-5, counters zeroed before each path and read
-   after it, bench warm-ups not counted), its time, its plain version's
-   time, and the least time the card could take (bytes over 3.35 TB/s
-   or int32 operations over the card's int32 rate, whichever is larger).
+   K4, the last full launches of the N=65,536 churn run (tick 592) and
+   of the N=2^20 power-law run (tick 256) for K5), then a ``kernels``
+   JSON line: per kernel its launches on the main path (phases 3-5,
+   counters zeroed before each path and read after it, bench warm-ups
+   and kernel-vs-plain comparisons not counted), its time, its plain
+   version's time, and the least time the card could take (bytes over
+   3.35 TB/s or int32 operations over the card's int32 rate, whichever
+   is larger).
 
 Any failure raises and exits non-zero; no phase catches and continues.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -71,6 +80,9 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM int32 outside the tensor cores: 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost clock (Hopper white paper)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# H100 SXM on-chip storage: the 50 MB L2 and 132 SMs' 227 KB of shared
+# memory a block can use
+ON_CHIP_BYTES = 50e6 + 132 * 232448
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -540,6 +552,59 @@ def compare_k4(x: dict) -> float:
     return max(max_abs_err(a, b) for a, b in zip(o_k, o_p))
 
 
+def grid_cfg(name: str, n: int):
+    """One of BASELINE's two K5 configurations at width ``n`` with its
+    phase windows kept (start ramp 64 or 40 ticks), so its plan has the
+    full-size run's flag combinations."""
+    full = overlay_cfg(name)
+    return overlay_cfg(name, max_nnb=n, step_rate=full.step_rate * full.n / n)
+
+
+def k5_launch_input(cfg, lanes, t0: int, s_ticks: int, flags) -> dict:
+    """K5's input for an ``s_ticks`` launch at ``t0`` from each (state,
+    schedule) lane, built as the K5 route builds it; one lane is a solo
+    launch, more a fleet launch."""
+    import torch
+
+    from gossip_protocol_tpu_torch.models import overlay_grid as og
+    from gossip_protocol_tpu_torch.models.overlay import resolved_dims
+    planes = [og.pack_grid_plane(cfg, st) for st, _ in lanes]
+    xs = [og.grid_launch_input(cfg, sc, plane, t0, s_ticks, flags.join_live)
+          for plane, (_, sc) in zip(planes, lanes)]
+    k, f = resolved_dims(cfg)
+    kw = dict(og.grid_kernel_kwargs(cfg, k, f), s_ticks=s_ticks,
+              **flags.as_kernel_kwargs())
+    if len(xs) == 1:
+        return dict(plane=planes[0], boot=xs[0][0], sp=xs[0][1], kw=kw)
+    return dict(plane=torch.stack(planes),
+                boot=torch.stack([x[0] for x in xs]),
+                sp=np.stack([x[1] for x in xs]), kw=dict(kw, batch=len(xs)))
+
+
+def compare_k5(x: dict) -> tuple[float, object]:
+    """grid_overlay_ticks vs its plain version on the same input; the
+    max abs error and the plain version's metric rows."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
+        grid_overlay_ticks, grid_overlay_ticks_plain)
+    o_k = grid_overlay_ticks(x["plane"], x["boot"], x["sp"], **x["kw"])
+    o_p = grid_overlay_ticks_plain(x["plane"], x["boot"], x["sp"], **x["kw"])
+    return max(max_abs_err(a, b) for a, b in zip(o_k, o_p)), o_p[1]
+
+
+def k5_cases(cfg) -> list:
+    """(t0, s_ticks, flags) of the K5 launches phase 2 checks: the first
+    launch of each flag combination of the config's tick-0 plan, an
+    all-live S=16 launch at tick 300, one off the slot-epoch grid
+    (t0 = 17) and a 12-tick remainder."""
+    from gossip_protocol_tpu_torch.models.segments import (ALL_LIVE,
+                                                           plan_segments)
+    first = {}
+    for seg in plan_segments(cfg, cfg.total_ticks, 0, 16):
+        first.setdefault(seg.flags, seg.start)
+    return [(t0, 16, fl) for fl, t0 in first.items()] + [
+        (300, 16, ALL_LIVE), (17, 16, ALL_LIVE), (170, 12, ALL_LIVE)]
+
+
 def k3_ops(n: int, k: int, f: int) -> float:
     """Integer operations one K3 tick needs: about 8 per merge candidate
     and 40 per slot for extraction, detection and the subject's fail
@@ -567,6 +632,34 @@ def k4_bound(n: int, k: int, f: int, s_ticks: int,
     w = 2 * k + 16
     nbytes = 4 * (2 * n * w + s_ticks * 128 + 14 + s_ticks * f)
     ops = s_ticks * (k3_ops(n, k, f) + 30 * n) + reslots * n * 8 * k
+    return bound(nbytes, ops)
+
+
+def k5_bound(n: int, k: int, met, reslots: int) -> tuple[float, str]:
+    """K5's least time for one call.  Bytes: where the plane's two phases
+    (N rows of 128 words each) fit on chip (:data:`ON_CHIP_BYTES`), as at
+    N=65,536 (67 MB), the plane and boot block read once and both phases
+    written once; where they do not, as at N=2^20 (1.07 GB, twenty times
+    the L2), the plane read once and written once per tick.  Plus the
+    metric rows.  Operations: those this call's data needs, per tick 8
+    per merge candidate of each merge it received (``recv``: a partner's
+    K slots and self-entry, the JOINREP broadcast) and, per row, 40 a
+    slot for extraction, detection and the subject's schedule plus 30
+    for decisions and sends; at each re-slot one candidate (8
+    operations) a slot."""
+    import torch
+
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import MET_RECV
+    s_ticks = met.shape[0]
+    plane = 4 * n * 128
+    if 2 * plane <= ON_CHIP_BYTES:
+        nbytes = plane + 4 * 8 * 128 + 2 * plane
+    else:
+        nbytes = 2 * s_ticks * plane
+    nbytes += 4 * s_ticks * 128
+    recv = int(met[:, MET_RECV].to(torch.int64).sum())
+    ops = recv * 8 * (k + 1) + s_ticks * n * (40 * k + 30) \
+        + reslots * n * 8 * k
     return bound(nbytes, ops)
 
 
@@ -638,6 +731,8 @@ def wrappers() -> dict:
         dense_mega_ticks
     from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import \
         fused_overlay_tick
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_overlay_ticks
     from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import \
         mega_overlay_ticks
     from gossip_protocol_tpu_torch.ops.cuda.tickfused import tick_epilogue
@@ -645,7 +740,8 @@ def wrappers() -> dict:
     return {"masked_max3": masked_max3, "tick_epilogue": tick_epilogue,
             "dense_mega_ticks": dense_mega_ticks,
             "fused_overlay_tick": fused_overlay_tick,
-            "mega_overlay_ticks": mega_overlay_ticks}
+            "mega_overlay_ticks": mega_overlay_ticks,
+            "grid_overlay_ticks": grid_overlay_ticks}
 
 
 def reset_counts():
@@ -680,8 +776,9 @@ class MainPath:
 
 def profile_run(fn) -> dict:
     """One run of ``fn`` under ``torch.profiler``: its wall time, the
-    device time of every kernel and copy, the device's idle share, and
-    the ten largest entries by device time."""
+    device time of every kernel and copy, the device's idle share, the
+    ten largest entries by device time and the eight largest host
+    operations by their own CPU time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -692,9 +789,10 @@ def profile_run(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
+            host.append((e.self_cpu_time_total, e.key, e.count))
             continue
         us = getattr(e, "device_time_total", None)
         if us is None:
@@ -707,7 +805,9 @@ def profile_run(fn) -> dict:
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall,
             "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": c}
-                    for us, k, c in rows[:10]]}
+                    for us, k, c in rows[:10]],
+            "top_host": [{"name": k[:60], "self_cpu_ms": us / 1e3,
+                          "calls": c} for us, k, c in sorted(host)[::-1][:8]]}
 
 
 def read_file(path: str) -> bytes:
@@ -791,6 +891,34 @@ def main(argv=None) -> int:
         x = k4_launch_input(cfg, overlay_state(cfg, t, cfg.n + t, dev), s)
         errs["mega_overlay_ticks"] = max(errs["mega_overlay_ticks"],
                                          compare_k4(x))
+    # K5 on random valid states at N=64, 4096 and 65,536: each flag
+    # combination the two K5 configurations' plans use (random join bits
+    # only where the join phase is live), all-live launches on and off the
+    # slot-epoch grid, a 12-tick remainder, and a B=2 fleet launch
+    from gossip_protocol_tpu_torch.models.overlay import make_overlay_schedule
+    from gossip_protocol_tpu_torch.models.segments import ALL_LIVE
+    errs["grid_overlay_ticks"] = 0.0
+    k5_checked = 0
+    for n in (64, 4096, 65536):
+        for name in ("churn65k", "powerlaw1m"):
+            cfg = grid_cfg(name, n)
+            sched = make_overlay_schedule(cfg)
+            for i, (t0, s, flags) in enumerate(k5_cases(cfg)):
+                st = overlay_state(cfg, t0, n + i, dev)
+                if not flags.join_live:
+                    st.joinreq.zero_()
+                    st.joinrep.zero_()
+                e, _ = compare_k5(k5_launch_input(cfg, [(st, sched)], t0, s,
+                                                  flags))
+                errs["grid_overlay_ticks"] = max(errs["grid_overlay_ticks"],
+                                                 e)
+                k5_checked += 1
+        cfg = grid_cfg("churn65k", n)
+        lanes = [(overlay_state(cfg, 160, n + b, dev),
+                  make_overlay_schedule(cfg.replace(seed=b))) for b in (1, 2)]
+        e, _ = compare_k5(k5_launch_input(cfg, lanes, 160, 16, ALL_LIVE))
+        errs["grid_overlay_ticks"] = max(errs["grid_overlay_ticks"], e)
+        k5_checked += 1
     # K3 at N=2^20, F=8 on a real mid-run state (tick 136, the fail tick)
     from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
     cfg1m = overlay_cfg("powerlaw1m")
@@ -803,7 +931,7 @@ def main(argv=None) -> int:
     if any(v != 0 for v in errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
     say(f"phase 2: kernels == plain versions bit for bit "
-        f"(max abs err {errs})")
+        f"(max abs err {errs}; {k5_checked} K5 launches)")
     details["max_abs_err_phase2"] = dict(errs)
 
     main_path = MainPath()
@@ -910,16 +1038,18 @@ def main(argv=None) -> int:
         del r
 
     # overlay: BASELINE's three configurations at full width, each held
-    # to bench.py's validation; K4 at N=4096, K3 per tick above
+    # to bench.py's validation; K4 at N=4096, K5 above (never K3)
     ocfg = {name: overlay_cfg(name)
             for name in ("drop4096", "churn65k", "powerlaw1m")}
     ores = {}
     for name, expect in (("drop4096", "mega_overlay_ticks"),
-                         ("churn65k", "fused_overlay_tick"),
-                         ("powerlaw1m", "fused_overlay_tick")):
+                         ("churn65k", "grid_overlay_ticks"),
+                         ("powerlaw1m", "grid_overlay_ticks")):
         cfg = ocfg[name]
         (r, counts) = main_path.drive(
             lambda: OverlaySimulation(cfg, device="cuda").run(), (expect,))
+        if counts["fused_overlay_tick"]:
+            raise AssertionError(f"overlay {name} took the per-tick K3 route")
         o = validate_overlay(r)
         ores[name] = r
         runs[f"overlay_{name}"] = dict(
@@ -928,31 +1058,63 @@ def main(argv=None) -> int:
         say(f"phase 5e: overlay {name} N={cfg.n}, {cfg.total_ticks} ticks: "
             f"{r.node_ticks_per_second:.1f} node-ticks/s (wall "
             f"{r.wall_seconds:.3f} s); {o}; launches {counts}")
-    # cross-paths on the card: K4 == K3 per tick over the whole N=4096
-    # run (live_uncovered is -1 on the K4 route), and K3 == the plain
-    # per-tick path over the first 48 ticks of the N=65,536 churn run
+    # cross-paths on the card: the per-tick K3 route (driven as a main
+    # path: K3's launches are counted here) equals K4 over the whole
+    # N=4096 run and K5 over the whole N=65,536 and 2^20 runs
+    # (live_uncovered is -1 on the K4 and K5 routes); K3 == the plain
+    # per-tick path over the first 48 ticks of the N=65,536 churn run; a
+    # B=4 K5 fleet of the N=65,536 churn run (seeds 0-3, 64 ticks) equals
+    # its lanes' solo K5 runs
     from gossip_protocol_tpu_torch.models.overlay import (
         init_overlay_state, make_overlay_run, make_overlay_schedule)
-    cfg = ocfg["drop4096"]
-    f_k3, m_k3 = make_overlay_run(cfg, mega=False)(
-        init_overlay_state(cfg, dev), make_overlay_schedule(cfg))
-    r = ores["drop4096"]
-    bad = overlay_equal(r.final_state, f_k3, r.metrics, m_k3,
-                        skip=("live_uncovered",))
-    if bad:
-        raise AssertionError(f"overlay N=4096: K4 != K3 in {bad}")
+    cross = {}
+    for name, other in (("drop4096", "K4"), ("churn65k", "K5"),
+                        ("powerlaw1m", "K5")):
+        cfg = ocfg[name]
+        (f_k3, m_k3), counts = main_path.drive(
+            lambda: make_overlay_run(cfg, mega=False, grid=False)(
+                init_overlay_state(cfg, dev), make_overlay_schedule(cfg)),
+            ("fused_overlay_tick",))
+        r = ores[name]
+        bad = overlay_equal(r.final_state, f_k3, r.metrics, m_k3,
+                            skip=("live_uncovered",))
+        if bad:
+            raise AssertionError(f"overlay {name}: {other} != per-tick K3 "
+                                 f"in {bad}")
+        cross[name] = {"ticks": cfg.total_ticks, "launches": counts}
+        del f_k3, m_k3, r
     cfg = ocfg["churn65k"]
     from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
         fused_overlay_tick, fused_overlay_tick_plain)
-    outs = [make_overlay_run(cfg, 48, exchange=k3)(
+    outs = [make_overlay_run(cfg, 48, grid=False, exchange=k3)(
         init_overlay_state(cfg, dev), make_overlay_schedule(cfg))
         for k3 in (fused_overlay_tick, fused_overlay_tick_plain)]
     bad = overlay_equal(outs[0][0], outs[1][0], outs[0][1], outs[1][1])
     if bad:
         raise AssertionError(f"overlay N=65536: K3 != plain in {bad}")
-    del outs, f_k3, m_k3, r
-    say("phase 5f: overlay cross-paths on cuda: N=4096 drop K4 == per-tick "
-        "K3 (608 ticks), N=65536 churn K3 == plain (48 ticks)")
+    del outs
+    from gossip_protocol_tpu_torch.models import overlay_grid as og
+    scheds = [make_overlay_schedule(cfg.replace(seed=s)) for s in range(4)]
+    (fleet, fmet), counts = main_path.drive(
+        lambda: og.make_grid_fleet_run(cfg, 64, 4)(
+            og.stack_states([init_overlay_state(cfg, dev)] * 4), scheds),
+        ("grid_overlay_ticks",))
+    for b, sc in enumerate(scheds):
+        solo, smet = og.make_grid_run(cfg, 64, start_tick=0)(
+            init_overlay_state(cfg, dev), sc)
+        lane_met = type(smet)(**{f: getattr(fmet, f)[b]
+                                 for f in vars(smet)})
+        bad = overlay_equal(og.lane_state(fleet, b), solo, lane_met, smet)
+        if bad:
+            raise AssertionError(f"K5 fleet lane {b} != its solo run in "
+                                 f"{bad}")
+    cross["fleet_churn65k_b4"] = {"ticks": 64, "launches": counts}
+    del fleet, fmet, solo, smet
+    say("phase 5f: overlay cross-paths on cuda: per-tick K3 == K4 (N=4096 "
+        "drop, 608 ticks) and == K5 (N=65536 churn, 608 ticks; N=2^20 "
+        "power-law, 272 ticks); N=65536 churn K3 == plain (48 ticks); B=4 "
+        f"K5 fleet lanes == solo K5 runs (64 ticks) {cross}")
+    runs["cross_paths"] = cross
     details["phase5"] = runs
     if args.profile:
         prof = {
@@ -1017,11 +1179,41 @@ def main(argv=None) -> int:
             x["st"], x["sp"], **x["kw"]), 1, warm=0),
         bound=k4_bound(cfg.n, k, f, MEGA_TICKS, reslots=1))
     del x
+    # K5 on the input of the last full launch of the N=65,536 churn run
+    # and of the N=2^20 power-law run (each run stopped there)
+    from gossip_protocol_tpu_torch.models.segments import plan_segments
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
+        GRID_TICKS, grid_overlay_ticks, grid_overlay_ticks_plain)
+    for key, name, reps in (("k5_churn65k", "churn65k", 20),
+                            ("k5_powerlaw1m", "powerlaw1m", 5)):
+        cfg = ocfg[name]
+        t0 = (cfg.total_ticks // GRID_TICKS - 1) * GRID_TICKS
+        flags = plan_segments(cfg, GRID_TICKS, t0, GRID_TICKS)[0].flags
+        st = OverlaySimulation(cfg, device="cuda").run(ticks=t0).final_state
+        x = k5_launch_input(cfg, [(st, make_overlay_schedule(cfg))], t0,
+                            GRID_TICKS, flags)
+        del st
+        err, met = compare_k5(x)
+        k, f = resolved_dims(cfg)
+        reslots = sum((t + 1) % 16 == 0 for t in range(t0, t0 + GRID_TICKS))
+        timing[key] = dict(
+            n=cfg.n, k=k, f=f, s_ticks=GRID_TICKS, sp=t0, flags=flags.tag,
+            max_abs_err=err,
+            recv=int(met[:, 7].sum()),
+            ms=cuda_ms(lambda: grid_overlay_ticks(x["plane"], x["boot"],
+                                                  x["sp"], **x["kw"]), reps),
+            plain_ms=cuda_ms(lambda: grid_overlay_ticks_plain(
+                x["plane"], x["boot"], x["sp"], **x["kw"]), 1, warm=0),
+            bound=k5_bound(cfg.n, k, met, reslots))
+        errs["grid_overlay_ticks"] = max(errs["grid_overlay_ticks"], err)
+        del x, met
+        torch.cuda.empty_cache()
     errs["fused_overlay_tick"] = max(errs["fused_overlay_tick"],
                                      timing["k3"]["max_abs_err"])
     errs["mega_overlay_ticks"] = max(errs["mega_overlay_ticks"],
                                      timing["k4"]["max_abs_err"])
-    if errs["fused_overlay_tick"] or errs["mega_overlay_ticks"]:
+    if errs["fused_overlay_tick"] or errs["mega_overlay_ticks"] \
+            or errs["grid_overlay_ticks"]:
         raise AssertionError(f"overlay kernel != plain on a launch input: "
                              f"{errs}")
     errs["masked_max3"] = max(errs["masked_max3"],
@@ -1052,7 +1244,12 @@ def main(argv=None) -> int:
             ("mega_overlay_ticks",
              "gossip_protocol_tpu/ops/pallas/overlay_mega.py:456",
              timing["k4"], {k: timing["k4"][k]
-                            for k in ("n", "k", "f", "s_ticks")})):
+                            for k in ("n", "k", "f", "s_ticks")}),
+            ("grid_overlay_ticks",
+             "gossip_protocol_tpu/ops/pallas/overlay_grid.py:710",
+             timing["k5_powerlaw1m"],
+             {k: timing["k5_powerlaw1m"][k]
+              for k in ("n", "k", "f", "s_ticks", "flags")})):
         kernels.append({
             "name": name, "route": "cuda",
             "source": osrc if "overlay" in name else src,

@@ -7,9 +7,11 @@ tensors and one tick is a few kernel launches: the three gossip merge
 maxima (``masked_max3``), the post-merge epilogue (``tick_epilogue``,
 the TPU's K1) and, for N <= 512 (1024 in bench mode),
 ``dense_mega_ticks`` (K2), 16 or 8 whole ticks per call.  The bounded
-partial-view overlay (``models/overlay.py``, up to N = 2^20) runs one
-tick's whole (N, K) phase in ``fused_overlay_tick`` (K3) and, for
-N <= 4096, 16 whole ticks per call in ``mega_overlay_ticks`` (K4).
+partial-view overlay (``models/overlay.py``, up to N = 2^20) runs 16
+whole ticks per call in ``mega_overlay_ticks`` (K4) for N <= 4096 and
+in ``grid_overlay_ticks`` (K5, with the schedule's dead phases left out
+per launch) above it; ``fused_overlay_tick`` (K3) runs one tick's whole
+(N, K) phase on the per-tick route that remains for the other configs.
 Runs go to the card unless ``device="cpu"`` is asked for; on the CPU
 every kernel runs its plain PyTorch version.
 

@@ -1,4 +1,4 @@
-// Overlay tick kernels for Hopper (sm_90a): the CUDA port of the two TPU
+// Overlay tick kernels for Hopper (sm_90a): the CUDA port of the three TPU
 // kernels on the bounded partial-view overlay's path.
 //
 //   gp_fused_overlay_tick  K3, gossip_protocol_tpu/ops/pallas/
@@ -10,8 +10,13 @@
 //                          overlay_mega.py mega_overlay_ticks: S whole
 //                          ticks on one (N, 2K+16) state plane, as two
 //                          launches a tick on one stream with no host sync.
+//   gp_grid_overlay_ticks  K5, gossip_protocol_tpu/ops/pallas/
+//                          overlay_grid.py grid_overlay_ticks: S whole
+//                          ticks at any power-of-two N up to 2^20 on a
+//                          ping-pong (B, 2, N, 128) plane, for B fleet
+//                          lanes, one launch a tick.
 //
-// Both kernels call the same __device__ routines (mix32, the key and
+// All three call the same __device__ routines (mix32, the key and
 // payload packing, the slot map, the lexicographic merge, the subject
 // fail schedule, the per-row merge -> JOINREP -> JOINREQ -> extract ->
 // detect pipeline), so they cannot drift apart.  Every value is an
@@ -39,6 +44,21 @@
 //   re-slot on the last tick of a slot epoch).  At N=4096 a tick is
 //   launch- and latency-bound, not bytes-bound; a persistent cluster
 //   kernel with the plane in distributed shared memory is later work.
+// * K5 on the TPU relied on its sequential grid order: every block of tick
+//   s was committed before tick s+1 read, the next tick's JOINREQ aggregate
+//   and the introducer's broadcast row revolved through scratch.  Here each
+//   tick is one launch on one stream (the stream order is the barrier),
+//   reading one phase of the plane and writing the other; the broadcast
+//   row is the input phase's introducer row (the boot row at s = 0), and
+//   tick s+1's aggregate is an atomicMax into a per-lane (S+1, K) buffer.
+//   A row fetches its F partners' flag words in one round trip (lane f
+//   loads partner f's), then reads a partner row r ^ m directly, and only
+//   when that partner's send flag for the round is on (most power-law
+//   rows have degree 1).
+//   Per tick it reads and writes the 512-byte row of every peer, so at
+//   N=2^20 bytes bound it (1.07 GB a tick); the four phase flags are
+//   template parameters, so a steady-state launch carries none of the
+//   ramp, churn, join or drop work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -114,10 +134,11 @@ struct Sched {
       churn_lo, churn_span, t_remove;
 };
 
-__device__ __forceinline__ bool subject_failed(const Sched& s, int32_t subj,
-                                               int32_t t) {
+// (fail, rejoin) ticks of one subject id, closed form.
+__device__ __forceinline__ void fail_rejoin_of(const Sched& s, int32_t subj,
+                                               int32_t& fail,
+                                               int32_t& rejoin) {
   const uint32_t su = (uint32_t)subj;
-  int32_t fail;
   if (s.churn_thr > 0u) {
     const bool churned =
         mix32(s.seed, su, SALT_CHURN) < s.churn_thr && subj != INTRODUCER;
@@ -128,8 +149,13 @@ __device__ __forceinline__ bool subject_failed(const Sched& s, int32_t subj,
     fail = (subj >= s.victim_lo && subj < s.victim_hi) ? s.fail_tick : NEVER;
   }
   const int32_t after = s.churn_thr > 0u ? s.churn_after : s.rejoin_after;
-  const int32_t rejoin =
-      (fail != NEVER && after != NEVER) ? fail + after : NEVER;
+  rejoin = (fail != NEVER && after != NEVER) ? fail + after : NEVER;
+}
+
+__device__ __forceinline__ bool subject_failed(const Sched& s, int32_t subj,
+                                               int32_t t) {
+  int32_t fail, rejoin;
+  fail_rejoin_of(s, subj, fail, rejoin);
   return t > fail && t <= rejoin;
 }
 
@@ -140,16 +166,30 @@ struct RowAcc {
   int32_t id0[SPL];
 };
 
-__device__ __forceinline__ void acc_init(RowAcc& r, const int32_t* ids,
-                                         const int32_t* pw, int k, int lane) {
+// A view row in registers: this lane's slots of ids and payload words.
+struct ViewRegs {
+  int32_t ids[SPL];
+  int32_t pw[SPL];
+};
+
+// Load a view row (ids at ids[j], payload words at pw[j]); ``pw_mask``
+// strips K5's aux bytes from its payload lanes.
+__device__ __forceinline__ void load_view(ViewRegs& v, const int32_t* ids,
+                                          const int32_t* pw, int k, int lane,
+                                          int32_t pw_mask = -1) {
 #pragma unroll
   for (int jj = 0; jj < SPL; ++jj) {
     const int j = lane + 32 * jj;
-    int32_t id = -1, p = 0;
-    if (j < k) {
-      id = ids[j];
-      p = id >= 0 ? pw[j] : 0;
-    }
+    v.ids[jj] = j < k ? ids[j] : -1;
+    v.pw[jj] = j < k ? pw[j] & pw_mask : 0;
+  }
+}
+
+__device__ __forceinline__ void acc_init(RowAcc& r, const ViewRegs& v) {
+#pragma unroll
+  for (int jj = 0; jj < SPL; ++jj) {
+    const int32_t id = v.ids[jj];
+    const int32_t p = id >= 0 ? v.pw[jj] : 0;
     r.id0[jj] = id;
     r.km[jj] = id >= 0 ? pack_key(id, (p >> 12) - 1) : 0u;
     r.pa[jj] = p;
@@ -158,9 +198,8 @@ __device__ __forceinline__ void acc_init(RowAcc& r, const int32_t* ids,
 
 // Merge an identically-slotted incoming view (a partner's table or the
 // introducer's JOINREP broadcast); an invalid candidate is (0, 0).
-__device__ __forceinline__ void merge_view(RowAcc& r, const int32_t* in_ids,
-                                           const int32_t* in_pw, bool ok,
-                                           int32_t row, int32_t t,
+__device__ __forceinline__ void merge_view(RowAcc& r, const ViewRegs& v,
+                                           bool ok, int32_t row, int32_t t,
                                            int32_t t_remove, int k, int lane) {
 #pragma unroll
   for (int jj = 0; jj < SPL; ++jj) {
@@ -169,7 +208,7 @@ __device__ __forceinline__ void merge_view(RowAcc& r, const int32_t* in_ids,
     uint32_t key = 0u;
     int32_t p = 0;
     if (ok) {
-      const int32_t id = in_ids[j], pv = in_pw[j];
+      const int32_t id = v.ids[jj], pv = v.pw[jj];
       const int32_t ts = (pv >> 12) - 1;
       if (id >= 0 && t - ts < t_remove && id != row) {
         key = pack_key(id, ts);
@@ -222,7 +261,9 @@ struct RowOut {
 };
 
 // Winner extraction, TREMOVE staleness detection, and this lane's share of
-// the per-row counters.
+// the per-row counters.  ``kSubjects`` false: no subject is inside its fail
+// window (K5's churn-dead launches), so the subject schedule is skipped.
+template <bool kSubjects = true>
 __device__ __forceinline__ void extract_detect(const RowAcc& r, bool ops,
                                                int32_t t, const Sched& s,
                                                int k, int lane, RowOut& o) {
@@ -239,7 +280,7 @@ __device__ __forceinline__ void extract_detect(const RowAcc& r, bool ops,
     const int32_t ts1 = occ ? (r.pa[jj] >> 12) - 1 : 0;
     const int32_t hb1 = occ ? (r.pa[jj] & 0xFFF) - 1 : 0;
     const bool stale = ids1 >= 0 && t - ts1 >= s.t_remove && ops;
-    const bool sfail = subject_failed(s, ids1 > 0 ? ids1 : 0, t);
+    const bool sfail = kSubjects && subject_failed(s, ids1 > 0 ? ids1 : 0, t);
     o.ids[jj] = stale ? -1 : ids1;
     o.hb[jj] = stale ? 0 : hb1;
     o.ts[jj] = stale ? 0 : ts1;
@@ -280,20 +321,25 @@ fused_overlay_tick_kernel(const int32_t* __restrict__ idsaux,
   const int32_t bits = my[k + 1];
   const bool proc = bits & 1, ops = bits & 2, jrep = bits & 4;
   RowAcc r;
-  acc_init(r, my, pw + (size_t)row * k, k, lane);
+  ViewRegs own;
+  load_view(own, my, pw + (size_t)row * k, k, lane);
+  acc_init(r, own);
   int recv = 0;
   for (int fi = 0; fi < f; ++fi) {
     const int32_t partner = row ^ a.masks[fi];
     const int32_t* pr = idsaux + (size_t)partner * w;
     const bool ok = pr[k + 2 + fi] > 0 && proc;
-    merge_view(r, pr, pw + (size_t)partner * k, ok, row, t, a.s.t_remove, k,
-               lane);
+    ViewRegs pv;
+    if (ok) load_view(pv, pr, pw + (size_t)partner * k, k, lane);
+    merge_view(r, pv, ok, row, t, a.s.t_remove, k, lane);
     if (a.s.t_remove > 1)
       merge_entry(r, partner, t - 1, ok ? pr[k] : 0, ok, a.s.seed, ep, k,
                   lane);
     recv += ok;
   }
-  merge_view(r, intro, intro + k, jrep, row, t, a.s.t_remove, k, lane);
+  ViewRegs iv;
+  if (jrep) load_view(iv, intro, intro + k, k, lane);
+  merge_view(r, iv, jrep, row, t, a.s.t_remove, k, lane);
   if (a.s.t_remove > 1)
     merge_entry(r, INTRODUCER, t - 1, intro[2 * k], jrep && row != INTRODUCER,
                 a.s.seed, ep, k, lane);
@@ -455,20 +501,26 @@ mega_row_kernel(int32_t* __restrict__ st, const int32_t* __restrict__ wiped,
     const int32_t own_hb = own_hb0 + ops;
     // merges
     RowAcc r;
-    acc_init(r, W, W + k, k, lane);
+    ViewRegs own;
+    load_view(own, W, W + k, k, lane);
+    acc_init(r, own);
     int recv = 0;
     for (int fi = 0; fi < f; ++fi) {
       const int32_t partner = row ^ a.masks[fi];
       const int32_t* P = wiped + (size_t)partner * w;
       const bool ok = P[aa + L_SF + fi] > 0 && proc;
-      merge_view(r, P, P + k, ok, row, t, a.s.t_remove, k, lane);
+      ViewRegs pv;
+      if (ok) load_view(pv, P, P + k, k, lane);
+      merge_view(r, pv, ok, row, t, a.s.t_remove, k, lane);
       if (a.s.t_remove > 1)
         merge_entry(r, partner, t - 1, ok ? P[aa + L_OWN_HB] : 0, ok,
                     a.s.seed, ep, k, lane);
       recv += ok;
     }
     const int32_t* B = wiped;   // the introducer's row (JOINREP source)
-    merge_view(r, B, B + k, jrep, row, t, a.s.t_remove, k, lane);
+    ViewRegs bv;
+    if (jrep) load_view(bv, B, B + k, k, lane);
+    merge_view(r, bv, jrep, row, t, a.s.t_remove, k, lane);
     if (a.s.t_remove > 1)
       merge_entry(r, INTRODUCER, t - 1, B[aa + L_OWN_HB],
                   jrep && row != INTRODUCER, a.s.seed, ep, k, lane);
@@ -540,6 +592,259 @@ mega_row_kernel(int32_t* __restrict__ st, const int32_t* __restrict__ wiped,
   }
   block_metrics(v, met);
 }
+
+
+// ---- K5 -------------------------------------------------------------------
+// The plane: row r of a lane is PLANE_W words: lanes [0, K) ids, [K, 2K) the
+// 24-bit payload words with the aux bytes in the high byte of payload lanes
+// 0-2 (own_hb low 8 bits; own_hb bits 8-11 | in_group << 4 | joinreq << 5 |
+// joinrep << 6; the F send-flag bits), the rest zero.  The boot block holds
+// 8 rows a lane: row 0 the introducer's row, row 1 lanes [0, K) the boot
+// JOINREQ aggregate (ops/cuda/overlay_grid.py).
+constexpr int PLANE_W = 128;
+constexpr int32_t PW_MASK = 0x00FFFFFF;
+enum { GSP_T0 = 0, GSP_SEED, GSP_VLO, GSP_VHI, GSP_FTICK, GSP_RAFTER,
+       GSP_CTHR, GSP_CAFTER, GSP_DROP_ON, GSP_DROP_OPEN, GSP_DROP_CLOSE,
+       GSP_DROP_THR, GSP_FAIL0, GSP_REJOIN0, GSP_STEP_NUM, GSP_STEP_DEN,
+       GSP_NSCALARS };
+enum { FL_RAMP = 1, FL_CHURN = 2, FL_JOIN = 4, FL_DROP = 8 };
+constexpr uint32_t SALT_DEGREE = 8;
+
+struct K5Args {
+  int n, k, f, s_ticks, sp_len, t_remove, churn_lo, churn_span;
+  int can_rejoin, churn_mode, powerlaw;
+  int s;                  // this launch's tick within the call
+  size_t in_lane, bc_lane, out_lane, q_lane;   // lane strides (words)
+};
+
+// One tick of every row of every lane: grid (N / WARPS, B), one warp a row.
+// Reads `in` (the input plane at s = 0, else the previous tick's phase of
+// plane2), writes `out` (the other phase); `bc` is the introducer's
+// broadcast row; `q` holds the tick's JOINREQ aggregate (K words), and tick
+// s+1's aggregate is atomicMax-ed into the K words after it.  The template
+// flags elide the launch's dead phases (models/segments.py guarantees).
+template <bool RAMP, bool CHURN, bool JOIN, bool DROP>
+__global__ void __launch_bounds__(WARPS * 32)
+grid_tick_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bc,
+                 uint32_t* __restrict__ q, int32_t* __restrict__ out,
+                 int32_t* __restrict__ met, const int32_t* __restrict__ sp,
+                 K5Args a) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  const int b = blockIdx.y;               // fleet lane
+  const int k = a.k, f = a.f;
+  const int32_t* P = sp + (size_t)b * a.sp_len;
+  const int32_t t = P[GSP_T0] + a.s;
+  Sched sc;
+  sc.seed = (uint32_t)P[GSP_SEED];
+  // churn draws only in churn mode; with a zero threshold every subject
+  // takes the victim interval, which gives NEVER where the TPU kernel's
+  // churn branch would (no churned subject)
+  sc.churn_thr = a.churn_mode ? (uint32_t)P[GSP_CTHR] : 0u;
+  sc.victim_lo = P[GSP_VLO];
+  sc.victim_hi = P[GSP_VHI];
+  sc.fail_tick = P[GSP_FTICK];
+  sc.rejoin_after = P[GSP_RAFTER];
+  sc.churn_after = P[GSP_CAFTER];
+  sc.churn_lo = a.churn_lo;
+  sc.churn_span = a.churn_span;
+  sc.t_remove = a.t_remove;
+  const int32_t* masks = P + GSP_NSCALARS + max(f - 1, 0) + a.s * f;
+  in += b * a.in_lane;
+  bc += b * a.bc_lane;
+  q += b * a.q_lane;
+  out += b * a.out_lane;
+  met += ((size_t)b * a.s_ticks + a.s) * MET_COLS;
+  int v[MET_USED] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (row < a.n) {
+    const uint32_t ep = (uint32_t)(t / SLOT_EPOCH);
+    const int32_t fail0 = P[GSP_FAIL0], rejoin0 = P[GSP_REJOIN0];
+    const bool failed0 = CHURN && t > fail0 && t <= rejoin0;
+    const bool proc0 = t > 0 && !failed0;
+    const bool wipe = CHURN && a.can_rejoin;
+    // the F partners' send-flag bits in one round trip (lane fi loads
+    // partner fi's flag word), issued before the own row's loads
+    uint32_t flag_word = 0u;
+    if (lane < f)
+      flag_word = (uint32_t)in[(size_t)(row ^ masks[lane]) * PLANE_W + k + 2];
+    const uint32_t sent_to_us = __ballot_sync(
+        0xffffffffu, lane < f && ((flag_word >> (24 + lane)) & 1u));
+    // own row: unpack, wipe, decisions
+    const int32_t* R = in + (size_t)row * PLANE_W;
+    ViewRegs own;
+    load_view(own, R, R + k, k, lane, PW_MASK);
+    const uint32_t a0 = (uint32_t)R[k] >> 24, a1 = (uint32_t)R[k + 1] >> 24;
+    int32_t own_hb0 = (int32_t)(a0 | ((a1 & 0xFu) << 8));
+    bool in_group0 = a1 & 0x10u;
+    const bool joinreq0 = JOIN && (a1 & 0x20u);
+    const bool joinrep0 = JOIN && (a1 & 0x40u);
+    int32_t fail = NEVER, rejoin = NEVER;
+    if (CHURN) fail_rejoin_of(sc, row, fail, rejoin);
+    const bool failed = CHURN && t > fail && t <= rejoin;
+    bool proc = !failed, at_start = false;
+    if (RAMP) {   // division-free start ramp: t > i*num//den <=> i*num < t*den
+      const int32_t ramp = (int32_t)((uint32_t)row * (uint32_t)P[GSP_STEP_NUM]);
+      const int32_t lo = t * P[GSP_STEP_DEN];
+      proc = ramp < lo && !failed;
+      at_start = ramp >= lo && ramp < lo + P[GSP_STEP_DEN];
+    }
+    const bool rejoining = wipe && t == rejoin;
+    if (rejoining) {
+#pragma unroll
+      for (int jj = 0; jj < SPL; ++jj) { own.ids[jj] = -1; own.pw[jj] = 0; }
+      in_group0 = false;
+      own_hb0 = 0;
+    }
+    const bool starting = at_start || rejoining;
+    const bool jrep = joinrep0 && proc;
+    const bool in_group =
+        in_group0 || jrep || (starting && row == INTRODUCER);
+    const bool ops = proc && in_group;
+    const int32_t own_hb = own_hb0 + ops;
+    // merges: F partner rounds (a partner whose send flag is off sends
+    // nothing, so its row is not read)
+    RowAcc r;
+    acc_init(r, own);
+    int recv = 0;
+    for (int fi = 0; fi < f; ++fi) {
+      if (!(proc && (sent_to_us >> fi & 1u))) continue;
+      const int32_t partner = row ^ masks[fi];
+      const int32_t* Q = in + (size_t)partner * PLANE_W;
+      ViewRegs pv;
+      load_view(pv, Q, Q + k, k, lane, PW_MASK);
+      int32_t own_p = (int32_t)(((uint32_t)Q[k] >> 24) |
+                                (((uint32_t)Q[k + 1] >> 24 & 0xFu) << 8));
+      if (wipe) {   // wipe-on-load of a rejoining partner
+        int32_t pf, pr;
+        fail_rejoin_of(sc, partner, pf, pr);
+        if (t == pr) {
+#pragma unroll
+          for (int jj = 0; jj < SPL; ++jj) { pv.ids[jj] = -1; pv.pw[jj] = 0; }
+          own_p = 0;
+        }
+      }
+      merge_view(r, pv, true, row, t, a.t_remove, k, lane);
+      if (a.t_remove > 1)
+        merge_entry(r, partner, t - 1, own_p, true, sc.seed, ep, k, lane);
+      ++recv;
+    }
+    if (jrep) {   // JOINREP: the introducer's broadcast row
+      ViewRegs bv;
+      load_view(bv, bc, bc + k, k, lane, PW_MASK);
+      int32_t bc_hb = (int32_t)(((uint32_t)bc[k] >> 24) |
+                                (((uint32_t)bc[k + 1] >> 24 & 0xFu) << 8));
+      if (wipe && t == rejoin0) {
+#pragma unroll
+        for (int jj = 0; jj < SPL; ++jj) { bv.ids[jj] = -1; bv.pw[jj] = 0; }
+        bc_hb = 0;
+      }
+      merge_view(r, bv, true, row, t, a.t_remove, k, lane);
+      if (a.t_remove > 1)
+        merge_entry(r, INTRODUCER, t - 1, bc_hb, row != INTRODUCER, sc.seed,
+                    ep, k, lane);
+    }
+    if (JOIN && row == INTRODUCER)
+      merge_joinreq(r, true, q, nullptr, t, k, lane);
+    RowOut o;
+    extract_detect<CHURN>(r, ops, t, sc, k, lane, o);
+    // dissemination: next tick's send flags and the join sends
+    const bool active = DROP && P[GSP_DROP_ON] > 0 &&
+                        t > P[GSP_DROP_OPEN] && t <= P[GSP_DROP_CLOSE];
+    const uint32_t drop_thr = (uint32_t)P[GSP_DROP_THR];
+    int deg = f;
+    if (a.powerlaw) {
+      const uint32_t du = mix32(sc.seed, (uint32_t)row, SALT_DEGREE);
+      deg = 1;
+      for (int j = 0; j + 1 < f; ++j)
+        deg += du < (uint32_t)P[GSP_NSCALARS + j];
+    }
+    int sf_bits = 0, n_sf = 0;
+    for (int fi = 0; fi < f; ++fi) {
+      bool sf = ops && fi < deg;
+      if (active)
+        sf = sf && !(mix32(sc.seed, (uint32_t)t, (uint32_t)row, (uint32_t)fi,
+                           SALT_GOSSIP_DROP) < drop_thr);
+      sf_bits |= sf << fi;
+      n_sf += sf;
+    }
+    bool joinreq_sent = false, joinrep_sent = false, jreq = false;
+    bool joinreq_next = false, joinrep_next = false;
+    if (JOIN) {
+      jreq = joinreq0 && proc0;
+      joinreq_sent = starting && row != INTRODUCER;
+      joinrep_sent = jreq;
+      if (active) {
+        joinreq_sent = joinreq_sent &&
+                       !(mix32(sc.seed, (uint32_t)t, (uint32_t)row,
+                               SALT_JOINREQ_DROP) < drop_thr);
+        joinrep_sent = joinrep_sent &&
+                       !(mix32(sc.seed, (uint32_t)t, (uint32_t)row,
+                               SALT_JOINREP_DROP) < drop_thr);
+      }
+      joinreq_next = joinreq_sent || (joinreq0 && !proc0 && !failed0);
+      joinrep_next = joinrep_sent || (joinrep0 && !proc && !failed);
+      // tick t+1's JOINREQ aggregate (the TPU's q_nxt scratch)
+      const int32_t t1 = t + 1;
+      const bool proc0_1 = t1 > 0 && !(CHURN && t1 > fail0 && t1 <= rejoin0);
+      if (lane == 0 && joinreq_next && proc0_1 && row != INTRODUCER)
+        atomicMax(q + k + slot_of(sc.seed, (uint32_t)(t1 / SLOT_EPOCH), row, k),
+                  pack_key(row, t1));
+    }
+    // metrics (one warp: lane 0's totals count)
+    const int view = warp_sum(o.view), adds = warp_sum(o.adds),
+              rem = warp_sum(o.removals), frem = warp_sum(o.false_removals),
+              vic = warp_sum(o.victims);
+    if (lane == 0) {
+      v[MET_IN_GROUP] = in_group;
+      v[MET_VIEW] = view;
+      v[MET_ADDS] = adds;
+      v[MET_REMOVALS] = rem;
+      v[MET_FALSE_REMOVALS] = frem;
+      v[MET_VICTIM] = vic;
+      v[MET_SENT] = n_sf + joinreq_sent + joinrep_sent;
+      v[MET_RECV] = recv + jrep + jreq;
+    }
+    // the end-of-tick row, re-slotted on the last tick of an epoch, with
+    // the aux bytes on payload lanes 0-2
+    int32_t pwv[SPL];
+#pragma unroll
+    for (int jj = 0; jj < SPL; ++jj)
+      pwv[jj] = o.ids[jj] >= 0 ? pack_th(o.ts[jj], o.hb[jj]) : 0;
+    if ((t + 1) % SLOT_EPOCH == 0)
+      reslot_row(o.ids, pwv, sc.seed, (uint32_t)((t + 1) / SLOT_EPOCH), k,
+                 lane);
+    const uint32_t aux[3] = {
+        (uint32_t)own_hb & 0xFFu,
+        (((uint32_t)own_hb >> 8) & 0xFu) | (uint32_t)in_group << 4 |
+            (uint32_t)joinreq_next << 5 | (uint32_t)joinrep_next << 6,
+        (uint32_t)sf_bits};
+    int32_t* D = out + (size_t)row * PLANE_W;
+#pragma unroll
+    for (int jj = 0; jj < SPL; ++jj) {
+      const int j = lane + 32 * jj;
+      if (j >= k) continue;
+      D[j] = o.ids[jj];
+      D[k + j] = (int32_t)((uint32_t)pwv[jj] | (j < 3 ? aux[j] << 24 : 0u));
+    }
+    for (int j = 2 * k + lane; j < PLANE_W; j += 32) D[j] = 0;
+  }
+  block_metrics(v, met);
+}
+
+typedef void (*GridTickKernel)(const int32_t*, const int32_t*, uint32_t*,
+                               int32_t*, int32_t*, const int32_t*, K5Args);
+
+#define GP_GRID_KERNEL(fl)                                               \
+  grid_tick_kernel<((fl) & FL_RAMP) != 0, ((fl) & FL_CHURN) != 0,        \
+                   ((fl) & FL_JOIN) != 0, ((fl) & FL_DROP) != 0>
+const GridTickKernel kGridKernels[16] = {
+    GP_GRID_KERNEL(0),  GP_GRID_KERNEL(1),  GP_GRID_KERNEL(2),
+    GP_GRID_KERNEL(3),  GP_GRID_KERNEL(4),  GP_GRID_KERNEL(5),
+    GP_GRID_KERNEL(6),  GP_GRID_KERNEL(7),  GP_GRID_KERNEL(8),
+    GP_GRID_KERNEL(9),  GP_GRID_KERNEL(10), GP_GRID_KERNEL(11),
+    GP_GRID_KERNEL(12), GP_GRID_KERNEL(13), GP_GRID_KERNEL(14),
+    GP_GRID_KERNEL(15)};
+#undef GP_GRID_KERNEL
 
 Sched make_sched(uint32_t seed, int32_t vlo, int32_t vhi, int32_t ftick,
                  int32_t rafter, uint32_t cthr, int32_t cafter,
@@ -633,6 +938,69 @@ int gp_mega_overlay_ticks(int32_t* st, int32_t* wiped, int32_t* met,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   (void)w;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5.  plane (B, N, 128; lane l at plane + l * plane_lane words), boot (B, 8,
+// 128) and sp (B, sp_len) on the device; plane2 (B, 2, N, 128), met (B, S,
+// 128) and q (B, S+1, K; scratch) are written here (met zeroed, q zeroed
+// with the boot aggregate in its slot 0).  One launch a tick on one
+// stream: the stream order is the barrier between ticks.  flags: FL_RAMP |
+// FL_CHURN | FL_JOIN | FL_DROP, the launch's live phases.
+int gp_grid_overlay_ticks(const int32_t* plane, long long plane_lane,
+                          const int32_t* boot, const int32_t* sp,
+                          int32_t* plane2, int32_t* met, int32_t* q, int n,
+                          int k, int f, int s_ticks, int batch, int sp_len,
+                          int t_remove, int churn_lo, int churn_span,
+                          int can_rejoin, int churn_mode, int powerlaw,
+                          int flags, void* stream_ptr) {
+  if (k < 1 || 2 * k > PLANE_W || f < 1 || f > 8 || n < WARPS ||
+      n % WARPS != 0 || s_ticks < 1 || batch < 1 || batch > 65535 ||
+      flags < 0 || flags > 15 ||
+      (batch > 1 && plane_lane < (long long)n * PLANE_W))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = cudaMemsetAsync(
+      met, 0, sizeof(int32_t) * (size_t)batch * s_ticks * MET_COLS, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t q_lane = (size_t)(s_ticks + 1) * k;
+  err = cudaMemsetAsync(q, 0, sizeof(int32_t) * batch * q_lane, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemcpy2DAsync(q, sizeof(int32_t) * q_lane, boot + PLANE_W,
+                          sizeof(int32_t) * 8 * PLANE_W, sizeof(int32_t) * k,
+                          batch, cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  K5Args a;
+  a.n = n;
+  a.k = k;
+  a.f = f;
+  a.s_ticks = s_ticks;
+  a.sp_len = sp_len;
+  a.t_remove = t_remove;
+  a.churn_lo = churn_lo;
+  a.churn_span = churn_span;
+  a.can_rejoin = can_rejoin;
+  a.churn_mode = churn_mode;
+  a.powerlaw = powerlaw;
+  a.out_lane = 2 * (size_t)n * PLANE_W;
+  a.q_lane = q_lane;
+  const size_t words = (size_t)n * PLANE_W;
+  const dim3 grid(n / WARPS, batch);
+  uint32_t* qu = reinterpret_cast<uint32_t*>(q);
+  for (int s = 0; s < s_ticks; ++s) {
+    a.s = s;
+    // the input plane and the boot row at s = 0; after that phase s % 2,
+    // whose introducer row is the broadcast row
+    const int32_t* in = s == 0 ? plane : plane2 + (size_t)(s % 2) * words;
+    a.in_lane = s == 0 ? (size_t)plane_lane : a.out_lane;
+    const int32_t* bc = s == 0 ? boot : in + (size_t)INTRODUCER * PLANE_W;
+    a.bc_lane = s == 0 ? (size_t)8 * PLANE_W : a.in_lane;
+    kGridKernels[flags]<<<grid, WARPS * 32, 0, stream>>>(
+        in, bc, qu + (size_t)s * k, plane2 + (size_t)(1 - s % 2) * words,
+        met, sp, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -27,14 +27,15 @@ What differs here, none of it in the bits:
   ``fused_overlay_tick``): the CUDA kernel for CUDA tensors, its plain
   PyTorch version for CPU tensors.  The plain version IS the port's form
   of the JAX package's XLA phases, so there is one tick, not two.
-* Routing (:func:`make_overlay_run`): K4 (``models/overlay_mega.py``,
-  16 ticks a call) where :func:`~.overlay_mega.mega_supported` holds,
-  else the per-tick tick with K3, on either device.  **Deliberate
-  difference:** a config the JAX package routes to its grid kernel (K5)
-  on a TPU runs K3 per tick here until K5 is ported.  The JAX package's
-  own tests hold the grid, mega and per-tick kernel paths bit-identical
-  to its XLA tick (tests/test_overlay_grid.py, test_overlay_mega.py,
-  test_overlay_pallas.py), so the route changes no bit.
+* Routing (:func:`make_overlay_run`), the same on either device: K4
+  (``models/overlay_mega.py``, 16 ticks a call) where
+  :func:`~.overlay_mega.mega_supported` holds (N <= 4096); else K5
+  (``models/overlay_grid.py``, 16 ticks a call with the schedule's dead
+  phases elided per launch) where :func:`~.overlay_grid.grid_supported`
+  holds (power-of-two N up to 2^20, 8 to 64 view slots, F <= 8); else the
+  per-tick tick with K3.  As in the JAX package, whose own tests hold
+  the grid, mega and per-tick paths bit-identical to its XLA tick, the
+  route changes no bit.
 
 The adversarial worlds are not ported: their configs raise in
 ``config.py``.
@@ -44,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from dataclasses import dataclass
 
@@ -252,27 +254,39 @@ def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick):
 
 
 def make_overlay_run(cfg: SimConfig, length: int | None = None, *,
-                     mega: bool | None = None, exchange=fused_overlay_tick):
+                     mega: bool | None = None, grid: bool | None = None,
+                     start_tick: int | None = None,
+                     exchange=fused_overlay_tick):
     """``run(state, sched) -> (final, OverlayMetrics[length])`` with the
     metrics as tensors on the run's device.
 
     Routing: K4 (16 ticks a call, ``models/overlay_mega.py``) where
-    ``mega_supported(cfg)`` holds (``mega`` overrides), else the
-    per-tick tick with K3.  On CUDA tensors the kernels run, on CPU
-    tensors their plain versions.  K4 reports ``live_uncovered`` = -1.
-    The schedule is closed-form in the clock carried in the state, so a
-    shorter run resumes mid-run bit-identically.  ``exchange`` replaces
-    K3 on the per-tick route (:func:`make_overlay_tick`).
+    ``mega_supported(cfg)`` holds; else K5 (16 ticks a call,
+    ``models/overlay_grid.py``) where ``grid_supported(cfg)`` holds;
+    else the per-tick tick with K3.  ``mega`` and ``grid`` override.
+    On CUDA tensors the kernels run, on CPU tensors their plain
+    versions.  K4 and K5 report ``live_uncovered`` = -1.  The schedule
+    is closed-form in the clock carried in the state, so a shorter run
+    resumes mid-run bit-identically.  ``start_tick`` pins the K5 route's
+    start tick, which segments its plan (``models/segments.py``); that
+    run then refuses a state at another clock.  ``exchange`` replaces K3
+    on the per-tick route only (``mega=False, grid=False``;
+    :func:`make_overlay_tick`).
     """
+    from .overlay_grid import grid_supported, make_grid_run
     from .overlay_mega import make_mega_run, mega_supported
     length = cfg.total_ticks if length is None else length
     if mega is None:
         mega = mega_supported(cfg)
+    if grid is None:
+        grid = not mega and grid_supported(cfg)
+    if (mega or grid) and exchange is not fused_overlay_tick:
+        raise ValueError("exchange replaces K3 on the per-tick route only; "
+                         "pass mega=False, grid=False")
     if mega:
-        if exchange is not fused_overlay_tick:
-            raise ValueError("exchange replaces K3 on the per-tick route "
-                             "only; pass mega=False")
         return make_mega_run(cfg, length)
+    if grid:
+        return make_grid_run(cfg, length, start_tick=start_tick)
     tick = make_overlay_tick(cfg, exchange)
 
     def run(state: OverlayState, sched: OverlaySchedule):
@@ -403,10 +417,16 @@ class OverlaySimulation:
         self.cfg = cfg
         self.device = resolve_device(device)
 
-    def run(self, resume_from: OverlayState | None = None,
+    def run(self, profile_dir: str | None = None,
+            resume_from: OverlayState | None = None,
             ticks: int | None = None) -> OverlayResult:
         """Run the scenario; ``resume_from`` continues a (checkpointed)
-        state bit-identically, ``ticks`` stops the segment early."""
+        state bit-identically, ``ticks`` stops the segment early.
+        ``profile_dir`` runs it under ``torch.profiler`` (the card's
+        kernels too, on ``cuda``) and writes a Chrome trace,
+        ``overlay_n{N}_t{first}-{end}.json``, into that directory."""
+        if profile_dir is not None:
+            return self._run_profiled(profile_dir, resume_from, ticks)
         cfg = self.cfg
         sched = make_overlay_schedule(cfg)
         state = init_overlay_state(cfg, self.device) if resume_from is None \
@@ -419,7 +439,8 @@ class OverlaySimulation:
             raise ValueError(f"ticks must be >= 0, got {ticks}")
         t_end = cfg.total_ticks if ticks is None \
             else min(cfg.total_ticks, first + ticks)
-        run = make_overlay_run(cfg, t_end - first)
+        # the start tick is known here, so the K5 route segments its plan
+        run = make_overlay_run(cfg, t_end - first, start_tick=first)
         _sync(self.device)
         t0 = time.perf_counter()
         final, metrics = run(state, sched)
@@ -430,3 +451,16 @@ class OverlaySimulation:
         return OverlayResult(cfg=cfg, sched=sched, final_state=final,
                              metrics=metrics.to_numpy(), wall_seconds=wall)
 
+    def _run_profiled(self, profile_dir: str, resume_from, ticks):
+        from torch.profiler import ProfilerActivity, profile
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        os.makedirs(profile_dir, exist_ok=True)
+        first = 0 if resume_from is None else resume_from.tick
+        with profile(activities=acts) as prof:
+            res = self.run(resume_from=resume_from, ticks=ticks)
+        prof.export_chrome_trace(os.path.join(
+            profile_dir, f"overlay_n{self.cfg.n}_t{first}-"
+            f"{res.final_state.tick}.json"))
+        return res

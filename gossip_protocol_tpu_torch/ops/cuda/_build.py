@@ -35,6 +35,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: each source is one library: its C entry points and their arguments
 SOURCES = {
     "dense_tick.cu": {
@@ -45,6 +46,7 @@ SOURCES = {
     "overlay_tick.cu": {
         "gp_fused_overlay_tick": [_P] * 8 + [_I] * 6 + [_P],
         "gp_mega_overlay_ticks": [_P] * 5 + [_I] * 9 + [_P],
+        "gp_grid_overlay_ticks": [_P, _L] + [_P] * 5 + [_I] * 13 + [_P],
     },
 }
 

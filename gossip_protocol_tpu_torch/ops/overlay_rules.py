@@ -9,8 +9,8 @@ rejoin are read from, the SLOT_EPOCH re-slot, and the tick itself
 :707-1220).
 
 The model (``models/overlay.py``) and the kernels' plain versions
-(``ops/cuda/overlay_exchange.py``, ``ops/cuda/overlay_mega.py``) all
-call these; the CUDA kernels (``csrc/overlay_tick.cu``) compute the
+(``ops/cuda/overlay_exchange.py``, ``ops/cuda/overlay_mega.py``,
+``ops/cuda/overlay_grid.py``) all call these; the CUDA kernels (``csrc/overlay_tick.cu``) compute the
 same per row.  uint32 values (priority keys, hashes, thresholds) ride
 int64 tensors masked to 32 bits: torch has no logical ``>>`` on uint32
 on the CPU.
@@ -266,8 +266,8 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
     a boundary tick, the drop-masked send flags and the metrics.
     ``masks`` are the tick's F XOR masks and ``fail0``/``rejoin0`` the
     introducer's fail window (host ints), as K4 receives them; the
-    schedule's per-row values come from ``cols``.  K4's plain version is
-    S calls of this.
+    schedule's per-row values come from ``cols``.  K4's and K5's plain
+    versions are S calls of this.
     """
     t = state.tick
     n = state.ids.shape[0]

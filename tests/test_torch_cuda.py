@@ -193,3 +193,191 @@ def test_overlay_simulation_cuda_equals_cpu(dev, name):
     for f in pov.METRIC_FIELDS:
         assert np.array_equal(getattr(a.metrics, f),
                               getattr(b.metrics, f)), f
+
+
+# ---- K5 (grid_overlay_ticks) -------------------------------------------
+
+GRID = {
+    # BASELINE's two grid configs with their windows kept at small N
+    # (start ramp 64 / 40 ticks, churn 152-495, fail 136): their plans
+    # give every flag combination the full-size runs use
+    "churn": dict(single_failure=False, total_ticks=608, churn_rate=0.2,
+                  rejoin_after=40),
+    "powerlaw": dict(single_failure=True, total_ticks=272, fail_tick=136,
+                     topology="powerlaw"),
+}
+
+
+def _grid_cfg(name, n):
+    from gossip_protocol_tpu_torch.config import SimConfig
+    step = 64.0 / n if name == "churn" else 40.0 / n
+    return SimConfig(model="overlay", max_nnb=n, seed=1, step_rate=step,
+                     **GRID[name])
+
+
+def _random_state(cfg, t, seed, dev, join=True):
+    """A random valid overlay state at tick t; without ``join`` the
+    in-flight join bits are zero (a join-dead launch's guarantee)."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.ops.overlay_rules import OverlayState
+    rng = np.random.default_rng(seed)
+    n = cfg.n
+    k, f = pov.resolved_dims(cfg)
+    ids = rng.integers(0, n, (n, k)).astype(np.int32)
+    ids[rng.random((n, k)) < 0.3] = -1
+    occ = ids >= 0
+    hb = np.where(occ, rng.integers(0, 300, (n, k)), 0).astype(np.int32)
+    ts = np.where(occ, rng.integers(max(t - 25, 0), max(t, 1), (n, k)),
+                  0).astype(np.int32)
+    jr = (rng.random((2, n)) < 0.05) & join
+
+    def t_(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return OverlayState(
+        tick=t, ids=t_(ids), hb=t_(hb), ts=t_(ts),
+        in_group=t_(rng.random(n) < 0.9),
+        own_hb=t_(rng.integers(0, 300, n).astype(np.int32)),
+        send_flags=t_(rng.random((n, f)) < 0.8),
+        send_hist=t_(np.zeros((n, f), np.int32)), joinreq=t_(jr[0]),
+        joinrep=t_(jr[1]))
+
+
+def _k5_cases(cfg):
+    """(t0, s_ticks, flags) launches to check: one of each flag
+    combination of the tick-0 plan, an all-live launch off the slot-epoch
+    grid (t0 = 17) and a 12-tick remainder."""
+    from gossip_protocol_tpu_torch.models.segments import (ALL_LIVE,
+                                                           plan_segments)
+    seen = {}
+    for seg in plan_segments(cfg, cfg.total_ticks, 0, 16):
+        seen.setdefault(seg.flags, seg.start)
+    cases = [(t0, 16, fl) for fl, t0 in seen.items()]
+    return cases + [(17, 16, ALL_LIVE), (170, 12, ALL_LIVE)]
+
+
+@pytest.mark.parametrize("name", sorted(GRID))
+@pytest.mark.parametrize("n", (64, 4096))
+def test_grid_kernel_equals_plain(dev, name, n):
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
+        grid_overlay_ticks, grid_overlay_ticks_plain)
+    cfg = _grid_cfg(name, n)
+    sched = pov.make_overlay_schedule(cfg)
+    k, f = pov.resolved_dims(cfg)
+    kw = pg.grid_kernel_kwargs(cfg, k, f)
+    cases = _k5_cases(cfg)
+    assert len({c[2] for c in cases}) >= 3
+    for i, (t0, s_ticks, flags) in enumerate(cases):
+        state = _random_state(cfg, t0, n + i, dev, join=flags.join_live)
+        plane = pg.pack_grid_plane(cfg, state)
+        boot, sp = pg.grid_launch_input(cfg, sched, plane, t0, s_ticks)
+        before = grid_overlay_ticks.launches
+        a = grid_overlay_ticks(plane, boot, sp, s_ticks=s_ticks, **kw,
+                               **flags.as_kernel_kwargs())
+        assert grid_overlay_ticks.launches == before + 1
+        b = grid_overlay_ticks_plain(plane, boot, sp, s_ticks=s_ticks, **kw,
+                                     **flags.as_kernel_kwargs())
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), (t0, s_ticks, flags)
+
+
+def test_grid_fleet_kernel_equals_plain(dev):
+    """A B=2 launch: each lane its own seed and state, the lanes' planes
+    at a stride of two planes (as a fleet's phase of ``plane2``)."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    from gossip_protocol_tpu_torch.models.segments import ALL_LIVE
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
+        grid_overlay_ticks, grid_overlay_ticks_plain)
+    cfg = _grid_cfg("churn", 64)
+    k, f = pov.resolved_dims(cfg)
+    planes = torch.stack([torch.stack([
+        pg.pack_grid_plane(cfg, _random_state(cfg, 160, s, dev))] * 2)
+        for s in (3, 4)])[:, 1]
+    assert planes.stride(0) == 2 * planes[0].numel()
+    lanes = [pg.grid_launch_input(
+        cfg, pov.make_overlay_schedule(cfg.replace(seed=s)), planes[b], 160,
+        16) for b, s in enumerate((3, 4))]
+    boot = torch.stack([x[0] for x in lanes])
+    sp = np.stack([x[1] for x in lanes])
+    kw = dict(pg.grid_kernel_kwargs(cfg, k, f), s_ticks=16, batch=2,
+              **ALL_LIVE.as_kernel_kwargs())
+    a = grid_overlay_ticks(planes, boot, sp, **kw)
+    b = grid_overlay_ticks_plain(planes, boot, sp, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_grid_route_equals_k3_route_and_cpu(dev):
+    """N=8192 churn, 64 ticks: the K5 route equals the per-tick K3 route
+    and the same K5 route on the CPU; a B=2 fleet equals its solo runs."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import \
+        fused_overlay_tick
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_overlay_ticks
+    cfg = _grid_cfg("churn", 8192).replace(total_ticks=256)
+    sched = pov.make_overlay_schedule(cfg)
+    fields = ("ids", "hb", "ts", "in_group", "own_hb", "send_flags",
+              "joinreq", "joinrep")
+    metrics = ("in_group", "view_slots", "adds", "removals",
+               "false_removals", "victim_slots", "sent", "recv")
+    before = (grid_overlay_ticks.launches, fused_overlay_tick.launches)
+    g = pov.make_overlay_run(cfg, 64, start_tick=0)(
+        pov.init_overlay_state(cfg, dev), sched)
+    assert grid_overlay_ticks.launches == before[0] + 4
+    k3 = pov.make_overlay_run(cfg, 64, grid=False)(
+        pov.init_overlay_state(cfg, dev), sched)
+    assert fused_overlay_tick.launches == before[1] + 64
+    cpu = pov.make_overlay_run(cfg, 64, start_tick=0)(
+        pov.init_overlay_state(cfg, "cpu"), sched)
+    for other in (k3, cpu):
+        for f in fields:
+            assert torch.equal(getattr(g[0], f).cpu(),
+                               getattr(other[0], f).cpu()), f
+        for f in metrics:
+            assert torch.equal(getattr(g[1], f).cpu(),
+                               getattr(other[1], f).cpu()), f
+    scheds = [pov.make_overlay_schedule(cfg.replace(seed=s)) for s in (5, 6)]
+    fleet = pg.make_grid_fleet_run(cfg, 40, 2)(
+        pg.stack_states([pov.init_overlay_state(cfg, dev)] * 2), scheds)
+    for b, sc in enumerate(scheds):
+        solo = pg.make_grid_run(cfg, 40, start_tick=0)(
+            pov.init_overlay_state(cfg, dev), sc)
+        lane = pg.lane_state(fleet[0], b)
+        for f in fields:
+            assert torch.equal(getattr(lane, f), getattr(solo[0], f)), f
+        for f in metrics:
+            assert torch.equal(getattr(fleet[1], f)[b],
+                               getattr(solo[1], f)), f
+
+
+def test_grid_kernel_rejects_bad_input(dev):
+    """An XOR mask outside [1, N), a short ``sp`` row, a wrong plane or
+    boot shape or a plane whose rows are not contiguous raises before
+    any pointer reaches the kernel."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    from gossip_protocol_tpu_torch.models.segments import ALL_LIVE
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_overlay_ticks
+    cfg = _grid_cfg("churn", 64)
+    k, f = pov.resolved_dims(cfg)
+    plane = pg.pack_grid_plane(cfg, _random_state(cfg, 40, 1, dev))
+    boot, sp = pg.grid_launch_input(cfg, pov.make_overlay_schedule(cfg),
+                                    plane, 40, 16)
+    kw = dict(pg.grid_kernel_kwargs(cfg, k, f), s_ticks=16,
+              **ALL_LIVE.as_kernel_kwargs())
+    before = grid_overlay_ticks.launches
+    bad = sp.copy()
+    bad[-1] = cfg.n
+    for args in ((plane, boot, bad), (plane, boot, sp[:-1]),
+                 (plane[:-1], boot, sp), (plane, boot[:-1], sp),
+                 (plane.T.contiguous().T, boot, sp)):
+        with pytest.raises(ValueError):
+            grid_overlay_ticks(*args, **kw)
+    assert grid_overlay_ticks.launches == before

@@ -151,17 +151,24 @@ def test_overlay_cli_defaults_to_cuda(tmp_path):
 
 
 def test_overlay_wrappers_on_cpu_count_no_launch():
-    from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    from gossip_protocol_tpu_torch.models.overlay import (
+        OverlaySimulation, init_overlay_state, make_overlay_run,
+        make_overlay_schedule)
     from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import \
         fused_overlay_tick
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_overlay_ticks
     from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import \
         mega_overlay_ticks
-    before = [f.launches for f in (fused_overlay_tick, mega_overlay_ticks)]
+    wrappers = (fused_overlay_tick, mega_overlay_ticks, grid_overlay_ticks)
+    before = [f.launches for f in wrappers]
     cfg = SimConfig(max_nnb=16, model="overlay", total_ticks=40)
     res = OverlaySimulation(cfg, device="cpu").run()            # K4 route
-    OverlaySimulation(cfg.replace(topology="powerlaw"),        # K3 route
-                      device="cpu").run()
-    after = [f.launches for f in (fused_overlay_tick, mega_overlay_ticks)]
+    f8 = cfg.replace(topology="powerlaw")
+    OverlaySimulation(f8, device="cpu").run()                   # K5 route
+    make_overlay_run(f8, 20, grid=False)(                       # K3 route
+        init_overlay_state(f8, "cpu"), make_overlay_schedule(f8))
+    after = [f.launches for f in wrappers]
     assert after == before
     assert res.final_state.device.type == "cpu"
     assert int(res.metrics.in_group[-1]) == 16

@@ -122,7 +122,7 @@ def test_checkpoint_hand_over_both_ways(tmp_path):
     pend, _ = pov.make_overlay_run(pc, 37)(pmid, ps)
     _assert_state(whole, pend)
 
-    p33, _ = pov.make_overlay_run(pc, 33, mega=False)(
+    p33, _ = pov.make_overlay_run(pc, 33, mega=False, grid=False)(
         pov.init_overlay_state(pc, "cpu"), ps)
     pov.save_overlay_checkpoint(p33, str(tmp_path / "port.npz"))
     jback = jov.load_overlay_checkpoint(str(tmp_path / "port.npz"))

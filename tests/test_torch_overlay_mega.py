@@ -125,7 +125,8 @@ def test_mega_route_equals_per_tick_route():
     sched = pov.make_overlay_schedule(pc)
     state = pov.init_overlay_state(pc, "cpu")
     fm, mm = pov.make_overlay_run(pc, 40, mega=True)(state, sched)
-    ft, mt = pov.make_overlay_run(pc, 40, mega=False)(state, sched)
+    ft, mt = pov.make_overlay_run(pc, 40, mega=False, grid=False)(state,
+                                                                  sched)
     for f in STATE_FIELDS:
         assert torch.equal(getattr(fm, f), getattr(ft, f)), f
     for f in METRICS:
