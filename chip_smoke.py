@@ -13,7 +13,7 @@ one line per phase:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build;
 2. kernel vs plain version on the card, bit-exact, on random inputs:
-   ``masked_max3`` + ``tick_epilogue`` at N in {64, 1024, 2816}, dense
+   ``masked_max3`` + ``tick_epilogue`` at N in {10, 64, 1024, 2816}, dense
    and sparse (empty delivery slabs); ``dense_mega_ticks`` at N in
    {64, 512} (S=16) and N=896 (S=8); ``fused_overlay_tick`` (K3) on
    random valid states at N=64, 4096 and 65,536 (K=64, F=3) and on the
@@ -24,7 +24,8 @@ one line per phase:
    ``churn65k`` and ``powerlaw1m`` shapes: each flag combination their
    segment plans use, all-live launches at ticks 300 and 17 (off the
    slot-epoch grid), a 12-tick remainder and a B=2 fleet launch;
-3. the graded path: the three N=10 testcases on ``cuda`` must grade 90;
+3. the graded path: the three N=10 testcases on ``cuda``, each timed,
+   must grade 90;
 4. card vs CPU: N=64 multifailure and N=64 drop, 700 ticks — the
    ``dbg.log`` and ``msgcount.log`` bytes of a ``cuda`` run must equal
    those of the port's own ``cpu`` run; overlay N=64 churn (200 ticks)
@@ -46,7 +47,8 @@ one line per phase:
    N=65,536 run (seeds 0-3, 64 ticks) equals its lanes' solo K5 runs;
 6. each kernel held against its plain version and timed on the input
    of a launch the main path makes (the run stopped one launch early:
-   tick 699 of the 700-tick corner for K1, the last full K2 launch of
+   tick 699 of the 700-tick corner (N=2816), of the N=1024 trace and of
+   the N=10 multifailure testcase for K1, the last full K2 launch of
    the 200-tick corner and of the N=512 trace, tick 607 of the N=65,536
    churn run for K3, the launch at tick 592 of the N=4096 drop run for
    K4, the last full launches of the N=65,536 churn run (tick 592) and
@@ -56,7 +58,21 @@ one line per phase:
    and kernel-vs-plain comparisons not counted), its time, its plain
    version's time, and the least time the card could take (bytes over
    3.35 TB/s or int32 operations over the card's int32 rate, whichever
-   is larger).
+   is larger; for ``masked_max3``, whose descent runs on the int8
+   tensor cores, the bytes the function needs or the descent's s8
+   products at the tensor-core rate, the larger).  Before it, each
+   ``masked_max3`` input is described: its deliveries, the distinct
+   levels and tile products of each plane, the share of cells the
+   pre-resolve closes, the share of empty delivery slabs the earlier
+   int32 product-max design (32 senders x 64 receivers a slab) skipped,
+   and both bounds.
+
+``--dense-only TREE`` runs, after the first phase, only the dense path
+of the package in the checkout at ``TREE``: the dense kernels of phase
+6, then phases 3 and 5a-c.  ``--turns OTHER_CHECKOUT`` runs that for
+another checkout and for this one in turns (other, this, this, other,
+twice), each run a process of its own, and prints every wall and
+kernel time of the eight runs.
 
 Any failure raises and exits non-zero; no phase catches and continues.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -80,6 +96,8 @@ HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 # H100 SXM int32 outside the tensor cores: 132 SMs x 64 INT32 lanes x
 # 1.98 GHz boost clock (Hopper white paper)
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# H100 SXM dense int8 tensor-core rate (NVIDIA data sheet)
+INT8_TC_OPS_PER_S = 1979e12
 # H100 SXM on-chip storage: the 50 MB L2 and 132 SMs' 227 KB of shared
 # memory a block can use
 ON_CHIP_BYTES = 50e6 + 132 * 232448
@@ -296,6 +314,13 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
+def bound_tc(nbytes: float, ops: float) -> tuple[float, str]:
+    """As :func:`bound`, for int8 operations on the tensor cores."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / INT8_TC_OPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
 def corner_start(cfg, a: int, dev):
     """The width-``a`` slices of a run's tick-0 state and schedule, as
     the bench corner (or, with ``a == N``, a full-width run) starts."""
@@ -355,9 +380,90 @@ def k2_launch_input(cfg, a: int, dev) -> tuple[dict, int]:
                 qdrop=q, pdrop=p, sp=t0), s_ticks
 
 
-def time_k1(x: dict, t_remove: int, with_events: bool, reps: int) -> dict:
+def merge_stats(x: dict, t_remove: int) -> dict:
+    """What the masked_max3 descent needs at one launch input, from its
+    plain mirror (``ops/merge.py masked_max3_descent``, also held equal
+    to the plain version here): the deliveries; per plane the distinct
+    positive values a column holds among the senders that deliver at
+    all, the products the tiles run (pre-resolve included), and the
+    share of cells the pre-resolve finishes; the share of empty (so
+    skipped) 32-sender x 64-receiver delivery slabs in the earlier int32
+    product-max design; and two bounds.  ``bound`` is the descent's: the
+    bytes the function needs (gossip and proc read, known/hb/ts only in
+    the rows of senders that deliver, three i32 maxima written) over
+    3.35 TB/s, or the s8 MACs of the products the tiles run (tile x live
+    senders x products) at 1,979 T int8 operations/s, the larger.
+    ``int32_bound`` counts the same bytes beside the product-max's
+    3 D N maxima on the INT32 lanes."""
+    import torch
+
+    from gossip_protocol_tpu_torch.ops.merge import (
+        TILE_COLS, TILE_ROWS, WORD, masked_max3_descent, masked_max3_plain,
+        merge_payloads)
+    args = (x["gossip"], x["proc"], x["known"], x["hb"], x["ts"], x["t"])
+    n = x["known"].shape[0]
+    (m, lv) = masked_max3_descent(*args, t_remove=t_remove)
+    want = masked_max3_plain(*args, t_remove=t_remove)
+    if not all(torch.equal(a, b) for a, b in zip(m, want)):
+        raise AssertionError("masked_max3_descent != masked_max3_plain")
+    d = x["gossip"] & x["proc"][None, :]                  # [s, r]
+    sender = d.any(1)
+    w = -(-n // WORD)
+    dpad = torch.zeros((w * WORD, n), dtype=torch.bool, device=d.device)
+    dpad[:n] = d
+    out = {"n": n, "deliveries": int(d.sum()),
+           "senders_delivering": int(sender.sum()),
+           "receivers_reached": int(d.any(0).sum())}
+    # the earlier product-max design skipped a (32-sender slab,
+    # 64-receiver tile) pair with no delivery
+    slabs = torch.zeros((w * WORD, -(-n // 64) * 64), dtype=torch.bool,
+                        device=d.device)
+    slabs[:n, :n] = d
+    slab_any = slabs.view(w, WORD, -1, 64).any(3).any(1)
+    out["product_max_slab_skip_share"] = 1.0 - float(slab_any.float().mean())
+    # live words per row tile and the MACs a product of each tile costs
+    rt = -(-n // TILE_ROWS)
+    live_words = dpad.view(w, WORD, n).any(1)              # [W, r]
+    k_live = torch.stack([live_words[:, i * TILE_ROWS:(i + 1) * TILE_ROWS]
+                          .any(1).sum() for i in range(rt)]) * WORD
+    tile_r = torch.tensor([min(TILE_ROWS, n - i * TILE_ROWS)
+                           for i in range(rt)], device=d.device)
+    ct = -(-n // TILE_COLS)
+    tile_c = torch.tensor([min(TILE_COLS, n - j * TILE_COLS)
+                           for j in range(ct)], device=d.device)
+    macs = 0
+    for name, v in zip("aft", merge_payloads(x["known"], x["hb"], x["ts"],
+                                             x["t"], t_remove)):
+        p = lv[name]
+        vs = v[sender].sort(0).values
+        distinct = ((vs[1:] != vs[:-1]) & (vs[1:] > 0)).sum(0) \
+            + (vs[:1] > 0).sum(0) if len(vs) else torch.zeros(n)
+        macs += int((p * (tile_r * k_live)[:, None] * tile_c[None, :]).sum())
+        out[f"plane_{name}"] = {
+            "levels_per_column_mean": float(distinct.float().mean()),
+            "levels_per_column_max": int(distinct.max()),
+            "products_per_tile_mean": float(p.float().mean()),
+            "products_per_tile_max": int(p.max()),
+            "products_total": int(p.sum()),
+            "pre_resolve_fill_share": float((m["aft".index(name)] == -1)
+                                            .float().mean())}
+    # bytes: gossip and proc read, known/hb/ts (9 bytes a cell) of the
+    # senders that deliver, the three maxima written
+    nbytes = n * n * (1 + 12) + n + 9 * n * out["senders_delivering"]
+    out["bytes"] = nbytes
+    out["tensor_core_macs"] = macs
+    out["bound"] = bound_tc(nbytes, 2 * macs)
+    out["int32_bound"] = bound(nbytes, 3 * out["deliveries"] * n)
+    return out
+
+
+def time_k1(x: dict, t_remove: int, with_events: bool, reps: int,
+            describe: bool = True) -> dict:
     """masked_max3 and tick_epilogue on one real launch input: kernel and
-    plain outputs held equal, their times (ms) and bounds."""
+    plain outputs held equal, their times (ms) and the epilogue's bound;
+    with ``describe`` also what the merge needs there
+    (:func:`merge_stats`, which reads this tree's descent mirror) and
+    its bounds."""
     from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
         tick_epilogue, tick_epilogue_plain)
     from gossip_protocol_tpu_torch.ops.merge import (masked_max3,
@@ -374,16 +480,15 @@ def time_k1(x: dict, t_remove: int, with_events: bool, reps: int) -> dict:
     nnz = int((x["gossip"] & x["proc"][None, :]).sum())
     out = {"n": n, "tick": x["t"], "with_events": with_events,
            "deliveries": nnz, "max_abs_err": err}
-    # masked_max3: reads gossip/known (1 B) + hb/ts (4 B) per cell and
-    # proc, writes three i32 planes; this input's work is 3 maxima per
-    # (delivery, column) pair
-    mm_bytes = n * n * (1 + 1 + 4 + 4 + 12) + n
-    mm_ops = 3 * nnz * n
     out["masked_max3"] = dict(
         ms=cuda_ms(lambda: masked_max3(*args, t_remove=t_remove), reps),
         plain_ms=cuda_ms(
-            lambda: masked_max3_plain(*args, t_remove=t_remove), 2),
-        bound=bound(mm_bytes, mm_ops))
+            lambda: masked_max3_plain(*args, t_remove=t_remove), 2))
+    if describe:
+        stats = merge_stats(x, t_remove)
+        out["merge_stats"] = stats
+        out["masked_max3"]["bound"] = stats["bound"]
+        out["masked_max3"]["bound_int32"] = stats["int32_bound"]
     # epilogue: three i32 maxima, hb/ts, known, gossip, gdrop in;
     # hb/ts, known, gossip (and with events added/removed) out; five
     # row lanes in, sent/recv out
@@ -810,6 +915,172 @@ def profile_run(fn) -> dict:
                           "calls": c} for us, k, c in sorted(host)[::-1][:8]]}
 
 
+def bench_cfg(ticks: int):
+    """BASELINE's dense N=4096 10% drop bench (bench.py:419-434)."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    return SimConfig(max_nnb=4096, single_failure=False, drop_msg=True,
+                     msg_drop_prob=0.1, seed=0, total_ticks=ticks)
+
+
+def trace_cfgs() -> dict:
+    """The two dense trace runs: N=512 multifailure (K2) and N=1024
+    multifailure 10% drop (K1)."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    return {"trace_n512_multi": SimConfig(max_nnb=512, single_failure=False,
+                                          seed=0),
+            "trace_n1024_drop": SimConfig(max_nnb=1024, single_failure=False,
+                                          drop_msg=True, msg_drop_prob=0.1,
+                                          seed=0)}
+
+
+def graded_path(main_path) -> dict:
+    """Phase 3: the three N=10 testcases on ``cuda``, each run to its logs
+    and timed (wall seconds between two synchronizations), then graded:
+    the grade must be 90."""
+    import torch
+
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.sim import run_scenario
+    from gossip_protocol_tpu_torch.grader import grade_all
+    walls = {}
+
+    def run(conf: str, wd: str) -> None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_scenario(SimConfig.from_conf(conf), outdir=wd, device="cuda")
+        torch.cuda.synchronize()
+        walls[os.path.basename(conf)[:-len(".conf")]] = \
+            time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as wd:
+        res, counts = main_path.drive(
+            lambda: grade_all(run, os.path.join(REPO, "testcases"), wd),
+            ("masked_max3", "tick_epilogue"))
+    if res["total"] != 90:
+        raise AssertionError(f"grade {res['total']} != 90")
+    say(f"phase 3: testcases on cuda graded {res['total']}/90; walls "
+        f"{json.dumps(walls)}; launches {counts}")
+    return {"grade": res["total"], "launches": counts, "wall_s": walls}
+
+
+def dense_runs(main_path) -> dict:
+    """Phases 5a-c: the N=512 multifailure trace (K2) and the N=1024 10%
+    drop trace (K1) held to their oracles, and the N=4096 10% drop bench
+    at 700 ticks (corner 2816, K1) and 200 ticks (corner 896, K2), each
+    after an untimed run."""
+    from gossip_protocol_tpu_torch.core.sim import Simulation
+    runs = {}
+    traces = trace_cfgs()
+    for key, exact, expect, label in (
+            ("trace_n512_multi", True, ("dense_mega_ticks",),
+             "5a: N=512 multifailure trace, 700 ticks (K2)"),
+            ("trace_n1024_drop", False, ("masked_max3", "tick_epilogue"),
+             "5b: N=1024 multifailure 10% drop trace, 700 ticks (K1)")):
+        cfg = traces[key]
+        (r, counts) = main_path.drive(
+            lambda: Simulation(cfg, device="cuda").run(), expect)
+        o = oracle_trace(r, exact_removal=exact)
+        runs[key] = dict(wall_s=r.wall_seconds, launches=counts, **o)
+        say(f"phase {label}: {o}; wall {r.wall_seconds:.3f} s; "
+            f"launches {counts}")
+        del r
+    for ticks, expect in ((700, ("masked_max3", "tick_epilogue")),
+                          (200, ("dense_mega_ticks",))):
+        sim = Simulation(bench_cfg(ticks), device="cuda")
+        sim.run_bench(warmup=False)     # untimed warm-up, not counted
+        (r, counts) = main_path.drive(lambda: sim.run_bench(warmup=False),
+                                      expect)
+        o = oracle_bench(r)
+        runs[f"bench_n4096_t{ticks}"] = dict(
+            corner=r.counter_stream_width, wall_s=r.wall_seconds,
+            node_ticks_per_s=r.node_ticks_per_second, launches=counts, **o)
+        say(f"phase 5c: bench N=4096 10% drop, {ticks} ticks, corner "
+            f"{r.counter_stream_width}: {r.node_ticks_per_second:.1f} "
+            f"node-ticks/s (wall {r.wall_seconds:.3f} s); {o}; "
+            f"launches {counts}")
+        del r, sim
+    return runs
+
+
+def dense_timing(dev, describe: bool) -> dict:
+    """Phase 6's dense kernels, each held against its plain version and
+    timed on the input of a launch the main path makes: masked_max3 and
+    tick_epilogue at tick 699 of the N=4096 700-tick bench corner
+    (N=2816), of the N=1024 drop trace and of the N=10 multifailure
+    testcase (the last two with events, as those runs launch them); K2
+    on its last full launch of the 200-tick bench corner (N=896, S=8)
+    and of the N=512 trace (S=16, events).  ``describe`` as in
+    :func:`time_k1`."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.dense_corner import bench_stream_width
+    traces = trace_cfgs()
+    multi10 = SimConfig.from_conf(os.path.join(REPO, "testcases",
+                                               "multifailure.conf"))
+    timing = {}
+    for key, cfg, a, ev, reps in (
+            ("k1", bench_cfg(700), bench_stream_width(bench_cfg(700)),
+             False, 20),
+            ("k1_n1024", traces["trace_n1024_drop"], 1024, True, 50),
+            ("k1_n10", multi10, 10, True, 200)):
+        timing[key] = time_k1(k1_launch_input(cfg, a, dev), cfg.t_remove,
+                              with_events=ev, reps=reps, describe=describe)
+    for key, cfg, a, ev in (
+            ("k2", bench_cfg(200), bench_stream_width(bench_cfg(200)), False),
+            ("k2_trace512", traces["trace_n512_multi"], 512, True)):
+        x, s = k2_launch_input(cfg, a, dev)
+        timing[key] = time_k2(x, s, cfg, with_events=ev, reps=10)
+        del x
+    return timing
+
+
+def dense_numbers(details: dict) -> dict:
+    """The walls and dense kernel times of one run, flat."""
+    out = {f"testcase_{k}_wall_s": v
+           for k, v in details["phase3"]["wall_s"].items()}
+    out.update({f"{k}_wall_s": v["wall_s"]
+                for k, v in details["phase5"].items() if "wall_s" in v})
+    for key, v in details["timing"].items():
+        if key.startswith("k1"):
+            for name in ("masked_max3", "tick_epilogue"):
+                out[f"{name}_n{v['n']}_ms"] = v[name]["ms"]
+        elif key.startswith("k2"):
+            out[f"dense_mega_ticks_n{v['n']}_ms"] = v["ms"]
+    return out
+
+
+def turns(other: str, rounds: int = 2) -> dict:
+    """The dense path (``--dense-only``) of the checkout at ``other`` and
+    of this one in turns: other, this, this, other, ``rounds`` times,
+    each run a process of its own with its tree's package first on the
+    path.  Returns the order and every metric of :func:`dense_numbers`
+    as a list in that order."""
+    me = os.path.abspath(__file__)
+    order, numbers = [], []
+    with tempfile.TemporaryDirectory() as td:
+        for i, tree in enumerate((other, REPO, REPO, other) * rounds):
+            tree = os.path.abspath(tree)
+            path = os.path.join(td, f"{i}.json")
+            proc = subprocess.run(
+                [sys.executable, me, "--dense-only", tree, "--details",
+                 path], capture_output=True, text=True,
+                cwd=tree)
+            if proc.returncode != 0:
+                raise RuntimeError(f"--dense-only of {tree} failed:\n"
+                                   f"{proc.stdout[-4000:]}\n"
+                                   f"{proc.stderr[-4000:]}")
+            with open(path) as f:
+                numbers.append(dense_numbers(json.load(f)))
+            order.append("this" if tree == REPO else "other")
+    return {"order": order,
+            "metrics": {k: [n[k] for n in numbers] for k in numbers[0]}}
+
+
+def write_details(path: str, details: dict) -> None:
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(details, f, indent=1, default=str)
+
+
 def read_file(path: str) -> bytes:
     with open(path, "rb") as f:
         return f.read()
@@ -824,13 +1095,22 @@ def main(argv=None) -> int:
                          "configuration, overlay runs included (device "
                          "busy share, kernels by device time) into the "
                          "details")
+    ap.add_argument("--dense-only", default=None, metavar="TREE",
+                    help="run only the dense path of the package in the "
+                         "checkout at TREE (this one: .): phase 6's dense "
+                         "kernels (first, which warms the card), then "
+                         "phases 3 and 5a-c; no kernels line and no "
+                         "result line")
+    ap.add_argument("--turns", default=None, metavar="TREE",
+                    help="run --dense-only for the checkout at TREE and "
+                         "this one in turns: TREE, this, this, TREE, twice")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
-    sys.path.insert(0, REPO)
+    sys.path.insert(0, os.path.abspath(args.dense_only or REPO))
     import gossip_protocol_tpu_torch  # noqa: F401  (fails alone)
     from gossip_protocol_tpu_torch.config import SimConfig
     from gossip_protocol_tpu_torch.core.sim import Simulation
@@ -856,10 +1136,23 @@ def main(argv=None) -> int:
     say(f"phase 1: {torch.cuda.get_device_name(0)} (torch {torch.__version__},"
         f" CUDA {torch.version.cuda}); kernels built in {build_s:.1f} s "
         f"-> {', '.join(os.path.relpath(p, REPO) for p in libs)}")
+    if args.turns:
+        details["turns"] = turns(args.turns)
+        say(json.dumps(details["turns"]))
+    if args.dense_only:
+        main_path = MainPath()
+        details["timing"] = dense_timing(dev, describe=False)
+        details["phase3"] = graded_path(main_path)
+        details["phase5"] = dense_runs(main_path)
+        say(json.dumps(dense_numbers(details)))
+    if args.turns or args.dense_only:
+        if args.details:
+            write_details(args.details, details)
+        return 0
 
     # ---- phase 2: kernel vs plain on the card ------------------------
     errs = dict.fromkeys(wrappers(), 0.0)
-    for n in (64, 1024, 2816):
+    for n in (10, 64, 1024, 2816):
         for sparse in (False, True):
             e = compare_k1(k1_inputs(n, n, dev, sparse=sparse), t_remove=20)
             for k, v in e.items():
@@ -936,17 +1229,7 @@ def main(argv=None) -> int:
 
     main_path = MainPath()
     # ---- phase 3: graded path on the card ----------------------------
-    from gossip_protocol_tpu_torch.grader import grade_all
-    with tempfile.TemporaryDirectory() as wd:
-        res, counts = main_path.drive(
-            lambda: grade_all(None, os.path.join(REPO, "testcases"), wd,
-                              device="cuda"),
-            ("masked_max3", "tick_epilogue"))
-    if res["total"] != 90:
-        raise AssertionError(f"grade {res['total']} != 90")
-    say(f"phase 3: testcases on cuda graded {res['total']}/90; "
-        f"launches {counts}")
-    details["phase3"] = {"grade": res["total"], "launches": counts}
+    details["phase3"] = graded_path(main_path)
 
     # ---- phase 4: card vs CPU, byte-identical logs -------------------
     out4 = {}
@@ -991,51 +1274,7 @@ def main(argv=None) -> int:
     details["phase4"] = out4
 
     # ---- phase 5: full-width runs -------------------------------------
-    runs = {}
-    cfg512 = SimConfig(max_nnb=512, single_failure=False, seed=0)
-    (r, counts) = main_path.drive(
-        lambda: Simulation(cfg512, device="cuda").run(),
-        ("dense_mega_ticks",))
-    o = oracle_trace(r, exact_removal=True)
-    runs["trace_n512_multi"] = dict(wall_s=r.wall_seconds, launches=counts,
-                                    **o)
-    say(f"phase 5a: N=512 multifailure trace, 700 ticks (K2): {o}; "
-        f"wall {r.wall_seconds:.3f} s; launches {counts}")
-    del r
-
-    cfg1k = SimConfig(max_nnb=1024, single_failure=False, drop_msg=True,
-                      msg_drop_prob=0.1, seed=0)
-    (r, counts) = main_path.drive(
-        lambda: Simulation(cfg1k, device="cuda").run(),
-        ("masked_max3", "tick_epilogue"))
-    o = oracle_trace(r, exact_removal=False)
-    runs["trace_n1024_drop"] = dict(wall_s=r.wall_seconds, launches=counts,
-                                    **o)
-    say(f"phase 5b: N=1024 multifailure 10% drop trace, 700 ticks "
-        f"(K1): {o}; wall {r.wall_seconds:.3f} s; launches {counts}")
-    del r
-
-    def bench_cfg(ticks):
-        return SimConfig(max_nnb=4096, single_failure=False, drop_msg=True,
-                         msg_drop_prob=0.1, seed=0, total_ticks=ticks)
-
-    corner = {}
-    for ticks, expect in ((700, ("masked_max3", "tick_epilogue")),
-                          (200, ("dense_mega_ticks",))):
-        sim = Simulation(bench_cfg(ticks), device="cuda")
-        sim.run_bench(warmup=False)     # untimed warm-up, not counted
-        (r, counts) = main_path.drive(lambda: sim.run_bench(warmup=False),
-                                      expect)
-        o = oracle_bench(r)
-        corner[ticks] = r.counter_stream_width
-        runs[f"bench_n4096_t{ticks}"] = dict(
-            corner=r.counter_stream_width, wall_s=r.wall_seconds,
-            node_ticks_per_s=r.node_ticks_per_second, launches=counts, **o)
-        say(f"phase 5c: bench N=4096 10% drop, {ticks} ticks, corner "
-            f"{r.counter_stream_width}: {r.node_ticks_per_second:.1f} "
-            f"node-ticks/s (wall {r.wall_seconds:.3f} s); {o}; "
-            f"launches {counts}")
-        del r
+    runs = dense_runs(main_path)
 
     # overlay: BASELINE's three configurations at full width, each held
     # to bench.py's validation; K4 at N=4096, K5 above (never K3)
@@ -1117,11 +1356,8 @@ def main(argv=None) -> int:
     runs["cross_paths"] = cross
     details["phase5"] = runs
     if args.profile:
-        prof = {
-            "trace_n512_multi": profile_run(
-                lambda: Simulation(cfg512, device="cuda").run()),
-            "trace_n1024_drop": profile_run(
-                lambda: Simulation(cfg1k, device="cuda").run())}
+        prof = {key: profile_run(lambda: Simulation(cfg, device="cuda").run())
+                for key, cfg in trace_cfgs().items()}
         for ticks in (700, 200):
             prof[f"bench_n4096_t{ticks}"] = profile_run(
                 lambda: Simulation(bench_cfg(ticks), device="cuda")
@@ -1139,14 +1375,7 @@ def main(argv=None) -> int:
     # input of a launch the main path makes: the run is stopped one
     # launch early and the next launch's input is built as the run
     # builds it.
-    timing = {
-        "k1": time_k1(k1_launch_input(bench_cfg(700), corner[700], dev),
-                      bench_cfg(700).t_remove, with_events=False, reps=10)}
-    x, s = k2_launch_input(bench_cfg(200), corner[200], dev)
-    timing["k2"] = time_k2(x, s, bench_cfg(200), with_events=False, reps=10)
-    x, s = k2_launch_input(cfg512, cfg512.n, dev)
-    timing["k2_trace512"] = time_k2(x, s, cfg512, with_events=True, reps=10)
-    del x
+    timing = dense_timing(dev, describe=True)
     # K3 on the input of the last tick of the N=65,536 churn run, K4 on
     # the last full launch of the N=4096 drop run (each run stopped there)
     from gossip_protocol_tpu_torch.models.overlay import resolved_dims
@@ -1216,10 +1445,9 @@ def main(argv=None) -> int:
             or errs["grid_overlay_ticks"]:
         raise AssertionError(f"overlay kernel != plain on a launch input: "
                              f"{errs}")
-    errs["masked_max3"] = max(errs["masked_max3"],
-                              timing["k1"]["max_abs_err"]["masked_max3"])
-    errs["tick_epilogue"] = max(errs["tick_epilogue"],
-                                timing["k1"]["max_abs_err"]["tick_epilogue"])
+    for key in ("k1", "k1_n1024", "k1_n10"):
+        for name in ("masked_max3", "tick_epilogue"):
+            errs[name] = max(errs[name], timing[key]["max_abs_err"][name])
     errs["dense_mega_ticks"] = max(errs["dense_mega_ticks"],
                                    timing["k2"]["max_abs_err"],
                                    timing["k2_trace512"]["max_abs_err"])
@@ -1257,6 +1485,10 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
             "bound_by": tm["bound"][1], "library_ms": None, "shape": shape})
+    for key in ("k1", "k1_n1024", "k1_n10"):
+        t = timing[key]
+        say(f"phase 6: masked_max3 at N={t['n']}, tick {t['tick']}: "
+            f"{json.dumps(t['merge_stats'])}")
     say(f"phase 6: timed {len(kernels)} kernels on real launch inputs; "
         f"details {json.dumps(timing)}")
     say(json.dumps({"kernels": kernels}))
@@ -1264,10 +1496,7 @@ def main(argv=None) -> int:
 
     details["seconds"] = time.perf_counter() - t_start
     if args.details:
-        os.makedirs(os.path.dirname(os.path.abspath(args.details)),
-                    exist_ok=True)
-        with open(args.details, "w") as f:
-            json.dump(details, f, indent=1, default=str)
+        write_details(args.details, details)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -39,7 +39,8 @@ _L = ctypes.c_longlong
 #: each source is one library: its C entry points and their arguments
 SOURCES = {
     "dense_tick.cu": {
-        "gp_masked_max3": [_P] * 8 + [_I] * 3 + [_P],
+        "gp_masked_max3": [_P] * 9 + [_I] * 3 + [_P],
+        "gp_merge_scratch_words": [_I],
         "gp_tick_epilogue": [_P] * 21 + [_I] * 3 + [_P],
         "gp_dense_mega_ticks": [_P] * 15 + [_I] * 5 + [_P],
     },

@@ -18,9 +18,9 @@ of ``ops/vector.py``, which the plain version calls), the churn
 wipe of rejoining rows (before the merge reads sender rows), the
 ``masked_max3`` kernel and the ``tick_epilogue`` kernel — the same two
 kernels as the per-tick path, so the cell rules cannot drift apart.
-Per tick it is bound by masked_max3's integer operations (3 N^3
-max-products); a persistent cooperative kernel or a CUDA graph over the
-S ticks is later work.
+Its loop is not a kernel of its own: per tick it costs the two
+kernels' time plus four or five launches; a persistent cooperative
+kernel or a CUDA graph over the S ticks is later work.
 """
 
 from __future__ import annotations
@@ -141,9 +141,11 @@ def dense_mega_ticks(known, hb, ts, gossip, aux, gdrop, qdrop, pdrop, sp, *,
         removed = torch.empty((s_ticks, n, n), dtype=torch.int8, device=dev)
     else:
         added = removed = None
-    m_scratch = torch.empty(3 * n * n, dtype=torch.int32, device=dev)
+    lib = library()
+    m_scratch = torch.empty(3 * n * n + lib.gp_merge_scratch_words(n),
+                            dtype=torch.int32, device=dev)
     vec_scratch = torch.empty(_VEC_LANES * n, dtype=torch.uint8, device=dev)
-    code = library().gp_dense_mega_ticks(
+    code = lib.gp_dense_mega_ticks(
         ptr(known_b), ptr(hb_w), ptr(ts_w), ptr(gossip_b), ptr(gossip_tmp),
         ptr(aux_w), ptr(gdrop), ptr(qdrop), ptr(pdrop), ptr(sent), ptr(recv),
         ptr(added), ptr(removed), ptr(m_scratch), ptr(vec_scratch), n,

@@ -16,8 +16,10 @@ the kernel) instead of a materialized ``recv_from``, and the row's
 gossip receive count comes back beside the sent count.
 
 On the H100 the kernel is bound by bytes (~36 per cell, see
-csrc/dense_tick.cu); one block owns 32 whole rows so the row sums need
-no atomics and the column-0 / row-0 rules stay cell-local.
+csrc/dense_tick.cu): a 2-D grid of 32 x 128 tiles, 4 columns a thread
+(16-byte / 4-byte accesses where N % 4 == 0), the row sums added with
+one atomic per row and block onto rows the C entry zeroes on the stream
+(stored directly where one block spans a row, N <= 128).
 """
 
 from __future__ import annotations

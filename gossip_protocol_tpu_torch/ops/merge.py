@@ -13,10 +13,11 @@ the JAX package's ``gossip_reductions``.
 :func:`masked_max3` is the tick's entry: it reads the delivery mask as
 ``gossip[s, r] & proc[r]`` (sender-major, as the state holds it), so no
 transposed copy is made.  On a CUDA tensor it launches the
-``masked_max3`` kernel (csrc/dense_tick.cu), which replaces the TPU's
-MXU level descent (``gossip_reductions_mxu`` / ``_masked_max_mxu``)
-with a tiled integer product-max; on a CPU tensor it runs
-:func:`masked_max3_plain`.  Both are exact, so they agree bit for bit.
+``masked_max3`` kernels (csrc/dense_tick.cu): the TPU's level descent
+(``gossip_reductions_mxu`` / ``_masked_max_mxu``) on the int8 tensor
+cores, one tile-local descent per block, as
+:func:`masked_max3_descent` runs it; on a CPU tensor it runs
+:func:`masked_max3_plain`.  All are exact, so they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -56,6 +57,72 @@ def masked_max3_plain(gossip, proc, known, hb, ts, now: int, *,
     return m[0] - 1, m[1] - 1, m[2] - 1
 
 
+#: output tile of the ``masked_max3`` kernel (csrc/dense_tick.cu MM_ROWS,
+#: MM_COLS): a block runs the whole descent of one tile
+TILE_ROWS = 256
+TILE_COLS = 64
+#: senders per delivery word (one bit each; csrc/dense_tick.cu WORD)
+WORD = 32
+
+
+def masked_max3_descent(gossip, proc, known, hb, ts, now: int, *,
+                        t_remove: int):
+    """Plain mirror of the ``masked_max3`` kernel's algorithm, the JAX
+    package's level descent (``_masked_max_mxu``) as the kernel runs it.
+
+    Per row tile of ``TILE_ROWS`` receivers only the 32-sender words
+    with a delivery to one of its rows take part (the tile's live
+    words).  Per plane and column, the levels are the distinct positive
+    values of those senders in descending order.  Level 0 is the
+    pre-resolve product ``d @ (v > 0)``: cells it does not hit are FILL.
+    Level k > 0 is the witness product ``d @ (v == cur)``: the cells it
+    hits first take ``cur``.  A ``TILE_ROWS x TILE_COLS`` tile stops
+    after the first level that leaves none of its cells open.
+
+    Returns ``((m_all, m_fresh, t_fresh), levels)``: the same maxima as
+    :func:`masked_max3_plain`, and per plane (``"a"``, ``"f"``, ``"t"``)
+    the products each tile ran, i64[row tiles, column tiles] (0 for a
+    tile without live words).  Used by the tests and ``chip_smoke.py``.
+    """
+    n = known.shape[0]
+    dev = known.device
+    d = (gossip & proc[None, :]).t()                       # [r, s]
+    w = -(-n // WORD)
+    dpad = torch.zeros((n, w * WORD), dtype=torch.bool, device=dev)
+    dpad[:, :n] = d
+    live_word = dpad.view(n, w, WORD).any(2)               # [r, W]
+    rt, ct = -(-n // TILE_ROWS), -(-n // TILE_COLS)
+    col_tile = torch.arange(n, device=dev) // TILE_COLS
+    outs, levels = [], {}
+    for name, v in zip("aft", merge_payloads(known, hb, ts, now, t_remove)):
+        m = torch.full((n, n), FILL, dtype=torch.int32, device=dev)
+        lv = torch.zeros((rt, ct), dtype=torch.int64, device=dev)
+        for i in range(rt):
+            rows = slice(i * TILE_ROWS, min(n, (i + 1) * TILE_ROWS))
+            live = live_word[rows].any(0).repeat_interleave(WORD)[:n]
+            if not live.any():
+                continue
+            dd = d[rows].to(torch.float32)
+            vl = v * live[:, None]
+            # level 0: the pre-resolve product (exact: counts <= N < 2^24)
+            done = (dd @ (vl > 0).to(torch.float32)) == 0
+            lv[i] += 1
+            cur = vl.amax(0)
+            open_ = ~done
+            while open_.any():
+                tiles = torch.zeros(ct, dtype=torch.bool, device=dev)
+                tiles[col_tile[open_.any(0)]] = True
+                lv[i] += tiles
+                hit = (dd @ ((vl == cur) & (cur > 0)).to(torch.float32)) > 0
+                newly = hit & open_
+                m[rows] = torch.where(newly, cur - 1, m[rows])
+                open_ &= ~newly
+                cur = torch.where(vl < cur, vl, 0).amax(0)
+        outs.append(m)
+        levels[name] = lv
+    return tuple(outs), levels
+
+
 def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int):
     """The three merge maxima of one tick (see the module docstring).
 
@@ -76,10 +143,13 @@ def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int):
     m_all, m_fresh, t_fresh = (torch.empty((n, n), dtype=torch.int32,
                                            device=known.device)
                                for _ in range(3))
-    code = library().gp_masked_max3(
+    lib = library()
+    scratch = torch.empty(lib.gp_merge_scratch_words(n), dtype=torch.int32,
+                          device=known.device)
+    code = lib.gp_masked_max3(
         ptr(gossip), ptr(proc), ptr(known), ptr(hb), ptr(ts),
-        ptr(m_all), ptr(m_fresh), ptr(t_fresh), n, int(now), int(t_remove),
-        stream_ptr(known.device))
+        ptr(m_all), ptr(m_fresh), ptr(t_fresh), ptr(scratch), n, int(now),
+        int(t_remove), stream_ptr(known.device))
     masked_max3.launches += 1
     check(code, "masked_max3")
     return m_all, m_fresh, t_fresh

@@ -33,44 +33,82 @@ def dev():
     return torch.device("cuda")
 
 
-def _k1_inputs(n, seed, dev):
-    rng = np.random.default_rng(seed)
+def _k1_inputs(n, case, seed, dev):
+    """One merge case (tests/test_torch_merge_cases.py) and random
+    epilogue lanes, on the card."""
+    from test_torch_merge_cases import merge_case
+    rng = np.random.default_rng(seed + 1)
 
     def b(p, shape):
         return torch.from_numpy(rng.random(shape) < p).to(dev)
 
-    def i(lo, hi, shape):
-        return torch.from_numpy(
-            rng.integers(lo, hi, shape, dtype=np.int32)).to(dev)
-
-    return (b(0.6, (n, n)), b(0.9, n), b(0.7, (n, n)), i(0, 400, (n, n)),
-            i(T - 40, T + 1, (n, n))), dict(
+    merge_in = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                     for a in merge_case(case, n, seed))
+    return merge_in, dict(
         gdrop=b(0.1, (n, n)), ops=b(0.85, n), jrep=b(0.2, n),
         jreq=b(0.2, n), live_hold=b(0.1, n))
 
 
-@pytest.mark.parametrize("n", (10, 64, 100, 333))
-def test_masked_max3_and_epilogue_kernels(dev, n):
+def _check_k1(gossip, proc, known, hb, ts, v, t):
+    """Both kernels equal their plain versions on one input, the
+    epilogue with and without events; each wrapper counts its launch."""
     from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
         tick_epilogue, tick_epilogue_plain)
     from gossip_protocol_tpu_torch.ops.merge import (masked_max3,
                                                      masked_max3_plain)
-    (gossip, proc, known, hb, ts), v = _k1_inputs(n, n, dev)
     before = masked_max3.launches
-    m = masked_max3(gossip, proc, known, hb, ts, T, t_remove=T_REMOVE)
+    m = masked_max3(gossip, proc, known, hb, ts, t, t_remove=T_REMOVE)
     assert masked_max3.launches == before + 1
-    m_p = masked_max3_plain(gossip, proc, known, hb, ts, T,
+    m_p = masked_max3_plain(gossip, proc, known, hb, ts, t,
                             t_remove=T_REMOVE)
+    torch.cuda.synchronize()
     for a, b in zip(m, m_p):
         assert torch.equal(a, b)
     for ev in (True, False):
         args = (*m, gossip, proc, known, hb, ts, v["gdrop"], v["ops"],
-                v["jrep"], v["jreq"], v["live_hold"], T)
+                v["jrep"], v["jreq"], v["live_hold"], t)
+        before = tick_epilogue.launches
         got = tick_epilogue(*args, t_remove=T_REMOVE, with_events=ev)
+        assert tick_epilogue.launches == before + 1
         want = tick_epilogue_plain(*args, t_remove=T_REMOVE, with_events=ev)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,case", [
+    (10, 0.6), (64, 0.6), (100, 0.6), (333, 0.6), (1024, 0.6),
+    (64, "empty"), (64, "single_sender"), (100, "distinct"),
+    (100, "fresh_spread"), (333, "no_fresh_cols"), (1024, "sparse_senders"),
+    (333, "distinct")])
+def test_masked_max3_and_epilogue_kernels(dev, n, case):
+    (gossip, proc, known, hb, ts), v = _k1_inputs(n, case, n, dev)
+    _check_k1(gossip, proc, known, hb, ts, v, T)
+
+
+def test_kernels_on_a_real_tick_state(dev):
+    """Both kernels on the input of tick 699 of the N=1024 multifailure
+    10% drop run (the per-tick route stopped one tick early)."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.tick import make_tick_run
+    from gossip_protocol_tpu_torch.ops.drop import tick_drop_masks
+    from gossip_protocol_tpu_torch.ops.vector import vector_step
+    from gossip_protocol_tpu_torch.state import init_state, make_schedule
+    cfg = SimConfig(max_nnb=1024, single_failure=False, drop_msg=True,
+                    msg_drop_prob=0.1, seed=0)
+    t = cfg.total_ticks - 1
+    st, sched = init_state(cfg, dev), make_schedule(cfg, dev)
+    st, _ = make_tick_run(cfg.replace(total_ticks=t), with_events=False)(
+        st, sched)
+    gdrop, qdrop, pdrop = tick_drop_masks(st.rng, t, cfg.n, sched.drop_on(t),
+                                          sched.drop_prob, dev)
+    vs = vector_step(t, sched.start_tick, sched.fail_tick, sched.rejoin_tick,
+                     st.in_group, st.own_hb, st.joinreq, st.joinrep, qdrop,
+                     pdrop, churn=False)
+    assert (st.gossip & vs.proc[None, :]).any()
+    _check_k1(st.gossip, vs.proc, st.known, st.hb, st.ts,
+              dict(gdrop=gdrop.contiguous(), ops=vs.ops, jrep=vs.jrep,
+                   jreq=vs.jreq, live_hold=vs.hold), t)
 
 
 @pytest.mark.parametrize("n,s_ticks", ((16, 16), (64, 16), (200, 8)))

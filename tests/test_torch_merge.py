@@ -3,7 +3,10 @@
 ``gossip_protocol_tpu_torch.ops.merge`` keeps the FILL=-1 / +1-shift
 contract of ``gossip_reductions`` (blockwise product-max) and
 ``gossip_reductions_mxu`` (level descent); on the CPU the
-``masked_max3`` wrapper runs its plain version.  Exact equality.
+``masked_max3`` wrapper runs its plain version, and
+``masked_max3_descent`` mirrors the CUDA kernel's tile-local descent
+(the kernel itself runs only on the card: tests/test_torch_cuda.py).
+Exact equality.
 """
 
 import numpy as np
@@ -12,11 +15,9 @@ import torch
 
 from gossip_protocol_tpu.ops import merge as jax_merge
 from gossip_protocol_tpu_torch.ops import merge
+from test_torch_merge_cases import CASES, NOW, T_REMOVE, merge_case
 
 torch.set_num_threads(2)
-
-T_REMOVE = 20
-NOW = 300
 
 
 def _inputs(n, seed, p_recv):
@@ -29,30 +30,32 @@ def _inputs(n, seed, p_recv):
         ts=rng.integers(NOW - 2 * T_REMOVE, NOW + 1, (n, n), dtype=np.int32))
 
 
-def _port(x):
-    """The ``gossip_reductions`` contract through the port's merge: the
-    sender-major delivery is ``recv_from.T`` with every receiver
-    processing; ``any_fresh`` is ``m_ts_fresh >= 0``."""
-    t = {k: torch.from_numpy(v) for k, v in x.items()}
-    deliver = t["recv_from"].t().contiguous()
-    proc = torch.ones(deliver.shape[1], dtype=torch.bool)
-    m_a, m_f, m_t = merge.masked_max3(deliver, proc, t["known"], t["hb"],
-                                      t["ts"], NOW, t_remove=T_REMOVE)
-    return m_a, m_f, m_t, m_t >= 0
-
-
 @pytest.mark.parametrize("n", (10, 64, 100))
-@pytest.mark.parametrize("p_recv", (0.0, 0.05, 0.6, 1.0))
+@pytest.mark.parametrize("p_recv", (0.0, 0.05, 0.6, 1.0) + CASES)
 def test_gossip_reductions_match(n, p_recv):
-    x = _inputs(n, seed=n, p_recv=p_recv)
-    got = [g.numpy() for g in _port(x)]
-    args = (x["recv_from"], x["known"], x["hb"], x["ts"], np.int32(NOW))
+    """The port's merge (the plain version, as the CPU wrapper runs it)
+    and the plain mirror of the kernel's level descent equal both JAX
+    merges; the descent runs no product without a delivery and at least
+    the pre-resolve where there is one."""
+    gossip, proc, known, hb, ts = merge_case(p_recv, n, seed=n)
+    recv_from = (gossip & proc[None, :]).T
+    t = [torch.from_numpy(np.ascontiguousarray(a))
+         for a in (gossip, proc, known, hb, ts)]
+    m = merge.masked_max3(*t, NOW, t_remove=T_REMOVE)
+    m_d, levels = merge.masked_max3_descent(*t, NOW, t_remove=T_REMOVE)
+    args = (recv_from, known, hb, ts, np.int32(NOW))
     for ref in (jax_merge.gossip_reductions(*args, t_remove=T_REMOVE,
                                             block_size=32),
                 jax_merge.gossip_reductions_mxu(*args, t_remove=T_REMOVE)):
-        for a, b in zip(got, ref):
-            b = np.asarray(b)
-            assert a.dtype == b.dtype and np.array_equal(a, b)
+        for got in (m, m_d):
+            for a, b in zip((*got, got[2] >= 0), ref):
+                b = np.asarray(b)
+                assert a.numpy().dtype == b.dtype and np.array_equal(
+                    a.numpy(), b)
+    for lv in levels.values():
+        assert lv.shape == (-(-n // merge.TILE_ROWS),
+                            -(-n // merge.TILE_COLS))
+        assert (lv == 0).all() if not recv_from.any() else (lv >= 1).any()
 
 
 def test_masked_max3_reads_delivery_sender_major():
