@@ -23,7 +23,10 @@ one line per phase:
    ``grid_overlay_ticks`` (K5) at N=64, 4096 and 65,536 on the
    ``churn65k`` and ``powerlaw1m`` shapes: each flag combination their
    segment plans use, all-live launches at ticks 300 and 17 (off the
-   slot-epoch grid), a 12-tick remainder and a B=2 fleet launch;
+   slot-epoch grid), a 12-tick remainder and a B=2 fleet launch; K5's
+   boot pre-pass (``grid_boot_rows``) against ``_boot_rows`` on the real
+   ticks 16 and 20 of the power-law shape at N=64, 4096, 65,536 and
+   2^20 and on a B=2 churn fleet (seeds 0 and 1) at N=4096;
 3. the graded path: the three N=10 testcases on ``cuda``, each timed,
    must grade 90;
 4. card vs CPU: N=64 multifailure and N=64 drop, 700 ticks — the
@@ -52,7 +55,10 @@ one line per phase:
    the 200-tick corner and of the N=512 trace, tick 607 of the N=65,536
    churn run for K3, the launch at tick 592 of the N=4096 drop run for
    K4, the last full launches of the N=65,536 churn run (tick 592) and
-   of the N=2^20 power-law run (tick 256) for K5), then a ``kernels``
+   of the N=2^20 power-law run (tick 256) for K5, with the boot block
+   built on the card as the route does; K3 also at tick 136 of the N=2^20
+   run, the width of its per-tick cross-check there; the boot pre-pass
+   at tick 16 of both K5 runs), then a ``kernels``
    JSON line: per kernel its launches on the main path (phases 3-5,
    counters zeroed before each path and read after it, bench warm-ups
    and kernel-vs-plain comparisons not counted), its time, its plain
@@ -60,7 +66,11 @@ one line per phase:
    3.35 TB/s or int32 operations over the card's int32 rate, whichever
    is larger; for ``masked_max3``, whose descent runs on the int8
    tensor cores, the bytes the function needs or the descent's s8
-   products at the tensor-core rate, the larger).  Before it, each
+   products at the tensor-core rate, the larger; K5 also carries the
+   bytes its data needs, the partner rows it merges included).  K5 is
+   also timed, in turns with itself, built without its partner loads and
+   with its loads alone (``csrc/overlay_tick.cu K5_VARIANT``, built in
+   phase 1).  Before the kernels line, each
    ``masked_max3`` input is described: its deliveries, the distinct
    levels and tile products of each plane, the share of cells the
    pre-resolve closes, the share of empty delivery slabs the earlier
@@ -69,10 +79,12 @@ one line per phase:
 
 ``--dense-only TREE`` runs, after the first phase, only the dense path
 of the package in the checkout at ``TREE``: the dense kernels of phase
-6, then phases 3 and 5a-c.  ``--turns OTHER_CHECKOUT`` runs that for
-another checkout and for this one in turns (other, this, this, other,
-twice), each run a process of its own, and prints every wall and
-kernel time of the eight runs.
+6, then phases 3 and 5a-c; ``--overlay-only TREE`` only the overlay
+path: phase 6's overlay kernels, then 5e's three runs.
+``--turns OTHER_CHECKOUT`` runs one of them (``--turns-path dense``,
+the default, or ``overlay``) for another checkout and for this one in
+turns (other, this, this, other, twice), each run a process of its own,
+and prints every wall and kernel time of the eight runs.
 
 Any failure raises and exits non-zero; no phase catches and continues.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -83,6 +95,8 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import inspect
 import json
 import os
 import subprocess
@@ -686,13 +700,23 @@ def k5_launch_input(cfg, lanes, t0: int, s_ticks: int, flags) -> dict:
                 sp=np.stack([x[1] for x in xs]), kw=dict(kw, batch=len(xs)))
 
 
+def k5_args(x: dict) -> tuple:
+    """K5's positional inputs: ``(plane, sp)``, or ``(plane, boot, sp)``
+    for a checkout whose K5 takes the boot block."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_overlay_ticks
+    if "boot" in inspect.signature(grid_overlay_ticks).parameters:
+        return x["plane"], x["boot"], x["sp"]
+    return x["plane"], x["sp"]
+
+
 def compare_k5(x: dict) -> tuple[float, object]:
     """grid_overlay_ticks vs its plain version on the same input; the
     max abs error and the plain version's metric rows."""
     from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
         grid_overlay_ticks, grid_overlay_ticks_plain)
-    o_k = grid_overlay_ticks(x["plane"], x["boot"], x["sp"], **x["kw"])
-    o_p = grid_overlay_ticks_plain(x["plane"], x["boot"], x["sp"], **x["kw"])
+    o_k = grid_overlay_ticks(*k5_args(x), **x["kw"])
+    o_p = grid_overlay_ticks_plain(*k5_args(x), **x["kw"])
     return max(max_abs_err(a, b) for a, b in zip(o_k, o_p)), o_p[1]
 
 
@@ -710,6 +734,35 @@ def k5_cases(cfg) -> list:
         (300, 16, ALL_LIVE), (17, 16, ALL_LIVE), (170, 12, ALL_LIVE)]
 
 
+def boot_input(cfg, lanes, t0: int) -> dict:
+    """The boot pre-pass's input and its plain version's output at tick
+    ``t0``: each (state, schedule) lane's plane and ``sp`` row, and
+    ``_boot_rows`` (the plain version)."""
+    import torch
+
+    from gossip_protocol_tpu_torch.models import overlay_grid as og
+    from gossip_protocol_tpu_torch.models.overlay import resolved_dims
+    planes = [og.pack_grid_plane(cfg, st) for st, _ in lanes]
+    xs = [og.grid_launch_input(cfg, sc, plane, t0, 16)
+          for plane, (_, sc) in zip(planes, lanes)]
+    kw = dict(n=cfg.n, k=resolved_dims(cfg)[0])
+    if len(lanes) == 1:
+        return dict(plane=planes[0], sp=xs[0][1], want=xs[0][0], kw=kw)
+    return dict(plane=torch.stack(planes), sp=np.stack([x[1] for x in xs]),
+                want=torch.stack([x[0] for x in xs]),
+                kw=dict(kw, batch=len(lanes)))
+
+
+def compare_boot(x: dict) -> tuple[float, int]:
+    """K5's boot pre-pass vs ``_boot_rows`` on the same plane: the max
+    abs error and the number of aggregate slots that hold a JOINREQ."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_boot_rows
+    return (max_abs_err(grid_boot_rows(x["plane"], x["sp"], **x["kw"]),
+                        x["want"]),
+            int((x["want"][..., 1, :] != 0).sum()))
+
+
 def k3_ops(n: int, k: int, f: int) -> float:
     """Integer operations one K3 tick needs: about 8 per merge candidate
     and 40 per slot for extraction, detection and the subject's fail
@@ -720,10 +773,15 @@ def k3_ops(n: int, k: int, f: int) -> float:
     return n * k * ((f + 1) * 8 + 40) + n * (f + 1) * 8 + 8 * k
 
 
-def k3_bound(n: int, k: int, f: int) -> tuple[float, str]:
+def k3_bound(n: int, k: int, f: int, recv: int = 0) -> tuple[float, str]:
     """K3's least time: idsaux, pw and intro read once, ids/hb/ts and
-    the counters written once, against :func:`k3_ops`."""
-    nbytes = 4 * (n * (k + 2 + f) + n * k + 8 * k + 3 * n * k + 6 * n)
+    the counters written once, against :func:`k3_ops`.  The partner rows
+    a row merges are rows of the same tables, so they are not counted
+    again unless ``recv`` (the merges the tick received, its counters'
+    first column) is given: then each adds a row of idsaux and pw, as
+    K5's needed-bytes bound does."""
+    nbytes = 4 * (n * (k + 2 + f) + n * k + 8 * k + 3 * n * k + 6 * n
+                  + recv * (2 * k + 2 + f))
     return bound(nbytes, k3_ops(n, k, f))
 
 
@@ -740,18 +798,22 @@ def k4_bound(n: int, k: int, f: int, s_ticks: int,
     return bound(nbytes, ops)
 
 
-def k5_bound(n: int, k: int, met, reslots: int) -> tuple[float, str]:
+def k5_bound(n: int, k: int, met, reslots: int,
+             needed: bool = False) -> tuple[float, str]:
     """K5's least time for one call.  Bytes: where the plane's two phases
     (N rows of 128 words each) fit on chip (:data:`ON_CHIP_BYTES`), as at
     N=65,536 (67 MB), the plane and boot block read once and both phases
     written once; where they do not, as at N=2^20 (1.07 GB, twenty times
     the L2), the plane read once and written once per tick.  Plus the
-    metric rows.  Operations: those this call's data needs, per tick 8
-    per merge candidate of each merge it received (``recv``: a partner's
-    K slots and self-entry, the JOINREP broadcast) and, per row, 40 a
-    slot for extraction, detection and the subject's schedule plus 30
-    for decisions and sends; at each re-slot one candidate (8
-    operations) a slot."""
+    metric rows.  With ``needed``, also the rows this call's data makes
+    it merge: ``recv`` (the received merges in ``met``) times a row's
+    2K words, since a partner row is read when its sender flags it, at a
+    time no block of the grid order can plan for.  Operations: those
+    this call's data needs, per tick 8 per merge candidate of each merge
+    it received (``recv``: a partner's K slots and self-entry, the
+    JOINREP broadcast) and, per row, 40 a slot for extraction, detection
+    and the subject's schedule plus 30 for decisions and sends; at each
+    re-slot one candidate (8 operations) a slot."""
     import torch
 
     from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import MET_RECV
@@ -763,9 +825,19 @@ def k5_bound(n: int, k: int, met, reslots: int) -> tuple[float, str]:
         nbytes = 2 * s_ticks * plane
     nbytes += 4 * s_ticks * 128
     recv = int(met[:, MET_RECV].to(torch.int64).sum())
+    if needed:
+        nbytes += recv * 2 * k * 4
     ops = recv * 8 * (k + 1) + s_ticks * n * (40 * k + 30) \
         + reslots * n * 8 * k
     return bound(nbytes, ops)
+
+
+def boot_bound(n: int) -> tuple[float, str]:
+    """The boot pre-pass's least time: each row's aux word read (4 bytes
+    a row), the introducer's row read and the 8-row block written; about
+    25 integer operations a row (the flag test, the slot hash, the
+    key)."""
+    return bound(4 * n + 4 * 128 + 4 * 8 * 128, 25 * n)
 
 
 def validate_overlay(res) -> dict:
@@ -836,17 +908,20 @@ def wrappers() -> dict:
         dense_mega_ticks
     from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import \
         fused_overlay_tick
-    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
-        grid_overlay_ticks
+    from gossip_protocol_tpu_torch.ops.cuda import overlay_grid
     from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import \
         mega_overlay_ticks
     from gossip_protocol_tpu_torch.ops.cuda.tickfused import tick_epilogue
     from gossip_protocol_tpu_torch.ops.merge import masked_max3
-    return {"masked_max3": masked_max3, "tick_epilogue": tick_epilogue,
-            "dense_mega_ticks": dense_mega_ticks,
-            "fused_overlay_tick": fused_overlay_tick,
-            "mega_overlay_ticks": mega_overlay_ticks,
-            "grid_overlay_ticks": grid_overlay_ticks}
+    out = {"masked_max3": masked_max3, "tick_epilogue": tick_epilogue,
+           "dense_mega_ticks": dense_mega_ticks,
+           "fused_overlay_tick": fused_overlay_tick,
+           "mega_overlay_ticks": mega_overlay_ticks,
+           "grid_overlay_ticks": overlay_grid.grid_overlay_ticks}
+    # K5's boot pre-pass (a checkout before it, timed by --turns, has none)
+    if hasattr(overlay_grid, "grid_boot_rows"):
+        out["grid_boot_rows"] = overlay_grid.grid_boot_rows
+    return out
 
 
 def reset_counts():
@@ -1002,14 +1077,46 @@ def dense_runs(main_path) -> dict:
     return runs
 
 
+def overlay_runs(main_path):
+    """Phase 5e: BASELINE's three overlay configurations at full width,
+    each timed and held to bench.py's validation; K4 at N=4096, K5 above
+    (with its boot pre-pass where the checkout has one), never K3.
+    Returns the configurations, the results and the phase's numbers."""
+    from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    ocfg = {name: overlay_cfg(name)
+            for name in ("drop4096", "churn65k", "powerlaw1m")}
+    k5 = ("grid_overlay_ticks",)
+    ores, runs = {}, {}
+    for name, expect in (("drop4096", ("mega_overlay_ticks",)),
+                         ("churn65k", k5 + (("grid_boot_rows",)
+                                            if "grid_boot_rows" in wrappers()
+                                            else ())),
+                         ("powerlaw1m", k5)):
+        cfg = ocfg[name]
+        (r, counts) = main_path.drive(
+            lambda: OverlaySimulation(cfg, device="cuda").run(), expect)
+        if counts["fused_overlay_tick"]:
+            raise AssertionError(f"overlay {name} took the per-tick K3 route")
+        o = validate_overlay(r)
+        ores[name] = r
+        runs[f"overlay_{name}"] = dict(
+            n=cfg.n, ticks=cfg.total_ticks, wall_s=r.wall_seconds,
+            node_ticks_per_s=r.node_ticks_per_second, launches=counts, **o)
+        say(f"phase 5e: overlay {name} N={cfg.n}, {cfg.total_ticks} ticks: "
+            f"{r.node_ticks_per_second:.1f} node-ticks/s (wall "
+            f"{r.wall_seconds:.3f} s); {o}; launches {counts}")
+    return ocfg, ores, runs
+
+
 def dense_timing(dev, describe: bool) -> dict:
     """Phase 6's dense kernels, each held against its plain version and
     timed on the input of a launch the main path makes: masked_max3 and
     tick_epilogue at tick 699 of the N=4096 700-tick bench corner
     (N=2816), of the N=1024 drop trace and of the N=10 multifailure
     testcase (the last two with events, as those runs launch them); K2
-    on its last full launch of the 200-tick bench corner (N=896, S=8)
-    and of the N=512 trace (S=16, events).  ``describe`` as in
+    on its last full launch of the 200-tick bench corner (N=896, S=8),
+    of the N=512 trace and of phase 4's N=64 multifailure run (S=16,
+    events).  ``describe`` as in
     :func:`time_k1`."""
     from gossip_protocol_tpu_torch.config import SimConfig
     from gossip_protocol_tpu_torch.core.dense_corner import bench_stream_width
@@ -1026,11 +1133,186 @@ def dense_timing(dev, describe: bool) -> dict:
                               with_events=ev, reps=reps, describe=describe)
     for key, cfg, a, ev in (
             ("k2", bench_cfg(200), bench_stream_width(bench_cfg(200)), False),
-            ("k2_trace512", traces["trace_n512_multi"], 512, True)):
+            ("k2_trace512", traces["trace_n512_multi"], 512, True),
+            ("k2_n64", SimConfig(max_nnb=64, single_failure=False, seed=3),
+             64, True)):
         x, s = k2_launch_input(cfg, a, dev)
         timing[key] = time_k2(x, s, cfg, with_events=ev, reps=10)
         del x
     return timing
+
+
+def overlay_timing(ocfg) -> tuple[dict, dict]:
+    """Phase 6's overlay kernels, each held against its plain version and
+    timed on the input of a launch the main path makes (the run stopped
+    there): K3 at the last tick of the N=65,536 churn run and at tick 136
+    of the N=2^20 power-law run (the per-tick cross-check's launches at
+    that width), K4 at the last full launch of the N=4096 drop run, K5
+    at the last full launches of the N=65,536 and 2^20 runs (its boot
+    pre-pass inside the call, as the route calls it, where the checkout
+    has one), with both bounds, and the boot pre-pass at tick 16 of both
+    K5 runs; K5 with its resident blocks an SM.  Returns the
+    timings and each kernel's max abs error."""
+    import torch
+
+    from gossip_protocol_tpu_torch.models.overlay import (
+        OverlaySimulation, make_overlay_schedule, resolved_dims)
+    from gossip_protocol_tpu_torch.ops.cuda import overlay_grid as ogk
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
+        fused_overlay_tick, fused_overlay_tick_plain)
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import (
+        MEGA_TICKS, mega_overlay_ticks, mega_overlay_ticks_plain)
+    timing, errs = {}, {}
+    for key, name, tick, reps in (("k3", "churn65k", None, 50),
+                                  ("k3_powerlaw1m", "powerlaw1m", 136, 20)):
+        cfg = ocfg[name]
+        tick = cfg.total_ticks - 1 if tick is None else tick
+        x = k3_launch_input(cfg, OverlaySimulation(cfg, device="cuda").run(
+            ticks=tick).final_state)
+        k, f = resolved_dims(cfg)
+        recv = int(fused_overlay_tick(*x["args"], **x["kw"])[3][:, 0]
+                   .to(torch.int64).sum())
+        timing[key] = dict(
+            n=cfg.n, k=k, f=f, tick=tick, recv=recv,
+            max_abs_err=compare_k3(x),
+            ms=cuda_ms(lambda: fused_overlay_tick(*x["args"], **x["kw"]),
+                       reps),
+            plain_ms=cuda_ms(
+                lambda: fused_overlay_tick_plain(*x["args"], **x["kw"]), 3),
+            bound=k3_bound(cfg.n, k, f),
+            bound_needed=k3_bound(cfg.n, k, f, recv))
+        errs["fused_overlay_tick"] = max(errs.get("fused_overlay_tick", 0.0),
+                                         timing[key]["max_abs_err"])
+        del x
+    cfg = ocfg["drop4096"]
+    t0 = (cfg.total_ticks // MEGA_TICKS - 1) * MEGA_TICKS
+    x = k4_launch_input(cfg, OverlaySimulation(cfg, device="cuda").run(
+        ticks=t0).final_state, MEGA_TICKS)
+    k, f = resolved_dims(cfg)
+    timing["k4"] = dict(
+        n=cfg.n, k=k, f=f, s_ticks=MEGA_TICKS, sp=t0,
+        max_abs_err=compare_k4(x),
+        ms=cuda_ms(lambda: mega_overlay_ticks(x["st"], x["sp"], **x["kw"]),
+                   20),
+        plain_ms=cuda_ms(lambda: mega_overlay_ticks_plain(
+            x["st"], x["sp"], **x["kw"]), 1, warm=0),
+        bound=k4_bound(cfg.n, k, f, MEGA_TICKS, reslots=1))
+    errs["mega_overlay_ticks"] = timing["k4"]["max_abs_err"]
+    del x
+    for key, name, reps in (("k5_churn65k", "churn65k", 20),
+                            ("k5_powerlaw1m", "powerlaw1m", 5)):
+        cfg = ocfg[name]
+        x, meta = k5_timing_input(cfg)
+        err, met = compare_k5(x)
+        k, f = resolved_dims(cfg)
+        timing[key] = dict(
+            n=cfg.n, k=k, f=f, **meta, max_abs_err=err,
+            recv=int(met[:, 7].sum()),
+            ms=cuda_ms(lambda: ogk.grid_overlay_ticks(*k5_args(x), **x["kw"]),
+                       reps),
+            plain_ms=cuda_ms(lambda: ogk.grid_overlay_ticks_plain(
+                *k5_args(x), **x["kw"]), 1, warm=0),
+            bound=k5_bound(cfg.n, k, met, meta["reslots"]),
+            bound_needed=k5_bound(cfg.n, k, met, meta["reslots"],
+                                  needed=True),
+            blocks_per_sm=k5_blocks_per_sm(f, meta["flag_bits"]))
+        errs["grid_overlay_ticks"] = max(errs.get("grid_overlay_ticks", 0.0),
+                                         err)
+        del x, met
+        if "grid_boot_rows" in wrappers():
+            sched = make_overlay_schedule(cfg)
+            st = OverlaySimulation(cfg, device="cuda").run(
+                ticks=16).final_state
+            xb = boot_input(cfg, [(st, sched)], 16)
+            del st
+            e, used = compare_boot(xb)
+            timing[f"boot_{name}"] = dict(
+                n=cfg.n, tick=16, max_abs_err=e, slots_used=used,
+                ms=cuda_ms(lambda: ogk.grid_boot_rows(xb["plane"], xb["sp"],
+                                                      **xb["kw"]), 50),
+                plain_ms=cuda_ms(lambda: ogk.grid_boot_rows_plain(
+                    xb["plane"], xb["sp"], **xb["kw"]), 5),
+                bound=boot_bound(cfg.n))
+            errs["grid_boot_rows"] = max(errs.get("grid_boot_rows", 0.0), e)
+            del xb
+        torch.cuda.empty_cache()
+    return timing, errs
+
+
+def k5_timing_input(cfg) -> tuple[dict, dict]:
+    """The input of the last full K5 launch of ``cfg``'s run (the run
+    stopped there), and that launch's tick, flags and re-slots."""
+    from gossip_protocol_tpu_torch.models.overlay import (
+        OverlaySimulation, make_overlay_schedule)
+    from gossip_protocol_tpu_torch.models.segments import plan_segments
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import GRID_TICKS
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        _FLAG_BITS as flag_bits
+    gt = GRID_TICKS
+    t0 = (cfg.total_ticks // gt - 1) * gt
+    flags = plan_segments(cfg, gt, t0, gt)[0].flags
+    st = OverlaySimulation(cfg, device="cuda").run(ticks=t0).final_state
+    x = k5_launch_input(cfg, [(st, make_overlay_schedule(cfg))], t0, gt,
+                        flags)
+    live = flags.as_kernel_kwargs()
+    return x, dict(s_ticks=gt, sp=t0, flags=flags.tag,
+                   flag_bits=sum(b for name, b in flag_bits if live[name]),
+                   reslots=sum((t + 1) % 16 == 0 for t in range(t0, t0 + gt)))
+
+
+def k5_blocks_per_sm(f: int, flags: int):
+    """Resident blocks an SM holds of K5's variant ``flags`` at F, as its
+    persistent grid is sized; None for a checkout without the query."""
+    from gossip_protocol_tpu_torch.ops.cuda import _build
+    if "gp_grid_blocks_per_sm" not in _build.SOURCES["overlay_tick.cu"]:
+        return None
+    return _build.library("overlay_tick.cu").gp_grid_blocks_per_sm(f, flags)
+
+
+#: K5's measurement variants (csrc/overlay_tick.cu K5_VARIANT), built in
+#: phase 1 beside the kernel as used: (source, defines)
+K5_VARIANTS = tuple(("overlay_tick.cu", (f"-DK5_VARIANT={v}",))
+                    for v in (1, 2))
+K5_VARIANT_NAMES = {0: "as used", 1: "no partner row loaded",
+                    2: "loads alone"}
+
+
+@contextlib.contextmanager
+def k5_variant(v: int):
+    """Route ``grid_overlay_ticks`` through K5 variant ``v`` (0: the
+    kernel as used) while the block runs."""
+    from gossip_protocol_tpu_torch.ops.cuda import _build
+    lib = _build.library("overlay_tick.cu")
+    _build._libs["overlay_tick.cu"] = _build.library(
+        "overlay_tick.cu", K5_VARIANTS[v - 1][1]) if v else lib
+    try:
+        yield
+    finally:
+        _build._libs["overlay_tick.cu"] = lib
+
+
+def k5_variant_timing(ocfg, rounds: int = 2) -> dict:
+    """Phase 6's two K5 inputs through each K5 variant in turns (as used,
+    1, 2, ``rounds`` times; ms a call, CUDA-event means): what the
+    partner loads and the loads as a whole cost (the variants compute
+    wrong results by design, so only their times are read)."""
+    import torch
+
+    from gossip_protocol_tpu_torch.ops.cuda import overlay_grid as ogk
+    out = {}
+    for name, reps in (("churn65k", 20), ("powerlaw1m", 5)):
+        x, meta = k5_timing_input(ocfg[name])
+        ms = {v: [] for v in K5_VARIANT_NAMES}
+        for _ in range(rounds):
+            for v in K5_VARIANT_NAMES:
+                with k5_variant(v):
+                    ms[v].append(cuda_ms(lambda: ogk.grid_overlay_ticks(
+                        *k5_args(x), **x["kw"]), reps))
+        out[name] = dict(n=ocfg[name].n, tick=meta["sp"], flags=meta["flags"],
+                         ms={K5_VARIANT_NAMES[v]: t for v, t in ms.items()})
+        del x
+        torch.cuda.empty_cache()
+    return out
 
 
 def dense_numbers(details: dict) -> dict:
@@ -1048,31 +1330,49 @@ def dense_numbers(details: dict) -> dict:
     return out
 
 
-def turns(other: str, rounds: int = 2) -> dict:
-    """The dense path (``--dense-only``) of the checkout at ``other`` and
-    of this one in turns: other, this, this, other, ``rounds`` times,
-    each run a process of its own with its tree's package first on the
-    path.  Returns the order and every metric of :func:`dense_numbers`
-    as a list in that order."""
+def overlay_numbers(details: dict) -> dict:
+    """The overlay walls and kernel times (with their bounds) of one run,
+    flat."""
+    out = {f"{k}_wall_s": v["wall_s"]
+           for k, v in details["phase5"].items() if k.startswith("overlay")}
+    for key, v in details["timing"].items():
+        if key.startswith(("k3", "k4", "k5", "boot")):
+            out[f"{key}_n{v['n']}_ms"] = v["ms"]
+            out[f"{key}_n{v['n']}_bound_ms"] = v["bound"][0]
+            if "bound_needed" in v:
+                out[f"{key}_n{v['n']}_needed_bound_ms"] = v["bound_needed"][0]
+    return out
+
+
+def turns(other: str, path: str = "dense", rounds: int = 2) -> dict:
+    """One path of the checkout at ``other`` and of this one in turns:
+    other, this, this, other, ``rounds`` times, each run a process of its
+    own with its tree's package first on the path: ``--dense-only``
+    (``path`` "dense", :func:`dense_numbers`) or ``--overlay-only``
+    ("overlay", :func:`overlay_numbers`).  Returns the order and every
+    metric as a list in that order (None where a tree has no such
+    number)."""
     me = os.path.abspath(__file__)
+    flag, numbers_of = {"dense": ("--dense-only", dense_numbers),
+                        "overlay": ("--overlay-only", overlay_numbers)}[path]
     order, numbers = [], []
     with tempfile.TemporaryDirectory() as td:
         for i, tree in enumerate((other, REPO, REPO, other) * rounds):
             tree = os.path.abspath(tree)
-            path = os.path.join(td, f"{i}.json")
+            out = os.path.join(td, f"{i}.json")
             proc = subprocess.run(
-                [sys.executable, me, "--dense-only", tree, "--details",
-                 path], capture_output=True, text=True,
-                cwd=tree)
+                [sys.executable, me, flag, tree, "--details", out],
+                capture_output=True, text=True, cwd=tree)
             if proc.returncode != 0:
-                raise RuntimeError(f"--dense-only of {tree} failed:\n"
+                raise RuntimeError(f"{flag} of {tree} failed:\n"
                                    f"{proc.stdout[-4000:]}\n"
                                    f"{proc.stderr[-4000:]}")
-            with open(path) as f:
-                numbers.append(dense_numbers(json.load(f)))
+            with open(out) as f:
+                numbers.append(numbers_of(json.load(f)))
             order.append("this" if tree == REPO else "other")
-    return {"order": order,
-            "metrics": {k: [n[k] for n in numbers] for k in numbers[0]}}
+    keys = list(dict.fromkeys(k for n in numbers for k in n))
+    return {"path": path, "order": order,
+            "metrics": {k: [n.get(k) for n in numbers] for k in keys}}
 
 
 def write_details(path: str, details: dict) -> None:
@@ -1101,16 +1401,26 @@ def main(argv=None) -> int:
                          "kernels (first, which warms the card), then "
                          "phases 3 and 5a-c; no kernels line and no "
                          "result line")
+    ap.add_argument("--overlay-only", default=None, metavar="TREE",
+                    help="run only the overlay path of the package in the "
+                         "checkout at TREE (this one: .): phase 6's "
+                         "overlay kernels, then phase 5e's three runs with "
+                         "their walls; no kernels line and no result line")
     ap.add_argument("--turns", default=None, metavar="TREE",
-                    help="run --dense-only for the checkout at TREE and "
-                         "this one in turns: TREE, this, this, TREE, twice")
+                    help="run --dense-only (or, with --turns-path overlay, "
+                         "--overlay-only) for the checkout at TREE and this "
+                         "one in turns: TREE, this, this, TREE, twice")
+    ap.add_argument("--turns-path", default="dense",
+                    choices=("dense", "overlay"),
+                    help="the path --turns measures")
     args = ap.parse_args(argv)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.abspath(args.dense_only or REPO))
+    only = args.dense_only or args.overlay_only
+    sys.path.insert(0, os.path.abspath(only or REPO))
     import gossip_protocol_tpu_torch  # noqa: F401  (fails alone)
     from gossip_protocol_tpu_torch.config import SimConfig
     from gossip_protocol_tpu_torch.core.sim import Simulation
@@ -1128,7 +1438,9 @@ def main(argv=None) -> int:
     say(smi)
     details["nvidia_smi"] = smi
     tb = time.perf_counter()
-    libs = _build.build(verbose=True)
+    # K5's measurement variants only for this checkout's own full run
+    build_kw = {} if args.turns or only else {"variants": K5_VARIANTS}
+    libs = _build.build(verbose=True, **build_kw)
     for source in _build.SOURCES:
         _build.library(source)
     build_s = time.perf_counter() - tb
@@ -1137,7 +1449,7 @@ def main(argv=None) -> int:
         f" CUDA {torch.version.cuda}); kernels built in {build_s:.1f} s "
         f"-> {', '.join(os.path.relpath(p, REPO) for p in libs)}")
     if args.turns:
-        details["turns"] = turns(args.turns)
+        details["turns"] = turns(args.turns, args.turns_path)
         say(json.dumps(details["turns"]))
     if args.dense_only:
         main_path = MainPath()
@@ -1145,7 +1457,15 @@ def main(argv=None) -> int:
         details["phase3"] = graded_path(main_path)
         details["phase5"] = dense_runs(main_path)
         say(json.dumps(dense_numbers(details)))
-    if args.turns or args.dense_only:
+    if args.overlay_only:
+        ocfg = {name: overlay_cfg(name)
+                for name in ("drop4096", "churn65k", "powerlaw1m")}
+        details["timing"], errs = overlay_timing(ocfg)
+        if any(errs.values()):
+            raise AssertionError(f"overlay kernel != plain: {errs}")
+        details["phase5"] = overlay_runs(MainPath())[2]
+        say(json.dumps(overlay_numbers(details)))
+    if args.turns or only:
         if args.details:
             write_details(args.details, details)
         return 0
@@ -1212,8 +1532,39 @@ def main(argv=None) -> int:
         e, _ = compare_k5(k5_launch_input(cfg, lanes, 160, 16, ALL_LIVE))
         errs["grid_overlay_ticks"] = max(errs["grid_overlay_ticks"], e)
         k5_checked += 1
-    # K3 at N=2^20, F=8 on a real mid-run state (tick 136, the fail tick)
+    # K5's boot pre-pass against _boot_rows on join-live launches: the real
+    # states at ticks 16 and 20 (start ramp, JOINREQs in flight) of the
+    # power-law shape at N=64, 4096, 65,536 and 2^20, and a B=2 fleet of
+    # the churn shape at N=4096 whose lanes have seeds 0 and 1
     from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    errs["grid_boot_rows"] = 0.0
+    boot_slots = {}
+    for n in (64, 4096, 65536, 1 << 20):
+        cfg = grid_cfg("powerlaw1m", n)
+        sched = make_overlay_schedule(cfg)
+        for t0 in (16, 20):
+            st = OverlaySimulation(cfg, device="cuda").run(
+                ticks=t0).final_state
+            e, used = compare_boot(boot_input(cfg, [(st, sched)], t0))
+            errs["grid_boot_rows"] = max(errs["grid_boot_rows"], e)
+            boot_slots[f"n{n}_t{t0}"] = used
+            del st
+        if not boot_slots[f"n{n}_t16"] + boot_slots[f"n{n}_t20"]:
+            raise AssertionError(f"boot check at N={n} without a JOINREQ")
+    cfg = grid_cfg("churn65k", 4096)
+    lanes = []
+    for seed in (0, 1):
+        c = cfg.replace(seed=seed)
+        lanes.append((OverlaySimulation(c, device="cuda").run(
+            ticks=16).final_state, make_overlay_schedule(c)))
+    e, used = compare_boot(boot_input(cfg, lanes, 16))
+    if not used:
+        raise AssertionError("fleet boot check without a JOINREQ")
+    errs["grid_boot_rows"] = max(errs["grid_boot_rows"], e)
+    boot_slots["fleet_n4096_t16"] = used
+    details["boot_slots_phase2"] = boot_slots
+    del lanes
+    # K3 at N=2^20, F=8 on a real mid-run state (tick 136, the fail tick)
     cfg1m = overlay_cfg("powerlaw1m")
     mid = OverlaySimulation(cfg1m, device="cuda").run(ticks=136)
     errs["fused_overlay_tick"] = max(
@@ -1224,7 +1575,8 @@ def main(argv=None) -> int:
     if any(v != 0 for v in errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
     say(f"phase 2: kernels == plain versions bit for bit "
-        f"(max abs err {errs}; {k5_checked} K5 launches)")
+        f"(max abs err {errs}; {k5_checked} K5 launches; boot pre-pass "
+        f"aggregate slots checked {boot_slots})")
     details["max_abs_err_phase2"] = dict(errs)
 
     main_path = MainPath()
@@ -1276,27 +1628,8 @@ def main(argv=None) -> int:
     # ---- phase 5: full-width runs -------------------------------------
     runs = dense_runs(main_path)
 
-    # overlay: BASELINE's three configurations at full width, each held
-    # to bench.py's validation; K4 at N=4096, K5 above (never K3)
-    ocfg = {name: overlay_cfg(name)
-            for name in ("drop4096", "churn65k", "powerlaw1m")}
-    ores = {}
-    for name, expect in (("drop4096", "mega_overlay_ticks"),
-                         ("churn65k", "grid_overlay_ticks"),
-                         ("powerlaw1m", "grid_overlay_ticks")):
-        cfg = ocfg[name]
-        (r, counts) = main_path.drive(
-            lambda: OverlaySimulation(cfg, device="cuda").run(), (expect,))
-        if counts["fused_overlay_tick"]:
-            raise AssertionError(f"overlay {name} took the per-tick K3 route")
-        o = validate_overlay(r)
-        ores[name] = r
-        runs[f"overlay_{name}"] = dict(
-            n=cfg.n, ticks=cfg.total_ticks, wall_s=r.wall_seconds,
-            node_ticks_per_s=r.node_ticks_per_second, launches=counts, **o)
-        say(f"phase 5e: overlay {name} N={cfg.n}, {cfg.total_ticks} ticks: "
-            f"{r.node_ticks_per_second:.1f} node-ticks/s (wall "
-            f"{r.wall_seconds:.3f} s); {o}; launches {counts}")
+    ocfg, ores, oruns = overlay_runs(main_path)
+    runs.update(oruns)
     # cross-paths on the card: the per-tick K3 route (driven as a main
     # path: K3's launches are counted here) equals K4 over the whole
     # N=4096 run and K5 over the whole N=65,536 and 2^20 runs
@@ -1376,81 +1709,23 @@ def main(argv=None) -> int:
     # launch early and the next launch's input is built as the run
     # builds it.
     timing = dense_timing(dev, describe=True)
-    # K3 on the input of the last tick of the N=65,536 churn run, K4 on
-    # the last full launch of the N=4096 drop run (each run stopped there)
-    from gossip_protocol_tpu_torch.models.overlay import resolved_dims
-    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
-        fused_overlay_tick, fused_overlay_tick_plain)
-    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import (
-        MEGA_TICKS, mega_overlay_ticks, mega_overlay_ticks_plain)
-    cfg = ocfg["churn65k"]
-    t_last = cfg.total_ticks - 1
-    x = k3_launch_input(cfg, OverlaySimulation(cfg, device="cuda").run(
-        ticks=t_last).final_state)
-    k, f = resolved_dims(cfg)
-    timing["k3"] = dict(
-        n=cfg.n, k=k, f=f, tick=t_last, max_abs_err=compare_k3(x),
-        ms=cuda_ms(lambda: fused_overlay_tick(*x["args"], **x["kw"]), 50),
-        plain_ms=cuda_ms(
-            lambda: fused_overlay_tick_plain(*x["args"], **x["kw"]), 3),
-        bound=k3_bound(cfg.n, k, f))
-    cfg = ocfg["drop4096"]
-    t0 = (cfg.total_ticks // MEGA_TICKS - 1) * MEGA_TICKS
-    x = k4_launch_input(cfg, OverlaySimulation(cfg, device="cuda").run(
-        ticks=t0).final_state, MEGA_TICKS)
-    k, f = resolved_dims(cfg)
-    timing["k4"] = dict(
-        n=cfg.n, k=k, f=f, s_ticks=MEGA_TICKS, sp=t0,
-        max_abs_err=compare_k4(x),
-        ms=cuda_ms(lambda: mega_overlay_ticks(x["st"], x["sp"], **x["kw"]),
-                   20),
-        plain_ms=cuda_ms(lambda: mega_overlay_ticks_plain(
-            x["st"], x["sp"], **x["kw"]), 1, warm=0),
-        bound=k4_bound(cfg.n, k, f, MEGA_TICKS, reslots=1))
-    del x
-    # K5 on the input of the last full launch of the N=65,536 churn run
-    # and of the N=2^20 power-law run (each run stopped there)
-    from gossip_protocol_tpu_torch.models.segments import plan_segments
-    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
-        GRID_TICKS, grid_overlay_ticks, grid_overlay_ticks_plain)
-    for key, name, reps in (("k5_churn65k", "churn65k", 20),
-                            ("k5_powerlaw1m", "powerlaw1m", 5)):
-        cfg = ocfg[name]
-        t0 = (cfg.total_ticks // GRID_TICKS - 1) * GRID_TICKS
-        flags = plan_segments(cfg, GRID_TICKS, t0, GRID_TICKS)[0].flags
-        st = OverlaySimulation(cfg, device="cuda").run(ticks=t0).final_state
-        x = k5_launch_input(cfg, [(st, make_overlay_schedule(cfg))], t0,
-                            GRID_TICKS, flags)
-        del st
-        err, met = compare_k5(x)
-        k, f = resolved_dims(cfg)
-        reslots = sum((t + 1) % 16 == 0 for t in range(t0, t0 + GRID_TICKS))
-        timing[key] = dict(
-            n=cfg.n, k=k, f=f, s_ticks=GRID_TICKS, sp=t0, flags=flags.tag,
-            max_abs_err=err,
-            recv=int(met[:, 7].sum()),
-            ms=cuda_ms(lambda: grid_overlay_ticks(x["plane"], x["boot"],
-                                                  x["sp"], **x["kw"]), reps),
-            plain_ms=cuda_ms(lambda: grid_overlay_ticks_plain(
-                x["plane"], x["boot"], x["sp"], **x["kw"]), 1, warm=0),
-            bound=k5_bound(cfg.n, k, met, reslots))
-        errs["grid_overlay_ticks"] = max(errs["grid_overlay_ticks"], err)
-        del x, met
-        torch.cuda.empty_cache()
-    errs["fused_overlay_tick"] = max(errs["fused_overlay_tick"],
-                                     timing["k3"]["max_abs_err"])
-    errs["mega_overlay_ticks"] = max(errs["mega_overlay_ticks"],
-                                     timing["k4"]["max_abs_err"])
-    if errs["fused_overlay_tick"] or errs["mega_overlay_ticks"] \
-            or errs["grid_overlay_ticks"]:
+    otiming, oerrs = overlay_timing(ocfg)
+    timing.update(otiming)
+    for name, e in oerrs.items():
+        errs[name] = max(errs[name], e)
+    if any(oerrs.values()):
         raise AssertionError(f"overlay kernel != plain on a launch input: "
                              f"{errs}")
+    details["k5_variants"] = k5_variant_timing(ocfg)
+    say("phase 6: K5 variants (ms a call, in turns): "
+        + json.dumps(details["k5_variants"]))
     for key in ("k1", "k1_n1024", "k1_n10"):
         for name in ("masked_max3", "tick_epilogue"):
             errs[name] = max(errs[name], timing[key]["max_abs_err"][name])
     errs["dense_mega_ticks"] = max(errs["dense_mega_ticks"],
                                    timing["k2"]["max_abs_err"],
-                                   timing["k2_trace512"]["max_abs_err"])
+                                   timing["k2_trace512"]["max_abs_err"],
+                                   timing["k2_n64"]["max_abs_err"])
     details["timing"] = timing
     details["max_abs_err"] = errs
     src = "gossip_protocol_tpu_torch/csrc/dense_tick.cu"
@@ -1477,18 +1752,27 @@ def main(argv=None) -> int:
              "gossip_protocol_tpu/ops/pallas/overlay_grid.py:710",
              timing["k5_powerlaw1m"],
              {k: timing["k5_powerlaw1m"][k]
-              for k in ("n", "k", "f", "s_ticks", "flags")})):
+              for k in ("n", "k", "f", "s_ticks", "flags")}),
+            ("grid_boot_rows",
+             "gossip_protocol_tpu/models/overlay_grid.py:147",
+             timing["boot_powerlaw1m"],
+             {k: timing["boot_powerlaw1m"][k] for k in ("n", "tick")})):
         kernels.append({
             "name": name, "route": "cuda",
-            "source": osrc if "overlay" in name else src,
+            "source": src if name in ("masked_max3", "tick_epilogue",
+                                      "dense_mega_ticks") else osrc,
             "replaces": replaces, "launches": main_path.total[name],
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
             "bound_by": tm["bound"][1], "library_ms": None, "shape": shape})
+        if "bound_needed" in tm:
+            kernels[-1]["needed_bytes_bound_ms"] = tm["bound_needed"][0]
     for key in ("k1", "k1_n1024", "k1_n10"):
         t = timing[key]
         say(f"phase 6: masked_max3 at N={t['n']}, tick {t['tick']}: "
             f"{json.dumps(t['merge_stats'])}")
+    say("phase 6: overlay kernels (ms; bound ms): " + json.dumps(
+        overlay_numbers({"timing": timing, "phase5": {}})))
     say(f"phase 6: timed {len(kernels)} kernels on real launch inputs; "
         f"details {json.dumps(timing)}")
     say(json.dumps({"kernels": kernels}))

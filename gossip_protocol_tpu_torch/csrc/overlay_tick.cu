@@ -15,6 +15,9 @@
 //                          ticks at any power-of-two N up to 2^20 on a
 //                          ping-pong (B, 2, N, 128) plane, for B fleet
 //                          lanes, one launch a tick.
+//   gp_grid_boot           K5's boot pre-pass: the boot block a
+//                          gp_grid_overlay_ticks call takes (the
+//                          introducer's row and the JOINREQ aggregate).
 //
 // All three call the same __device__ routines (mix32, the key and
 // payload packing, the slot map, the lexicographic merge, the subject
@@ -25,15 +28,14 @@
 // Bounds on an H100 (3.35 TB/s):
 // * K3 is bound by bytes: at N=65,536, K=64, F=3 its inputs and outputs
 //   are 87 MB a tick (0.026 ms) and its merges about 3.0e8 operations
-//   (0.018 ms), but each row reads its own and F partner rows of idsaux
-//   (K+2+F words) and pw (K words), about 140 MB a tick, since a partner
-//   row is not reused on chip.  The
-//   TPU folded the high mask bits into its block index map and ran a
-//   butterfly in VMEM for the low ones; here a partner row r ^ m is one
-//   direct, coalesced global load.  Design: one warp a row, each lane
-//   owning slots lane, lane+32, ...; the partner's self-entry lands in
-//   the lane that owns its slot; the counters are warp reductions, no
-//   atomics.
+//   (0.018 ms).  The TPU folded the high mask bits into its block index
+//   map and ran a butterfly in VMEM for the low ones; here a partner row
+//   r ^ m is a direct, coalesced global load.  Design: one warp a row,
+//   each lane owning slots lane, lane+32, ...; a row waits on two
+//   dependent round trips, not 1 + 2F: its own words beside the F
+//   partners' round flags (lane fi loads partner fi's), then every flagged
+//   partner's view, four at a time, before any of them is merged; the
+//   counters are warp reductions, no atomics.
 // * K4 on the TPU held the whole plane in VMEM for 16 ticks.  At N=4096
 //   the plane is 1.8 MB, above one SM's 227 KB of shared memory, so it
 //   stays in HBM/L2 (where it fits whole) and each tick is (a) a
@@ -51,14 +53,22 @@
 //   reading one phase of the plane and writing the other; the broadcast
 //   row is the input phase's introducer row (the boot row at s = 0), and
 //   tick s+1's aggregate is an atomicMax into a per-lane (S+1, K) buffer.
-//   A row fetches its F partners' flag words in one round trip (lane f
-//   loads partner f's), then reads a partner row r ^ m directly, and only
-//   when that partner's send flag for the round is on (most power-law
-//   rows have degree 1).
-//   Per tick it reads and writes the 512-byte row of every peer, so at
-//   N=2^20 bytes bound it (1.07 GB a tick); the four phase flags are
-//   template parameters, so a steady-state launch carries none of the
-//   ramp, churn, join or drop work.
+//   Per tick it reads and writes the 512-byte row of every peer plus the
+//   row of every partner that sends to it, so at N=2^20 bytes bound it
+//   (1.07 GB a tick, about 2 GB with the partner rows of the power-law
+//   run).  Measured on an H100, though, the instructions a row costs
+//   bound it: a persistent grid whose warps each run a three-stage
+//   cp.async pipeline over their rows (own row and partner flags, then the
+//   flagged partners' rows, then the merge from shared memory) keeps the
+//   loads in flight (the loads alone take under half of a call at 2^20:
+//   the K5_VARIANT builds below), so the design spends its effort on the
+//   row's instructions: decisions carried between stages, the degree as one
+//   ballot, remainders by multiply (FastMod), the epoch re-slot by 64-bit
+//   shared-memory atomicMax, and the metric sums in registers, added to
+//   `met` once a block and tick.  The four phase flags are template
+//   parameters, so a steady-state launch carries none of the ramp, churn,
+//   join or drop work.  The boot block (the introducer's row and the boot
+//   JOINREQ aggregate) is a pre-pass kernel, gp_grid_boot.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -121,6 +131,27 @@ __device__ __forceinline__ int slot_of(uint32_t seed, uint32_t ep, int32_t id,
                                        int k) {
   return (int)(mix32(seed, ep, (uint32_t)id, SALT_SLOT) % (uint32_t)k);
 }
+
+// x % d for a divisor fixed per launch by one 64-bit multiply instead of an
+// integer division (Lemire, Kaser and Kurz, "Faster remainder by direct
+// computation", 2019): exact for every 32-bit x and every d >= 1.
+struct FastMod {
+  uint32_t d;
+  uint64_t m;
+};
+__host__ __device__ inline FastMod make_fastmod(uint32_t d) {
+  FastMod f;
+  f.d = d;
+  f.m = ~(uint64_t)0 / d + 1;
+  return f;
+}
+__device__ __forceinline__ uint32_t fastmod(uint32_t x, const FastMod& f) {
+  return (uint32_t)__umul64hi(f.m * x, f.d);
+}
+__device__ __forceinline__ int slot_of(uint32_t seed, uint32_t ep, int32_t id,
+                                       const FastMod& km) {
+  return (int)fastmod(mix32(seed, ep, (uint32_t)id, SALT_SLOT), km);
+}
 // lexicographic (key, payload) max: associative and commutative
 __device__ __forceinline__ void lex(uint32_t& km, int32_t& pa, uint32_t kc,
                                     int32_t pc) {
@@ -131,7 +162,8 @@ __device__ __forceinline__ void lex(uint32_t& km, int32_t& pa, uint32_t kc,
 struct Sched {
   uint32_t seed, churn_thr;
   int32_t victim_lo, victim_hi, fail_tick, rejoin_after, churn_after,
-      churn_lo, churn_span, t_remove;
+      churn_lo, t_remove;
+  FastMod churn_span;
 };
 
 // (fail, rejoin) ticks of one subject id, closed form.
@@ -142,8 +174,9 @@ __device__ __forceinline__ void fail_rejoin_of(const Sched& s, int32_t subj,
   if (s.churn_thr > 0u) {
     const bool churned =
         mix32(s.seed, su, SALT_CHURN) < s.churn_thr && subj != INTRODUCER;
-    fail = churned ? s.churn_lo + (int32_t)(mix32(s.seed, su, SALT_CHURN_TICK) %
-                                            (uint32_t)s.churn_span)
+    fail = churned ? s.churn_lo + (int32_t)fastmod(
+                                      mix32(s.seed, su, SALT_CHURN_TICK),
+                                      s.churn_span)
                    : NEVER;
   } else {
     fail = (subj >= s.victim_lo && subj < s.victim_hi) ? s.fail_tick : NEVER;
@@ -160,34 +193,46 @@ __device__ __forceinline__ bool subject_failed(const Sched& s, int32_t subj,
 }
 
 // ---- the per-row pipeline (one warp, lane owns slots lane + 32 jj) --------
+// NS is the number of slots a lane owns (K <= 32 NS): K5 (2K <= 128) and K3
+// at K <= 64 take NS = 2, which halves the registers of every array below.
+template <int NS = SPL>
 struct RowAcc {
-  uint32_t km[SPL];
-  int32_t pa[SPL];
-  int32_t id0[SPL];
+  uint32_t km[NS];
+  int32_t pa[NS];
+  int32_t id0[NS];
 };
 
 // A view row in registers: this lane's slots of ids and payload words.
+template <int NS = SPL>
 struct ViewRegs {
-  int32_t ids[SPL];
-  int32_t pw[SPL];
+  int32_t ids[NS];
+  int32_t pw[NS];
 };
 
 // Load a view row (ids at ids[j], payload words at pw[j]); ``pw_mask``
 // strips K5's aux bytes from its payload lanes.
-__device__ __forceinline__ void load_view(ViewRegs& v, const int32_t* ids,
+template <int NS>
+__device__ __forceinline__ void load_view(ViewRegs<NS>& v, const int32_t* ids,
                                           const int32_t* pw, int k, int lane,
                                           int32_t pw_mask = -1) {
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) {
+  for (int jj = 0; jj < NS; ++jj) {
     const int j = lane + 32 * jj;
     v.ids[jj] = j < k ? ids[j] : -1;
     v.pw[jj] = j < k ? pw[j] & pw_mask : 0;
   }
 }
 
-__device__ __forceinline__ void acc_init(RowAcc& r, const ViewRegs& v) {
+template <int NS>
+__device__ __forceinline__ void clear_view(ViewRegs<NS>& v) {
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) {
+  for (int jj = 0; jj < NS; ++jj) { v.ids[jj] = -1; v.pw[jj] = 0; }
+}
+
+template <int NS>
+__device__ __forceinline__ void acc_init(RowAcc<NS>& r, const ViewRegs<NS>& v) {
+#pragma unroll
+  for (int jj = 0; jj < NS; ++jj) {
     const int32_t id = v.ids[jj];
     const int32_t p = id >= 0 ? v.pw[jj] : 0;
     r.id0[jj] = id;
@@ -198,11 +243,13 @@ __device__ __forceinline__ void acc_init(RowAcc& r, const ViewRegs& v) {
 
 // Merge an identically-slotted incoming view (a partner's table or the
 // introducer's JOINREP broadcast); an invalid candidate is (0, 0).
-__device__ __forceinline__ void merge_view(RowAcc& r, const ViewRegs& v,
-                                           bool ok, int32_t row, int32_t t,
+template <int NS>
+__device__ __forceinline__ void merge_view(RowAcc<NS>& r,
+                                           const ViewRegs<NS>& v, bool ok,
+                                           int32_t row, int32_t t,
                                            int32_t t_remove, int k, int lane) {
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) {
+  for (int jj = 0; jj < NS; ++jj) {
     const int j = lane + 32 * jj;
     if (j >= k) continue;
     uint32_t key = 0u;
@@ -220,29 +267,46 @@ __device__ __forceinline__ void merge_view(RowAcc& r, const ViewRegs& v,
 }
 
 // Merge one direct entry (subj, t-1, hb) at its slot; (0, 0) elsewhere.
-__device__ __forceinline__ void merge_entry(RowAcc& r, int32_t subj,
-                                            int32_t e_ts, int32_t e_hb, bool ok,
-                                            uint32_t seed, uint32_t ep, int k,
-                                            int lane) {
-  const int sl = slot_of(seed, ep, subj, k);
+template <int NS>
+__device__ __forceinline__ void merge_entry_at(RowAcc<NS>& r, int sl,
+                                               int32_t subj, int32_t e_ts,
+                                               int32_t e_hb, bool ok, int k,
+                                               int lane) {
   const uint32_t key = ok ? pack_key(subj, e_ts) : 0u;
   const int32_t p = ok ? pack_th(e_ts, e_hb) : 0;
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) {
+  for (int jj = 0; jj < NS; ++jj) {
     const int j = lane + 32 * jj;
     if (j >= k) continue;
     const bool m = j == sl;
     lex(r.km[jj], r.pa[jj], m ? key : 0u, m ? p : 0);
   }
 }
+template <int NS>
+__device__ __forceinline__ void merge_entry(RowAcc<NS>& r, int32_t subj,
+                                            int32_t e_ts, int32_t e_hb, bool ok,
+                                            uint32_t seed, uint32_t ep, int k,
+                                            int lane) {
+  merge_entry_at(r, slot_of(seed, ep, subj, k), subj, e_ts, e_hb, ok, k,
+                 lane);
+}
+template <int NS>
+__device__ __forceinline__ void merge_entry(RowAcc<NS>& r, int32_t subj,
+                                            int32_t e_ts, int32_t e_hb, bool ok,
+                                            uint32_t seed, uint32_t ep,
+                                            const FastMod& km, int lane) {
+  merge_entry_at(r, slot_of(seed, ep, subj, km), subj, e_ts, e_hb, ok,
+                 (int)km.d, lane);
+}
 
 // JOINREQ aggregate (per-slot key and payload) into the introducer's row.
-__device__ __forceinline__ void merge_joinreq(RowAcc& r, bool is_r0,
+template <int NS>
+__device__ __forceinline__ void merge_joinreq(RowAcc<NS>& r, bool is_r0,
                                               const uint32_t* q_kf,
                                               const int32_t* q_pf, int32_t t,
                                               int k, int lane) {
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) {
+  for (int jj = 0; jj < NS; ++jj) {
     const int j = lane + 32 * jj;
     if (j >= k) continue;
     uint32_t key = 0u;
@@ -255,21 +319,23 @@ __device__ __forceinline__ void merge_joinreq(RowAcc& r, bool is_r0,
   }
 }
 
+template <int NS = SPL>
 struct RowOut {
-  int32_t ids[SPL], hb[SPL], ts[SPL];
+  int32_t ids[NS], hb[NS], ts[NS];
   int removals, false_removals, victims, adds, view;
 };
 
 // Winner extraction, TREMOVE staleness detection, and this lane's share of
 // the per-row counters.  ``kSubjects`` false: no subject is inside its fail
 // window (K5's churn-dead launches), so the subject schedule is skipped.
-template <bool kSubjects = true>
-__device__ __forceinline__ void extract_detect(const RowAcc& r, bool ops,
+template <bool kSubjects = true, int NS>
+__device__ __forceinline__ void extract_detect(const RowAcc<NS>& r, bool ops,
                                                int32_t t, const Sched& s,
-                                               int k, int lane, RowOut& o) {
+                                               int k, int lane,
+                                               RowOut<NS>& o) {
   o.removals = o.false_removals = o.victims = o.adds = o.view = 0;
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) {
+  for (int jj = 0; jj < NS; ++jj) {
     const int j = lane + 32 * jj;
     o.ids[jj] = -1;
     o.hb[jj] = 0;
@@ -303,6 +369,16 @@ struct K3Args {
   int32_t masks[MAX_F];
 };
 
+// Partner rows a K3 row loads before it merges them (bounds the registers
+// of the views in flight: 4 x 2 NS words a lane).
+constexpr int K3_CHUNK = 4;
+
+// One warp a row.  The row waits on two dependent round trips, not 1 + 2F:
+// (1) its own ids, pw and bits beside the F partners' round flags (lane fi
+// loads partner fi's), then (2) the views of every flagged partner, up to
+// K3_CHUNK at once, before any of them is merged.  Rounds merge in their
+// order, and a round whose flag is off merges nothing, as before.
+template <int NS>
 __global__ void __launch_bounds__(WARPS * 32)
 fused_overlay_tick_kernel(const int32_t* __restrict__ idsaux,
                           const int32_t* __restrict__ pw,
@@ -317,39 +393,61 @@ fused_overlay_tick_kernel(const int32_t* __restrict__ idsaux,
   const int w = k + 2 + f;
   const int32_t t = a.t;
   const uint32_t ep = (uint32_t)(t / SLOT_EPOCH);
+  const FastMod km = make_fastmod((uint32_t)k);
   const int32_t* my = idsaux + (size_t)row * w;
+  // lane fi holds round fi's mask: static indices keep the argument struct
+  // in the parameter bank (a dynamic index copies it to local memory)
+  int32_t my_mask = 0;
+#pragma unroll
+  for (int i = 0; i < MAX_F; ++i)
+    if (lane == i) my_mask = a.masks[i];
+  int32_t flag = 0;
+  if (lane < f) flag = idsaux[(size_t)(row ^ my_mask) * w + k + 2 + lane];
   const int32_t bits = my[k + 1];
-  const bool proc = bits & 1, ops = bits & 2, jrep = bits & 4;
-  RowAcc r;
-  ViewRegs own;
+  ViewRegs<NS> own;
   load_view(own, my, pw + (size_t)row * k, k, lane);
+  const bool proc = bits & 1, ops = bits & 2, jrep = bits & 4;
+  const uint32_t sent =
+      proc ? __ballot_sync(0xffffffffu, lane < f && flag > 0) : 0u;
+  RowAcc<NS> r;
   acc_init(r, own);
-  int recv = 0;
-  for (int fi = 0; fi < f; ++fi) {
-    const int32_t partner = row ^ a.masks[fi];
-    const int32_t* pr = idsaux + (size_t)partner * w;
-    const bool ok = pr[k + 2 + fi] > 0 && proc;
-    ViewRegs pv;
-    if (ok) load_view(pv, pr, pw + (size_t)partner * k, k, lane);
-    merge_view(r, pv, ok, row, t, a.s.t_remove, k, lane);
-    if (a.s.t_remove > 1)
-      merge_entry(r, partner, t - 1, ok ? pr[k] : 0, ok, a.s.seed, ep, k,
-                  lane);
-    recv += ok;
+  for (int base = 0; base < f; base += K3_CHUNK) {
+    ViewRegs<NS> pv[K3_CHUNK];
+    int32_t phb[K3_CHUNK];
+#pragma unroll
+    for (int c = 0; c < K3_CHUNK; ++c) {
+      const int fi = base + c;
+      const int32_t mask = __shfl_sync(0xffffffffu, my_mask, fi & 31);
+      if (fi < f && (sent >> fi & 1u)) {
+        const size_t partner = (size_t)(row ^ mask);
+        load_view(pv[c], idsaux + partner * w, pw + partner * k, k, lane);
+        phb[c] = idsaux[partner * w + k];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < K3_CHUNK; ++c) {
+      const int fi = base + c;
+      if (!(fi < f && (sent >> fi & 1u))) continue;
+      merge_view(r, pv[c], true, row, t, a.s.t_remove, k, lane);
+      if (a.s.t_remove > 1)
+        merge_entry(r, row ^ __shfl_sync(0xffffffffu, my_mask, fi), t - 1,
+                    phb[c], true, a.s.seed, ep, km, lane);
+    }
   }
-  ViewRegs iv;
+  const int recv = __popc(sent);
+  ViewRegs<NS> iv;
   if (jrep) load_view(iv, intro, intro + k, k, lane);
   merge_view(r, iv, jrep, row, t, a.s.t_remove, k, lane);
   if (a.s.t_remove > 1)
     merge_entry(r, INTRODUCER, t - 1, intro[2 * k], jrep && row != INTRODUCER,
-                a.s.seed, ep, k, lane);
+                a.s.seed, ep, km, lane);
   merge_joinreq(r, row == INTRODUCER,
                 reinterpret_cast<const uint32_t*>(intro + 3 * k), intro + 4 * k,
                 t, k, lane);
-  RowOut o;
+  RowOut<NS> o;
   extract_detect(r, ops, t, a.s, k, lane, o);
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) {
+  for (int jj = 0; jj < NS; ++jj) {
     const int j = lane + 32 * jj;
     if (j >= k) continue;
     const size_t off = (size_t)row * k + j;
@@ -378,11 +476,12 @@ struct K4Args {
   int32_t masks[MAX_F];
 };
 
-// Sum WARPS per-warp values of each metric across the block and add the
+// Sum NW per-warp values of each metric across the block and add the
 // block's totals to met (integer atomics: exact in any order).
+template <int NW = WARPS>
 __device__ __forceinline__ void block_metrics(const int (&v)[MET_USED],
                                               int32_t* met) {
-  __shared__ int part[WARPS][MET_USED];
+  __shared__ int part[NW][MET_USED];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0)
 #pragma unroll
@@ -391,7 +490,7 @@ __device__ __forceinline__ void block_metrics(const int (&v)[MET_USED],
   if (threadIdx.x < MET_USED) {
     int sum = 0;
 #pragma unroll
-    for (int wi = 0; wi < WARPS; ++wi) sum += part[wi][threadIdx.x];
+    for (int wi = 0; wi < NW; ++wi) sum += part[wi][threadIdx.x];
     if (sum) atomicAdd(met + threadIdx.x, sum);
   }
 }
@@ -430,26 +529,27 @@ mega_prep_kernel(const int32_t* __restrict__ st, int32_t* __restrict__ wiped,
 
 // Re-slot one row into the next epoch's slot map (lexicographic max over
 // the entries that land in each slot), in registers.
-__device__ __forceinline__ void reslot_row(int32_t (&ids)[SPL],
-                                           int32_t (&pwv)[SPL], uint32_t seed,
+template <int NS>
+__device__ __forceinline__ void reslot_row(int32_t (&ids)[NS],
+                                           int32_t (&pwv)[NS], uint32_t seed,
                                            uint32_t ep, int k, int lane) {
-  int tgt[SPL];
-  uint32_t key[SPL];
-  int32_t p[SPL];
+  int tgt[NS];
+  uint32_t key[NS];
+  int32_t p[NS];
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) {
+  for (int jj = 0; jj < NS; ++jj) {
     const int j = lane + 32 * jj;
     tgt[jj] = j < k ? slot_of(seed, ep, ids[jj], k) : -1;
     key[jj] = (j < k && ids[jj] >= 0) ? pack_key(ids[jj], (pwv[jj] >> 12) - 1)
                                       : 0u;
     p[jj] = (j < k && ids[jj] >= 0) ? pwv[jj] : 0;
   }
-  uint32_t kf[SPL];
-  int32_t pf[SPL];
+  uint32_t kf[NS];
+  int32_t pf[NS];
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) { kf[jj] = 0u; pf[jj] = 0; }
+  for (int jj = 0; jj < NS; ++jj) { kf[jj] = 0u; pf[jj] = 0; }
 #pragma unroll
-  for (int sj = 0; sj < SPL; ++sj) {
+  for (int sj = 0; sj < NS; ++sj) {
     if (32 * sj >= k) break;
     for (int src = 0; src < 32; ++src) {
       const int tg = __shfl_sync(0xffffffffu, tgt[sj], src);
@@ -457,14 +557,47 @@ __device__ __forceinline__ void reslot_row(int32_t (&ids)[SPL],
       const int32_t pv = __shfl_sync(0xffffffffu, p[sj], src);
       if (ky == 0u) continue;
 #pragma unroll
-      for (int jj = 0; jj < SPL; ++jj)
+      for (int jj = 0; jj < NS; ++jj)
         if (tg == lane + 32 * jj) lex(kf[jj], pf[jj], ky, pv);
     }
   }
 #pragma unroll
-  for (int jj = 0; jj < SPL; ++jj) {
+  for (int jj = 0; jj < NS; ++jj) {
     ids[jj] = kf[jj] > 0u ? (int32_t)(kf[jj] & ID_MASK) : -1;
     pwv[jj] = kf[jj] > 0u ? max(pf[jj], 0) : 0;
+  }
+}
+
+// reslot_row through a warp's 64-entry scratch in shared memory (K <= 64):
+// each entry lands by one 64-bit atomicMax of (key << 32 | payload), the
+// same lexicographic maximum (payloads are non-negative), instead of 32 K
+// shuffle rounds.  `scr` is 16-byte aligned and not read by other warps.
+template <int NS>
+__device__ __forceinline__ void reslot_row_smem(int32_t (&ids)[NS],
+                                                int32_t (&pwv)[NS],
+                                                unsigned long long* scr,
+                                                uint32_t seed, uint32_t ep,
+                                                const FastMod& km, int lane) {
+  const int k = (int)km.d;
+#pragma unroll
+  for (int jj = 0; jj < NS; ++jj) scr[lane + 32 * jj] = 0ull;
+  __syncwarp();
+#pragma unroll
+  for (int jj = 0; jj < NS; ++jj) {
+    const int j = lane + 32 * jj;
+    if (j < k && ids[jj] >= 0)
+      atomicMax(scr + slot_of(seed, ep, ids[jj], km),
+                (unsigned long long)pack_key(ids[jj], (pwv[jj] >> 12) - 1)
+                        << 32 |
+                    (uint32_t)pwv[jj]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int jj = 0; jj < NS; ++jj) {
+    const unsigned long long e = scr[lane + 32 * jj];
+    const uint32_t kf = (uint32_t)(e >> 32);
+    ids[jj] = kf > 0u ? (int32_t)(kf & ID_MASK) : -1;
+    pwv[jj] = kf > 0u ? max((int32_t)(uint32_t)e, 0) : 0;
   }
 }
 
@@ -500,8 +633,8 @@ mega_row_kernel(int32_t* __restrict__ st, const int32_t* __restrict__ wiped,
     const bool ops = proc && in_group;
     const int32_t own_hb = own_hb0 + ops;
     // merges
-    RowAcc r;
-    ViewRegs own;
+    RowAcc<> r;
+    ViewRegs<> own;
     load_view(own, W, W + k, k, lane);
     acc_init(r, own);
     int recv = 0;
@@ -509,7 +642,7 @@ mega_row_kernel(int32_t* __restrict__ st, const int32_t* __restrict__ wiped,
       const int32_t partner = row ^ a.masks[fi];
       const int32_t* P = wiped + (size_t)partner * w;
       const bool ok = P[aa + L_SF + fi] > 0 && proc;
-      ViewRegs pv;
+      ViewRegs<> pv;
       if (ok) load_view(pv, P, P + k, k, lane);
       merge_view(r, pv, ok, row, t, a.s.t_remove, k, lane);
       if (a.s.t_remove > 1)
@@ -518,14 +651,14 @@ mega_row_kernel(int32_t* __restrict__ st, const int32_t* __restrict__ wiped,
       recv += ok;
     }
     const int32_t* B = wiped;   // the introducer's row (JOINREP source)
-    ViewRegs bv;
+    ViewRegs<> bv;
     if (jrep) load_view(bv, B, B + k, k, lane);
     merge_view(r, bv, jrep, row, t, a.s.t_remove, k, lane);
     if (a.s.t_remove > 1)
       merge_entry(r, INTRODUCER, t - 1, B[aa + L_OWN_HB],
                   jrep && row != INTRODUCER, a.s.seed, ep, k, lane);
     merge_joinreq(r, row == INTRODUCER, q_kf, nullptr, t, k, lane);
-    RowOut o;
+    RowOut<> o;
     extract_detect(r, ops, t, a.s, k, lane, o);
     // dissemination: next tick's send flags and the join sends
     const bool active = a.drop_on && t > a.drop_open && t <= a.drop_close;
@@ -609,6 +742,24 @@ enum { GSP_T0 = 0, GSP_SEED, GSP_VLO, GSP_VHI, GSP_FTICK, GSP_RAFTER,
        GSP_NSCALARS };
 enum { FL_RAMP = 1, FL_CHURN = 2, FL_JOIN = 4, FL_DROP = 8 };
 constexpr uint32_t SALT_DEGREE = 8;
+// K5_VARIANT (a -D define; 0, the kernel as used) builds a measurement
+// variant that chip_smoke.py times beside it and nothing else calls (both
+// compute wrong results by design):
+//   1  no partner row loaded: stage C merges what its partner stage holds
+//      (the cost of the partner loads);
+//   2  the loads alone: stage C neither merges nor writes.
+#ifndef K5_VARIANT
+#define K5_VARIANT 0
+#endif
+constexpr int K5_NS = 2;        // slots a lane (2K <= PLANE_W)
+constexpr int K5_WARPS = 4;     // warps a block
+constexpr int K5_MAX_F = 8;
+// a warp's shared memory: 3 own-row stages, 3 stages of F flag words, 2
+// stages of F partner rows (PLANE_W words a row)
+constexpr int K5_OWN = 3, K5_PART = 2;
+__host__ __device__ constexpr int k5_warp_words(int f) {
+  return K5_OWN * PLANE_W + K5_OWN * K5_MAX_F + K5_PART * f * PLANE_W;
+}
 
 struct K5Args {
   int n, k, f, s_ticks, sp_len, t_remove, churn_lo, churn_span;
@@ -617,20 +768,86 @@ struct K5Args {
   size_t in_lane, bc_lane, out_lane, q_lane;   // lane strides (words)
 };
 
-// One tick of every row of every lane: grid (N / WARPS, B), one warp a row.
-// Reads `in` (the input plane at s = 0, else the previous tick's phase of
-// plane2), writes `out` (the other phase); `bc` is the introducer's
-// broadcast row; `q` holds the tick's JOINREQ aggregate (K words), and tick
-// s+1's aggregate is atomicMax-ed into the K words after it.  The template
-// flags elide the launch's dead phases (models/segments.py guarantees).
+// ---- cp.async (sm_80+): global -> shared without registers ---------------
+__device__ __forceinline__ void cp_async16(int32_t* dst, const int32_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(int32_t* dst, const int32_t* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N of this thread's groups are pending, then make every
+// lane's landed copies visible to the warp
+template <int N>
+__device__ __forceinline__ void cp_wait_warp() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  __syncwarp();
+}
+// words [0, 2K) of a plane row (16-byte chunks; rows are 512-byte aligned)
+__device__ __forceinline__ void cp_row(int32_t* dst, const int32_t* src, int k,
+                                       int lane) {
+  for (int c = lane; c < (2 * k + 3) / 4; c += 32)
+    cp_async16(dst + 4 * c, src + 4 * c);
+}
+
+// Whether `row` processes at tick t (its start ramp and fail window): a
+// function of the row index and the schedule, no plane word.
+template <bool RAMP, bool CHURN>
+__device__ __forceinline__ bool k5_proc(const Sched& sc, const int32_t* P,
+                                        int32_t row, int32_t t,
+                                        bool& failed, bool& at_start,
+                                        int32_t& rejoin) {
+  int32_t fail = NEVER;
+  rejoin = NEVER;
+  if (CHURN) fail_rejoin_of(sc, row, fail, rejoin);
+  failed = CHURN && t > fail && t <= rejoin;
+  bool proc = !failed;
+  at_start = false;
+  if (RAMP) {   // division-free start ramp: t > i*num//den <=> i*num < t*den
+    const int32_t ramp = (int32_t)((uint32_t)row * (uint32_t)P[GSP_STEP_NUM]);
+    const int32_t lo = t * P[GSP_STEP_DEN];
+    proc = ramp < lo && !failed;
+    at_start = ramp >= lo && ramp < lo + P[GSP_STEP_DEN];
+  }
+  return proc;
+}
+
+// One tick of every row of every lane.  Reads `in` (the input plane at s =
+// 0, else the previous tick's phase of plane2), writes `out` (the other
+// phase); `bc` is the introducer's broadcast row; `q` holds the tick's
+// JOINREQ aggregate (K words), and tick s+1's aggregate is atomicMax-ed into
+// the K words after it.  The template flags elide the launch's dead phases
+// (models/segments.py guarantees).
+//
+// A persistent grid (about as many blocks as fit on the card at once, per
+// fleet lane blockIdx.y) whose warps loop over rows row0, row0 + stride, ...
+// Each warp runs a three-stage pipeline over its rows through shared
+// memory, so a row's dependent loads overlap the merges of the rows before
+// it: at step i the warp
+//   A issues row i+2's own words [0, 2K) and its F partners' send-flag
+//     words (payload lane 2 of each partner row);
+//   B reads row i+1's flags (landed) and issues the rows of the partners
+//     whose send flag for the round is on (a degree-1 power-law row sends
+//     one), compacted into its partner stage;
+//   C merges row i from shared memory and writes it.
+// The metric sums stay in lane 0's registers across all of a warp's rows;
+// the block adds them to `met` once a tick (one set of atomics a block).
 template <bool RAMP, bool CHURN, bool JOIN, bool DROP>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(K5_WARPS * 32)
 grid_tick_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bc,
                  uint32_t* __restrict__ q, int32_t* __restrict__ out,
-                 int32_t* __restrict__ met, const int32_t* __restrict__ sp,
-                 K5Args a) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
+                 int32_t* __restrict__ met,
+                 const int32_t* __restrict__ sp, K5Args a) {
+  extern __shared__ __align__(16) int32_t k5_smem[];
+  constexpr int NS = K5_NS;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.y;               // fleet lane
   const int k = a.k, f = a.f;
   const int32_t* P = sp + (size_t)b * a.sp_len;
@@ -647,51 +864,113 @@ grid_tick_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bc,
   sc.rejoin_after = P[GSP_RAFTER];
   sc.churn_after = P[GSP_CAFTER];
   sc.churn_lo = a.churn_lo;
-  sc.churn_span = a.churn_span;
+  sc.churn_span = make_fastmod((uint32_t)a.churn_span);
   sc.t_remove = a.t_remove;
   const int32_t* masks = P + GSP_NSCALARS + max(f - 1, 0) + a.s * f;
+  const int32_t my_mask = lane < f ? masks[lane] : 0;   // lane fi: round fi
   in += b * a.in_lane;
   bc += b * a.bc_lane;
   q += b * a.q_lane;
   out += b * a.out_lane;
   met += ((size_t)b * a.s_ticks + a.s) * MET_COLS;
+  const uint32_t ep = (uint32_t)(t / SLOT_EPOCH);
+  const FastMod km = make_fastmod((uint32_t)k);
+  const int32_t fail0 = P[GSP_FAIL0], rejoin0 = P[GSP_REJOIN0];
+  const bool failed0 = CHURN && t > fail0 && t <= rejoin0;
+  const bool proc0 = t > 0 && !failed0;
+  const bool wipe = CHURN && a.can_rejoin;
+  const bool active = DROP && P[GSP_DROP_ON] > 0 && t > P[GSP_DROP_OPEN] &&
+                      t <= P[GSP_DROP_CLOSE];
+  const uint32_t drop_thr = (uint32_t)P[GSP_DROP_THR];
+
+  int32_t* ws = k5_smem + (size_t)warp * k5_warp_words(f);
+  int32_t* own_st = ws;                                 // [3][PLANE_W]
+  int32_t* flag_st = ws + K5_OWN * PLANE_W;             // [3][K5_MAX_F]
+  int32_t* part_st = flag_st + K5_OWN * K5_MAX_F;       // [2][f][PLANE_W]
+  const int stride = gridDim.x * K5_WARPS;
+  const int row0 = blockIdx.x * K5_WARPS + warp;
+  const int nrows = row0 < a.n ? (a.n - 1 - row0) / stride + 1 : 0;
   int v[MET_USED] = {0, 0, 0, 0, 0, 0, 0, 0};
-  if (row < a.n) {
-    const uint32_t ep = (uint32_t)(t / SLOT_EPOCH);
-    const int32_t fail0 = P[GSP_FAIL0], rejoin0 = P[GSP_REJOIN0];
-    const bool failed0 = CHURN && t > fail0 && t <= rejoin0;
-    const bool proc0 = t > 0 && !failed0;
-    const bool wipe = CHURN && a.can_rejoin;
-    // the F partners' send-flag bits in one round trip (lane fi loads
-    // partner fi's flag word), issued before the own row's loads
-    uint32_t flag_word = 0u;
-    if (lane < f)
-      flag_word = (uint32_t)in[(size_t)(row ^ masks[lane]) * PLANE_W + k + 2];
-    const uint32_t sent_to_us = __ballot_sync(
-        0xffffffffu, lane < f && ((flag_word >> (24 + lane)) & 1u));
-    // own row: unpack, wipe, decisions
-    const int32_t* R = in + (size_t)row * PLANE_W;
-    ViewRegs own;
+
+  // round j's power-law degree threshold on lane j (a row's degree is one
+  // ballot of its degree draw against them)
+  const uint32_t my_thr =
+      lane + 1 < f ? (uint32_t)P[GSP_NSCALARS + lane] : 0u;
+
+  auto stage_a = [&](int i, int so) {   // own row + partner flag words
+    if (i < nrows) {
+      const int32_t row = row0 + i * stride;
+      if (lane < f)
+        cp_async4(flag_st + so * K5_MAX_F + lane,
+                  in + (size_t)(row ^ my_mask) * PLANE_W + k + 2);
+      cp_row(own_st + so * PLANE_W, in + (size_t)row * PLANE_W, k, lane);
+    }
+    cp_commit();
+  };
+  // flagged partner rows; the row's decisions (proc, failed, at_start and
+  // its rejoin tick) are kept for stage C
+  auto stage_b = [&](int i, int so, int sp_, uint32_t& dec,
+                     int32_t& rejoin) -> uint32_t {
+    uint32_t sent = 0u;
+    if (i < nrows) {
+      const int32_t row = row0 + i * stride;
+      const uint32_t fw =
+          lane < f ? (uint32_t)flag_st[so * K5_MAX_F + lane] >> 24 : 0u;
+      sent = __ballot_sync(0xffffffffu, lane < f && ((fw >> lane) & 1u));
+      bool failed, at_start;
+      const bool proc =
+          k5_proc<RAMP, CHURN>(sc, P, row, t, failed, at_start, rejoin);
+      dec = (uint32_t)proc | (uint32_t)failed << 1 | (uint32_t)at_start << 2;
+      if (!proc) sent = 0u;
+      int32_t* dst = part_st + (size_t)sp_ * f * PLANE_W;
+      for (uint32_t m = sent; m; m &= m - 1, dst += PLANE_W) {
+        const int fi = __ffs(m) - 1;
+        const int32_t partner = row ^ __shfl_sync(0xffffffffu, my_mask, fi);
+        if (K5_VARIANT != 1)
+          cp_row(dst, in + (size_t)partner * PLANE_W, k, lane);
+      }
+    }
+    cp_commit();
+    return sent;
+  };
+
+  // stage slots: own rows i, i+1, i+2 in s0, s1, s2; partner rows of i, i+1
+  // in p0, 1 - p0
+  int s0 = 0, s1 = 1, s2 = 2, p0 = 0;
+  uint32_t sent_cur = 0u, dec_cur = 0u;
+  int32_t rejoin_cur = NEVER;
+  if (nrows > 0) {
+    stage_a(0, s0);
+    stage_a(1, s1);
+    cp_wait_warp<1>();
+    sent_cur = stage_b(0, s0, p0, dec_cur, rejoin_cur);
+  }
+  for (int i = 0; i < nrows; ++i) {
+    stage_a(i + 2, s2);
+    cp_wait_warp<2>();                  // row i+1's own words and flags
+    uint32_t dec_next = 0u;
+    int32_t rejoin_next = NEVER;
+    const uint32_t sent_next =
+        stage_b(i + 1, s1, 1 - p0, dec_next, rejoin_next);
+    cp_wait_warp<2>();                  // row i's partner rows
+    // ---- C: row i, from shared memory
+    const int32_t row = row0 + i * stride;
+    const int32_t* R = own_st + s0 * PLANE_W;
+    if (K5_VARIANT == 2) v[MET_VIEW] += R[lane] + part_st[p0 * f * PLANE_W];
+    if (K5_VARIANT != 2) {
+    ViewRegs<NS> own;
     load_view(own, R, R + k, k, lane, PW_MASK);
     const uint32_t a0 = (uint32_t)R[k] >> 24, a1 = (uint32_t)R[k + 1] >> 24;
     int32_t own_hb0 = (int32_t)(a0 | ((a1 & 0xFu) << 8));
     bool in_group0 = a1 & 0x10u;
     const bool joinreq0 = JOIN && (a1 & 0x20u);
     const bool joinrep0 = JOIN && (a1 & 0x40u);
-    int32_t fail = NEVER, rejoin = NEVER;
-    if (CHURN) fail_rejoin_of(sc, row, fail, rejoin);
-    const bool failed = CHURN && t > fail && t <= rejoin;
-    bool proc = !failed, at_start = false;
-    if (RAMP) {   // division-free start ramp: t > i*num//den <=> i*num < t*den
-      const int32_t ramp = (int32_t)((uint32_t)row * (uint32_t)P[GSP_STEP_NUM]);
-      const int32_t lo = t * P[GSP_STEP_DEN];
-      proc = ramp < lo && !failed;
-      at_start = ramp >= lo && ramp < lo + P[GSP_STEP_DEN];
-    }
+    const bool proc = dec_cur & 1u, failed = dec_cur & 2u,
+               at_start = dec_cur & 4u;
+    const int32_t rejoin = rejoin_cur;
     const bool rejoining = wipe && t == rejoin;
     if (rejoining) {
-#pragma unroll
-      for (int jj = 0; jj < SPL; ++jj) { own.ids[jj] = -1; own.pw[jj] = 0; }
+      clear_view(own);
       in_group0 = false;
       own_hb0 = 0;
     }
@@ -701,16 +980,15 @@ grid_tick_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bc,
         in_group0 || jrep || (starting && row == INTRODUCER);
     const bool ops = proc && in_group;
     const int32_t own_hb = own_hb0 + ops;
-    // merges: F partner rounds (a partner whose send flag is off sends
-    // nothing, so its row is not read)
-    RowAcc r;
+    // merges: the flagged partners in round order (a partner whose send
+    // flag is off sends nothing, so its row was not read)
+    RowAcc<NS> r;
     acc_init(r, own);
-    int recv = 0;
-    for (int fi = 0; fi < f; ++fi) {
-      if (!(proc && (sent_to_us >> fi & 1u))) continue;
-      const int32_t partner = row ^ masks[fi];
-      const int32_t* Q = in + (size_t)partner * PLANE_W;
-      ViewRegs pv;
+    const int32_t* Q = part_st + (size_t)p0 * f * PLANE_W;
+    for (uint32_t m = sent_cur; m; m &= m - 1, Q += PLANE_W) {
+      const int fi = __ffs(m) - 1;
+      const int32_t partner = row ^ __shfl_sync(0xffffffffu, my_mask, fi);
+      ViewRegs<NS> pv;
       load_view(pv, Q, Q + k, k, lane, PW_MASK);
       int32_t own_p = (int32_t)(((uint32_t)Q[k] >> 24) |
                                 (((uint32_t)Q[k + 1] >> 24 & 0xFu) << 8));
@@ -718,55 +996,46 @@ grid_tick_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bc,
         int32_t pf, pr;
         fail_rejoin_of(sc, partner, pf, pr);
         if (t == pr) {
-#pragma unroll
-          for (int jj = 0; jj < SPL; ++jj) { pv.ids[jj] = -1; pv.pw[jj] = 0; }
+          clear_view(pv);
           own_p = 0;
         }
       }
       merge_view(r, pv, true, row, t, a.t_remove, k, lane);
       if (a.t_remove > 1)
-        merge_entry(r, partner, t - 1, own_p, true, sc.seed, ep, k, lane);
-      ++recv;
+        merge_entry(r, partner, t - 1, own_p, true, sc.seed, ep, km, lane);
     }
+    const int recv = __popc(sent_cur);
     if (jrep) {   // JOINREP: the introducer's broadcast row
-      ViewRegs bv;
+      ViewRegs<NS> bv;
       load_view(bv, bc, bc + k, k, lane, PW_MASK);
       int32_t bc_hb = (int32_t)(((uint32_t)bc[k] >> 24) |
                                 (((uint32_t)bc[k + 1] >> 24 & 0xFu) << 8));
       if (wipe && t == rejoin0) {
-#pragma unroll
-        for (int jj = 0; jj < SPL; ++jj) { bv.ids[jj] = -1; bv.pw[jj] = 0; }
+        clear_view(bv);
         bc_hb = 0;
       }
       merge_view(r, bv, true, row, t, a.t_remove, k, lane);
       if (a.t_remove > 1)
         merge_entry(r, INTRODUCER, t - 1, bc_hb, row != INTRODUCER, sc.seed,
-                    ep, k, lane);
+                    ep, km, lane);
     }
     if (JOIN && row == INTRODUCER)
       merge_joinreq(r, true, q, nullptr, t, k, lane);
-    RowOut o;
+    RowOut<NS> o;
     extract_detect<CHURN>(r, ops, t, sc, k, lane, o);
     // dissemination: next tick's send flags and the join sends
-    const bool active = DROP && P[GSP_DROP_ON] > 0 &&
-                        t > P[GSP_DROP_OPEN] && t <= P[GSP_DROP_CLOSE];
-    const uint32_t drop_thr = (uint32_t)P[GSP_DROP_THR];
     int deg = f;
     if (a.powerlaw) {
       const uint32_t du = mix32(sc.seed, (uint32_t)row, SALT_DEGREE);
-      deg = 1;
-      for (int j = 0; j + 1 < f; ++j)
-        deg += du < (uint32_t)P[GSP_NSCALARS + j];
+      deg = 1 + __popc(__ballot_sync(0xffffffffu, lane + 1 < f && du < my_thr));
     }
-    int sf_bits = 0, n_sf = 0;
-    for (int fi = 0; fi < f; ++fi) {
-      bool sf = ops && fi < deg;
-      if (active)
-        sf = sf && !(mix32(sc.seed, (uint32_t)t, (uint32_t)row, (uint32_t)fi,
-                           SALT_GOSSIP_DROP) < drop_thr);
-      sf_bits |= sf << fi;
-      n_sf += sf;
-    }
+    int sf_bits = ops ? (1 << deg) - 1 : 0;
+    if (active && ops)
+      for (int fi = 0; fi < deg; ++fi)
+        if (mix32(sc.seed, (uint32_t)t, (uint32_t)row, (uint32_t)fi,
+                  SALT_GOSSIP_DROP) < drop_thr)
+          sf_bits &= ~(1 << fi);
+    const int n_sf = __popc(sf_bits);
     bool joinreq_sent = false, joinrep_sent = false, jreq = false;
     bool joinreq_next = false, joinrep_next = false;
     if (JOIN) {
@@ -790,29 +1059,31 @@ grid_tick_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bc,
         atomicMax(q + k + slot_of(sc.seed, (uint32_t)(t1 / SLOT_EPOCH), row, k),
                   pack_key(row, t1));
     }
-    // metrics (one warp: lane 0's totals count)
+    // metrics: lane 0 keeps the warp's running totals
     const int view = warp_sum(o.view), adds = warp_sum(o.adds),
               rem = warp_sum(o.removals), frem = warp_sum(o.false_removals),
               vic = warp_sum(o.victims);
-    if (lane == 0) {
-      v[MET_IN_GROUP] = in_group;
-      v[MET_VIEW] = view;
-      v[MET_ADDS] = adds;
-      v[MET_REMOVALS] = rem;
-      v[MET_FALSE_REMOVALS] = frem;
-      v[MET_VICTIM] = vic;
-      v[MET_SENT] = n_sf + joinreq_sent + joinrep_sent;
-      v[MET_RECV] = recv + jrep + jreq;
-    }
+    v[MET_IN_GROUP] += in_group;
+    v[MET_VIEW] += view;
+    v[MET_ADDS] += adds;
+    v[MET_REMOVALS] += rem;
+    v[MET_FALSE_REMOVALS] += frem;
+    v[MET_VICTIM] += vic;
+    v[MET_SENT] += n_sf + joinreq_sent + joinrep_sent;
+    v[MET_RECV] += recv + jrep + jreq;
     // the end-of-tick row, re-slotted on the last tick of an epoch, with
     // the aux bytes on payload lanes 0-2
-    int32_t pwv[SPL];
+    int32_t pwv[NS];
 #pragma unroll
-    for (int jj = 0; jj < SPL; ++jj)
+    for (int jj = 0; jj < NS; ++jj)
       pwv[jj] = o.ids[jj] >= 0 ? pack_th(o.ts[jj], o.hb[jj]) : 0;
-    if ((t + 1) % SLOT_EPOCH == 0)
-      reslot_row(o.ids, pwv, sc.seed, (uint32_t)((t + 1) / SLOT_EPOCH), k,
-                 lane);
+    if ((t + 1) % SLOT_EPOCH == 0) {   // row i's own-row stage is free now
+      __syncwarp();
+      reslot_row_smem(o.ids, pwv,
+                      reinterpret_cast<unsigned long long*>(own_st +
+                                                            s0 * PLANE_W),
+                      sc.seed, (uint32_t)((t + 1) / SLOT_EPOCH), km, lane);
+    }
     const uint32_t aux[3] = {
         (uint32_t)own_hb & 0xFFu,
         (((uint32_t)own_hb >> 8) & 0xFu) | (uint32_t)in_group << 4 |
@@ -820,15 +1091,49 @@ grid_tick_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bc,
         (uint32_t)sf_bits};
     int32_t* D = out + (size_t)row * PLANE_W;
 #pragma unroll
-    for (int jj = 0; jj < SPL; ++jj) {
+    for (int jj = 0; jj < NS; ++jj) {
       const int j = lane + 32 * jj;
       if (j >= k) continue;
       D[j] = o.ids[jj];
       D[k + j] = (int32_t)((uint32_t)pwv[jj] | (j < 3 ? aux[j] << 24 : 0u));
     }
     for (int j = 2 * k + lane; j < PLANE_W; j += 32) D[j] = 0;
+    }
+    sent_cur = sent_next;
+    dec_cur = dec_next;
+    rejoin_cur = rejoin_next;
+    const int s_done = s0;
+    s0 = s1;
+    s1 = s2;
+    s2 = s_done;
+    p0 = 1 - p0;
+    __syncwarp();   // row i's stages are read before i+3 / i+2 refill them
   }
-  block_metrics(v, met);
+  block_metrics<K5_WARPS>(v, met);
+}
+
+// The boot JOINREQ aggregate of a launch at tick t0 = sp[GSP_T0], one
+// thread a row: every peer but the introducer whose joinreq bit is set
+// adds its key at its slot of the epoch, when the introducer processes at
+// t0 (models/overlay_grid.py _boot_rows, the plain version).  `agg` (K
+// words a lane, zeroed) receives it.
+__global__ void __launch_bounds__(256)
+grid_boot_kernel(const int32_t* __restrict__ plane, size_t plane_lane,
+                 const int32_t* __restrict__ sp, int sp_len,
+                 uint32_t* __restrict__ agg, size_t agg_lane, int n, int k) {
+  const int b = blockIdx.y;
+  const int32_t* P = sp + (size_t)b * sp_len;
+  const int32_t t0 = P[GSP_T0];
+  if (!(t0 > 0 && !(t0 > P[GSP_FAIL0] && t0 <= P[GSP_REJOIN0]))) return;
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n || row == INTRODUCER) return;
+  const uint32_t a1 =
+      (uint32_t)plane[b * plane_lane + (size_t)row * PLANE_W + k + 1] >> 24;
+  if (a1 & 0x20u)
+    atomicMax(agg + b * agg_lane +
+                  slot_of((uint32_t)P[GSP_SEED], (uint32_t)(t0 / SLOT_EPOCH),
+                          row, k),
+              pack_key(row, t0));
 }
 
 typedef void (*GridTickKernel)(const int32_t*, const int32_t*, uint32_t*,
@@ -858,9 +1163,29 @@ Sched make_sched(uint32_t seed, int32_t vlo, int32_t vhi, int32_t ftick,
   s.rejoin_after = rafter;
   s.churn_after = cafter;
   s.churn_lo = churn_lo;
-  s.churn_span = churn_span;
+  s.churn_span = make_fastmod((uint32_t)churn_span);
   s.t_remove = t_remove;
   return s;
+}
+
+// K5's persistent grid: as many blocks as fit on the card at once (`per_sm`
+// of them on each SM), shared out among the fleet lanes, and never more
+// than the rows need.
+int k5_grid_blocks(GridTickKernel kernel, size_t smem, int n, int batch,
+                   int& per_sm, cudaError_t& err) {
+  int dev = 0, sms = 0;
+  per_sm = 0;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, K5_WARPS * 32, smem);
+  const int need = (n + K5_WARPS - 1) / K5_WARPS;
+  return max(1, min(need, per_sm * sms / batch));
 }
 
 }  // namespace
@@ -877,7 +1202,7 @@ int gp_fused_overlay_tick(const int32_t* idsaux, const int32_t* pw,
                           const int32_t* intro, const int32_t* host,
                           int32_t* ids_o, int32_t* hb_o, int32_t* ts_o,
                           int32_t* ctr, int n, int k, int f, int t_remove,
-                          int churn_lo, int churn_span, void* stream) {
+                          int churn_lo, int churn_span, void* stream_ptr) {
   if (k < 1 || k > MAX_K || f < 0 || f > MAX_F)
     return static_cast<int>(cudaErrorInvalidValue);
   K3Args a;
@@ -886,9 +1211,13 @@ int gp_fused_overlay_tick(const int32_t* idsaux, const int32_t* pw,
                    (uint32_t)host[6], host[7], churn_lo, churn_span, t_remove);
   for (int i = 0; i < MAX_F; ++i) a.masks[i] = i < f ? host[8 + i] : 0;
   const int blocks = (n + WARPS - 1) / WARPS;
-  fused_overlay_tick_kernel<<<blocks, WARPS * 32, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      idsaux, pw, intro, a, ids_o, hb_o, ts_o, ctr, n, k, f);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (k <= 64)
+    fused_overlay_tick_kernel<2><<<blocks, WARPS * 32, 0, stream>>>(
+        idsaux, pw, intro, a, ids_o, hb_o, ts_o, ctr, n, k, f);
+  else
+    fused_overlay_tick_kernel<SPL><<<blocks, WARPS * 32, 0, stream>>>(
+        idsaux, pw, intro, a, ids_o, hb_o, ts_o, ctr, n, k, f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -941,12 +1270,13 @@ int gp_mega_overlay_ticks(int32_t* st, int32_t* wiped, int32_t* met,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5.  plane (B, N, 128; lane l at plane + l * plane_lane words), boot (B, 8,
-// 128) and sp (B, sp_len) on the device; plane2 (B, 2, N, 128), met (B, S,
-// 128) and q (B, S+1, K; scratch) are written here (met zeroed, q zeroed
-// with the boot aggregate in its slot 0).  One launch a tick on one
-// stream: the stream order is the barrier between ticks.  flags: FL_RAMP |
-// FL_CHURN | FL_JOIN | FL_DROP, the launch's live phases.
+// K5.  plane (B, N, 128; lane l at plane + l * plane_lane words, 16-byte
+// aligned), boot (B, 8, 128; gp_grid_boot's block) and sp (B, sp_len) on
+// the device; plane2 (B, 2, N, 128), met (B, S, 128) and q (scratch: B (S+1)
+// K words) are written here (met zeroed; q zeroed with the boot aggregate
+// in its slot 0).  One launch a tick on one stream: the stream order is the
+// barrier between ticks.  flags: FL_RAMP | FL_CHURN | FL_JOIN | FL_DROP,
+// the launch's live phases.
 int gp_grid_overlay_ticks(const int32_t* plane, long long plane_lane,
                           const int32_t* boot, const int32_t* sp,
                           int32_t* plane2, int32_t* met, int32_t* q, int n,
@@ -954,9 +1284,10 @@ int gp_grid_overlay_ticks(const int32_t* plane, long long plane_lane,
                           int t_remove, int churn_lo, int churn_span,
                           int can_rejoin, int churn_mode, int powerlaw,
                           int flags, void* stream_ptr) {
-  if (k < 1 || 2 * k > PLANE_W || f < 1 || f > 8 || n < WARPS ||
-      n % WARPS != 0 || s_ticks < 1 || batch < 1 || batch > 65535 ||
-      flags < 0 || flags > 15 ||
+  if (k < 1 || 2 * k > PLANE_W || f < 1 || f > K5_MAX_F || n < 8 ||
+      s_ticks < 1 || batch < 1 || batch > 65535 || flags < 0 || flags > 15 ||
+      !boot || plane_lane % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(plane) % 16 != 0 ||
       (batch > 1 && plane_lane < (long long)n * PLANE_W))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
@@ -985,23 +1316,66 @@ int gp_grid_overlay_ticks(const int32_t* plane, long long plane_lane,
   a.out_lane = 2 * (size_t)n * PLANE_W;
   a.q_lane = q_lane;
   const size_t words = (size_t)n * PLANE_W;
-  const dim3 grid(n / WARPS, batch);
-  uint32_t* qu = reinterpret_cast<uint32_t*>(q);
+  const GridTickKernel kernel = kGridKernels[flags];
+  const size_t smem = sizeof(int32_t) * K5_WARPS * k5_warp_words(f);
+  int per_sm = 0;
+  const int blocks = k5_grid_blocks(kernel, smem, n, batch, per_sm, err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(blocks, batch);
   for (int s = 0; s < s_ticks; ++s) {
     a.s = s;
-    // the input plane and the boot row at s = 0; after that phase s % 2,
-    // whose introducer row is the broadcast row
+    // the input plane and the boot block's introducer row at s = 0; after
+    // that phase s % 2, whose introducer row is the broadcast row
     const int32_t* in = s == 0 ? plane : plane2 + (size_t)(s % 2) * words;
     a.in_lane = s == 0 ? (size_t)plane_lane : a.out_lane;
     const int32_t* bc = s == 0 ? boot : in + (size_t)INTRODUCER * PLANE_W;
     a.bc_lane = s == 0 ? (size_t)8 * PLANE_W : a.in_lane;
-    kGridKernels[flags]<<<grid, WARPS * 32, 0, stream>>>(
-        in, bc, qu + (size_t)s * k, plane2 + (size_t)(1 - s % 2) * words,
-        met, sp, a);
+    kernel<<<grid, K5_WARPS * 32, smem, stream>>>(
+        in, bc, reinterpret_cast<uint32_t*>(q) + (size_t)s * k,
+        plane2 + (size_t)(1 - s % 2) * words, met, sp, a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K5's boot pre-pass: the boot block of a launch (B, 8, 128), zeroed, row 0
+// the plane's introducer row and, on a join-live launch (`join`), row 1
+// lanes [0, K) the JOINREQ aggregate at sp's t0 (grid_boot_kernel).
+int gp_grid_boot(const int32_t* plane, long long plane_lane, const int32_t* sp,
+                 int32_t* boot, int n, int k, int batch, int sp_len, int join,
+                 void* stream_ptr) {
+  if (k < 1 || 2 * k > PLANE_W || n < 1 || batch < 1 || batch > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const size_t boot_lane = (size_t)8 * PLANE_W;
+  cudaError_t err = cudaMemsetAsync(
+      boot, 0, sizeof(int32_t) * batch * boot_lane, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemcpy2DAsync(boot, sizeof(int32_t) * boot_lane,
+                          plane + (size_t)INTRODUCER * PLANE_W,
+                          sizeof(int32_t) * plane_lane,
+                          sizeof(int32_t) * PLANE_W, batch,
+                          cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess || !join) return static_cast<int>(err);
+  grid_boot_kernel<<<dim3((n + 255) / 256, batch), 256, 0, stream>>>(
+      plane, (size_t)plane_lane, sp, sp_len,
+      reinterpret_cast<uint32_t*>(boot + PLANE_W), boot_lane, n, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Resident blocks a streaming multiprocessor holds of K5's variant `flags`
+// at F, as gp_grid_overlay_ticks sizes its persistent grid; a negative CUDA
+// error code on failure.
+int gp_grid_blocks_per_sm(int f, int flags) {
+  if (f < 1 || f > K5_MAX_F || flags < 0 || flags > 15)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  int per_sm = 0;
+  cudaError_t err;
+  k5_grid_blocks(kGridKernels[flags],
+                 sizeof(int32_t) * K5_WARPS * k5_warp_words(f), 1, 1, per_sm,
+                 err);
+  return err != cudaSuccess ? -static_cast<int>(err) : per_sm;
 }
 
 }  // extern "C"

@@ -26,15 +26,14 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from ..config import INTRODUCER, SimConfig
+from ..config import SimConfig
 from ..ops.cuda.overlay_grid import (GRID_TICKS, MET_ADDS, MET_FALSE_REMOVALS,
                                      MET_IN_GROUP, MET_RECV, MET_REMOVALS,
                                      MET_SENT, MET_VICTIM, MET_VIEW, PLANE_W,
-                                     grid_overlay_ticks, pack_plane,
-                                     unpack_plane)
-from ..ops.overlay_rules import (ID_BITS, SLOT_EPOCH, OverlaySchedule,
-                                 OverlayState, as_i32, exchange_mask,
-                                 pack_key, slot_of, u32_to_i32)
+                                     boot_block, grid_overlay_ticks,
+                                     pack_plane, unpack_plane)
+from ..ops.overlay_rules import (ID_BITS, OverlaySchedule, OverlayState,
+                                 as_i32, exchange_mask)
 from .overlay import OverlayMetrics, resolved_dims
 from .segments import plan_segments, step_fraction
 
@@ -114,25 +113,13 @@ def _boot_rows(cfg: SimConfig, sched: OverlaySchedule, plane: torch.Tensor,
                t0: int, join_live: bool = True) -> torch.Tensor:
     """The (8, PLANE_W) boot block of a launch at tick ``t0``: row 0 the
     introducer's plane row, row 1 lanes [0, K) the tick's JOINREQ
-    per-slot aggregate (later ticks' aggregates accumulate in K5).  The
-    aggregate is one ``scatter_reduce`` over the slot index; a join-dead
-    launch starts with every joinreq bit zero (models/segments.py), so
-    its aggregate is zero and is not computed."""
-    n = cfg.n
-    k, _ = resolved_dims(cfg)
-    boot = torch.zeros((8, PLANE_W), dtype=torch.int32, device=plane.device)
-    boot[0] = plane[INTRODUCER]
+    per-slot aggregate (later ticks' aggregates accumulate in K5);
+    ``ops/cuda/overlay_grid.py boot_block``.  The plain version of K5's
+    boot pre-pass (``grid_boot_rows``), which every K5 call runs on the
+    card; the plain K5 derives the block from the state itself."""
     fail0, rejoin0 = _intro_window(sched)
-    if join_live and t0 > 0 and not fail0 < t0 <= rejoin0:   # intro processes
-        rows = torch.arange(n, dtype=torch.int64, device=plane.device)
-        joinreq = ((plane[:, k + 1] >> 24) & 0x20) > 0
-        q_key = torch.where(joinreq & (rows != INTRODUCER),
-                            pack_key(rows, t0), 0)
-        q_kf = torch.zeros(k, dtype=torch.int64, device=plane.device) \
-            .scatter_reduce_(0, slot_of(sched.seed, t0 // SLOT_EPOCH, rows, k),
-                             q_key, "amax")
-        boot[1, :k] = u32_to_i32(q_kf)
-    return boot
+    return boot_block(plane, k=resolved_dims(cfg)[0], t0=t0, seed=sched.seed,
+                      fail0=fail0, rejoin0=rejoin0, join_live=join_live)
 
 
 def _sp_vector(sched: OverlaySchedule, t0: int, s_ticks: int, n: int,
@@ -154,8 +141,9 @@ def _sp_vector(sched: OverlaySchedule, t0: int, s_ticks: int, n: int,
 def grid_launch_input(cfg: SimConfig, sched: OverlaySchedule,
                       plane: torch.Tensor, t0: int, s_ticks: int,
                       join_live: bool = True):
-    """K5's ``(boot, sp)`` beside a packed plane for an ``s_ticks`` launch
-    at tick ``t0``: the boot block and the ``sp`` row."""
+    """The ``(boot, sp)`` of a K5 launch of ``s_ticks`` at tick ``t0`` on
+    a packed plane: the plain boot block (:func:`_boot_rows`, which K5's
+    pre-pass is held against; K5 builds its own) and the ``sp`` row."""
     return (_boot_rows(cfg, sched, plane, t0, join_live),
             _sp_vector(sched, t0, s_ticks, cfg.n, resolved_dims(cfg)[1]))
 
@@ -194,6 +182,7 @@ def make_grid_run(cfg: SimConfig, length: int,
     """
     if not grid_supported(cfg):
         raise ValueError("config outside the K5 envelope (grid_supported)")
+    f = resolved_dims(cfg)[1]
     kern_kw = grid_kernel_kwargs(cfg, *resolved_dims(cfg))
     plan = plan_segments(cfg, length, start_tick, GRID_TICKS)
 
@@ -203,10 +192,9 @@ def make_grid_run(cfg: SimConfig, length: int,
         t = state.tick
         parts = []
         for s_ticks, flags in _launches(plan):
-            boot, sp = grid_launch_input(cfg, sched, plane, t, s_ticks,
-                                         flags.join_live)
             plane2, met = grid_overlay_ticks(
-                plane, boot, sp, s_ticks=s_ticks, **kern_kw,
+                plane, _sp_vector(sched, t, s_ticks, cfg.n, f),
+                s_ticks=s_ticks, **kern_kw,
                 **flags.as_kernel_kwargs())
             plane = plane2[s_ticks % 2]
             t += s_ticks
@@ -250,6 +238,7 @@ def make_grid_fleet_run(cfg: SimConfig, length: int, batch: int,
         raise ValueError("config outside the K5 envelope (grid_supported)")
     if batch < 1:
         raise ValueError(f"batch must be >= 1, got {batch}")
+    f = resolved_dims(cfg)[1]
     kern_kw = grid_kernel_kwargs(cfg, *resolved_dims(cfg))
     plan = plan_segments(cfg, length, start_tick, GRID_TICKS)
 
@@ -263,12 +252,9 @@ def make_grid_fleet_run(cfg: SimConfig, length: int, batch: int,
         t = states.tick
         parts = []
         for s_ticks, flags in _launches(plan):
-            lanes = [grid_launch_input(cfg, sc, planes[b], t, s_ticks,
-                                       flags.join_live)
-                     for b, sc in enumerate(scheds)]
             plane2, met = grid_overlay_ticks(
-                planes, torch.stack([x[0] for x in lanes]),
-                np.stack([x[1] for x in lanes]), s_ticks=s_ticks,
+                planes, np.stack([_sp_vector(sc, t, s_ticks, cfg.n, f)
+                          for sc in scheds]), s_ticks=s_ticks,
                 batch=batch, **kern_kw, **flags.as_kernel_kwargs())
             planes = plane2[:, s_ticks % 2]
             t += s_ticks

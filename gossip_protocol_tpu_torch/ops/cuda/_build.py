@@ -6,9 +6,11 @@ interface and are compiled at first use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC
 
-into ``csrc/build/`` (ignored by git), one shared library per source
-and source hash, so an edited source rebuilds and an unchanged one
-loads at once.  The sources compile in parallel, one nvcc each.
+into ``csrc/build/`` (ignored by git), one shared library per source,
+defines and source hash, so an edited source rebuilds and an unchanged
+one loads at once.  The sources compile in parallel, one nvcc each.
+A source built with ``-D`` defines (a measurement variant, such as
+``overlay_tick.cu``'s ``K5_VARIANT``) is a library of its own beside it.
 Nothing here includes PyTorch's headers, so a build takes seconds.
 
 Pointers cross as ``ctypes.c_void_p`` (``tensor.data_ptr()``), the
@@ -48,6 +50,8 @@ SOURCES = {
         "gp_fused_overlay_tick": [_P] * 8 + [_I] * 6 + [_P],
         "gp_mega_overlay_ticks": [_P] * 5 + [_I] * 9 + [_P],
         "gp_grid_overlay_ticks": [_P, _L] + [_P] * 5 + [_I] * 13 + [_P],
+        "gp_grid_boot": [_P, _L, _P, _P] + [_I] * 5 + [_P],
+        "gp_grid_blocks_per_sm": [_I] * 2,
     },
 }
 
@@ -65,26 +69,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def lib_path(source: str) -> Path:
-    """Where the library of one source lives (named by its hash)."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def lib_path(source: str, defines: tuple = ()) -> Path:
+    """Where the library of one source built with ``defines`` lives
+    (named by its hash)."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(defines)).encode())
     h.update((CSRC / source).read_bytes())
     return BUILD_DIR / f"lib{Path(source).stem}_{h.hexdigest()[:16]}.so"
 
 
-def build(verbose: bool = False) -> list[Path]:
-    """Compile every source whose hash has no library yet, one nvcc
-    process per source, all started together; returns the libraries'
-    paths."""
+def build(verbose: bool = False, variants: tuple = ()) -> list[Path]:
+    """Compile every source, and each ``(source, defines)`` of
+    ``variants``, whose hash has no library yet, one nvcc process each,
+    all started together; returns the libraries' paths (the sources'
+    first).  ``verbose`` prints the sources' ``-Xptxas -v`` reports."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    outs = [lib_path(s) for s in SOURCES]
+    jobs = [(s, ()) for s in SOURCES] + [(s, tuple(d)) for s, d in variants]
+    outs = [lib_path(s, d) for s, d in jobs]
     procs = []
-    for source, out in zip(SOURCES, outs):
+    for (source, defines), out in zip(jobs, outs):
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS]
-        if verbose:
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines]
+        if verbose and not defines:
             cmd += ["-Xptxas", "-v"]
         cmd += ["-o", str(tmp), str(CSRC / source)]
         procs.append((out, tmp, subprocess.Popen(
@@ -104,12 +111,15 @@ def build(verbose: bool = False) -> list[Path]:
     return outs
 
 
-def library(source: str = "dense_tick.cu") -> ctypes.CDLL:
-    """The loaded library of one source (all are built at first use)."""
-    if source not in _libs:
-        path = lib_path(source)
+def library(source: str = "dense_tick.cu",
+            defines: tuple = ()) -> ctypes.CDLL:
+    """The loaded library of one source (all are built at first use), or
+    of its variant built with ``defines``."""
+    key = source if not defines else (source, tuple(defines))
+    if key not in _libs:
+        path = lib_path(source, defines)
         if not path.exists():
-            build()
+            build(variants=((source, defines),) if defines else ())
         lib = ctypes.CDLL(str(path))
         for name, argtypes in SOURCES[source].items():
             fn = getattr(lib, name)
@@ -117,8 +127,8 @@ def library(source: str = "dense_tick.cu") -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.gp_error_string.argtypes = [ctypes.c_int]
         lib.gp_error_string.restype = ctypes.c_char_p
-        _libs[source] = lib
-    return _libs[source]
+        _libs[key] = lib
+    return _libs[key]
 
 
 def check(code: int, what: str) -> None:

@@ -15,8 +15,10 @@ wait for the multi-device slice.
 The TPU kernel folded the high mask bits into its block index map and
 ran a butterfly in VMEM for the low ones.  On the H100 a partner row
 ``r ^ m`` is a direct global load: one warp owns a row, its lanes the K
-slots.  Bytes bound it; a row re-reads F partner rows of ``idsaux``
-and ``pw`` from L2/HBM (csrc/overlay_tick.cu).  Every value is an integer, so the kernel and
+slots.  A row waits on two dependent round trips: its own words beside
+the F partners' round flags (one lane a partner), then the views of
+every flagged partner, four at a time, before it merges them
+(csrc/overlay_tick.cu).  Every value is an integer, so the kernel and
 :func:`fused_overlay_tick_plain` agree bit for bit.
 """
 

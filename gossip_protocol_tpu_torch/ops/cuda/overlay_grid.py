@@ -3,16 +3,17 @@
 
 Replaces the TPU kernel ``gossip_protocol_tpu/ops/pallas/overlay_grid.py``
 ``grid_overlay_ticks`` (:710), with its contract: per fleet lane the
-packed state ``plane`` i32[N, PLANE_W], a ``boot`` block i32[8, PLANE_W]
-(row 0 the introducer's row, row 1 lanes [0, K) the boot JOINREQ
-aggregate; the TPU kernel took both as one ``init`` of N+8 rows, which
-here would cost a copy of the plane a call) and an ``sp`` row (the
-``_GSP_*`` scalars, the F-1 power-law degree thresholds, then S·F XOR
-masks) in; ``plane2`` i32[2, N, PLANE_W]
+packed state ``plane`` i32[N, PLANE_W] and an ``sp`` row (the ``_GSP_*``
+scalars, the F-1 power-law degree thresholds, then S·F XOR masks) in;
+``plane2`` i32[2, N, PLANE_W]
 (the end state in phase ``S % 2``) and one metric row per tick
 (``MET_*`` columns of i32[S, 128]) out, with a leading B on every array
 for a fleet.  The four ``*_live`` flags elide phases a launch provably
-does not need (``models/segments.py``).
+does not need (``models/segments.py``).  The TPU kernel also took the
+launch's boot block (row 0 the introducer's row, row 1 lanes [0, K) the
+boot JOINREQ aggregate) as rows N..N+8 of its ``init``; here the call
+builds it on the card from the plane (:func:`grid_boot_rows`, K5's boot
+pre-pass, whose plain version is :func:`boot_block`).
 
 The plane row of a peer: lanes [0, K) ids, [K, 2K) the 24-bit payload
 words ``(ts+1) << 12 | hb+1``, with the aux state in the high byte of
@@ -25,8 +26,12 @@ introducer's row in scratch.  On the H100 one C call launches one kernel
 a tick on one stream (the stream order is the barrier between ticks),
 each reading one phase of the plane and writing the other, with tick
 s+1's aggregate an ``atomicMax`` into a per-lane (S+1, K) buffer
-(csrc/overlay_tick.cu).  The TPU's row-block height is a detail of its
-blocking and has no counterpart here.
+(csrc/overlay_tick.cu).  Each tick is a persistent grid whose warps run
+a three-stage ``cp.async`` pipeline over their rows (own row and the
+partners' send flags, then the flagged partners' rows, then the merge
+from shared memory), with the metric sums added once a block.  The TPU's
+row-block height is a detail of its blocking and has no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -36,8 +41,9 @@ import torch
 
 from ...config import INTRODUCER
 from ...utils.hash32 import MASK32, mix32_t
-from ..overlay_rules import (_SALT_DEGREE, METRIC_FIELDS, OverlaySchedule,
-                             OverlayState, RowColumns, as_i32, overlay_step)
+from ..overlay_rules import (_SALT_DEGREE, METRIC_FIELDS, SLOT_EPOCH,
+                             OverlaySchedule, OverlayState, RowColumns, as_i32,
+                             overlay_step, pack_key, slot_of, u32_to_i32)
 from ._build import check, check_args, library, ptr, stream_ptr
 from .overlay_exchange import fused_overlay_tick_plain
 from .overlay_mega import (MET_ADDS, MET_COLS,  # noqa: F401
@@ -139,6 +145,93 @@ def unpack_plane(plane, k: int, f: int) -> dict:
                 joinrep=(a1[:, 0] & 0x40) > 0)
 
 
+def boot_block(plane, *, k: int, t0: int, seed: int, fail0: int,
+               rejoin0: int, join_live: bool = True) -> torch.Tensor:
+    """The (8, PLANE_W) boot block of a launch at tick ``t0`` (plain):
+    row 0 the introducer's plane row, row 1 lanes [0, K) the tick's
+    JOINREQ per-slot aggregate (later ticks' aggregates accumulate in
+    K5), one ``scatter_reduce`` over the slot index.  The aggregate is
+    zero where the introducer does not process at ``t0`` (``fail0 < t0
+    <= rejoin0``, or ``t0`` = 0) and on a join-dead launch, whose
+    joinreq bits are all zero (models/segments.py)."""
+    n = plane.shape[0]
+    boot = torch.zeros((8, PLANE_W), dtype=torch.int32, device=plane.device)
+    boot[0] = plane[INTRODUCER]
+    if join_live and t0 > 0 and not fail0 < t0 <= rejoin0:
+        rows = torch.arange(n, dtype=torch.int64, device=plane.device)
+        joinreq = ((plane[:, k + 1] >> 24) & 0x20) > 0
+        q_key = torch.where(joinreq & (rows != INTRODUCER),
+                            pack_key(rows, t0), 0)
+        q_kf = torch.zeros(k, dtype=torch.int64, device=plane.device) \
+            .scatter_reduce_(0, slot_of(seed, t0 // SLOT_EPOCH, rows, k),
+                             q_key, "amax")
+        boot[1, :k] = u32_to_i32(q_kf)
+    return boot
+
+
+def grid_boot_rows_plain(plane, sp, *, n: int, k: int, batch: int = 1,
+                         join_live: bool = True):
+    """Plain PyTorch version of :func:`grid_boot_rows`: per lane
+    :func:`boot_block` at the ``sp`` row's tick, seed and introducer
+    window."""
+    squeeze = plane.dim() == 2
+    host = _host_sp(sp)
+    if squeeze:
+        plane, host = plane[None], host[None]
+    assert plane.shape == (batch, n, PLANE_W), (plane.shape, batch)
+    out = torch.stack([boot_block(
+        plane[b], k=k, t0=as_i32(int(h[_GSP_T0])),
+        seed=int(h[_GSP_SEED]) & MASK32, fail0=as_i32(int(h[_GSP_FAIL0])),
+        rejoin0=as_i32(int(h[_GSP_REJOIN0])), join_live=join_live)
+        for b, h in enumerate(host)])
+    return out[0] if squeeze else out
+
+
+def grid_boot_rows(plane, sp, *, n: int, k: int, batch: int = 1,
+                   join_live: bool = True):
+    """The boot block i32[8, PLANE_W] (i32[B, 8, PLANE_W] for a fleet) of
+    a K5 launch on ``plane`` at the ``sp`` row's tick: K5's boot
+    pre-pass, which :func:`grid_overlay_ticks` runs before its ticks.
+    Row 0 is the plane's introducer row; on a join-live launch
+    ``csrc/overlay_tick.cu grid_boot_kernel`` (one thread a row, the
+    aggregate by ``atomicMax``) fills row 1, and only then does the
+    launch count.  CPU tensors take :func:`grid_boot_rows_plain`; CUDA
+    tensors launch the kernel (or raise)."""
+    if plane.device.type == "cpu":
+        return grid_boot_rows_plain(plane, sp, n=n, k=k, batch=batch,
+                                    join_live=join_live)
+    squeeze = plane.dim() == 2
+    host = _host_sp(sp)
+    if squeeze:
+        plane, host = plane[None], host[None]
+    if plane.shape[0] != batch or host.shape[0] != batch:
+        raise ValueError(f"grid_boot_rows: expected {batch} lanes")
+    if not 1 <= k <= PLANE_W // 2:
+        raise ValueError(f"grid_boot_rows: K={k} outside 1..{PLANE_W // 2}")
+    check_args("grid_boot_rows", (plane[0], torch.int32, (n, PLANE_W)))
+    dev = plane.device
+    sp_dev = _sp_to_card(host, dev)
+    boot = torch.empty((batch, 8, PLANE_W), dtype=torch.int32, device=dev)
+    code = library("overlay_tick.cu").gp_grid_boot(
+        ptr(plane), plane.stride(0), ptr(sp_dev), ptr(boot), n, k, batch,
+        host.shape[1], int(join_live), stream_ptr(dev))
+    if join_live:
+        grid_boot_rows.launches += 1
+    check(code, "grid_boot_rows")
+    return boot[0] if squeeze else boot
+
+
+grid_boot_rows.launches = 0
+
+
+def _sp_to_card(host: np.ndarray, dev) -> torch.Tensor:
+    """``sp`` rows (host ints) to the card through pinned memory, without
+    a sync."""
+    return torch.from_numpy(np.ascontiguousarray(
+        host.astype(np.uint32).view(np.int32))).pin_memory() \
+        .to(dev, non_blocking=True)
+
+
 def _check_flags(ramp_live, churn_live, join_live, can_rejoin) -> None:
     # the join_live=False form assumes no start or rejoin event can fire
     # this launch (models/segments.py planner invariant; the TPU kernel
@@ -197,7 +290,7 @@ def _lane_plain(plane, sp_row, *, n, k, f_rounds, s_ticks, t_remove,
     return plane2, met
 
 
-def grid_overlay_ticks_plain(plane, boot, sp, *, n: int, k: int, f_rounds: int,
+def grid_overlay_ticks_plain(plane, sp, *, n: int, k: int, f_rounds: int,
                              s_ticks: int, t_remove: int, churn_lo: int,
                              churn_span: int, can_rejoin: bool,
                              churn_mode: bool, powerlaw: bool,
@@ -208,19 +301,17 @@ def grid_overlay_ticks_plain(plane, boot, sp, *, n: int, k: int, f_rounds: int,
     calls of the overlay tick (``ops/overlay_rules.py overlay_step``,
     with K3's plain version) on the plane's state and the schedule
     rebuilt from ``sp`` (its churn threshold zeroed outside churn mode:
-    every subject then takes the victim interval), packed back.  The
-    tick derives the introducer's row and the JOINREQ aggregate from the
-    state, so ``boot`` (which holds them) is checked for shape only.
-    Under the planner's invariant the all-live tick is exact, so the
-    phase flags are checked, not used."""
+    every subject then takes the victim interval), packed back; the tick
+    derives the introducer's row and the JOINREQ aggregate (the boot
+    block) from the state.  Under the planner's invariant the all-live
+    tick is exact, so the phase flags are checked, not used."""
     _check_flags(ramp_live, churn_live, join_live, can_rejoin)
     del drop_live
     squeeze = plane.dim() == 2
     host = _host_sp(sp)
     if squeeze:
-        plane, boot, host = plane[None], boot[None], host[None]
+        plane, host = plane[None], host[None]
     assert plane.shape == (batch, n, PLANE_W), (plane.shape, batch)
-    assert boot.shape == (batch, 8, PLANE_W), (boot.shape, batch)
     assert host.shape == (batch, sp_len(f_rounds, s_ticks)), host.shape
     outs = [_lane_plain(plane[b], host[b], n=n, k=k, f_rounds=f_rounds,
                         s_ticks=s_ticks, t_remove=t_remove,
@@ -235,7 +326,7 @@ def grid_overlay_ticks_plain(plane, boot, sp, *, n: int, k: int, f_rounds: int,
     return plane2, met
 
 
-def grid_overlay_ticks(plane, boot, sp, *, n: int, k: int, f_rounds: int,
+def grid_overlay_ticks(plane, sp, *, n: int, k: int, f_rounds: int,
                        s_ticks: int, t_remove: int, churn_lo: int,
                        churn_span: int, can_rejoin: bool, churn_mode: bool,
                        powerlaw: bool, ramp_live: bool = True,
@@ -243,9 +334,9 @@ def grid_overlay_ticks(plane, boot, sp, *, n: int, k: int, f_rounds: int,
                        drop_live: bool = True, batch: int = 1):
     """Run ``s_ticks`` whole overlay ticks on ``plane`` in one call.
 
-    Args as the TPU kernel's, its ``init`` split into ``plane``
-    i32[N, PLANE_W] and ``boot`` i32[8, PLANE_W] (its row-block height
-    left out), or i32[B, N, PLANE_W] and i32[B, 8, PLANE_W] with
+    Args as the TPU kernel's, its ``init`` cut to the ``plane``
+    i32[N, PLANE_W] (the boot rows built here by :func:`grid_boot_rows`;
+    the row-block height left out), or i32[B, N, PLANE_W] with
     ``batch`` = B (not modified; each lane's plane contiguous, the lanes
     at any stride, so a fleet's phase of ``plane2`` goes in as it is);
     ``sp`` the scalar row(s) (host ints: a numpy array, a sequence or a
@@ -261,7 +352,7 @@ def grid_overlay_ticks(plane, boot, sp, *, n: int, k: int, f_rounds: int,
               ramp_live=ramp_live, churn_live=churn_live,
               join_live=join_live, drop_live=drop_live, batch=batch)
     if plane.device.type == "cpu":
-        return grid_overlay_ticks_plain(plane, boot, sp, **kw)
+        return grid_overlay_ticks_plain(plane, sp, **kw)
     _check_flags(ramp_live, churn_live, join_live, can_rejoin)
     if n < 8 or n & (n - 1) or not 1 <= k <= PLANE_W // 2 \
             or not 1 <= f_rounds <= 8 or s_ticks < 1 or batch < 1:
@@ -271,12 +362,14 @@ def grid_overlay_ticks(plane, boot, sp, *, n: int, k: int, f_rounds: int,
     squeeze = plane.dim() == 2
     host = _host_sp(sp)
     if squeeze:
-        plane, boot, host = plane[None], boot[None], host[None]
+        plane, host = plane[None], host[None]
     if plane.shape[0] != batch:
         raise ValueError(f"grid_overlay_ticks: plane has {plane.shape[0]} "
                          f"lanes, expected {batch}")
-    check_args("grid_overlay_ticks", (plane[0], torch.int32, (n, PLANE_W)),
-               (boot, torch.int32, (batch, 8, PLANE_W)))
+    check_args("grid_overlay_ticks", (plane[0], torch.int32, (n, PLANE_W)))
+    if plane.data_ptr() % 16 or plane.stride(0) % 4:
+        raise ValueError("grid_overlay_ticks: the plane's rows must be "
+                         "16-byte aligned (K5 copies them in 16-byte chunks)")
     length = sp_len(f_rounds, s_ticks)
     if host.shape != (batch, length):
         raise ValueError(f"grid_overlay_ticks: sp has shape {host.shape}, "
@@ -286,17 +379,17 @@ def grid_overlay_ticks(plane, boot, sp, *, n: int, k: int, f_rounds: int,
         raise ValueError("grid_overlay_ticks: an XOR mask outside [1, N) "
                          "would read past the plane")
     dev = plane.device
-    # the scalars go to the card through pinned memory, without a sync
-    sp_dev = torch.from_numpy(np.ascontiguousarray(
-        host.astype(np.uint32).view(np.int32))).pin_memory() \
-        .to(dev, non_blocking=True)
+    boot = grid_boot_rows(plane, host, n=n, k=k, batch=batch,
+                          join_live=join_live)
+    sp_dev = _sp_to_card(host, dev)
     plane2 = torch.empty((batch, 2, n, PLANE_W), dtype=torch.int32,
                          device=dev)
     if s_ticks == 1:
         plane2[:, 0].zero_()
     met = torch.empty((batch, s_ticks, MET_COLS), dtype=torch.int32,
                       device=dev)
-    qbuf = torch.empty((batch, s_ticks + 1, k), dtype=torch.int32,
+    # the per-tick JOINREQ aggregates of each lane
+    qbuf = torch.empty(batch * (s_ticks + 1) * k, dtype=torch.int32,
                        device=dev)
     flags = sum(bit for name, bit in _FLAG_BITS if kw[name])
     code = library("overlay_tick.cu").gp_grid_overlay_ticks(

@@ -310,12 +310,12 @@ def test_grid_kernel_equals_plain(dev, name, n):
     for i, (t0, s_ticks, flags) in enumerate(cases):
         state = _random_state(cfg, t0, n + i, dev, join=flags.join_live)
         plane = pg.pack_grid_plane(cfg, state)
-        boot, sp = pg.grid_launch_input(cfg, sched, plane, t0, s_ticks)
+        _, sp = pg.grid_launch_input(cfg, sched, plane, t0, s_ticks)
         before = grid_overlay_ticks.launches
-        a = grid_overlay_ticks(plane, boot, sp, s_ticks=s_ticks, **kw,
+        a = grid_overlay_ticks(plane, sp, s_ticks=s_ticks, **kw,
                                **flags.as_kernel_kwargs())
         assert grid_overlay_ticks.launches == before + 1
-        b = grid_overlay_ticks_plain(plane, boot, sp, s_ticks=s_ticks, **kw,
+        b = grid_overlay_ticks_plain(plane, sp, s_ticks=s_ticks, **kw,
                                      **flags.as_kernel_kwargs())
         torch.cuda.synchronize()
         for x, y in zip(a, b):
@@ -339,12 +339,11 @@ def test_grid_fleet_kernel_equals_plain(dev):
     lanes = [pg.grid_launch_input(
         cfg, pov.make_overlay_schedule(cfg.replace(seed=s)), planes[b], 160,
         16) for b, s in enumerate((3, 4))]
-    boot = torch.stack([x[0] for x in lanes])
     sp = np.stack([x[1] for x in lanes])
     kw = dict(pg.grid_kernel_kwargs(cfg, k, f), s_ticks=16, batch=2,
               **ALL_LIVE.as_kernel_kwargs())
-    a = grid_overlay_ticks(planes, boot, sp, **kw)
-    b = grid_overlay_ticks_plain(planes, boot, sp, **kw)
+    a = grid_overlay_ticks(planes, sp, **kw)
+    b = grid_overlay_ticks_plain(planes, sp, **kw)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -395,9 +394,9 @@ def test_grid_route_equals_k3_route_and_cpu(dev):
 
 
 def test_grid_kernel_rejects_bad_input(dev):
-    """An XOR mask outside [1, N), a short ``sp`` row, a wrong plane or
-    boot shape or a plane whose rows are not contiguous raises before
-    any pointer reaches the kernel."""
+    """An XOR mask outside [1, N), a short ``sp`` row, a wrong plane
+    shape, a fleet plane of the wrong lane count or a plane whose rows
+    are not contiguous raises before any pointer reaches the kernel."""
     from gossip_protocol_tpu_torch.models import overlay as pov
     from gossip_protocol_tpu_torch.models import overlay_grid as pg
     from gossip_protocol_tpu_torch.models.segments import ALL_LIVE
@@ -406,16 +405,184 @@ def test_grid_kernel_rejects_bad_input(dev):
     cfg = _grid_cfg("churn", 64)
     k, f = pov.resolved_dims(cfg)
     plane = pg.pack_grid_plane(cfg, _random_state(cfg, 40, 1, dev))
-    boot, sp = pg.grid_launch_input(cfg, pov.make_overlay_schedule(cfg),
-                                    plane, 40, 16)
+    _, sp = pg.grid_launch_input(cfg, pov.make_overlay_schedule(cfg),
+                                 plane, 40, 16)
     kw = dict(pg.grid_kernel_kwargs(cfg, k, f), s_ticks=16,
               **ALL_LIVE.as_kernel_kwargs())
     before = grid_overlay_ticks.launches
     bad = sp.copy()
     bad[-1] = cfg.n
-    for args in ((plane, boot, bad), (plane, boot, sp[:-1]),
-                 (plane[:-1], boot, sp), (plane, boot[:-1], sp),
-                 (plane.T.contiguous().T, boot, sp)):
+    for args in ((plane, bad), (plane, sp[:-1]), (plane[:-1], sp),
+                 (torch.stack([plane] * 2), sp),
+                 (plane.T.contiguous().T, sp)):
         with pytest.raises(ValueError):
             grid_overlay_ticks(*args, **kw)
     assert grid_overlay_ticks.launches == before
+
+
+def _grid_check(plane, boot, sp, kw):
+    """K5 and its plain version on one launch input, bit for bit, and
+    K5's boot pre-pass (one launch on a join-live launch, none on a
+    join-dead one) against the plain ``boot``."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
+        grid_boot_rows, grid_overlay_ticks, grid_overlay_ticks_plain)
+    before = (grid_overlay_ticks.launches, grid_boot_rows.launches)
+    a = grid_overlay_ticks(plane, sp, **kw)
+    assert grid_overlay_ticks.launches == before[0] + 1
+    assert grid_boot_rows.launches == before[1] + kw["join_live"]
+    b = grid_overlay_ticks_plain(plane, sp, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(grid_boot_rows(
+        plane, sp, n=kw["n"], k=kw["k"], batch=kw.get("batch", 1),
+        join_live=kw["join_live"]), boot)
+
+
+def test_grid_kernel_steady_state_powerlaw_f8(dev):
+    """N=2^16 power-law (K=64, F=8): every row loop of the persistent grid
+    runs many rows, on each flag variant of the plan, the boot block built
+    on the card."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    cfg = _grid_cfg("powerlaw", 1 << 16)
+    sched = pov.make_overlay_schedule(cfg)
+    k, f = pov.resolved_dims(cfg)
+    assert (k, f) == (64, 8)
+    cases = _k5_cases(cfg)
+    assert {c[2].tag for c in cases} >= {"ramp+join", "steady", "churn"}
+    for i, (t0, s_ticks, flags) in enumerate(cases):
+        state = _random_state(cfg, t0, 90 + i, dev, join=flags.join_live)
+        plane = pg.pack_grid_plane(cfg, state)
+        boot, sp = pg.grid_launch_input(cfg, sched, plane, t0, s_ticks,
+                                        flags.join_live)
+        kw = dict(pg.grid_kernel_kwargs(cfg, k, f), s_ticks=s_ticks,
+                  **flags.as_kernel_kwargs())
+        _grid_check(plane, boot, sp, kw)
+
+
+def test_grid_kernel_masks_below_a_block(dev):
+    """XOR masks 1..7 put every partner beside its row (in its own warp
+    block of rows, and in the same row pipeline's window)."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    from gossip_protocol_tpu_torch.models.segments import ALL_LIVE
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import sp_len
+    cfg = _grid_cfg("powerlaw", 4096)
+    k, f = pov.resolved_dims(cfg)
+    plane = pg.pack_grid_plane(cfg, _random_state(cfg, 150, 11, dev))
+    boot, sp = pg.grid_launch_input(cfg, pov.make_overlay_schedule(cfg),
+                                    plane, 150, 16)
+    rng = np.random.default_rng(12)
+    n_masks = 16 * f
+    sp[sp_len(f, 16) - n_masks:] = rng.integers(1, 8, n_masks)
+    kw = dict(pg.grid_kernel_kwargs(cfg, k, f), s_ticks=16,
+              **ALL_LIVE.as_kernel_kwargs())
+    _grid_check(plane, boot, sp, kw)
+
+
+def test_grid_fleet_lanes_with_own_masks(dev):
+    """A B=2 fleet at N=4096 whose lanes (seeds 7 and 8) have different
+    masks, degrees and churn draws (and boot blocks)."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    from gossip_protocol_tpu_torch.models.segments import ALL_LIVE
+    cfg = _grid_cfg("churn", 4096)
+    k, f = pov.resolved_dims(cfg)
+    planes = torch.stack([pg.pack_grid_plane(
+        cfg, _random_state(cfg, 200, s, dev)) for s in (7, 8)])
+    lanes = [pg.grid_launch_input(
+        cfg, pov.make_overlay_schedule(cfg.replace(seed=s)), planes[b], 200,
+        16) for b, s in enumerate((7, 8))]
+    sp = np.stack([x[1] for x in lanes])
+    masks = sp[:, -16 * f:]
+    assert (masks[0] != masks[1]).any()
+    kw = dict(pg.grid_kernel_kwargs(cfg, k, f), s_ticks=16, batch=2,
+              **ALL_LIVE.as_kernel_kwargs())
+    _grid_check(planes, torch.stack([x[0] for x in lanes]), sp, kw)
+
+
+def test_fused_overlay_tick_f8(dev):
+    """K3 at F=8 (two chunks of partner loads) on a random N=65,536
+    power-law state, against its plain version."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
+        fused_overlay_tick, fused_overlay_tick_plain)
+    cfg = _grid_cfg("powerlaw", 1 << 16)
+    assert pov.resolved_dims(cfg)[1] == 8
+    state = _random_state(cfg, 140, 5, dev)
+    got = {}
+
+    def keep(*args, **kw):
+        got.update(args=args, kw=kw)
+        return fused_overlay_tick_plain(*args, **kw)
+
+    pov.make_overlay_tick(cfg, exchange=keep)(
+        state, pov.make_overlay_schedule(cfg))
+    a = fused_overlay_tick(*got["args"], **got["kw"])
+    b = fused_overlay_tick_plain(*got["args"], **got["kw"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("name", sorted(GRID))
+@pytest.mark.parametrize("n", (64, 4096))
+def test_grid_boot_prepass_equals_boot_rows(dev, name, n):
+    """K5's boot pre-pass against the plain ``_boot_rows`` at join-live
+    ticks (power-law seed 77 fails the introducer at tick 136, so ticks
+    137 and 160 fall inside its fail window), solo and as a B=2 fleet of
+    two seeds."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_boot_rows
+    cfg = _grid_cfg(name, n)
+    k, _ = pov.resolved_dims(cfg)
+    ticks = (1, 17, 40, 137, 160)
+    for t0 in ticks:
+        lanes = []
+        for s in (77, 3):
+            c = cfg.replace(seed=s)
+            sched = pov.make_overlay_schedule(c)
+            state = _random_state(c, t0, 31 * s + t0, dev)
+            state.joinreq[:] = torch.rand(n, device=dev) < 0.3
+            plane = pg.pack_grid_plane(c, state)
+            lanes.append((plane, *pg.grid_launch_input(c, sched, plane, t0,
+                                                       16)))
+        before = grid_boot_rows.launches
+        got = grid_boot_rows(lanes[0][0], lanes[0][2], n=n, k=k)
+        assert grid_boot_rows.launches == before + 1
+        assert torch.equal(got, lanes[0][1]), t0
+        fleet = grid_boot_rows(torch.stack([x[0] for x in lanes]),
+                               np.stack([x[2] for x in lanes]), n=n, k=k,
+                               batch=2)
+        assert torch.equal(fleet, torch.stack([x[1] for x in lanes])), t0
+        dead = grid_boot_rows(lanes[0][0], lanes[0][2], n=n, k=k,
+                              join_live=False)
+        assert grid_boot_rows.launches == before + 2
+        assert torch.equal(dead[0], lanes[0][1][0]) and not dead[1:].any()
+
+
+@pytest.mark.parametrize("view,fanout", [(128, 16), (20, 1)])
+def test_fused_overlay_tick_wide_and_narrow(dev, view, fanout):
+    """K3 at the edges of its envelope, against its plain version: K=128
+    with F=16 (four slots a lane, four chunks of partner loads) and K=20
+    with F=1 (row lengths that are no multiple of four words)."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
+        fused_overlay_tick, fused_overlay_tick_plain)
+    cfg = _grid_cfg("churn", 4096).replace(overlay_view=view, fanout=fanout)
+    assert pov.resolved_dims(cfg) == (view, fanout)
+    state = _random_state(cfg, 200, view + fanout, dev)
+    got = {}
+
+    def keep(*args, **kw):
+        got.update(args=args, kw=kw)
+        return fused_overlay_tick_plain(*args, **kw)
+
+    pov.make_overlay_tick(cfg, exchange=keep)(
+        state, pov.make_overlay_schedule(cfg))
+    a = fused_overlay_tick(*got["args"], **got["kw"])
+    b = fused_overlay_tick_plain(*got["args"], **got["kw"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))

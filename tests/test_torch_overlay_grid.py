@@ -246,12 +246,12 @@ def test_plain_k5_equals_jax_interpret_kernel(case):
     kw = dict(pgrid.grid_kernel_kwargs(pc, k, f), s_ticks=GRID_TICKS,
               **flags.as_kernel_kwargs())
     before = grid_overlay_ticks.launches
-    plane2, met = grid_overlay_ticks(p_plane, p_boot, p_sp, **kw)
+    plane2, met = grid_overlay_ticks(p_plane, p_sp, **kw)
     assert grid_overlay_ticks.launches == before      # CPU: plain version
     end = GRID_TICKS % 2
     assert np.array_equal(plane2[end].numpy(), np.asarray(plane2_j)[end])
     assert np.array_equal(met.numpy(), np.asarray(met_j))
-    again = grid_overlay_ticks_plain(p_plane, p_boot, p_sp, **kw)
+    again = grid_overlay_ticks_plain(p_plane, p_sp, **kw)
     assert torch.equal(again[0], plane2) and torch.equal(again[1], met)
 
 
@@ -332,3 +332,103 @@ def test_simulation_profile_dir_writes_a_trace(tmp_path):
                               getattr(traced.metrics, f)), f
     rest = sim.run(resume_from=plain.final_state)
     assert rest.final_state.tick == 60
+
+
+#: the two K5 configurations at N=64 for the boot block: BASELINE's churn
+#: shape, and the power-law shape with seed 77, whose single victim is the
+#: introducer (fail tick 136), without and with a rejoin 40 ticks later
+BOOT_CASES = {
+    "churn": dict(max_nnb=64, single_failure=False, seed=1, total_ticks=608,
+                  churn_rate=0.2, rejoin_after=40, step_rate=1.0),
+    "powerlaw_intro_fails": dict(max_nnb=64, single_failure=True, seed=77,
+                                 total_ticks=272, fail_tick=136,
+                                 topology="powerlaw", step_rate=40.0 / 64),
+    "powerlaw_intro_rejoins": dict(max_nnb=64, single_failure=True, seed=77,
+                                   total_ticks=272, fail_tick=136,
+                                   rejoin_after=40, topology="powerlaw",
+                                   step_rate=40.0 / 64),
+}
+BOOT_TICKS = (0, 1, 17, 100, 136, 137, 160, 176, 177, 255)
+
+
+@pytest.mark.parametrize("name", sorted(BOOT_CASES))
+def test_boot_rows_equal_jax(name):
+    """The port's ``_boot_rows`` (the plain version of K5's boot
+    pre-pass) equals the JAX package's on a random plane (about half the
+    rows with their joinreq bit set) at join-live ticks inside and
+    outside the introducer's fail window; the join-dead form keeps only
+    row 0."""
+    kw = dict(BOOT_CASES[name], model="overlay")
+    jc, pc = JaxConfig(**kw), SimConfig(**kw)
+    js, ps = jov.make_overlay_schedule(jc), pov.make_overlay_schedule(pc)
+    fail0, rejoin0 = pgrid._intro_window(ps)
+    if name != "churn":
+        assert fail0 == 136 and any(fail0 < t <= rejoin0 for t in BOOT_TICKS)
+    rng = np.random.default_rng(len(name))
+    plane = rng.integers(-2 ** 31, 2 ** 31, (pc.n, 128), dtype=np.int64) \
+        .astype(np.int32)
+    for t0 in BOOT_TICKS:
+        want = np.asarray(jgrid._boot_rows(jc, js, jnp.asarray(plane),
+                                           jnp.int32(t0)))
+        got = pgrid._boot_rows(pc, ps, torch.from_numpy(plane), t0)
+        assert np.array_equal(got.numpy(), want), t0
+        dead = pgrid._boot_rows(pc, ps, torch.from_numpy(plane), t0,
+                                join_live=False)
+        assert np.array_equal(dead[0].numpy(), plane[0])
+        assert not dead[1:].any()
+
+
+def test_boot_prepass_plain_equals_boot_rows():
+    """The pre-pass wrapper's CPU route (``grid_boot_rows_plain``, which
+    reads the tick, seed and introducer window from the ``sp`` rows)
+    equals ``_boot_rows`` solo and as a B=2 fleet of two seeds, and
+    launches nothing."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
+        grid_boot_rows, grid_boot_rows_plain)
+    kw = dict(BOOT_CASES["powerlaw_intro_rejoins"], model="overlay")
+    rng = np.random.default_rng(9)
+    for t0 in (17, 137, 177):
+        lanes = []
+        for seed in (77, 5):
+            pc = SimConfig(**dict(kw, seed=seed))
+            plane = torch.from_numpy(rng.integers(
+                -2 ** 31, 2 ** 31, (pc.n, 128), dtype=np.int64)
+                .astype(np.int32))
+            boot, sp = pgrid.grid_launch_input(
+                pc, pov.make_overlay_schedule(pc), plane, t0, GRID_TICKS)
+            lanes.append((plane, boot, sp))
+        k = pov.resolved_dims(pc)[0]
+        before = grid_boot_rows.launches
+        assert torch.equal(grid_boot_rows(lanes[0][0], lanes[0][2], n=64,
+                                          k=k), lanes[0][1])
+        assert grid_boot_rows.launches == before
+        fleet = grid_boot_rows_plain(
+            torch.stack([x[0] for x in lanes]),
+            np.stack([x[2] for x in lanes]), n=64, k=k, batch=2)
+        assert torch.equal(fleet, torch.stack([x[1] for x in lanes]))
+
+
+def test_grid_launch_without_boot():
+    """A K5 launch takes no boot block (its pre-pass builds one from the
+    plane): the plain K5 at tick 40 equals the per-tick overlay run over
+    the same 16 ticks, and the pre-pass's CPU route gives a join-dead
+    launch row 0 alone, as ``_boot_rows`` does, launching nothing."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_boot_rows
+    _, pc = _pair("churn")
+    k, f = pov.resolved_dims(pc)
+    ps = pov.make_overlay_schedule(pc)
+    state, _ = pov.make_overlay_run(pc, 40)(pov.init_overlay_state(pc, "cpu"),
+                                            ps)
+    plane = pgrid.pack_grid_plane(pc, state)
+    boot, sp = pgrid.grid_launch_input(pc, ps, plane, 40, GRID_TICKS,
+                                       join_live=False)
+    before = grid_boot_rows.launches
+    assert torch.equal(grid_boot_rows(plane, sp, n=pc.n, k=k,
+                                      join_live=False), boot)
+    assert grid_boot_rows.launches == before and not boot[1:].any()
+    kw = dict(pgrid.grid_kernel_kwargs(pc, k, f), s_ticks=GRID_TICKS)
+    plane2, _ = grid_overlay_ticks_plain(plane, sp, **kw)
+    want, _ = pov.make_overlay_run(pc, GRID_TICKS)(state, ps)
+    got = pgrid.pack_grid_plane(pc, want)
+    assert torch.equal(plane2[GRID_TICKS % 2], got)
