@@ -26,7 +26,10 @@ one line per phase:
    slot-epoch grid), a 12-tick remainder and a B=2 fleet launch; K5's
    boot pre-pass (``grid_boot_rows``) against ``_boot_rows`` on the real
    ticks 16 and 20 of the power-law shape at N=64, 4096, 65,536 and
-   2^20 and on a B=2 churn fleet (seeds 0 and 1) at N=4096;
+   2^20 and on a B=2 churn fleet (seeds 0 and 1) at N=4096; the dense
+   drop draw (``drop_masks``) at N in {10, 64, 896, 2816} and S in
+   {1, 8, 16}, the window closed at every fourth tick of a launch, at
+   full width and embedded at 3/4 of it;
 3. the graded path: the three N=10 testcases on ``cuda``, each timed,
    must grade 90;
 4. card vs CPU: N=64 multifailure and N=64 drop, 700 ticks — the
@@ -37,13 +40,16 @@ one line per phase:
 5. full-width runs with closed-form oracles: N=512 multifailure trace
    (K2), N=1024 multifailure 10% drop trace (K1 at full width), and
    bench N=4096 10% drop at 700 ticks (corner 2816, K1) and 200 ticks
-   (corner 896, K2), with node-ticks/s; then BASELINE's overlay configs
+   (corner 896, K2), with node-ticks/s and, from one more profiled run,
+   the 200-tick corner's device idle share; then BASELINE's overlay
+   configs
    (5e) — N=4096 10% drop, 608 ticks (K4, 38 launches), N=65,536 20%
    churn, 608 ticks (K5, 38 launches) and N=2^20 power-law single
    failure, 272 ticks (K5, F=8, 17 launches; no K3 launch on either) —
    each validated as bench.py validates it (all in the group, no victim
    slot or entry left, every member uncovered at the end covered again
-   within SLOT_EPOCH + 1 ticks), with node-ticks/s; and the overlay
+   within SLOT_EPOCH + 1 ticks), with node-ticks/s (and the N=4096 run's
+   idle share from one more profiled run); and the overlay
    cross-paths (5f): the per-tick K3 route of each of the three runs
    equals it through K4 or K5, the first 48 ticks of the N=65,536 run
    through K3 equal the plain per-tick path, and a B=4 K5 fleet of the
@@ -53,12 +59,16 @@ one line per phase:
    tick 699 of the 700-tick corner (N=2816), of the N=1024 trace and of
    the N=10 multifailure testcase for K1, the last full K2 launch of
    the 200-tick corner and of the N=512 trace, tick 607 of the N=65,536
-   churn run for K3, the launch at tick 592 of the N=4096 drop run for
-   K4, the last full launches of the N=65,536 churn run (tick 592) and
+   churn run and of the N=4096 drop run for K3, the launch at tick 592
+   of the N=4096 drop run for K4, the last full launches of the N=65,536
+   churn run (tick 592) and
    of the N=2^20 power-law run (tick 256) for K5, with the boot block
    built on the card as the route does; K3 also at tick 136 of the N=2^20
    run, the width of its per-tick cross-check there; the boot pre-pass
-   at tick 16 of both K5 runs), then a ``kernels``
+   at tick 16 of both K5 runs; the drop draw as the dense routes call it,
+   at ticks 300 (window open) and 699 (closed) of the 700-tick corner
+   (N=2816, S=1) and for the last K2 launch of the 200-tick corner (N=896,
+   S=8)), then a ``kernels``
    JSON line: per kernel its launches on the main path (phases 3-5,
    counters zeroed before each path and read after it, bench warm-ups
    and kernel-vs-plain comparisons not counted), its time, its plain
@@ -85,6 +95,9 @@ path: phase 6's overlay kernels, then 5e's three runs.
 the default, or ``overlay``) for another checkout and for this one in
 turns (other, this, this, other, twice), each run a process of its own,
 and prints every wall and kernel time of the eight runs.
+
+``--profile`` also fails if a dense ``cuda`` run issued any of the
+threefry draw's torch operators (the draw is the ``drop_masks`` kernel).
 
 Any failure raises and exits non-zero; no phase catches and continues.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
@@ -840,6 +853,63 @@ def boot_bound(n: int) -> tuple[float, str]:
     return bound(4 * n + 4 * 128 + 4 * 8 * 128, 25 * n)
 
 
+def draw_bound(n: int, na: int, drawn_ticks: int,
+               s_ticks: int) -> tuple[float, str]:
+    """The drop draw's least time: its outputs written once (S (N^2 + 2N)
+    bytes; it reads nothing but its arguments) against 70 int32
+    operations (threefry-2x32's 20 rounds of add, rotate and xor, and 5
+    key injections of two adds; the index split, the mantissa and the
+    compare not counted) for each element of the ticks whose window is
+    open, (na + 2) na a tick; a closed tick draws nothing."""
+    return bound(s_ticks * (n * n + 2 * n), 70 * drawn_ticks * (na + 2) * na)
+
+
+def draw_timing(dev) -> dict:
+    """The dense drop draw as the two dense routes call it, each timed
+    (``route_ms``): the per-tick route's ``tick_drop_masks`` at ticks 300
+    (the last tick of the drop window) and 699 (window closed) of the
+    700-tick bench corner (N=2816), the K2 route's ``drop_stack`` for the
+    last full launch of the 200-tick corner (N=896, S=8, ticks 192-199);
+    where the checkout has the kernel, also ``drop_masks`` held against
+    its plain version on the same inputs, both timed, with the bound."""
+    from gossip_protocol_tpu_torch.core.dense_corner import bench_stream_width
+    from gossip_protocol_tpu_torch.core.dense_mega import drop_stack
+    from gossip_protocol_tpu_torch.ops import drop as drop_ops
+    from gossip_protocol_tpu_torch.state import make_schedule_host
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    out = {}
+    for key, ticks, t, s_ticks in (("draw_t300", 700, 300, 1),
+                                   ("draw_t699", 700, 699, 1),
+                                   ("draw_stack", 200, 192, 8)):
+        cfg = bench_cfg(ticks)
+        a = bench_stream_width(cfg)
+        sched = make_schedule_host(cfg)
+        rng = prng_key(cfg.seed)
+        active = [sched.drop_on(t + i) for i in range(s_ticks)]
+        if s_ticks == 1:
+            def route():
+                return drop_ops.tick_drop_masks(rng, t, a, active[0],
+                                                sched.drop_prob, dev)
+        else:
+            def route():
+                return drop_stack(rng, t, s_ticks, a, sched, dev)
+        d = dict(n=a, tick=t, s_ticks=s_ticks, drawn_ticks=sum(active),
+                 route_ms=cuda_ms(route, 20))
+        if "drop_masks" in wrappers():
+            args = (rng, t, active, sched.drop_prob, a)
+            got = drop_ops.drop_masks(*args, device=dev)
+            want = drop_ops.drop_masks_plain(*args, device=dev)
+            d.update(max_abs_err=max(max_abs_err(x, y)
+                                     for x, y in zip(got, want)),
+                     ms=cuda_ms(lambda: drop_ops.drop_masks(
+                         *args, device=dev), 50),
+                     plain_ms=cuda_ms(lambda: drop_ops.drop_masks_plain(
+                         *args, device=dev), 3),
+                     bound=draw_bound(a, a, sum(active), s_ticks))
+        out[key] = d
+    return out
+
+
 def validate_overlay(res) -> dict:
     """bench.py's validation of an overlay run (bench.py:365-381 and
     _check_recover :255-316): every peer in the group at the end, no
@@ -918,10 +988,19 @@ def wrappers() -> dict:
            "fused_overlay_tick": fused_overlay_tick,
            "mega_overlay_ticks": mega_overlay_ticks,
            "grid_overlay_ticks": overlay_grid.grid_overlay_ticks}
-    # K5's boot pre-pass (a checkout before it, timed by --turns, has none)
+    # K5's boot pre-pass and the dense drop draw (a checkout before them,
+    # timed by --turns, has none)
     if hasattr(overlay_grid, "grid_boot_rows"):
         out["grid_boot_rows"] = overlay_grid.grid_boot_rows
+    from gossip_protocol_tpu_torch.ops import drop as drop_ops
+    if hasattr(drop_ops, "drop_masks"):
+        out["drop_masks"] = drop_ops.drop_masks
     return out
+
+
+def draw_kernel() -> tuple:
+    """The dense paths' drop-draw kernel, where the checkout has one."""
+    return ("drop_masks",) if "drop_masks" in wrappers() else ()
 
 
 def reset_counts():
@@ -954,11 +1033,17 @@ class MainPath:
         return out, counts
 
 
+#: the torch operators of utils/threefry.py's draw (its shifts and xors),
+#: which no other part of the dense path issues
+THREEFRY_OPS = ("aten::__xor__", "aten::__rshift__", "aten::__lshift__")
+
+
 def profile_run(fn) -> dict:
     """One run of ``fn`` under ``torch.profiler``: its wall time, the
     device time of every kernel and copy, the device's idle share, the
-    ten largest entries by device time and the eight largest host
-    operations by their own CPU time."""
+    ten largest entries by device time, the eight largest host
+    operations by their own CPU time, and the calls of the threefry
+    draw's torch operators (:data:`THREEFRY_OPS`)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -970,9 +1055,12 @@ def profile_run(fn) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     rows, host = [], []
+    threefry_ops = 0
     for e in prof.key_averages():
         if getattr(e, "device_type", None) != DeviceType.CUDA:
             host.append((e.self_cpu_time_total, e.key, e.count))
+            if e.key in THREEFRY_OPS:
+                threefry_ops += e.count
             continue
         us = getattr(e, "device_time_total", None)
         if us is None:
@@ -980,10 +1068,12 @@ def profile_run(fn) -> dict:
         rows.append((us, e.key, e.count))
     rows.sort(reverse=True)
     if not rows:
-        return {"wall_s": wall, "device_busy_s": "not measured"}
+        return {"wall_s": wall, "device_busy_s": "not measured",
+                "threefry_op_calls": threefry_ops}
     busy = sum(r[0] for r in rows) / 1e6
     return {"wall_s": wall, "device_busy_s": busy,
             "idle_share": 1.0 - busy / wall,
+            "threefry_op_calls": threefry_ops,
             "top": [{"name": k[:90], "device_ms": us / 1e3, "calls": c}
                     for us, k, c in rows[:10]],
             "top_host": [{"name": k[:60], "self_cpu_ms": us / 1e3,
@@ -1030,7 +1120,7 @@ def graded_path(main_path) -> dict:
     with tempfile.TemporaryDirectory() as wd:
         res, counts = main_path.drive(
             lambda: grade_all(run, os.path.join(REPO, "testcases"), wd),
-            ("masked_max3", "tick_epilogue"))
+            ("masked_max3", "tick_epilogue") + draw_kernel())
     if res["total"] != 90:
         raise AssertionError(f"grade {res['total']} != 90")
     say(f"phase 3: testcases on cuda graded {res['total']}/90; walls "
@@ -1046,10 +1136,12 @@ def dense_runs(main_path) -> dict:
     from gossip_protocol_tpu_torch.core.sim import Simulation
     runs = {}
     traces = trace_cfgs()
+    draw = draw_kernel()
     for key, exact, expect, label in (
-            ("trace_n512_multi", True, ("dense_mega_ticks",),
+            ("trace_n512_multi", True, ("dense_mega_ticks",) + draw,
              "5a: N=512 multifailure trace, 700 ticks (K2)"),
-            ("trace_n1024_drop", False, ("masked_max3", "tick_epilogue"),
+            ("trace_n1024_drop", False,
+             ("masked_max3", "tick_epilogue") + draw,
              "5b: N=1024 multifailure 10% drop trace, 700 ticks (K1)")):
         cfg = traces[key]
         (r, counts) = main_path.drive(
@@ -1059,8 +1151,8 @@ def dense_runs(main_path) -> dict:
         say(f"phase {label}: {o}; wall {r.wall_seconds:.3f} s; "
             f"launches {counts}")
         del r
-    for ticks, expect in ((700, ("masked_max3", "tick_epilogue")),
-                          (200, ("dense_mega_ticks",))):
+    for ticks, expect in ((700, ("masked_max3", "tick_epilogue") + draw),
+                          (200, ("dense_mega_ticks",) + draw)):
         sim = Simulation(bench_cfg(ticks), device="cuda")
         sim.run_bench(warmup=False)     # untimed warm-up, not counted
         (r, counts) = main_path.drive(lambda: sim.run_bench(warmup=False),
@@ -1069,9 +1161,14 @@ def dense_runs(main_path) -> dict:
         runs[f"bench_n4096_t{ticks}"] = dict(
             corner=r.counter_stream_width, wall_s=r.wall_seconds,
             node_ticks_per_s=r.node_ticks_per_second, launches=counts, **o)
+        idle = ""
+        if ticks == 200:   # one more run, profiled (not counted)
+            prof = profile_run(lambda: sim.run_bench(warmup=False))
+            runs["bench_n4096_t200"]["idle_share"] = prof.get("idle_share")
+            idle = f", device idle {prof.get('idle_share')} (profiled run)"
         say(f"phase 5c: bench N=4096 10% drop, {ticks} ticks, corner "
             f"{r.counter_stream_width}: {r.node_ticks_per_second:.1f} "
-            f"node-ticks/s (wall {r.wall_seconds:.3f} s); {o}; "
+            f"node-ticks/s (wall {r.wall_seconds:.3f} s{idle}); {o}; "
             f"launches {counts}")
         del r, sim
     return runs
@@ -1102,9 +1199,15 @@ def overlay_runs(main_path):
         runs[f"overlay_{name}"] = dict(
             n=cfg.n, ticks=cfg.total_ticks, wall_s=r.wall_seconds,
             node_ticks_per_s=r.node_ticks_per_second, launches=counts, **o)
+        idle = ""
+        if name == "drop4096":   # one more run, profiled (not counted)
+            prof = profile_run(
+                lambda: OverlaySimulation(cfg, device="cuda").run())
+            runs["overlay_drop4096"]["idle_share"] = prof.get("idle_share")
+            idle = f", device idle {prof.get('idle_share')} (profiled run)"
         say(f"phase 5e: overlay {name} N={cfg.n}, {cfg.total_ticks} ticks: "
             f"{r.node_ticks_per_second:.1f} node-ticks/s (wall "
-            f"{r.wall_seconds:.3f} s); {o}; launches {counts}")
+            f"{r.wall_seconds:.3f} s{idle}); {o}; launches {counts}")
     return ocfg, ores, runs
 
 
@@ -1116,7 +1219,7 @@ def dense_timing(dev, describe: bool) -> dict:
     testcase (the last two with events, as those runs launch them); K2
     on its last full launch of the 200-tick bench corner (N=896, S=8),
     of the N=512 trace and of phase 4's N=64 multifailure run (S=16,
-    events).  ``describe`` as in
+    events); the drop draw (:func:`draw_timing`).  ``describe`` as in
     :func:`time_k1`."""
     from gossip_protocol_tpu_torch.config import SimConfig
     from gossip_protocol_tpu_torch.core.dense_corner import bench_stream_width
@@ -1139,20 +1242,21 @@ def dense_timing(dev, describe: bool) -> dict:
         x, s = k2_launch_input(cfg, a, dev)
         timing[key] = time_k2(x, s, cfg, with_events=ev, reps=10)
         del x
+    timing.update(draw_timing(dev))
     return timing
 
 
 def overlay_timing(ocfg) -> tuple[dict, dict]:
     """Phase 6's overlay kernels, each held against its plain version and
     timed on the input of a launch the main path makes (the run stopped
-    there): K3 at the last tick of the N=65,536 churn run and at tick 136
-    of the N=2^20 power-law run (the per-tick cross-check's launches at
-    that width), K4 at the last full launch of the N=4096 drop run, K5
-    at the last full launches of the N=65,536 and 2^20 runs (its boot
-    pre-pass inside the call, as the route calls it, where the checkout
-    has one), with both bounds, and the boot pre-pass at tick 16 of both
-    K5 runs; K5 with its resident blocks an SM.  Returns the
-    timings and each kernel's max abs error."""
+    there): K3 at the last tick of the N=65,536 churn and N=4096 drop
+    runs and at tick 136 of the N=2^20 power-law run (the per-tick
+    cross-check's launches at those widths), K4 at the last full launch
+    of the N=4096 drop run, K5 at the last full launches of the N=65,536
+    and 2^20 runs (its boot pre-pass inside the call, as the route calls
+    it, where the checkout has one), with both bounds, and the boot
+    pre-pass at tick 16 of both K5 runs; K5 with its resident blocks an
+    SM.  Returns the timings and each kernel's max abs error."""
     import torch
 
     from gossip_protocol_tpu_torch.models.overlay import (
@@ -1164,6 +1268,7 @@ def overlay_timing(ocfg) -> tuple[dict, dict]:
         MEGA_TICKS, mega_overlay_ticks, mega_overlay_ticks_plain)
     timing, errs = {}, {}
     for key, name, tick, reps in (("k3", "churn65k", None, 50),
+                                  ("k3_drop4096", "drop4096", None, 50),
                                   ("k3_powerlaw1m", "powerlaw1m", 136, 20)):
         cfg = ocfg[name]
         tick = cfg.total_ticks - 1 if tick is None else tick
@@ -1327,6 +1432,10 @@ def dense_numbers(details: dict) -> dict:
                 out[f"{name}_n{v['n']}_ms"] = v[name]["ms"]
         elif key.startswith("k2"):
             out[f"dense_mega_ticks_n{v['n']}_ms"] = v["ms"]
+        elif key.startswith("draw"):
+            out[f"{key}_n{v['n']}_route_ms"] = v["route_ms"]
+    out.update({f"{k}_idle_share": v["idle_share"]
+                for k, v in details["phase5"].items() if "idle_share" in v})
     return out
 
 
@@ -1335,6 +1444,8 @@ def overlay_numbers(details: dict) -> dict:
     flat."""
     out = {f"{k}_wall_s": v["wall_s"]
            for k, v in details["phase5"].items() if k.startswith("overlay")}
+    out.update({f"{k}_idle_share": v["idle_share"]
+                for k, v in details["phase5"].items() if "idle_share" in v})
     for key, v in details["timing"].items():
         if key.startswith(("k3", "k4", "k5", "boot")):
             out[f"{key}_n{v['n']}_ms"] = v["ms"]
@@ -1484,6 +1595,24 @@ def main(argv=None) -> int:
         errs["dense_mega_ticks"] = max(
             errs["dense_mega_ticks"],
             compare_k2(k2_inputs(n, s, n, dev), kws))
+    # the drop draw at the dense widths (N=10 testcases, N=64, the corners
+    # 896 and 2816), one launch of S ticks with the window closed at every
+    # fourth, at full width and embedded at 3/4 of it
+    if "drop_masks" in wrappers():
+        from gossip_protocol_tpu_torch.ops.drop import (drop_masks,
+                                                        drop_masks_plain)
+        from gossip_protocol_tpu_torch.utils.threefry import prng_key
+        for n in (10, 64, 896, 2816):
+            for s in (1, 8, 16):
+                for na in (n, n * 3 // 4):
+                    draw = (prng_key(n + s), 51,
+                            [s == 1 or i % 4 != 0 for i in range(s)],
+                            np.float32(0.1), n)
+                    got = drop_masks(*draw, n_active=na, device=dev)
+                    want = drop_masks_plain(*draw, na, dev)
+                    errs["drop_masks"] = max(
+                        errs["drop_masks"],
+                        max(max_abs_err(a, b) for a, b in zip(got, want)))
     # K3 on random valid states, built by the tick's own code
     # (churn at tick 300: wipes and rejoins; drop at tick 100: drops)
     for name, n, t in (("churn64", 64, 150), ("drop4096", 4096, 100),
@@ -1592,7 +1721,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as wd:
             (r_gpu, counts) = main_path.drive(
                 lambda: Simulation(cfg, device="cuda").run(),
-                ("dense_mega_ticks",))
+                ("dense_mega_ticks",) + draw_kernel())
             r_cpu = Simulation(cfg, device="cpu").run()
             logs = {}
             for tag, r in (("cuda", r_gpu), ("cpu", r_cpu)):
@@ -1700,7 +1829,13 @@ def main(argv=None) -> int:
                 lambda: OverlaySimulation(cfg, device="cuda").run())
         details["profile"] = prof
         say("phase 5d: profiled; device idle share " + json.dumps(
-            {k: v.get("idle_share") for k, v in prof.items()}))
+            {k: v.get("idle_share") for k, v in prof.items()})
+            + "; threefry torch operator calls " + json.dumps(
+                {k: v["threefry_op_calls"] for k, v in prof.items()}))
+        if draw_kernel() and any(prof[k]["threefry_op_calls"]
+                                 for k in prof if not k.startswith("overlay")):
+            raise AssertionError("a dense cuda run issued threefry torch "
+                                 "operators")
     details["main_path_launches"] = main_path.total
 
     # ---- phase 6: kernel times on real launch inputs ------------------
@@ -1726,6 +1861,11 @@ def main(argv=None) -> int:
                                    timing["k2"]["max_abs_err"],
                                    timing["k2_trace512"]["max_abs_err"],
                                    timing["k2_n64"]["max_abs_err"])
+    errs["drop_masks"] = max(errs["drop_masks"],
+                             *(timing[k]["max_abs_err"] for k in
+                               ("draw_t300", "draw_t699", "draw_stack")))
+    if any(v != 0 for v in errs.values()):
+        raise AssertionError(f"kernel != plain on a launch input: {errs}")
     details["timing"] = timing
     details["max_abs_err"] = errs
     src = "gossip_protocol_tpu_torch/csrc/dense_tick.cu"
@@ -1756,11 +1896,16 @@ def main(argv=None) -> int:
             ("grid_boot_rows",
              "gossip_protocol_tpu/models/overlay_grid.py:147",
              timing["boot_powerlaw1m"],
-             {k: timing["boot_powerlaw1m"][k] for k in ("n", "tick")})):
+             {k: timing["boot_powerlaw1m"][k] for k in ("n", "tick")}),
+            ("drop_masks", "gossip_protocol_tpu/ops/drop.py:26",
+             timing["draw_t300"],
+             {k: timing["draw_t300"][k] for k in ("n", "tick", "s_ticks")})):
         kernels.append({
             "name": name, "route": "cuda",
-            "source": src if name in ("masked_max3", "tick_epilogue",
-                                      "dense_mega_ticks") else osrc,
+            "source": {"masked_max3": src, "tick_epilogue": src,
+                       "dense_mega_ticks": src,
+                       "drop_masks": "gossip_protocol_tpu_torch/csrc/drop.cu"
+                       }.get(name, osrc),
             "replaces": replaces, "launches": main_path.total[name],
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],

@@ -2,9 +2,10 @@
 
 Counterpart of ``gossip_protocol_tpu/core/dense_mega.py``: packs the
 state and the schedule columns into K2's planes (``aux`` i32[N, 8]),
-draws each launch's drop stack from the shared threefry stream, runs
-whole ``dense_mega_ticks_for(N)``-tick launches plus a remainder launch,
-and returns the ``make_run`` contract ``(final_state, TickEvents)``.
+draws each launch's drop stack from the shared threefry stream in one
+``drop_masks`` call, runs whole ``dense_mega_ticks_for(N)``-tick
+launches plus a remainder launch, and returns the ``make_run``
+contract ``(final_state, TickEvents)``.
 Bit-identical to the per-tick path (tests/test_torch_dense_mega.py).
 """
 
@@ -16,7 +17,7 @@ from ..config import SimConfig
 from ..ops.cuda.dense_mega import (DENSE_MEGA_N_LIMIT,
                                    DENSE_MEGA_N_LIMIT_BENCH,
                                    dense_mega_ticks, dense_mega_ticks_for)
-from ..ops.drop import tick_drop_masks
+from ..ops.drop import drop_masks
 from ..state import Schedule, WorldState
 from .tick import TickEvents
 
@@ -31,16 +32,11 @@ def dense_mega_supported(cfg: SimConfig, with_events: bool = False) -> bool:
 
 def drop_stack(rng, t0: int, s_ticks: int, n: int, sched: Schedule, device):
     """The launch's drop decisions: gossip bool[S, N, N] (sender-major),
-    JOINREQ / JOINREP bool[S, N] — one ops/drop.py draw per tick."""
-    g = torch.zeros((s_ticks, n, n), dtype=torch.bool, device=device)
-    q = torch.zeros((s_ticks, n), dtype=torch.bool, device=device)
-    p = torch.zeros((s_ticks, n), dtype=torch.bool, device=device)
-    for s in range(s_ticks):
-        t = t0 + s
-        if sched.drop_on(t):
-            g[s], q[s], p[s] = tick_drop_masks(rng, t, n, True,
-                                               sched.drop_prob, device)
-    return g, q, p
+    JOINREQ / JOINREP bool[S, N] — one ops/drop.py ``drop_masks`` call
+    (one kernel launch on a card) for all S ticks."""
+    return drop_masks(rng, t0, [sched.drop_on(t0 + s) for s in
+                                range(s_ticks)], sched.drop_prob, n,
+                      device=device)
 
 
 def pack_aux(state: WorldState, sched: Schedule):

@@ -11,9 +11,9 @@
 //                      post-merge cell rules, detection, dissemination and
 //                      the per-row sent/recv counts of one tick.
 //   gp_dense_mega_ticks  K2, ops/pallas/dense_mega.py dense_mega_ticks: S
-//                      whole ticks per call, as a loop of launches on one
-//                      stream (vector step, churn wipe, masked_max3,
-//                      epilogue) with no host sync inside the loop.
+//                      whole ticks per call as one cooperative persistent
+//                      launch (vector step, churn wipe, masked_max3,
+//                      epilogue), its phases separated by grid barriers.
 //
 // Every value is an integer or a 0/1 byte, so each kernel agrees with its
 // plain PyTorch version bit for bit.
@@ -59,10 +59,23 @@
 //   a whole row (N <= 128: the graded N=10 runs) K1's kernel stores the
 //   sums instead, so such a tick issues no memset.
 // * K2 on the TPU kept the whole state in 110 MB of VMEM.  An SM has
-//   227 KB of shared memory, so here the state stays in HBM/L2 and each
-//   tick is four or five launches.  A persistent kernel with a grid
-//   barrier per tick, or a CUDA graph, is later work.
+//   227 KB of shared memory, so here the state stays in HBM/L2 (the N=896
+//   planes are 9 MB) and a call is one cooperative launch of a persistent
+//   grid (as many blocks as fit on the card, capped by the work) that runs
+//   the S ticks with three grid barriers a tick: (1) the churn wipe and the
+//   merge prep, (2) the descent tiles, (3) the epilogue tiles beside the
+//   next tick's vector step (one block; its lanes are double-buffered by
+//   tick parity, so the epilogue still reads this tick's).  The K1 pair
+//   and K2 call the same __device__ tile functions, so the cell rules
+//   cannot drift apart.  A phase with fewer tiles than blocks deals them
+//   out across the whole grid, since the runtime packs consecutive blocks
+//   onto one SM.  Buffers written inside the launch are read through plain
+//   pointers (never const __restrict__), so no load takes the
+//   non-coherent read-only path.  At N=512 and 896 the descent takes
+//   most of a tick: a tile's levels and word chunks run one after
+//   another, latency-bound (PERF.md).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -79,7 +92,7 @@ constexpr int MM_WSTRIDE = MM_KW * WORD + 16;
 constexpr int EP_ROWS = 32;     // epilogue tile rows (8 warps x 4)
 constexpr int EP_COLS = 128;    // epilogue tile columns (32 lanes x 4)
 constexpr int EP_THREADS = 256;
-constexpr int VEC_THREADS = 1024;
+constexpr int K2_THREADS = 256;   // = MM_THREADS = EP_THREADS
 
 // per-tick vector lanes written by the K2 vector step (u8[VEC_LANES, N])
 enum { V_PROC = 0, V_OPS, V_JREP, V_JREQ, V_HOLD, V_REJOIN, VEC_LANES };
@@ -89,15 +102,17 @@ enum { A_IN_GROUP = 0, A_OWN_HB, A_JOINREQ, A_JOINREP, A_START, A_FAIL,
 
 // Prep: dbits[w * n + r] has bit b set iff gossip[32 w + b, r] & proc[r];
 // tany[(r / 32) * words + w] says whether word w reaches any receiver of
-// r's 32-receiver tile.  A (32, 8) block covers 32 senders x 32 receivers.
-__global__ void __launch_bounds__(256)
-merge_prep_kernel(const uint8_t* __restrict__ gossip,
-                  const uint8_t* __restrict__ proc,
-                  uint32_t* __restrict__ dbits, uint32_t* __restrict__ tany,
-                  int n, int words) {
+// r's 32-receiver tile.  Tile (w, rt) covers 32 senders x 32 receivers with
+// 256 threads as (tx, ty) = (32, 8).
+__device__ __forceinline__ void merge_prep_tile(const uint8_t* gossip,
+                                                const uint8_t* proc,
+                                                uint32_t* dbits,
+                                                uint32_t* tany, int n,
+                                                int words, int w, int rt,
+                                                int tx, int ty) {
   __shared__ uint8_t g_s[WORD][WORD + 4];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int w = blockIdx.x, s0 = w * WORD, c0 = blockIdx.y * WORD;
+  __syncthreads();   // the block's previous tile is done with g_s
+  const int s0 = w * WORD, c0 = rt * WORD;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int ss = ty + 8 * k, s = s0 + ss, r = c0 + tx;
@@ -115,7 +130,16 @@ merge_prep_kernel(const uint8_t* __restrict__ gossip,
     any |= bits;
   }
   any = __syncthreads_or(any != 0);
-  if (tx == 0 && ty == 0) tany[(size_t)blockIdx.y * words + w] = any;
+  if (tx == 0 && ty == 0) tany[(size_t)rt * words + w] = any;
+}
+
+__global__ void __launch_bounds__(256)
+merge_prep_kernel(const uint8_t* __restrict__ gossip,
+                  const uint8_t* __restrict__ proc,
+                  uint32_t* __restrict__ dbits, uint32_t* __restrict__ tany,
+                  int n, int words) {
+  merge_prep_tile(gossip, proc, dbits, tany, n, words, blockIdx.x,
+                  blockIdx.y, threadIdx.x, threadIdx.y);
 }
 
 // 4 delivery bits -> 4 bytes of 0/1 (bit e -> byte e)
@@ -144,17 +168,14 @@ __device__ __forceinline__ int32_t payload(int p, uint8_t kn, int32_t h,
   return (p == 0 ? kn != 0 : fresh) ? v : 0;
 }
 
-// The level descent of one (256 x 64) tile of plane blockIdx.z; output
-// shifted back down (FILL = -1 where no sender contributes).
-__global__ void __launch_bounds__(MM_THREADS, 2)
-masked_max3_kernel(const uint32_t* __restrict__ dbits,
-                   const uint32_t* __restrict__ tany,
-                   const uint8_t* __restrict__ known,
-                   const int32_t* __restrict__ hb,
-                   const int32_t* __restrict__ ts,
-                   int32_t* __restrict__ m_all, int32_t* __restrict__ m_fresh,
-                   int32_t* __restrict__ t_fresh, int n, int words, int now,
-                   int t_remove) {
+// The level descent of tile (bx, by) (rows 256 bx.., columns 64 by..) of
+// plane p; output shifted back down (FILL = -1 where no sender
+// contributes).
+__device__ __forceinline__ void descent_tile(
+    const uint32_t* dbits, const uint32_t* tany, const uint8_t* known,
+    const int32_t* hb, const int32_t* ts, int32_t* m_all, int32_t* m_fresh,
+    int32_t* t_fresh, int n, int words, int now, int t_remove, int bx,
+    int by, int p) {
   extern __shared__ int live[];                   // the tile's live words
   __shared__ uint32_t a_s[MM_KW][MM_ROWS];        // delivery bits [kw][r]
   __shared__ __align__(16) uint8_t w_s[MM_COLS][MM_WSTRIDE];  // witness [j][s]
@@ -162,8 +183,8 @@ masked_max3_kernel(const uint32_t* __restrict__ dbits,
   __shared__ int nlive_s;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
-  const int p = blockIdx.z;
-  const int r0 = blockIdx.x * MM_ROWS, j0 = blockIdx.y * MM_COLS;
+  const int r0 = bx * MM_ROWS, j0 = by * MM_COLS;
+  __syncthreads();   // the block's previous tile is done with its buffers
   int32_t* out = p == 0 ? m_all : (p == 1 ? m_fresh : t_fresh);
 
   // the words that reach one of the tile's 32-receiver tiles, compacted
@@ -308,6 +329,19 @@ masked_max3_kernel(const uint32_t* __restrict__ dbits,
   }
 }
 
+__global__ void __launch_bounds__(MM_THREADS, 2)
+masked_max3_kernel(const uint32_t* __restrict__ dbits,
+                   const uint32_t* __restrict__ tany,
+                   const uint8_t* __restrict__ known,
+                   const int32_t* __restrict__ hb,
+                   const int32_t* __restrict__ ts,
+                   int32_t* __restrict__ m_all, int32_t* __restrict__ m_fresh,
+                   int32_t* __restrict__ t_fresh, int n, int words, int now,
+                   int t_remove) {
+  descent_tile(dbits, tany, known, hb, ts, m_all, m_fresh, t_fresh, n, words,
+               now, t_remove, blockIdx.x, blockIdx.y, blockIdx.z);
+}
+
 struct CellOut {
   uint8_t known, gossip, added, removed, gsent;
   int32_t hb, ts;
@@ -418,29 +452,19 @@ __device__ __forceinline__ bool byte_of(uint32_t v, int e) {
 // transposed read looks at other rows).  sent_row/recv_row are stored
 // when store_rows (one column block), else added to.
 template <bool VEC>
-__global__ void __launch_bounds__(EP_THREADS)
-tick_epilogue_kernel(const int32_t* __restrict__ m_all,
-                     const int32_t* __restrict__ m_fresh,
-                     const int32_t* __restrict__ t_fresh,
-                     const uint8_t* __restrict__ gossip,
-                     const uint8_t* __restrict__ proc,
-                     const uint8_t* known, const int32_t* hb,
-                     const int32_t* ts,
-                     const uint8_t* __restrict__ gdrop,
-                     const uint8_t* __restrict__ ops,
-                     const uint8_t* __restrict__ jrep,
-                     const uint8_t* __restrict__ jreq,
-                     const uint8_t* __restrict__ hold,
-                     uint8_t* known_o, int32_t* hb_o, int32_t* ts_o,
-                     uint8_t* __restrict__ gossip_o,
-                     int32_t* __restrict__ sent_row,
-                     int32_t* __restrict__ recv_row,
-                     uint8_t* __restrict__ added_o,
-                     uint8_t* __restrict__ removed_o,
-                     int n, int t, int t_remove, int store_rows) {
+__device__ __forceinline__ void epilogue_tile(
+    const int32_t* m_all, const int32_t* m_fresh, const int32_t* t_fresh,
+    const uint8_t* gossip, const uint8_t* proc, const uint8_t* known,
+    const int32_t* hb, const int32_t* ts, const uint8_t* gdrop,
+    const uint8_t* ops, const uint8_t* jrep, const uint8_t* jreq,
+    const uint8_t* hold, uint8_t* known_o, int32_t* hb_o, int32_t* ts_o,
+    uint8_t* gossip_o, int32_t* sent_row, int32_t* recv_row,
+    uint8_t* added_o, uint8_t* removed_o, int n, int t, int t_remove,
+    int store_rows, int bx, int by) {
   __shared__ __align__(16) uint8_t gT[EP_ROWS][EP_COLS];  // gossip[j, r]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int j0 = blockIdx.x * EP_COLS, r0 = blockIdx.y * EP_ROWS;
+  const int j0 = bx * EP_COLS, r0 = by * EP_ROWS;
+  __syncthreads();   // the block's previous tile is done with gT
   // stage gossip[j0 + jj, r0 .. r0 + 31]: 8 threads a sender row, 4 bytes
   // each, transposed into gT[r][j]
   for (int i = tid; i < EP_COLS * (EP_ROWS / 4); i += EP_THREADS) {
@@ -517,15 +541,41 @@ tick_epilogue_kernel(const int32_t* __restrict__ m_all,
   }
 }
 
+template <bool VEC>
+__global__ void __launch_bounds__(EP_THREADS)
+tick_epilogue_kernel(const int32_t* __restrict__ m_all,
+                     const int32_t* __restrict__ m_fresh,
+                     const int32_t* __restrict__ t_fresh,
+                     const uint8_t* __restrict__ gossip,
+                     const uint8_t* __restrict__ proc,
+                     const uint8_t* known, const int32_t* hb,
+                     const int32_t* ts,
+                     const uint8_t* __restrict__ gdrop,
+                     const uint8_t* __restrict__ ops,
+                     const uint8_t* __restrict__ jrep,
+                     const uint8_t* __restrict__ jreq,
+                     const uint8_t* __restrict__ hold,
+                     uint8_t* known_o, int32_t* hb_o, int32_t* ts_o,
+                     uint8_t* __restrict__ gossip_o,
+                     int32_t* __restrict__ sent_row,
+                     int32_t* __restrict__ recv_row,
+                     uint8_t* __restrict__ added_o,
+                     uint8_t* __restrict__ removed_o,
+                     int n, int t, int t_remove, int store_rows) {
+  epilogue_tile<VEC>(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
+                     gdrop, ops, jrep, jreq, hold, known_o, hb_o, ts_o,
+                     gossip_o, sent_row, recv_row, added_o, removed_o, n, t,
+                     t_remove, store_rows, blockIdx.x, blockIdx.y);
+}
+
 // K2's per-tick vector step (ops/pallas/dense_mega.py:146-207 and the
-// accounting of :267-282) in one block: updates aux in place, writes the
-// lanes the matrix kernels read, and seeds this tick's sent/recv rows
+// accounting of :267-282), run by one block: updates aux in place, writes
+// the lanes the matrix phases read, and seeds this tick's sent/recv rows
 // with the join traffic (the epilogue adds the gossip counts).
-__global__ void __launch_bounds__(VEC_THREADS)
-mega_vec_kernel(int32_t* __restrict__ aux, const uint8_t* __restrict__ qdrop,
-                const uint8_t* __restrict__ pdrop, uint8_t* __restrict__ vec,
-                int32_t* __restrict__ sent_s, int32_t* __restrict__ recv_s,
-                int n, int t, int can_rejoin) {
+__device__ __forceinline__ void vec_rows(int32_t* aux, const uint8_t* qdrop,
+                                         const uint8_t* pdrop, uint8_t* vec,
+                                         int32_t* sent_s, int32_t* recv_s,
+                                         int n, int t, int can_rejoin) {
   __shared__ int rep_total, req_total;
   if (threadIdx.x == 0) { rep_total = 0; req_total = 0; }
   __syncthreads();
@@ -575,19 +625,161 @@ mega_vec_kernel(int32_t* __restrict__ aux, const uint8_t* __restrict__ qdrop,
   if (threadIdx.x == 0) { sent_s[0] += rep_total; recv_s[0] += req_total; }
 }
 
-// churn: a rejoining peer's row is wiped before anyone merges it
-__global__ void wipe_rows_kernel(const uint8_t* __restrict__ vec,
-                                 uint8_t* known, int32_t* hb, int32_t* ts,
-                                 int n) {
-  const int r = blockIdx.x;
-  if (!vec[V_REJOIN * n + r]) return;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const size_t o = (size_t)r * n + j;
-    known[o] = 0; hb[o] = 0; ts[o] = 0;
-  }
+__host__ __device__ inline int words_for(int n) {
+  return (n + WORD - 1) / WORD;
 }
 
-int words_for(int n) { return (n + WORD - 1) / WORD; }
+// K2's launch: state planes updated in place (gossip ping-pongs with
+// gossip_tmp), the three maxima (3 N^2 i32), the merge scratch and two
+// tick parities of the vector lanes (2 VEC_LANES N bytes).  Every fixed
+// address and tile count the phases use is computed on the host and read
+// from the parameter bank.
+struct K2Args {
+  uint8_t* known;
+  int32_t* hb;
+  int32_t* ts;
+  uint8_t* gossip;
+  uint8_t* gossip_tmp;
+  int32_t* aux;
+  const uint8_t* gdrop;
+  const uint8_t* qdrop;
+  const uint8_t* pdrop;
+  int32_t* sent;
+  int32_t* recv;
+  uint8_t* added;
+  uint8_t* removed;
+  int32_t* m_all;
+  int32_t* m_fresh;
+  int32_t* t_fresh;
+  uint32_t* dbits;
+  uint32_t* tany;
+  uint8_t* vec;
+  int n, words, s_ticks, t0, t_remove, can_rejoin;
+  int rt, ct, ex, ey;   // descent row / column tiles, epilogue tiles
+};
+
+// A phase's tiles over the persistent grid: with fewer tiles than blocks,
+// tile i goes to block i * blocks / tiles, spread over the whole grid (and
+// so over the SMs) rather than packed into its first blocks; else block b
+// takes tiles b, b + blocks, ...  Loop: for (i = first; i < tiles; i +=
+// step).
+__device__ __forceinline__ int tile_first(int tiles) {
+  const int nb = gridDim.x, b = blockIdx.x;
+  if (tiles >= nb) return b;
+  const int i = (int)(((long long)b * tiles + nb - 1) / nb);
+  return (long long)i * nb < (long long)(b + 1) * tiles ? i : tiles;
+}
+__device__ __forceinline__ int tile_step(int tiles) {
+  return tiles >= (int)gridDim.x ? gridDim.x : tiles;
+}
+
+// A grid barrier, or a block barrier where the grid is one block.  On a
+// grid of many blocks the branch changes nothing K2 computes, yet K2
+// built without it read 15-30% slower at N=512 and 896 on an H100, with
+// fewer register spills (PERF.md); why is not known (no ncu).
+__device__ __forceinline__ void phase_sync(cooperative_groups::grid_group& g) {
+  if (gridDim.x == 1)
+    __syncthreads();
+  else
+    g.sync();
+}
+
+// K2: S whole ticks, one persistent grid; every phase deals its tiles out
+// over the blocks (tile_first / tile_step).  The vector step runs in the
+// last block, which holds no tile of a phase with fewer tiles than blocks.
+template <bool VEC>
+__global__ void __launch_bounds__(K2_THREADS, 2)
+dense_mega_kernel(const __grid_constant__ K2Args a) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int n = a.n, tid = threadIdx.x;
+  const size_t nn = (size_t)n * n, vl = (size_t)VEC_LANES * n;
+  const int vb = gridDim.x - 1;
+  if (blockIdx.x == vb)
+    vec_rows(a.aux, a.qdrop, a.pdrop, a.vec, a.sent, a.recv, n, a.t0,
+             a.can_rejoin);
+  phase_sync(grid);
+  for (int s = 0; s < a.s_ticks; ++s) {
+    const uint8_t* cur = s & 1 ? a.gossip_tmp : a.gossip;
+    const uint8_t* vec = a.vec + (s & 1) * vl;
+    // (1) churn: a rejoining peer's row is wiped before anyone merges it;
+    // the merge prep reads only gossip and proc
+    if (a.can_rejoin)
+      for (int r = blockIdx.x; r < n; r += gridDim.x)
+        if (vec[V_REJOIN * n + r])
+          for (int j = tid; j < n; j += K2_THREADS) {
+            const size_t o = (size_t)r * n + j;
+            a.known[o] = 0; a.hb[o] = 0; a.ts[o] = 0;
+          }
+    const int prep = a.words * a.words;
+    for (int i = tile_first(prep); i < prep; i += tile_step(prep))
+      merge_prep_tile(cur, vec + V_PROC * n, a.dbits, a.tany, n, a.words,
+                      i % a.words, i / a.words, tid & 31, tid >> 5);
+    phase_sync(grid);
+    // (2) the descent tiles of the three planes
+    const int descent = a.rt * a.ct * 3;
+    for (int i = tile_first(descent); i < descent; i += tile_step(descent))
+      descent_tile(a.dbits, a.tany, a.known, a.hb, a.ts, a.m_all, a.m_fresh,
+                   a.t_fresh, n, a.words, a.t0 + s, a.t_remove, i % a.rt,
+                   (i / a.rt) % a.ct, i / (a.rt * a.ct));
+    phase_sync(grid);
+    // (3) the epilogue, adding onto the rows the vector step seeded, and
+    // the next tick's vector step into the other parity of the lanes
+    if (s + 1 < a.s_ticks && blockIdx.x == vb)
+      vec_rows(a.aux, a.qdrop + (size_t)(s + 1) * n,
+               a.pdrop + (size_t)(s + 1) * n, a.vec + ((s + 1) & 1) * vl,
+               a.sent + (size_t)(s + 1) * n, a.recv + (size_t)(s + 1) * n, n,
+               a.t0 + s + 1, a.can_rejoin);
+    uint8_t* nxt = s & 1 ? a.gossip : a.gossip_tmp;
+    const int epilogue = a.ex * a.ey;
+    for (int i = tile_first(epilogue); i < epilogue;
+         i += tile_step(epilogue))
+      epilogue_tile<VEC>(
+          a.m_all, a.m_fresh, a.t_fresh, cur, vec + V_PROC * n, a.known,
+          a.hb, a.ts, a.gdrop + s * nn, vec + V_OPS * n, vec + V_JREP * n,
+          vec + V_JREQ * n, vec + V_HOLD * n, a.known, a.hb, a.ts, nxt,
+          a.sent + (size_t)s * n, a.recv + (size_t)s * n,
+          a.added ? a.added + s * nn : nullptr,
+          a.removed ? a.removed + s * nn : nullptr, n, a.t0 + s, a.t_remove,
+          0, i % a.ex, i / a.ex);
+    phase_sync(grid);
+  }
+  if (a.s_ticks & 1)   // an odd S leaves the last plane in gossip_tmp
+    for (size_t i = (size_t)blockIdx.x * K2_THREADS + tid; i < nn;
+         i += (size_t)gridDim.x * K2_THREADS)
+      a.gossip[i] = a.gossip_tmp[i];
+}
+
+// The tiles of K2's widest phase: no block beyond them has work.
+int k2_work_tiles(const K2Args& a) {
+  return max(a.words * a.words, max(a.rt * a.ct * 3, a.ex * a.ey));
+}
+
+// One cooperative launch of K2: `blocks` > 0 sets the grid (refused by the
+// runtime when it cannot be co-resident), else as many blocks as fit on
+// the card at once, capped by k2_work_tiles.
+template <bool VEC>
+cudaError_t launch_dense_mega(K2Args& a, int blocks, cudaStream_t stream) {
+  const size_t smem = (size_t)words_for(a.n) * sizeof(int);
+  if (blocks <= 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, dense_mega_kernel<VEC>, K2_THREADS, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+    blocks = min(per_sm * sms, k2_work_tiles(a));
+  }
+  void* args[] = {&a};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(dense_mega_kernel<VEC>), dim3(blocks),
+      dim3(K2_THREADS), args, smem, stream);
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch
+  return err != cudaSuccess ? err : last;
+}
+
 
 // the merge scratch: dbits u32[words, n], then tany u32[words, words]
 // (the receiver tiles of 32 are as many as the sender words)
@@ -628,13 +820,12 @@ cudaError_t launch_epilogue(const int32_t* m_all, const int32_t* m_fresh,
                             int32_t* hb_o, int32_t* ts_o, uint8_t* gossip_o,
                             int32_t* sent_row, int32_t* recv_row,
                             uint8_t* added_o, uint8_t* removed_o, int n,
-                            int t, int t_remove, bool add_rows,
-                            cudaStream_t stream) {
+                            int t, int t_remove, cudaStream_t stream) {
   const dim3 grid((n + EP_COLS - 1) / EP_COLS, (n + EP_ROWS - 1) / EP_ROWS);
-  // rows to write rather than add to: stored by the kernel when one block
-  // spans a row, else zeroed here first
-  const int store = !add_rows && grid.x == 1;
-  if (!add_rows && !store) {
+  // the rows are stored by the kernel when one block spans a row, else
+  // zeroed here and added to
+  const int store = grid.x == 1;
+  if (!store) {
     const size_t row = (size_t)n * sizeof(int32_t);
     cudaError_t err = cudaMemsetAsync(sent_row, 0, row, stream);
     if (err == cudaSuccess) err = cudaMemsetAsync(recv_row, 0, row, stream);
@@ -690,63 +881,62 @@ int gp_tick_epilogue(const int32_t* m_all, const int32_t* m_fresh,
   return static_cast<int>(launch_epilogue(
       m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop, ops, jrep,
       jreq, hold, known_o, hb_o, ts_o, gossip_o, sent_row, recv_row, added_o,
-      removed_o, n, t, t_remove, false, static_cast<cudaStream_t>(stream)));
+      removed_o, n, t, t_remove, static_cast<cudaStream_t>(stream)));
 }
 
-// K2: s_ticks whole ticks from t0.  known/gossip are u8 planes, hb/ts i32,
-// all updated in place (gossip ping-pongs with gossip_tmp; the final plane
-// is copied back into gossip).  m_scratch holds 3 N^2 i32 and then
-// gp_merge_scratch_words(n) more, vec_scratch VEC_LANES * N bytes.
-// added/removed (u8[S, N, N]) may be null.
+// K2: s_ticks whole ticks from t0 in one cooperative launch.  known/gossip
+// are u8 planes, hb/ts i32, all updated in place (gossip ping-pongs with
+// gossip_tmp; the final plane is back in gossip).  m_scratch holds 3 N^2
+// i32 and then gp_merge_scratch_words(n) more, vec_scratch 2 VEC_LANES N
+// bytes.  added/removed (u8[S, N, N]) may be null.  blocks: the persistent
+// grid's size, 0 for as many blocks as fit on the card (capped by the
+// work); a grid that cannot be co-resident is refused with an error.
 int gp_dense_mega_ticks(uint8_t* known, int32_t* hb, int32_t* ts,
                         uint8_t* gossip, uint8_t* gossip_tmp, int32_t* aux,
                         const uint8_t* gdrop, const uint8_t* qdrop,
                         const uint8_t* pdrop, int32_t* sent, int32_t* recv,
                         uint8_t* added, uint8_t* removed, int32_t* m_scratch,
                         uint8_t* vec_scratch, int n, int s_ticks, int t0,
-                        int t_remove, int can_rejoin, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+                        int t_remove, int can_rejoin, int blocks,
+                        void* stream_ptr) {
+  if (n < 1 || s_ticks < 1 || (size_t)words_for(n) * sizeof(int) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K2Args a;
+  a.known = known;
+  a.hb = hb;
+  a.ts = ts;
+  a.gossip = gossip;
+  a.gossip_tmp = gossip_tmp;
+  a.aux = aux;
+  a.gdrop = gdrop;
+  a.qdrop = qdrop;
+  a.pdrop = pdrop;
+  a.sent = sent;
+  a.recv = recv;
+  a.added = added;
+  a.removed = removed;
   const size_t nn = (size_t)n * n;
-  int32_t *m_all = m_scratch, *m_fresh = m_scratch + nn,
-          *t_fresh = m_scratch + 2 * nn;
-  uint32_t* merge_scratch = reinterpret_cast<uint32_t*>(m_scratch + 3 * nn);
-  uint8_t* vec = vec_scratch;
-  uint8_t *cur = gossip, *nxt = gossip_tmp;
-  for (int s = 0; s < s_ticks; ++s) {
-    const int t = t0 + s;
-    mega_vec_kernel<<<1, VEC_THREADS, 0, stream>>>(
-        aux, qdrop + (size_t)s * n, pdrop + (size_t)s * n, vec,
-        sent + (size_t)s * n, recv + (size_t)s * n, n, t, can_rejoin);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (can_rejoin) {
-      wipe_rows_kernel<<<n, 256, 0, stream>>>(vec, known, hb, ts, n);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    err = launch_masked_max3(cur, vec + V_PROC * n, known, hb, ts, m_all,
-                             m_fresh, t_fresh, merge_scratch, n, t, t_remove,
-                             stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    // the epilogue adds the gossip counts onto the rows the vector step
-    // seeded with the join traffic
-    err = launch_epilogue(m_all, m_fresh, t_fresh, cur, vec + V_PROC * n,
-                          known, hb, ts, gdrop + (size_t)s * nn,
-                          vec + V_OPS * n, vec + V_JREP * n, vec + V_JREQ * n,
-                          vec + V_HOLD * n, known, hb, ts, nxt,
-                          sent + (size_t)s * n, recv + (size_t)s * n,
-                          added ? added + (size_t)s * nn : 0,
-                          removed ? removed + (size_t)s * nn : 0, n, t,
-                          t_remove, true, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    uint8_t* sw = cur; cur = nxt; nxt = sw;
-  }
-  if (cur != gossip) {
-    cudaError_t err = cudaMemcpyAsync(gossip, cur, nn, cudaMemcpyDeviceToDevice,
-                                      stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return static_cast<int>(cudaGetLastError());
+  a.m_all = m_scratch;
+  a.m_fresh = m_scratch + nn;
+  a.t_fresh = m_scratch + 2 * nn;
+  a.words = words_for(n);
+  a.dbits = reinterpret_cast<uint32_t*>(m_scratch + 3 * nn);
+  a.tany = a.dbits + (size_t)a.words * n;
+  a.vec = vec_scratch;
+  a.rt = (n + MM_ROWS - 1) / MM_ROWS;
+  a.ct = (n + MM_COLS - 1) / MM_COLS;
+  a.ex = (n + EP_COLS - 1) / EP_COLS;
+  a.ey = (n + EP_ROWS - 1) / EP_ROWS;
+  a.n = n;
+  a.s_ticks = s_ticks;
+  a.t0 = t0;
+  a.t_remove = t_remove;
+  a.can_rejoin = can_rejoin;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const cudaError_t err = n % 4 == 0
+                              ? launch_dense_mega<true>(a, blocks, stream)
+                              : launch_dense_mega<false>(a, blocks, stream);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -8,8 +8,8 @@
 //                          detection, per-row counters).
 //   gp_mega_overlay_ticks  K4, gossip_protocol_tpu/ops/pallas/
 //                          overlay_mega.py mega_overlay_ticks: S whole
-//                          ticks on one (N, 2K+16) state plane, as two
-//                          launches a tick on one stream with no host sync.
+//                          ticks on one (N, 2K+16) state plane, as one
+//                          cooperative persistent launch.
 //   gp_grid_overlay_ticks  K5, gossip_protocol_tpu/ops/pallas/
 //                          overlay_grid.py grid_overlay_ticks: S whole
 //                          ticks at any power-of-two N up to 2^20 on a
@@ -37,15 +37,23 @@
 //   partner's view, four at a time, before any of them is merged; the
 //   counters are warp reductions, no atomics.
 // * K4 on the TPU held the whole plane in VMEM for 16 ticks.  At N=4096
-//   the plane is 1.8 MB, above one SM's 227 KB of shared memory, so it
-//   stays in HBM/L2 (where it fits whole) and each tick is (a) a
-//   whole-plane pass (churn wipe into a second plane, the JOINREQ per-
-//   slot atomicMax aggregate) and (b) a per-row pass (one warp a row:
-//   decisions, the shared row pipeline against the wiped plane, send
-//   flags, block-reduced integer metric atomics, and the row-local
-//   re-slot on the last tick of a slot epoch).  At N=4096 a tick is
-//   launch- and latency-bound, not bytes-bound; a persistent cluster
-//   kernel with the plane in distributed shared memory is later work.
+//   the plane is 1.8 MB, above one SM's 227 KB of shared memory, and the
+//   plane with its frozen wiped copy (3.7 MB) would take almost all of a
+//   16-CTA cluster's 3.7 MB of distributed shared memory, so it stays in
+//   HBM/L2 (where it fits whole).  A call is one cooperative launch of a
+//   persistent grid (as many blocks as fit, capped by the 8-row groups),
+//   one warp a row and one grid barrier a tick: the wiped copy (the tick's
+//   frozen send payload, with its churn wipe) is kept twice, by tick
+//   parity, and the warp that runs a row's tick s against one copy (the
+//   shared row pipeline: its own view beside the F partners' send flags in
+//   one round trip, then the flagged partners' views together, as K3; send
+//   flags; the re-slot on the last tick of a slot epoch) writes the row
+//   with tick s + 1's wipe into the other and adds its JOINREQ to tick
+//   s + 1's per-slot atomicMax aggregate.  Metric sums stay in registers
+//   and are added once a block and tick; met and the aggregates are zeroed
+//   in the launch, and the S x F XOR masks ride in the argument struct.
+//   At N=4096 a tick is latency-bound (a row's two dependent round trips
+//   and the barrier), not bytes-bound.
 // * K5 on the TPU relied on its sequential grid order: every block of tick
 //   s was committed before tick s+1 read, the next tick's JOINREQ aggregate
 //   and the introducer's broadcast row revolved through scratch.  Here each
@@ -70,6 +78,7 @@
 //   join or drop work.  The boot block (the introducer's row and the boot
 //   JOINREQ aggregate) is a pre-pass kernel, gp_grid_boot.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -468,12 +477,20 @@ fused_overlay_tick_kernel(const int32_t* __restrict__ idsaux,
 }
 
 // ---- K4 -------------------------------------------------------------------
+constexpr int K4_MAX_TICKS = 16;   // ticks a launch (one slot epoch)
+constexpr int K4_MAX_F = 8;
+constexpr int K4_NS = 2;           // slots a lane (K <= 56: 2K + 16 <= 128)
+
 struct K4Args {
   Sched s;
-  int32_t t, fail0, rejoin0, drop_open, drop_close;
+  int32_t t0, fail0, rejoin0, drop_open, drop_close;
   uint32_t drop_thr;
-  int drop_on, can_rejoin, powerlaw;
-  int32_t masks[MAX_F];
+  int drop_on, can_rejoin, powerlaw, n, k, f, s_ticks;
+  int32_t* st;       // (N, 2K+16) plane, in and out
+  int32_t* wiped;    // two planes: tick s reads plane s % 2, writes the other
+  int32_t* met;      // (S, MET_COLS), zeroed in the launch
+  uint32_t* q;       // (S, K) JOINREQ aggregates, zeroed in the launch
+  int32_t masks[K4_MAX_TICKS * K4_MAX_F];   // tick s, round fi: s F + fi
 };
 
 // Sum NW per-warp values of each metric across the block and add the
@@ -495,36 +512,36 @@ __device__ __forceinline__ void block_metrics(const int (&v)[MET_USED],
   }
 }
 
-// (a) whole plane: the churn wipe into `wiped` (the tick's frozen send
-// payload) and the JOINREQ per-slot aggregate at the introducer.
-__global__ void __launch_bounds__(WARPS * 32)
-mega_prep_kernel(const int32_t* __restrict__ st, int32_t* __restrict__ wiped,
-                 uint32_t* __restrict__ q_kf, int32_t* __restrict__ met,
-                 K4Args a, int n, int k) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int aa = 2 * k, w = aa + AUX_LANES;
-  int jreq = 0;
-  if (row < n) {
-    const int32_t* src = st + (size_t)row * w;
-    int32_t* dst = wiped + (size_t)row * w;
-    const bool rejoining = a.can_rejoin && a.t == src[aa + L_REJOIN];
-    for (int j = lane; j < w; j += 32) {
-      int32_t v = src[j];
-      if (rejoining && j < aa + L_JOINREQ) v = j < k ? -1 : 0;
-      dst[j] = v;
-    }
-    const bool failed0 = a.t > a.fail0 && a.t <= a.rejoin0;
-    const bool proc0 = a.t > 0 && !failed0;
-    jreq = src[aa + L_JOINREQ] > 0 && proc0;
-    if (lane == 0 && jreq && row != INTRODUCER) {
-      const uint32_t ep = (uint32_t)(a.t / SLOT_EPOCH);
-      atomicMax(q_kf + slot_of(a.s.seed, ep, row, k), pack_key(row, a.t));
-    }
+// Row `row`'s JOINREQ at tick t: whether the introducer consumes it, and
+// its key at its slot of the introducer's aggregate q_kf.
+__device__ __forceinline__ int joinreq_at(const K4Args& a, int32_t t,
+                                          bool joinreq, uint32_t* q_kf,
+                                          int row, int lane) {
+  const bool failed0 = t > a.fail0 && t <= a.rejoin0;
+  const int jreq = joinreq && t > 0 && !failed0;
+  if (lane == 0 && jreq && row != INTRODUCER)
+    atomicMax(q_kf + slot_of(a.s.seed, (uint32_t)(t / SLOT_EPOCH), row, a.k),
+              pack_key(row, t));
+  return jreq;
+}
+
+// The launch's first tick t0, one row: the plane's row with the churn wipe
+// of t0 (a row rejoining then loses its view, in_group and own_hb) into
+// wiped plane 0, its schedule lanes into plane 1, and its JOINREQ.
+__device__ __forceinline__ int mega_boot_row(const K4Args& a, int row,
+                                             int lane) {
+  const int k = a.k, aa = 2 * k, w = aa + AUX_LANES;
+  const int32_t t = a.t0;
+  const int32_t* src = a.st + (size_t)row * w;
+  int32_t* dst = a.wiped + (size_t)row * w;
+  const bool rejoining = a.can_rejoin && t == src[aa + L_REJOIN];
+  for (int j = lane; j < w; j += 32) {
+    int32_t v = src[j];
+    if (rejoining && j < aa + L_JOINREQ) v = j < k ? -1 : 0;
+    dst[j] = v;
+    if (j >= aa + L_START) dst[(size_t)a.n * w + j] = v;
   }
-  int v[MET_USED] = {0, 0, 0, 0, 0, 0, 0, 0};
-  v[MET_RECV] = jreq;   // JOINREQs consumed by the introducer
-  block_metrics(v, met);
+  return joinreq_at(a, t, src[aa + L_JOINREQ] > 0, a.q, row, lane);
 }
 
 // Re-slot one row into the next epoch's slot map (lexicographic max over
@@ -601,131 +618,209 @@ __device__ __forceinline__ void reslot_row_smem(int32_t (&ids)[NS],
   }
 }
 
-// (b) per row: the whole tick of one row against the wiped plane.
-__global__ void __launch_bounds__(WARPS * 32)
-mega_row_kernel(int32_t* __restrict__ st, const int32_t* __restrict__ wiped,
-                const uint32_t* __restrict__ q_kf, int32_t* __restrict__ met,
-                K4Args a, int n, int k, int f) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const int aa = 2 * k, w = aa + AUX_LANES;
-  const int32_t t = a.t;
-  int v[MET_USED] = {0, 0, 0, 0, 0, 0, 0, 0};
-  if (row < n) {
-    const uint32_t ep = (uint32_t)(t / SLOT_EPOCH);
-    const int32_t* W = wiped + (size_t)row * w;
-    const bool in_group0 = W[aa + L_IN_GROUP] > 0;
-    const int32_t own_hb0 = W[aa + L_OWN_HB];
-    const bool joinreq_c = W[aa + L_JOINREQ] > 0;
-    const bool joinrep_c = W[aa + L_JOINREP] > 0;
-    const int32_t start = W[aa + L_START], fail = W[aa + L_FAIL],
-                  rejoin = W[aa + L_REJOIN], deg = W[aa + L_DEG];
-    const bool failed = t > fail && t <= rejoin;
-    const bool proc = t > start && !failed;
-    const bool rejoining = a.can_rejoin && t == rejoin;
-    const bool failed0 = t > a.fail0 && t <= a.rejoin0;
-    const bool proc0 = t > 0 && !failed0;
-    // vector decisions
-    const bool jrep = joinrep_c && proc;
-    const bool starting = t == start || rejoining;
-    const bool in_group =
-        in_group0 || jrep || (starting && row == INTRODUCER);
-    const bool ops = proc && in_group;
-    const int32_t own_hb = own_hb0 + ops;
-    // merges
-    RowAcc<> r;
-    ViewRegs<> own;
-    load_view(own, W, W + k, k, lane);
-    acc_init(r, own);
-    int recv = 0;
-    for (int fi = 0; fi < f; ++fi) {
-      const int32_t partner = row ^ a.masks[fi];
-      const int32_t* P = wiped + (size_t)partner * w;
-      const bool ok = P[aa + L_SF + fi] > 0 && proc;
-      ViewRegs<> pv;
-      if (ok) load_view(pv, P, P + k, k, lane);
-      merge_view(r, pv, ok, row, t, a.s.t_remove, k, lane);
+// Tick s of one row against wiped plane s % 2 (the plane after tick s - 1
+// with tick s's churn wipe); adds the row's metrics to v (lane 0's count).
+// The new row goes, with tick s + 1's wipe, into the other wiped plane,
+// and its JOINREQ into tick s + 1's aggregate and count (vn); after the
+// last tick it goes to st.  masks: the tick's F masks.
+__device__ __forceinline__ void mega_row(const K4Args& a, int s,
+                                         const int32_t* masks, int row,
+                                         int lane, int (&v)[MET_USED],
+                                         int (&vn)[MET_USED]) {
+  const int k = a.k, f = a.f, aa = 2 * k, w = aa + AUX_LANES;
+  const int32_t t = a.t0 + s;
+  const size_t plane = (size_t)a.n * w;
+  const int32_t* wiped = a.wiped + (s & 1) * plane;
+  const uint32_t* q_kf = a.q + (size_t)s * k;
+  const uint32_t ep = (uint32_t)(t / SLOT_EPOCH);
+  const int32_t* W = wiped + (size_t)row * w;
+  const bool in_group0 = W[aa + L_IN_GROUP] > 0;
+  const int32_t own_hb0 = W[aa + L_OWN_HB];
+  const bool joinreq_c = W[aa + L_JOINREQ] > 0;
+  const bool joinrep_c = W[aa + L_JOINREP] > 0;
+  const int32_t start = W[aa + L_START], fail = W[aa + L_FAIL],
+                rejoin = W[aa + L_REJOIN], deg = W[aa + L_DEG];
+  const bool failed = t > fail && t <= rejoin;
+  const bool proc = t > start && !failed;
+  const bool rejoining = a.can_rejoin && t == rejoin;
+  const bool failed0 = t > a.fail0 && t <= a.rejoin0;
+  const bool proc0 = t > 0 && !failed0;
+  // vector decisions
+  const bool jrep = joinrep_c && proc;
+  const bool starting = t == start || rejoining;
+  const bool in_group =
+      in_group0 || jrep || (starting && row == INTRODUCER);
+  const bool ops = proc && in_group;
+  const int32_t own_hb = own_hb0 + ops;
+  // merges, in two dependent round trips as K3's: the row's own view
+  // beside the F partners' send flags (lane fi loads partner fi's), then
+  // every flagged partner's view, K3_CHUNK at once, and the introducer's
+  const int32_t my_mask = lane < f ? masks[lane] : 0;
+  int32_t flag = 0;
+  if (lane < f) flag = wiped[(size_t)(row ^ my_mask) * w + aa + L_SF + lane];
+  RowAcc<K4_NS> r;
+  ViewRegs<K4_NS> own;
+  load_view(own, W, W + k, k, lane);
+  const uint32_t sent =
+      proc ? __ballot_sync(0xffffffffu, lane < f && flag > 0) : 0u;
+  const int32_t* B = wiped;   // the introducer's row (JOINREP source)
+  ViewRegs<K4_NS> bv;
+  if (jrep) load_view(bv, B, B + k, k, lane);
+  acc_init(r, own);
+  for (int base = 0; base < f; base += K3_CHUNK) {
+    ViewRegs<K4_NS> pv[K3_CHUNK];
+    int32_t phb[K3_CHUNK];
+#pragma unroll
+    for (int c = 0; c < K3_CHUNK; ++c) {
+      const int fi = base + c;
+      const int32_t mask = __shfl_sync(0xffffffffu, my_mask, fi & 31);
+      if (fi < f && (sent >> fi & 1u)) {
+        const int32_t* P = wiped + (size_t)(row ^ mask) * w;
+        load_view(pv[c], P, P + k, k, lane);
+        phb[c] = P[aa + L_OWN_HB];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < K3_CHUNK; ++c) {
+      const int fi = base + c;
+      if (!(fi < f && (sent >> fi & 1u))) continue;
+      merge_view(r, pv[c], true, row, t, a.s.t_remove, k, lane);
       if (a.s.t_remove > 1)
-        merge_entry(r, partner, t - 1, ok ? P[aa + L_OWN_HB] : 0, ok,
-                    a.s.seed, ep, k, lane);
-      recv += ok;
-    }
-    const int32_t* B = wiped;   // the introducer's row (JOINREP source)
-    ViewRegs<> bv;
-    if (jrep) load_view(bv, B, B + k, k, lane);
-    merge_view(r, bv, jrep, row, t, a.s.t_remove, k, lane);
-    if (a.s.t_remove > 1)
-      merge_entry(r, INTRODUCER, t - 1, B[aa + L_OWN_HB],
-                  jrep && row != INTRODUCER, a.s.seed, ep, k, lane);
-    merge_joinreq(r, row == INTRODUCER, q_kf, nullptr, t, k, lane);
-    RowOut<> o;
-    extract_detect(r, ops, t, a.s, k, lane, o);
-    // dissemination: next tick's send flags and the join sends
-    const bool active = a.drop_on && t > a.drop_open && t <= a.drop_close;
-    int sf_bits = 0, n_sf = 0;
-    for (int fi = 0; fi < f; ++fi) {
-      const bool gdrop = mix32(a.s.seed, (uint32_t)t, (uint32_t)row,
-                               (uint32_t)fi, SALT_GOSSIP_DROP) < a.drop_thr;
-      bool sf = ops && !(active && gdrop);
-      if (a.powerlaw) sf = sf && fi < deg;
-      sf_bits |= sf << fi;
-      n_sf += sf;
-    }
-    const bool joinreq_new = starting && row != INTRODUCER;
-    const bool qdrop = mix32(a.s.seed, (uint32_t)t, (uint32_t)row,
-                             SALT_JOINREQ_DROP) < a.drop_thr;
-    const bool pdrop = mix32(a.s.seed, (uint32_t)t, (uint32_t)row,
-                             SALT_JOINREP_DROP) < a.drop_thr;
-    const bool joinreq_sent = joinreq_new && !(active && qdrop);
-    const bool jreq = joinreq_c && proc0;
-    const bool joinrep_sent = jreq && !(active && pdrop);
-    const bool live_hold = !proc && !failed;
-    const bool joinreq_next =
-        joinreq_sent || (joinreq_c && !proc0 && !failed0);
-    const bool joinrep_next = joinrep_sent || (joinrep_c && live_hold);
-    // metrics (one warp: lane 0's totals count)
-    const int view = warp_sum(o.view), adds = warp_sum(o.adds),
-              rem = warp_sum(o.removals), frem = warp_sum(o.false_removals),
-              vic = warp_sum(o.victims);
-    if (lane == 0) {
-      v[MET_IN_GROUP] = in_group;
-      v[MET_VIEW] = view;
-      v[MET_ADDS] = adds;
-      v[MET_REMOVALS] = rem;
-      v[MET_FALSE_REMOVALS] = frem;
-      v[MET_VICTIM] = vic;
-      v[MET_SENT] = n_sf + joinreq_sent + joinrep_sent;
-      v[MET_RECV] = recv + jrep;
-    }
-    // the end-of-tick row, re-slotted on the last tick of an epoch
-    int32_t pwv[SPL];
-#pragma unroll
-    for (int jj = 0; jj < SPL; ++jj)
-      pwv[jj] = o.ids[jj] >= 0 ? pack_th(o.ts[jj], o.hb[jj]) : 0;
-    if ((t + 1) % SLOT_EPOCH == 0)
-      reslot_row(o.ids, pwv, a.s.seed, (uint32_t)((t + 1) / SLOT_EPOCH), k,
-                 lane);
-    int32_t* D = st + (size_t)row * w;
-#pragma unroll
-    for (int jj = 0; jj < SPL; ++jj) {
-      const int j = lane + 32 * jj;
-      if (j >= k) continue;
-      D[j] = o.ids[jj];
-      D[k + j] = pwv[jj];
-    }
-    if (lane < L_START) {
-      int32_t x;
-      if (lane == L_IN_GROUP) x = in_group;
-      else if (lane == L_OWN_HB) x = own_hb;
-      else if (lane == L_JOINREQ) x = joinreq_next;
-      else if (lane == L_JOINREP) x = joinrep_next;
-      else x = (sf_bits >> (lane - L_SF)) & 1;
-      D[aa + lane] = x;
+        merge_entry(r, row ^ __shfl_sync(0xffffffffu, my_mask, fi), t - 1,
+                    phb[c], true, a.s.seed, ep, k, lane);
     }
   }
-  block_metrics(v, met);
+  const int recv = __popc(sent);
+  merge_view(r, bv, jrep, row, t, a.s.t_remove, k, lane);
+  if (a.s.t_remove > 1)
+    merge_entry(r, INTRODUCER, t - 1, B[aa + L_OWN_HB],
+                jrep && row != INTRODUCER, a.s.seed, ep, k, lane);
+  merge_joinreq(r, row == INTRODUCER, q_kf, nullptr, t, k, lane);
+  RowOut<K4_NS> o;
+  extract_detect(r, ops, t, a.s, k, lane, o);
+  // dissemination: next tick's send flags and the join sends
+  const bool active = a.drop_on && t > a.drop_open && t <= a.drop_close;
+  int sf_bits = 0, n_sf = 0;
+  for (int fi = 0; fi < f; ++fi) {
+    const bool gdrop = mix32(a.s.seed, (uint32_t)t, (uint32_t)row,
+                             (uint32_t)fi, SALT_GOSSIP_DROP) < a.drop_thr;
+    bool sf = ops && !(active && gdrop);
+    if (a.powerlaw) sf = sf && fi < deg;
+    sf_bits |= sf << fi;
+    n_sf += sf;
+  }
+  const bool joinreq_new = starting && row != INTRODUCER;
+  const bool qdrop = mix32(a.s.seed, (uint32_t)t, (uint32_t)row,
+                           SALT_JOINREQ_DROP) < a.drop_thr;
+  const bool pdrop = mix32(a.s.seed, (uint32_t)t, (uint32_t)row,
+                           SALT_JOINREP_DROP) < a.drop_thr;
+  const bool joinreq_sent = joinreq_new && !(active && qdrop);
+  const bool jreq = joinreq_c && proc0;
+  const bool joinrep_sent = jreq && !(active && pdrop);
+  const bool live_hold = !proc && !failed;
+  const bool joinreq_next =
+      joinreq_sent || (joinreq_c && !proc0 && !failed0);
+  const bool joinrep_next = joinrep_sent || (joinrep_c && live_hold);
+  // metrics (one warp: lane 0's totals count)
+  const int view = warp_sum(o.view), adds = warp_sum(o.adds),
+            rem = warp_sum(o.removals), frem = warp_sum(o.false_removals),
+            vic = warp_sum(o.victims);
+  if (lane == 0) {
+    v[MET_IN_GROUP] += in_group;
+    v[MET_VIEW] += view;
+    v[MET_ADDS] += adds;
+    v[MET_REMOVALS] += rem;
+    v[MET_FALSE_REMOVALS] += frem;
+    v[MET_VICTIM] += vic;
+    v[MET_SENT] += n_sf + joinreq_sent + joinrep_sent;
+    v[MET_RECV] += recv + jrep;
+  }
+  // the end-of-tick row, re-slotted on the last tick of an epoch
+  int32_t pwv[K4_NS];
+#pragma unroll
+  for (int jj = 0; jj < K4_NS; ++jj)
+    pwv[jj] = o.ids[jj] >= 0 ? pack_th(o.ts[jj], o.hb[jj]) : 0;
+  if ((t + 1) % SLOT_EPOCH == 0)
+    reslot_row(o.ids, pwv, a.s.seed, (uint32_t)((t + 1) / SLOT_EPOCH), k,
+               lane);
+  // the next tick's wipe (a row rejoining at t + 1 loses its view,
+  // in_group and own_hb)
+  const bool last = s + 1 == a.s_ticks;
+  const bool wipe = !last && a.can_rejoin && t + 1 == rejoin;
+  int32_t* D = last ? a.st + (size_t)row * w
+                    : a.wiped + ((s + 1) & 1) * plane + (size_t)row * w;
+#pragma unroll
+  for (int jj = 0; jj < K4_NS; ++jj) {
+    const int j = lane + 32 * jj;
+    if (j >= k) continue;
+    D[j] = wipe ? -1 : o.ids[jj];
+    D[k + j] = wipe ? 0 : pwv[jj];
+  }
+  if (lane < L_START) {
+    int32_t x;
+    if (lane == L_IN_GROUP) x = wipe ? 0 : in_group;
+    else if (lane == L_OWN_HB) x = wipe ? 0 : own_hb;
+    else if (lane == L_JOINREQ) x = joinreq_next;
+    else if (lane == L_JOINREP) x = joinrep_next;
+    else x = (sf_bits >> (lane - L_SF)) & 1;
+    D[aa + lane] = x;
+  }
+  if (!last) {
+    const int jreq1 = joinreq_at(a, t + 1, joinreq_next,
+                                 a.q + (size_t)(s + 1) * k, row, lane);
+    if (lane == 0) vn[MET_RECV] += jreq1;   // JOINREQs consumed at t + 1
+  }
 }
 
+// K4: S whole ticks, one persistent grid; each phase strides its 8-row
+// groups (a warp a row) over the blocks, metric sums kept in registers
+// and added once a block and phase.  A row's next-tick wipe and JOINREQ are
+// its own, so the warp that computes tick s of a row also prepares its
+// tick s + 1 (two wiped planes, by tick parity): one grid barrier a tick,
+// plus one after the zeroing and one after the first tick's wipe.
+__global__ void __launch_bounds__(WARPS * 32)
+mega_overlay_kernel(const __grid_constant__ K4Args a) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  __shared__ int32_t masks_s[K4_MAX_TICKS * K4_MAX_F];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (a.n + WARPS - 1) / WARPS;
+  // constant indices only: a dynamic index into the argument struct would
+  // copy it to local memory
+  if (threadIdx.x == 0)
+#pragma unroll
+    for (int i = 0; i < K4_MAX_TICKS * K4_MAX_F; ++i) masks_s[i] = a.masks[i];
+  const int zero = a.s_ticks * (MET_COLS + a.k);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < zero;
+       i += gridDim.x * blockDim.x) {
+    if (i < a.s_ticks * MET_COLS) a.met[i] = 0;
+    else a.q[i - a.s_ticks * MET_COLS] = 0u;
+  }
+  grid.sync();
+  int v[MET_USED] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+    const int row = g * WARPS + warp;
+    if (row < a.n) {
+      const int jreq = mega_boot_row(a, row, lane);
+      if (lane == 0) v[MET_RECV] += jreq;   // JOINREQs consumed at t0
+    }
+  }
+  block_metrics(v, a.met);
+  grid.sync();
+  for (int s = 0; s < a.s_ticks; ++s) {
+    int vn[MET_USED] = {0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < MET_USED; ++i) v[i] = 0;
+    for (int g = blockIdx.x; g < groups; g += gridDim.x) {
+      const int row = g * WARPS + warp;
+      if (row < a.n) mega_row(a, s, masks_s + s * a.f, row, lane, v, vn);
+    }
+    block_metrics(v, a.met + (size_t)s * MET_COLS);
+    if (s + 1 == a.s_ticks) break;
+    __syncthreads();   // block_metrics' partial sums are read
+    block_metrics(vn, a.met + (size_t)(s + 1) * MET_COLS);
+    grid.sync();
+  }
+}
 
 // ---- K5 -------------------------------------------------------------------
 // The plane: row r of a lane is PLANE_W words: lanes [0, K) ids, [K, 2K) the
@@ -1221,27 +1316,25 @@ int gp_fused_overlay_tick(const int32_t* idsaux, const int32_t* pw,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K4.  st (N, 2K+16) is updated in place over s_ticks ticks; wiped is a
-// plane of the same shape (scratch), met i32[S, 128] and q (S*K words,
-// scratch) are zeroed here.  sp is K4's scalar vector in host memory.
+// K4.  st (N, 2K+16) is updated in place over s_ticks <= 16 ticks in one
+// cooperative launch; wiped is two planes of its shape (scratch), met
+// i32[S, 128] and q (S*K words, scratch) are zeroed in the launch.  sp is
+// K4's scalar vector in host memory.  blocks: the persistent grid's size,
+// 0 for as many blocks as fit on the card (capped by the rows); a grid
+// that cannot be co-resident is refused with an error.
 int gp_mega_overlay_ticks(int32_t* st, int32_t* wiped, int32_t* met,
                           int32_t* q, const int32_t* sp, int n, int k, int f,
                           int s_ticks, int t_remove, int churn_lo,
                           int churn_span, int can_rejoin, int powerlaw,
-                          void* stream_ptr) {
-  if (k < 1 || 2 * k + AUX_LANES > MAX_K || f < 1 || f > 8)
+                          int blocks, void* stream_ptr) {
+  if (k < 1 || 2 * k + AUX_LANES > MAX_K || f < 1 || f > K4_MAX_F ||
+      n < 1 || s_ticks < 1 || s_ticks > K4_MAX_TICKS)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int w = 2 * k + AUX_LANES;
-  cudaError_t err = cudaMemsetAsync(
-      met, 0, sizeof(int32_t) * (size_t)s_ticks * MET_COLS, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemsetAsync(q, 0, sizeof(int32_t) * (size_t)s_ticks * k, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
   K4Args a;
   a.s = make_sched((uint32_t)sp[SP_SEED], sp[SP_VLO], sp[SP_VHI],
                    sp[SP_FTICK], sp[SP_RAFTER], (uint32_t)sp[SP_CTHR],
                    sp[SP_CAFTER], churn_lo, churn_span, t_remove);
+  a.t0 = sp[SP_T0];
   a.fail0 = sp[SP_FAIL0];
   a.rejoin0 = sp[SP_REJOIN0];
   a.drop_on = sp[SP_DROP_ON] > 0;
@@ -1250,24 +1343,37 @@ int gp_mega_overlay_ticks(int32_t* st, int32_t* wiped, int32_t* met,
   a.drop_thr = (uint32_t)sp[SP_DROP_THR];
   a.can_rejoin = can_rejoin;
   a.powerlaw = powerlaw;
-  const int blocks = (n + WARPS - 1) / WARPS;
-  for (int s = 0; s < s_ticks; ++s) {
-    a.t = sp[SP_T0] + s;
-    for (int i = 0; i < MAX_F; ++i)
-      a.masks[i] = i < f ? sp[SP_NSCALARS + s * f + i] : 0;
-    uint32_t* qs = reinterpret_cast<uint32_t*>(q) + (size_t)s * k;
-    int32_t* ms = met + (size_t)s * MET_COLS;
-    mega_prep_kernel<<<blocks, WARPS * 32, 0, stream>>>(st, wiped, qs, ms, a,
-                                                        n, k);
-    err = cudaGetLastError();
+  a.n = n;
+  a.k = k;
+  a.f = f;
+  a.s_ticks = s_ticks;
+  a.st = st;
+  a.wiped = wiped;
+  a.met = met;
+  a.q = reinterpret_cast<uint32_t*>(q);
+  for (int i = 0; i < K4_MAX_TICKS * K4_MAX_F; ++i) a.masks[i] = 0;
+  for (int s = 0; s < s_ticks; ++s)
+    for (int fi = 0; fi < f; ++fi)
+      a.masks[s * f + fi] = sp[SP_NSCALARS + s * f + fi];
+  if (blocks <= 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, mega_overlay_kernel, WARPS * 32, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
-    mega_row_kernel<<<blocks, WARPS * 32, 0, stream>>>(st, wiped, qs, ms, a,
-                                                       n, k, f);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1)
+      return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+    blocks = min(per_sm * sms, (n + WARPS - 1) / WARPS);
   }
-  (void)w;
-  return static_cast<int>(cudaGetLastError());
+  void* args[] = {&a};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(mega_overlay_kernel), dim3(blocks),
+      dim3(WARPS * 32), args, 0, static_cast<cudaStream_t>(stream_ptr));
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 // K5.  plane (B, N, 128; lane l at plane + l * plane_lane words, 16-byte

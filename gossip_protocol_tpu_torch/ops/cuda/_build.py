@@ -38,17 +38,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_U = ctypes.c_uint
 #: each source is one library: its C entry points and their arguments
 SOURCES = {
     "dense_tick.cu": {
         "gp_masked_max3": [_P] * 9 + [_I] * 3 + [_P],
         "gp_merge_scratch_words": [_I],
         "gp_tick_epilogue": [_P] * 21 + [_I] * 3 + [_P],
-        "gp_dense_mega_ticks": [_P] * 15 + [_I] * 5 + [_P],
+        "gp_dense_mega_ticks": [_P] * 15 + [_I] * 6 + [_P],
+    },
+    "drop.cu": {
+        "gp_drop_masks": [_P] * 3 + [_U, _U, _I, _U, ctypes.c_float]
+                         + [_I] * 3 + [_P],
     },
     "overlay_tick.cu": {
         "gp_fused_overlay_tick": [_P] * 8 + [_I] * 6 + [_P],
-        "gp_mega_overlay_ticks": [_P] * 5 + [_I] * 9 + [_P],
+        "gp_mega_overlay_ticks": [_P] * 5 + [_I] * 10 + [_P],
         "gp_grid_overlay_ticks": [_P, _L] + [_P] * 5 + [_I] * 13 + [_P],
         "gp_grid_boot": [_P, _L, _P, _P] + [_I] * 5 + [_P],
         "gp_grid_blocks_per_sm": [_I] * 2,

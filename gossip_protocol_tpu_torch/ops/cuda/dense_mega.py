@@ -10,17 +10,16 @@ decisions arrive precomputed (``gdrop`` bool[S, N, N], ``qdrop``/
 
 The TPU kept the whole state in 110 MB of VMEM for the S ticks.  An
 H100 SM has 227 KB of shared memory, so here the state stays in HBM
-(the N=512 planes, ~1 MB each, sit in the 50 MB L2) and each tick is a
-short chain of launches on the current stream, issued by one C call
-with no host sync inside the S loop: a one-block vector step (proc,
-JOINREQ/JOINREP, in_group, ops, own_hb, the join accounting: the rules
-of ``ops/vector.py``, which the plain version calls), the churn
-wipe of rejoining rows (before the merge reads sender rows), the
-``masked_max3`` kernel and the ``tick_epilogue`` kernel — the same two
-kernels as the per-tick path, so the cell rules cannot drift apart.
-Its loop is not a kernel of its own: per tick it costs the two
-kernels' time plus four or five launches; a persistent cooperative
-kernel or a CUDA graph over the S ticks is later work.
+(the N=896 planes, about 9 MB, sit in the 50 MB L2) and a call is one
+cooperative launch of a persistent grid (csrc/dense_tick.cu
+``dense_mega_kernel``: as many blocks as fit on the card, capped by the
+work) that runs the S ticks with grid barriers between their phases: a
+one-block vector step (proc, JOINREQ/JOINREP, in_group, ops, own_hb,
+the join accounting: the rules of ``ops/vector.py``, which the plain
+version calls), the churn wipe of rejoining rows with the merge prep,
+the ``masked_max3`` descent tiles and the ``tick_epilogue`` tiles — the
+same ``__device__`` tile functions as the per-tick kernels, so the cell
+rules cannot drift apart.
 """
 
 from __future__ import annotations
@@ -102,7 +101,8 @@ def dense_mega_ticks_plain(known, hb, ts, gossip, aux, gdrop, qdrop, pdrop,
 
 def dense_mega_ticks(known, hb, ts, gossip, aux, gdrop, qdrop, pdrop, sp, *,
                      n: int, s_ticks: int, t_remove: int, can_rejoin: bool,
-                     with_events: bool = False):
+                     with_events: bool = False,
+                     grid_blocks: int | None = None):
     """Run ``s_ticks`` whole dense ticks from clock ``sp`` (an int: the
     TPU kernel's i32[1] scalar-prefetch array becomes a launch argument).
 
@@ -110,8 +110,10 @@ def dense_mega_ticks(known, hb, ts, gossip, aux, gdrop, qdrop, pdrop, sp, *,
     dense_mega_ticks``: ``(known', hb', ts', gossip', aux', sent, recv)``
     plus ``(added, removed)`` int8[S, N, N] with ``with_events``.  The
     inputs are not modified.  CPU tensors take
-    :func:`dense_mega_ticks_plain`; CUDA tensors launch the kernels (or
-    raise).
+    :func:`dense_mega_ticks_plain`; CUDA tensors launch the kernel once
+    (or raise).  ``grid_blocks`` sets the persistent grid's size, for
+    tests (default: as many blocks as fit on the card, capped by the
+    work); a grid that cannot be co-resident raises.
     """
     if known.shape != (n, n):
         raise ValueError(f"state planes must be ({n}, {n}), got "
@@ -144,12 +146,15 @@ def dense_mega_ticks(known, hb, ts, gossip, aux, gdrop, qdrop, pdrop, sp, *,
     lib = library()
     m_scratch = torch.empty(3 * n * n + lib.gp_merge_scratch_words(n),
                             dtype=torch.int32, device=dev)
-    vec_scratch = torch.empty(_VEC_LANES * n, dtype=torch.uint8, device=dev)
+    # the vector lanes of two tick parities
+    vec_scratch = torch.empty(2 * _VEC_LANES * n, dtype=torch.uint8,
+                              device=dev)
     code = lib.gp_dense_mega_ticks(
         ptr(known_b), ptr(hb_w), ptr(ts_w), ptr(gossip_b), ptr(gossip_tmp),
         ptr(aux_w), ptr(gdrop), ptr(qdrop), ptr(pdrop), ptr(sent), ptr(recv),
         ptr(added), ptr(removed), ptr(m_scratch), ptr(vec_scratch), n,
-        s_ticks, t0, int(t_remove), int(can_rejoin), stream_ptr(dev))
+        s_ticks, t0, int(t_remove), int(can_rejoin), int(grid_blocks or 0),
+        stream_ptr(dev))
     dense_mega_ticks.launches += 1
     check(code, "dense_mega_ticks")
     out = (known_b.to(torch.int32), hb_w, ts_w, gossip_b.to(torch.int32),

@@ -8,21 +8,18 @@ one metric row per tick (``MET_*`` columns of i32[S, 128]) out.
 
 The TPU kept the whole plane in VMEM for the S ticks.  At N=4096 it is
 1.8 MB, more than one SM's 227 KB of shared memory, so on the H100 it
-stays in HBM/L2 and the cross-row dependencies of a tick get an
-explicit order: one C call launches, per tick and with no host sync,
-
-(a) a whole-plane pass: the churn wipe into a second plane (the
-    tick's frozen send payload), the JOINREQ per-slot ``atomicMax``
-    aggregate and its receive count;
-(b) a per-row pass, one warp a row: partners and the introducer's
-    broadcast row read from the wiped plane, the row routine shared with
-    K3 (merges, JOINREP, JOINREQ, extraction, detection), the
-    drop-masked send flags with in-kernel ``mix32``, the power-law degree
-    gate, the metric sums (block-reduced, then integer ``atomicAdd``:
-    exact), and on the last tick of a slot epoch the row-local re-slot.
-
-A persistent cluster kernel that keeps the plane in distributed shared
-memory for all S ticks is later work (csrc/overlay_tick.cu).
+stays in HBM/L2 and a call is one cooperative launch of a persistent
+grid (csrc/overlay_tick.cu ``mega_overlay_kernel``), one warp a row, with
+one grid barrier a tick.  The tick's frozen send payload is a second
+plane, kept twice by tick parity: the warp that runs a row's tick s
+(partners and the introducer's broadcast row read from plane s % 2, the
+row routine shared with K3 — merges, JOINREP, JOINREQ, extraction,
+detection —, the drop-masked send flags with in-kernel ``mix32``, the
+power-law degree gate, the re-slot on the last tick of a slot epoch)
+writes the row with tick s + 1's churn wipe into the other plane and
+adds its JOINREQ to tick s + 1's per-slot ``atomicMax`` aggregate.  The
+metric sums are kept per block, then added by integer ``atomicAdd``
+(exact); the metric rows and aggregates are zeroed in the launch.
 """
 
 from __future__ import annotations
@@ -166,14 +163,17 @@ def mega_overlay_ticks_plain(st, sp, *, n: int, k: int, f_rounds: int,
 
 def mega_overlay_ticks(st, sp, *, n: int, k: int, f_rounds: int,
                        s_ticks: int, t_remove: int, churn_lo: int,
-                       churn_span: int, can_rejoin: bool, powerlaw: bool):
+                       churn_span: int, can_rejoin: bool, powerlaw: bool,
+                       grid_blocks: int | None = None):
     """Run ``s_ticks`` whole overlay ticks on the state plane ``st``.
 
     Args as the TPU kernel's: ``st`` i32[N, 2K+16] (not modified), ``sp``
     the scalars and per-tick masks (host ints: a sequence, numpy array
     or tensor).  Returns ``(st', metrics i32[S, 128])``.  CPU tensors
-    take :func:`mega_overlay_ticks_plain`; CUDA tensors launch the
-    kernels (or raise).
+    take :func:`mega_overlay_ticks_plain`; CUDA tensors launch the kernel
+    once (or raise).  ``grid_blocks`` sets the persistent grid's size,
+    for tests (default: as many blocks as fit on the card, capped by the
+    rows); a grid that cannot be co-resident raises.
     """
     w = 2 * k + AUX_LANES
     if st.device.type == "cpu":
@@ -181,10 +181,11 @@ def mega_overlay_ticks(st, sp, *, n: int, k: int, f_rounds: int,
             st, sp, n=n, k=k, f_rounds=f_rounds, s_ticks=s_ticks,
             t_remove=t_remove, churn_lo=churn_lo, churn_span=churn_span,
             can_rejoin=can_rejoin, powerlaw=powerlaw)
-    if w > 128 or not 1 <= f_rounds <= 8 or n < 8 or n & (n - 1):
-        raise ValueError(f"mega_overlay_ticks: N={n}, K={k}, F={f_rounds} "
-                         "outside the envelope (power-of-two N >= 8, "
-                         "2K+16 <= 128, F <= 8)")
+    if (w > 128 or not 1 <= f_rounds <= 8 or n < 8 or n & (n - 1)
+            or not 1 <= s_ticks <= MEGA_TICKS):
+        raise ValueError(f"mega_overlay_ticks: N={n}, K={k}, F={f_rounds}, "
+                         f"S={s_ticks} outside the envelope (power-of-two "
+                         f"N >= 8, 2K+16 <= 128, F <= 8, S <= {MEGA_TICKS})")
     check_args("mega_overlay_ticks", (st, torch.int32, (n, w)))
     host = _host_sp(sp)
     if host.shape != (_SP_NSCALARS + s_ticks * f_rounds,):
@@ -193,13 +194,14 @@ def mega_overlay_ticks(st, sp, *, n: int, k: int, f_rounds: int,
     host = np.ascontiguousarray(host.astype(np.uint32).view(np.int32))
     dev = st.device
     out = st.clone()
-    wiped = torch.empty_like(st)
+    wiped = torch.empty((2, n, w), dtype=torch.int32, device=dev)
     met = torch.empty((s_ticks, MET_COLS), dtype=torch.int32, device=dev)
     qbuf = torch.empty(s_ticks * k, dtype=torch.int32, device=dev)
     code = library("overlay_tick.cu").gp_mega_overlay_ticks(
         ptr(out), ptr(wiped), ptr(met), ptr(qbuf), host.ctypes.data, n, k,
         f_rounds, s_ticks, int(t_remove), int(churn_lo), int(churn_span),
-        int(can_rejoin), int(powerlaw), stream_ptr(dev))
+        int(can_rejoin), int(powerlaw), int(grid_blocks or 0),
+        stream_ptr(dev))
     mega_overlay_ticks.launches += 1
     check(code, "mega_overlay_ticks")
     return out, met

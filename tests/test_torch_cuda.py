@@ -111,10 +111,9 @@ def test_kernels_on_a_real_tick_state(dev):
                    jreq=vs.jreq, live_hold=vs.hold), t)
 
 
-@pytest.mark.parametrize("n,s_ticks", ((16, 16), (64, 16), (200, 8)))
-def test_dense_mega_kernel(dev, n, s_ticks):
-    from gossip_protocol_tpu_torch.ops.cuda.dense_mega import (
-        dense_mega_ticks, dense_mega_ticks_plain)
+def _k2_inputs(n, s_ticks, dev):
+    """Random valid K2 inputs: a join ramp, failures and rejoins inside
+    the launch (numpy seed ``n``)."""
     rng = np.random.default_rng(n)
     never = np.iinfo(np.int32).max
     t0 = 90
@@ -136,14 +135,91 @@ def test_dense_mega_kernel(dev, n, s_ticks):
         qdrop=rng.random((s_ticks, n)) < 0.2,
         pdrop=rng.random((s_ticks, n)) < 0.2)
     x = {k: torch.from_numpy(v).to(dev) for k, v in host.items()}
+    return dict(x, sp=t0)
+
+
+def _check_k2(x, **kw):
+    """K2 (one launch) equals its plain version, with and without events
+    and churn."""
+    from gossip_protocol_tpu_torch.ops.cuda.dense_mega import (
+        dense_mega_ticks, dense_mega_ticks_plain)
+    grid = kw.pop("grid_blocks", None)
     for ev, rj in ((True, True), (False, False)):
-        kw = dict(n=n, s_ticks=s_ticks, t_remove=T_REMOVE, can_rejoin=rj,
-                  with_events=ev)
-        got = dense_mega_ticks(**x, sp=t0, **kw)
-        want = dense_mega_ticks_plain(**x, sp=t0, **kw)
+        before = dense_mega_ticks.launches
+        got = dense_mega_ticks(**x, **kw, can_rejoin=rj, with_events=ev,
+                               grid_blocks=grid)
+        assert dense_mega_ticks.launches == before + 1
+        want = dense_mega_ticks_plain(**x, **kw, can_rejoin=rj,
+                                      with_events=ev)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n,s_ticks", ((16, 16), (64, 16), (200, 8),
+                                       (1024, 8)))
+def test_dense_mega_kernel(dev, n, s_ticks):
+    _check_k2(_k2_inputs(n, s_ticks, dev), n=n, s_ticks=s_ticks,
+              t_remove=T_REMOVE)
+
+
+@pytest.mark.parametrize("n,s_ticks,blocks", ((64, 16, 1), (200, 7, 1),
+                                              (200, 8, 5)))
+def test_dense_mega_kernel_grid_sizes(dev, n, s_ticks, blocks):
+    """K2's persistent grid at a size of the caller's: one block, or a
+    few, taking every tile of each phase in turn; an odd S."""
+    _check_k2(_k2_inputs(n, s_ticks, dev), n=n, s_ticks=s_ticks,
+              t_remove=T_REMOVE, grid_blocks=blocks)
+
+
+@pytest.mark.parametrize("embedded", (False, True))
+@pytest.mark.parametrize("s_ticks", (1, 8, 16))
+@pytest.mark.parametrize("n", (10, 64, 896, 2816))
+def test_drop_masks_kernel(dev, n, s_ticks, embedded):
+    """The drop draw kernel against its plain version (utils/threefry.py
+    in torch) on the card: one launch for S ticks, the window closed at
+    every fourth tick of the launch, the draw at full width or embedded
+    at 3/4 of it."""
+    from gossip_protocol_tpu_torch.ops.drop import drop_masks, drop_masks_plain
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    na = n * 3 // 4 if embedded else n
+    active = [s_ticks == 1 or s % 4 != 0 for s in range(s_ticks)]
+    for prob in (0.1, 0.25):
+        before = drop_masks.launches
+        got = drop_masks(prng_key(n), 100, active, np.float32(prob), n,
+                         n_active=na, device=dev)
+        assert drop_masks.launches == before + 1
+        want = drop_masks_plain(prng_key(n), 100, active, np.float32(prob),
+                                n, na, dev)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert got[0].any()
+
+
+def test_cooperative_launch_too_large_raises(dev):
+    """A persistent grid larger than the card holds at once is refused by
+    the runtime, and the wrappers raise (no fallback); the card stays
+    usable."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_mega as pmega
+    from gossip_protocol_tpu_torch.ops.cuda.dense_mega import dense_mega_ticks
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import \
+        mega_overlay_ticks
+    x = _k2_inputs(64, 2, dev)
+    with pytest.raises(RuntimeError, match="dense_mega_ticks: CUDA error"):
+        dense_mega_ticks(**x, n=64, s_ticks=2, t_remove=T_REMOVE,
+                         can_rejoin=False, grid_blocks=10 ** 6)
+    cfg = _overlay_cfg("drop128")
+    sched = pov.make_overlay_schedule(cfg)
+    state = pov.init_overlay_state(cfg, dev)
+    f = pov.resolved_dims(cfg)[1]
+    sp = pmega._sp_vector(cfg, sched, 0, 4, cfg.n, f)
+    with pytest.raises(RuntimeError, match="mega_overlay_ticks: CUDA error"):
+        mega_overlay_ticks(pmega._pack_state(cfg, state, sched), sp,
+                           s_ticks=4, grid_blocks=10 ** 6,
+                           **pmega.mega_kernel_kwargs(cfg, sched))
+    _check_k2(x, n=64, s_ticks=2, t_remove=T_REMOVE)
 
 
 @pytest.mark.parametrize("kw", [dict(max_nnb=10),
@@ -215,6 +291,40 @@ def test_overlay_kernels_equal_plain(dev, name):
         b = mega_overlay_ticks_plain(st, sp, s_ticks=s_ticks, **kw)
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _overlay_cfg(name):
+    from gossip_protocol_tpu_torch.config import SimConfig
+    return SimConfig(model="overlay", **OVERLAY[name])
+
+
+@pytest.mark.parametrize("s_ticks,blocks", ((12, None), (16, 1), (16, 7)))
+def test_mega_overlay_remainder_and_grid_sizes(dev, s_ticks, blocks):
+    """K4 at N=4096 (the BASELINE drop run's shape) on the real tick-96
+    state: a 12-tick remainder launch, and whole launches on a one-block
+    and a seven-block persistent grid, each equal to its plain version."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_mega as pmega
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import (
+        mega_overlay_ticks, mega_overlay_ticks_plain)
+    cfg = SimConfig(model="overlay", max_nnb=4096, single_failure=True,
+                    drop_msg=True, msg_drop_prob=0.1, total_ticks=608,
+                    fail_tick=304, step_rate=40.0 / 4096, seed=0)
+    sched = pov.make_overlay_schedule(cfg)
+    state = pov.OverlaySimulation(cfg, device="cuda").run(
+        ticks=96).final_state
+    f = pov.resolved_dims(cfg)[1]
+    st = pmega._pack_state(cfg, state, sched)
+    kw = pmega.mega_kernel_kwargs(cfg, sched)
+    sp = pmega._sp_vector(cfg, sched, state.tick, s_ticks, cfg.n, f)
+    before = mega_overlay_ticks.launches
+    a = mega_overlay_ticks(st, sp, s_ticks=s_ticks, grid_blocks=blocks, **kw)
+    assert mega_overlay_ticks.launches == before + 1
+    b = mega_overlay_ticks_plain(st, sp, s_ticks=s_ticks, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert int(a[1][:, 7].sum()) > 0       # merges were received
 
 
 @pytest.mark.parametrize("name", sorted(OVERLAY))

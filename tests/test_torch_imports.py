@@ -178,14 +178,15 @@ def test_wrappers_on_cpu_count_no_launch():
     from gossip_protocol_tpu_torch.ops.cuda.dense_mega import \
         dense_mega_ticks
     from gossip_protocol_tpu_torch.ops.cuda.tickfused import tick_epilogue
+    from gossip_protocol_tpu_torch.ops.drop import drop_masks
     from gossip_protocol_tpu_torch.ops.merge import masked_max3
-    before = [f.launches for f in (masked_max3, tick_epilogue,
-                                   dense_mega_ticks)]
-    cfg = SimConfig(max_nnb=16, total_ticks=40)
+    wrappers = (masked_max3, tick_epilogue, dense_mega_ticks, drop_masks)
+    before = [f.launches for f in wrappers]
+    cfg = SimConfig(max_nnb=16, total_ticks=40, drop_msg=True,
+                    drop_open_tick=5, drop_close_tick=30)
     res = Simulation(cfg, device="cpu").run()          # K2 route
     Simulation(cfg.replace(max_nnb=10), device="cpu").run()   # per-tick
-    after = [f.launches for f in (masked_max3, tick_epilogue,
-                                  dense_mega_ticks)]
+    after = [f.launches for f in wrappers]
     assert after == before
     assert res.final_state.device.type == "cpu"
     assert np.asarray(res.sent).sum() > 0

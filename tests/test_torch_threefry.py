@@ -12,13 +12,20 @@ import pytest
 import torch
 
 from gossip_protocol_tpu.ops.drop import tick_drop_masks as jax_drop_masks
-from gossip_protocol_tpu_torch.ops.drop import tick_drop_masks
+from gossip_protocol_tpu_torch.config import SimConfig
+from gossip_protocol_tpu_torch.core.dense_mega import drop_stack
+from gossip_protocol_tpu_torch.ops.drop import drop_masks, tick_drop_masks
+from gossip_protocol_tpu_torch.state import make_schedule_host
 from gossip_protocol_tpu_torch.utils import threefry
 
 torch.set_num_threads(2)
 
 SEEDS = (0, 1, 12345)
 TICKS = (0, 51, 300, 699)
+
+#: the JAX draw compiled once per width (tick, window flag and
+#: probability traced)
+_jax_drop_jit = jax.jit(jax_drop_masks, static_argnums=2)
 
 
 def test_partitionable_mode_is_jax_default():
@@ -78,3 +85,56 @@ def test_asym_link_prob_raises():
     with pytest.raises(NotImplementedError):
         tick_drop_masks(threefry.prng_key(0), 60, 8, True, np.float32(0.1),
                         "cpu", link_prob=np.zeros((8, 8), np.float32))
+
+
+@pytest.mark.parametrize("prob", (0.0, 0.1, 0.25, 1.0))
+@pytest.mark.parametrize("s_ticks", (1, 8, 16))
+@pytest.mark.parametrize("n", (10, 896))
+def test_drop_stack_equals_jax_tick_by_tick(n, s_ticks, prob):
+    """K2's whole-launch drop stack (one ``drop_masks`` call) equals the
+    JAX package's per-tick draw at every tick of the launch, with a drop
+    window that opens and closes inside it: ticks t0 + S // 2 and the
+    one after are drawn, the others are not."""
+    t0 = 40
+    mid = t0 + s_ticks // 2
+    cfg = SimConfig(max_nnb=n, seed=7, drop_msg=True, msg_drop_prob=prob,
+                    drop_open_tick=mid - 1, drop_close_tick=mid + 1)
+    sched = make_schedule_host(cfg)
+    rng = threefry.prng_key(cfg.seed)
+    g, q, p = drop_stack(rng, t0, s_ticks, n, sched, "cpu")
+    assert g.shape == (s_ticks, n, n) and q.shape == p.shape == (s_ticks, n)
+    key = jax.random.PRNGKey(cfg.seed)
+    on = [sched.drop_on(t0 + s) for s in range(s_ticks)]
+    assert on[s_ticks // 2] and not on[0] == (s_ticks > 1)
+    for s in range(s_ticks):
+        g_j, q_j, p_j = _jax_drop_jit(key, np.int32(t0 + s), n,
+                                      np.bool_(on[s]), np.float32(prob))
+        assert np.array_equal(g[s].numpy(), np.asarray(g_j)), s
+        assert np.array_equal(q[s].numpy(), np.asarray(q_j)), s
+        assert np.array_equal(p[s].numpy(), np.asarray(p_j)), s
+    if prob == 1.0:
+        assert g[s_ticks // 2].all() and not g[0].any() == (s_ticks > 1)
+
+
+@pytest.mark.parametrize("n,na", ((10, 8), (896, 768)))
+def test_drop_masks_embed_narrower_draw(n, na):
+    """``n_active`` (``make_tick(n_active=)``, the bench corner's stream):
+    the width-``na`` JAX draw sits at ``[:na, :na]`` of the plane and in
+    the first ``na`` entries of the two vectors; the rest is zero."""
+    rng = threefry.prng_key(11)
+    key = jax.random.PRNGKey(11)
+    prob = np.float32(0.25)
+    t = 120
+    g, q, p = tick_drop_masks(rng, t, n, True, prob, "cpu", n_active=na)
+    g_j, q_j, p_j = (np.asarray(x) for x in _jax_drop_jit(
+        key, np.int32(t), na, np.bool_(True), prob))
+    assert g.shape == (n, n) and q.shape == p.shape == (n,)
+    assert np.array_equal(g[:na, :na].numpy(), g_j)
+    assert np.array_equal(q[:na].numpy(), q_j)
+    assert np.array_equal(p[:na].numpy(), p_j)
+    assert not g[na:].any() and not g[:, na:].any()
+    assert not q[na:].any() and not p[na:].any()
+    g2, q2, p2 = drop_masks(rng, t - 1, (False, True), prob, n, n_active=na)
+    assert not g2[0].any() and not q2[0].any() and not p2[0].any()
+    assert torch.equal(g2[1], g) and torch.equal(q2[1], q)
+    assert torch.equal(p2[1], p)
