@@ -29,14 +29,24 @@ one line per phase:
    2^20 and on a B=2 churn fleet (seeds 0 and 1) at N=4096; the dense
    drop draw (``drop_masks``) at N in {10, 64, 896, 2816} and S in
    {1, 8, 16}, the window closed at every fourth tick of a launch, at
-   full width and embedded at 3/4 of it;
+   full width and embedded at 3/4 of it, and with the worlds' inputs
+   (the asym world's per-link thresholds, partition groups, both) at
+   N in {10, 64, 1024, 4096}: S=8 launches in which the drop window and
+   the partition are each open and closed in all four combinations, and
+   S=1 launches with the window open, or closed and the partition open;
 3. the graded path: the three N=10 testcases on ``cuda``, each timed,
    must grade 90;
 4. card vs CPU: N=64 multifailure and N=64 drop, 700 ticks — the
    ``dbg.log`` and ``msgcount.log`` bytes of a ``cuda`` run must equal
    those of the port's own ``cpu`` run; overlay N=64 churn (200 ticks)
    and N=128 drop (120 ticks) through ``OverlaySimulation``: final state
-   and every metric equal on ``cuda`` and ``cpu``;
+   and every metric equal on ``cuda`` and ``cpu``; then every family of
+   the scenario catalog (``models/scenarios.py``, 15 dense and 10
+   overlay, seed 1000, catalog size) on ``cuda`` and ``cpu``: final
+   state, events or metrics, lane digest and oracle verdict (a pass)
+   equal, dense ``dbg.log`` and ``msgcount.log`` bytes too, each run on
+   its route (the draw and the K1 pair, K2 for the wave, ``masked_max3``
+   on the zombie / byz / latency route, no K3/K4/K5 on the overlay);
 5. full-width runs with closed-form oracles: N=512 multifailure trace
    (K2), N=1024 multifailure 10% drop trace (K1 at full width), and
    bench N=4096 10% drop at 700 ticks (corner 2816, K1) and 200 ticks
@@ -54,6 +64,16 @@ one line per phase:
    equals it through K4 or K5, the first 48 ticks of the N=65,536 run
    through K3 equal the plain per-tick path, and a B=4 K5 fleet of the
    N=65,536 run (seeds 0-3, 64 ticks) equals its lanes' solo K5 runs;
+   the worlds at full width (5g): ``asym4096``, BASELINE's dense N=4096
+   10% drop bench with per-link drop (700 ticks, no corner: the K1 pair
+   and the threshold draw at N=4096), and every dense family at N=1024
+   in trace mode (``dense_wave`` at 512, through K2), each graded by its
+   family's oracle; the overlay families at N=4096 and
+   ``overlay_asym_drop`` and ``overlay_partition_heal`` at N=65,536 with
+   BASELINE's 65k join ramp (5h), each graded by its oracle and the
+   overlay validation, none launching K3, K4 or K5; each with its
+   node-ticks/s (a family the JAX package itself fails at that width is
+   left out, ``WIDE_LEFT_OUT``);
 6. each kernel held against its plain version and timed on the input
    of a launch the main path makes (the run stopped one launch early:
    tick 699 of the 700-tick corner (N=2816), of the N=1024 trace and of
@@ -68,7 +88,8 @@ one line per phase:
    at tick 16 of both K5 runs; the drop draw as the dense routes call it,
    at ticks 300 (window open) and 699 (closed) of the 700-tick corner
    (N=2816, S=1) and for the last K2 launch of the 200-tick corner (N=896,
-   S=8)), then a ``kernels``
+   S=8); the threshold draw and the K1 pair at N=4096 on the ``asym4096``
+   run's ticks 300 and 699, in rows of their own), then a ``kernels``
    JSON line: per kernel its launches on the main path (phases 3-5,
    counters zeroed before each path and read after it, bench warm-ups
    and kernel-vs-plain comparisons not counted), its time, its plain
@@ -361,7 +382,8 @@ def corner_start(cfg, a: int, dev):
 def k1_launch_input(cfg, a: int, dev) -> dict:
     """The per-tick kernels' input at the last tick of a per-tick run of
     width ``a``: the run stopped one tick early, then that tick's drop
-    masks and vector decisions, as ``make_tick`` builds them."""
+    masks (the asym world's thresholds included) and vector decisions,
+    as ``make_tick`` builds them."""
     from gossip_protocol_tpu_torch.core.tick import make_tick_run
     from gossip_protocol_tpu_torch.ops.drop import tick_drop_masks
     from gossip_protocol_tpu_torch.ops.vector import vector_step
@@ -369,8 +391,9 @@ def k1_launch_input(cfg, a: int, dev) -> dict:
     st, sched = corner_start(cfg, a, dev)
     st, _ = make_tick_run(cfg.replace(max_nnb=a, total_ticks=t),
                           with_events=False)(st, sched)
-    gdrop, qdrop, pdrop = tick_drop_masks(st.rng, t, a, sched.drop_on(t),
-                                          sched.drop_prob, dev)
+    gdrop, qdrop, pdrop = tick_drop_masks(
+        st.rng, t, a, sched.drop_on(t), sched.drop_prob, dev,
+        link_prob=sched.link_prob if cfg.asym_drop else None)
     churn = cfg.rejoin_after is not None
     v = vector_step(t, sched.start_tick, sched.fail_tick, sched.rejoin_tick,
                     st.in_group, st.own_hb, st.joinreq, st.joinrep, qdrop,
@@ -600,6 +623,52 @@ def overlay_cfg(name: str, **over):
     }[name]
     kw.setdefault("seed", 0)
     return SimConfig(model="overlay", **{**kw, **over})
+
+
+#: the catalog seed every world run of the script uses
+WORLD_SEED = 1000
+#: phase 5g's dense families and their widths: N=1024, except the wave
+#: at N=512 (inside K2's trace envelope, so it takes the K2 route)
+DENSE_WIDE = 1024
+DENSE_WAVE_WIDE = 512
+#: phase 5h's overlay runs: every family at N=4096, and these two at
+#: N=65,536 with BASELINE's 65k join ramp (bench.py:345-349)
+OVERLAY_WIDE = 4096
+OVERLAY_65K = ("overlay_asym_drop", "overlay_partition_heal")
+#: families left out of phases 5g / 5h: the JAX package's own verdict at
+#: that width is not a pass (PERF.md says why)
+WIDE_LEFT_OUT = {
+    ("overlay_flapping", 4096): "the family oracle fails in the JAX "
+    "package: live members uncovered for 79 consecutive ticks",
+    ("overlay_composed_gauntlet", 4096): "validate_overlay fails in the "
+    "JAX package: a victim slot and entry left, 4091 of 4096 in the group",
+}
+#: runs whose world drops join traffic inside the join ramp, in the JAX
+#: package too (the reference sends each JOINREQ once): validate_overlay's
+#: join clause does not apply; its purge and re-cover clauses do
+JOINS_LOST = (("overlay_asym_drop", 65536), ("overlay_partition_heal", 65536))
+
+
+def wide_family_cfg(name: str, n: int):
+    """A catalog family's config (seed ``WORLD_SEED``) at width ``n``,
+    its other knobs kept.  The start ramp keeps its length in ticks (the
+    builder's ``step_rate`` scaled by N_catalog / n), so every window of
+    the family meets the group it met at catalog size; at N=65,536 the
+    ramp is BASELINE's 65k one, 64 / 65,536."""
+    from gossip_protocol_tpu_torch.models.scenarios import CATALOG
+    cfg = CATALOG[name].build(WORLD_SEED)
+    step = 64.0 / 65536 if n == 65536 else cfg.step_rate * cfg.n / n
+    return cfg.replace(max_nnb=n, step_rate=step)
+
+
+def wide_runs() -> list:
+    """(family, N) of phases 5g and 5h, before the left-out ones go."""
+    from gossip_protocol_tpu_torch.models.scenarios import CATALOG
+    runs = [(name, DENSE_WAVE_WIDE if name == "dense_wave" else DENSE_WIDE)
+            for name in sorted(CATALOG) if name.startswith("dense")]
+    runs += [(name, OVERLAY_WIDE) for name in sorted(CATALOG)
+             if name.startswith("overlay")]
+    return runs + [(name, 65536) for name in OVERLAY_65K]
 
 
 def overlay_state(cfg, t: int, seed: int, device):
@@ -910,18 +979,21 @@ def draw_timing(dev) -> dict:
     return out
 
 
-def validate_overlay(res) -> dict:
+def validate_overlay(res, join_complete: bool = True) -> dict:
     """bench.py's validation of an overlay run (bench.py:365-381 and
     _check_recover :255-316): every peer in the group at the end, no
     victim slot and no victim entry left, and every member uncovered at
-    the end covered again within SLOT_EPOCH + 1 continuation ticks."""
+    the end covered again within SLOT_EPOCH + 1 continuation ticks.
+    ``join_complete=False`` leaves out the first clause, for a world
+    whose drop or partition window covers the join ramp (the reference
+    sends each JOINREQ once, so a lost join stays lost)."""
     import torch
 
     from gossip_protocol_tpu_torch.models.overlay import make_overlay_run
     from gossip_protocol_tpu_torch.ops.overlay_rules import (
         SLOT_EPOCH, covered_histogram)
     cfg, m = res.cfg, res.metrics
-    if int(m.in_group[-1]) != cfg.n:
+    if join_complete and int(m.in_group[-1]) != cfg.n:
         raise AssertionError("overlay: join/rejoin incomplete")
     if int(m.victim_slots[-1]) != 0:
         raise AssertionError("overlay: victims not purged")
@@ -1209,6 +1281,261 @@ def overlay_runs(main_path):
             f"{r.node_ticks_per_second:.1f} node-ticks/s (wall "
             f"{r.wall_seconds:.3f} s{idle}); {o}; launches {counts}")
     return ocfg, ores, runs
+
+
+# ------------------------------------------------------------- worlds
+
+#: the kernels no overlay world run may launch (the JAX package routes
+#: world configs off its fused kernels, models/overlay.py:661-662)
+OVERLAY_KERNELS = ("fused_overlay_tick", "mega_overlay_ticks",
+                   "grid_overlay_ticks", "grid_boot_rows")
+
+
+def world_route(cfg, with_events: bool = True) -> tuple[tuple, tuple]:
+    """(kernels a world run must launch, kernels it must not): dense runs
+    draw with ``drop_masks`` every tick or launch, then take K2 (the wave
+    inside its envelope), the composable route (zombie, byz, latency:
+    ``masked_max3`` and torch) or the K1 pair; overlay runs none of
+    K3, K4, K5."""
+    from gossip_protocol_tpu_torch.core.dense_mega import \
+        dense_mega_supported
+    if cfg.model == "overlay":
+        return (), OVERLAY_KERNELS
+    if dense_mega_supported(cfg, with_events):
+        return ("drop_masks", "dense_mega_ticks"), ("masked_max3",
+                                                    "tick_epilogue")
+    if cfg.zombie or cfg.byz_rate > 0 or cfg.link_latency > 0:
+        return ("drop_masks", "masked_max3"), ("tick_epilogue",
+                                               "dense_mega_ticks")
+    return ("drop_masks", "masked_max3", "tick_epilogue"), \
+        ("dense_mega_ticks",)
+
+
+def drive_world(main_path, fn, cfg, with_events: bool = True):
+    """One world run as a main path: it must launch its route's kernels
+    and none of the others (:func:`world_route`)."""
+    used, unused = world_route(cfg, with_events)
+    out, counts = main_path.drive(fn, used)
+    bad = [k for k in unused if counts[k]]
+    if bad:
+        raise AssertionError(f"{cfg.worlds_key()}: off-route launches of "
+                             f"{bad}: {counts}")
+    return out, counts
+
+
+def world_draw_checks(dev) -> tuple[float, int]:
+    """Phase 2's world draws: ``drop_masks`` with per-link thresholds,
+    with partition groups and with both, against its plain version at
+    N in {10, 64, 1024, 4096}: S=8 launches in which the drop window and
+    the partition are each open and closed in all four combinations,
+    and S=1 launches with the window open, or closed with the partition
+    open.  Returns the max abs error and the launches checked."""
+    import torch
+
+    from gossip_protocol_tpu_torch import worlds
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.ops.drop import (drop_masks,
+                                                    drop_masks_plain)
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    err, checked = 0.0, 0
+    for n in (10, 64, 1024, 4096):
+        cfg = SimConfig(max_nnb=n, seed=n, drop_msg=True, msg_drop_prob=0.1,
+                        asym_drop=True, partition_groups=3,
+                        partition_open_tick=50, partition_close_tick=90)
+        lp = torch.from_numpy(worlds.link_prob_host(cfg)).to(dev)
+        grp = torch.from_numpy(worlds.partition_groups_host(cfg)).to(dev)
+        launches = [([True, False, True, False, True, True, False, False],
+                     [True, True, False, False, True, False, True, False]),
+                    ([True], [True]), ([False], [True])]
+        for active, part in launches:
+            for thr, group in ((lp, None), (None, grp), (lp, grp)):
+                if group is None and not any(active):
+                    continue
+                kw = dict(device=dev, link_prob=thr, group=group,
+                          part_active=part if group is not None else None)
+                draw = (prng_key(n + len(active)), 80, active,
+                        np.float32(0.1), n)
+                got = drop_masks(*draw, **kw)
+                want = drop_masks_plain(*draw, **kw)
+                err = max(err, max(max_abs_err(a, b)
+                                   for a, b in zip(got, want)))
+                checked += 1
+    return err, checked
+
+
+def world_families_card_vs_cpu(main_path) -> dict:
+    """Phase 4's worlds: every catalog family at its catalog size and
+    seed ``WORLD_SEED`` on ``cuda`` (a main path, on its route) and on
+    ``cpu``: final state, events or metrics, the lane digest and the
+    oracle verdict (a pass) equal; dense families also their ``dbg.log``
+    and ``msgcount.log`` bytes."""
+    import torch
+
+    from gossip_protocol_tpu_torch.models.scenarios import (
+        CATALOG, _lane_digest, grade, solo_execute)
+    t0 = time.perf_counter()
+    out = {}
+    for name in sorted(CATALOG):
+        fam = CATALOG[name]
+        cfg = fam.build(WORLD_SEED)
+        r_gpu, counts = drive_world(main_path,
+                                    lambda: solo_execute(cfg, "cuda"), cfg)
+        r_cpu = solo_execute(cfg, "cpu")
+        if cfg.model == "overlay":
+            bad = overlay_equal(r_gpu.final_state, r_cpu.final_state,
+                                r_gpu.metrics, r_cpu.metrics)
+            if not torch.equal(r_gpu.final_state.send_hist.cpu(),
+                               r_cpu.final_state.send_hist):
+                bad.append("send_hist")
+        else:
+            bad = [f for f in ("known", "hb", "ts", "gossip", "gossip_age",
+                               "in_group", "own_hb", "joinreq", "joinrep")
+                   if not torch.equal(getattr(r_gpu.final_state, f).cpu(),
+                                      getattr(r_cpu.final_state, f))]
+            bad += [f for f in ("added", "removed", "sent", "recv")
+                    if not np.array_equal(getattr(r_gpu, f),
+                                          getattr(r_cpu, f))]
+            with tempfile.TemporaryDirectory() as wd:
+                logs = []
+                for tag, r in (("cuda", r_gpu), ("cpu", r_cpu)):
+                    d = os.path.join(wd, tag)
+                    os.makedirs(d)
+                    r.write_logs(d)
+                    logs.append([read_file(os.path.join(d, f))
+                                 for f in ("dbg.log", "msgcount.log")])
+            if logs[0] != logs[1]:
+                bad.append("logs")
+        verdict = grade(fam, WORLD_SEED, r_gpu)
+        digest = _lane_digest(cfg, r_gpu)
+        if verdict != grade(fam, WORLD_SEED, r_cpu):
+            bad.append("verdict")
+        if digest != _lane_digest(cfg, r_cpu):
+            bad.append("digest")
+        if bad or verdict:
+            raise AssertionError(f"{name}: cuda != cpu in {bad}; verdict "
+                                 f"{verdict[:3]}")
+        out[name] = {"n": cfg.n, "ticks": cfg.total_ticks, "digest": digest,
+                     "launches": {k: v for k, v in counts.items() if v}}
+    wall = time.perf_counter() - t0
+    say(f"phase 4: {len(out)} catalog families (seed {WORLD_SEED}) on cuda "
+        f"== cpu (state, events or metrics, digest, verdict; dense log "
+        f"bytes), {len(out)} passes, wall {wall:.1f} s: "
+        + json.dumps({k: v["launches"] for k, v in out.items()}))
+    return {"families": out, "seed": WORLD_SEED, "passes": len(out),
+            "wall_s": wall}
+
+
+def asym4096_cfg(ticks: int = 700):
+    """BASELINE's dense N=4096 10% drop bench with the asym world on: no
+    corner (worlds run at full width), so the K1 pair and the threshold
+    draw at N=4096."""
+    return bench_cfg(ticks).replace(asym_drop=True)
+
+
+def dense_world_runs(main_path) -> dict:
+    """Phase 5g: ``asym4096`` (bench mode, after an untimed run, held to
+    :func:`oracle_bench`), then every dense family kept at N=1024 in
+    trace mode (``dense_wave`` at N=512, on K2), each graded by its
+    family's oracle, with its node-ticks/s."""
+    from gossip_protocol_tpu_torch.core.sim import Simulation
+    from gossip_protocol_tpu_torch.models.scenarios import (
+        CATALOG, _lane_digest, grade_config)
+    runs = {}
+    cfg = asym4096_cfg()
+    sim = Simulation(cfg, device="cuda")
+    sim.run_bench(warmup=False)     # untimed warm-up, not counted
+    r, counts = drive_world(main_path, lambda: sim.run_bench(warmup=False),
+                            cfg, with_events=False)
+    if r.counter_stream_width != cfg.n:
+        raise AssertionError("asym4096 ran on a corner")
+    o = oracle_bench(r)
+    runs["asym4096"] = dict(n=cfg.n, ticks=cfg.total_ticks,
+                            wall_s=r.wall_seconds,
+                            node_ticks_per_s=r.node_ticks_per_second,
+                            launches=counts, **o)
+    say(f"phase 5g: asym4096 N=4096 10% asym drop bench, 700 ticks, full "
+        f"width: {r.node_ticks_per_second:.1f} node-ticks/s (wall "
+        f"{r.wall_seconds:.3f} s); {o}; launches {counts}")
+    del r, sim
+    for name, n in wide_runs():
+        if not name.startswith("dense") or (name, n) in WIDE_LEFT_OUT:
+            continue
+        cfg = wide_family_cfg(name, n)
+        r, counts = drive_world(
+            main_path, lambda: Simulation(cfg, device="cuda").run(), cfg)
+        verdict = grade_config(CATALOG[name], cfg, r)
+        if verdict:
+            raise AssertionError(f"{name} at N={n}: {verdict[:3]}")
+        runs[f"{name}_n{n}"] = dict(
+            n=n, ticks=cfg.total_ticks, wall_s=r.wall_seconds,
+            node_ticks_per_s=r.node_ticks_per_second,
+            removals=int(r.removed.sum()), digest=_lane_digest(cfg, r),
+            launches={k: v for k, v in counts.items() if v})
+        say(f"phase 5g: {name} N={n}, {cfg.total_ticks} ticks, trace: oracle "
+            f"passed; {r.node_ticks_per_second:.1f} node-ticks/s (wall "
+            f"{r.wall_seconds:.3f} s); launches {runs[f'{name}_n{n}']['launches']}")
+        del r
+    return runs
+
+
+def overlay_world_runs(main_path) -> dict:
+    """Phase 5h: every overlay family kept at N=4096, and the two at
+    N=65,536, each graded by its family's oracle and
+    :func:`validate_overlay`, with its node-ticks/s; K3, K4 and K5 launch
+    on none of them."""
+    from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    from gossip_protocol_tpu_torch.models.scenarios import (
+        CATALOG, _lane_digest, grade_config)
+    runs = {}
+    for name, n in wide_runs():
+        if not name.startswith("overlay") or (name, n) in WIDE_LEFT_OUT:
+            continue
+        cfg = wide_family_cfg(name, n)
+        r, counts = drive_world(
+            main_path, lambda: OverlaySimulation(cfg, device="cuda").run(),
+            cfg)
+        verdict = grade_config(CATALOG[name], cfg, r)
+        if verdict:
+            raise AssertionError(f"{name} at N={n}: {verdict[:3]}")
+        o = validate_overlay(r, join_complete=(name, n) not in JOINS_LOST)
+        runs[f"{name}_n{n}"] = dict(
+            n=n, ticks=cfg.total_ticks, wall_s=r.wall_seconds,
+            node_ticks_per_s=r.node_ticks_per_second,
+            digest=_lane_digest(cfg, r),
+            launches={k: v for k, v in counts.items() if v}, **o)
+        say(f"phase 5h: {name} N={n}, {cfg.total_ticks} ticks: oracle and "
+            f"validation passed {o}; {r.node_ticks_per_second:.1f} "
+            f"node-ticks/s (wall {r.wall_seconds:.3f} s); no K3/K4/K5 "
+            "launch")
+        del r
+    return runs
+
+
+def world_timing(dev) -> dict:
+    """Phase 6's world inputs: the threshold draw at N=4096 on the
+    asym4096 run's tick 300 (window open), and the K1 pair on its tick
+    699, each held against its plain version and timed, with bounds."""
+    from gossip_protocol_tpu_torch.ops import drop as drop_ops
+    from gossip_protocol_tpu_torch.state import make_schedule
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    cfg = asym4096_cfg()
+    n, t = cfg.n, 300
+    sched = make_schedule(cfg, dev)
+    args = (prng_key(cfg.seed), t, [sched.drop_on(t)], sched.drop_prob, n)
+    kw = dict(device=dev, link_prob=sched.link_prob)
+    got = drop_ops.drop_masks(*args, **kw)
+    want = drop_ops.drop_masks_plain(*args, **kw)
+    # bytes: the outputs written, the thresholds read (N^2 + 2N floats)
+    draw = dict(n=n, tick=t, s_ticks=1, drawn_ticks=1, world="asym",
+                max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
+                ms=cuda_ms(lambda: drop_ops.drop_masks(*args, **kw), 50),
+                plain_ms=cuda_ms(lambda: drop_ops.drop_masks_plain(
+                    *args, **kw), 3),
+                bound=bound((n * n + 2 * n) * 5, 70 * (n + 2) * n))
+    del got, want
+    k1 = time_k1(k1_launch_input(cfg, n, dev), cfg.t_remove,
+                 with_events=False, reps=20, describe=True)
+    return {"draw_asym4096": draw, "k1_asym4096": k1}
 
 
 def dense_timing(dev, describe: bool) -> dict:
@@ -1613,6 +1940,10 @@ def main(argv=None) -> int:
                     errs["drop_masks"] = max(
                         errs["drop_masks"],
                         max(max_abs_err(a, b) for a, b in zip(got, want)))
+    # the world draws: per-link thresholds, partition groups, both
+    if "drop_masks" in wrappers():
+        e, world_draws = world_draw_checks(dev)
+        errs["drop_masks"] = max(errs["drop_masks"], e)
     # K3 on random valid states, built by the tick's own code
     # (churn at tick 300: wipes and rejoins; drop at tick 100: drops)
     for name, n, t in (("churn64", 64, 150), ("drop4096", 4096, 100),
@@ -1704,8 +2035,10 @@ def main(argv=None) -> int:
     if any(v != 0 for v in errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
     say(f"phase 2: kernels == plain versions bit for bit "
-        f"(max abs err {errs}; {k5_checked} K5 launches; boot pre-pass "
-        f"aggregate slots checked {boot_slots})")
+        f"(max abs err {errs}; {k5_checked} K5 launches; {world_draws} "
+        f"world draws (thresholds, groups, both; window and partition "
+        f"open and closed) at N=10..4096; boot pre-pass aggregate slots "
+        f"checked {boot_slots})")
     details["max_abs_err_phase2"] = dict(errs)
 
     main_path = MainPath()
@@ -1753,6 +2086,7 @@ def main(argv=None) -> int:
         f"ticks): final state and every metric equal on cuda and cpu "
         f"{ {k: v for k, v in out4.items() if k.startswith('overlay')} }")
     details["phase4"] = out4
+    details["phase4_worlds"] = world_families_card_vs_cpu(main_path)
 
     # ---- phase 5: full-width runs -------------------------------------
     runs = dense_runs(main_path)
@@ -1816,6 +2150,9 @@ def main(argv=None) -> int:
         "power-law, 272 ticks); N=65536 churn K3 == plain (48 ticks); B=4 "
         f"K5 fleet lanes == solo K5 runs (64 ticks) {cross}")
     runs["cross_paths"] = cross
+    # the worlds at full width: dense (5g) and overlay (5h)
+    runs["worlds_dense"] = dense_world_runs(main_path)
+    runs["worlds_overlay"] = overlay_world_runs(main_path)
     details["phase5"] = runs
     if args.profile:
         prof = {key: profile_run(lambda: Simulation(cfg, device="cuda").run())
@@ -1827,6 +2164,17 @@ def main(argv=None) -> int:
         for name, cfg in ocfg.items():
             prof[f"overlay_{name}"] = profile_run(
                 lambda: OverlaySimulation(cfg, device="cuda").run())
+        # the worlds: the K1 route at N=4096, the composable route at
+        # N=1024 and the overlay worlds' per-tick route at N=65,536
+        prof["asym4096"] = profile_run(
+            lambda: Simulation(asym4096_cfg(), device="cuda")
+            .run_bench(warmup=False))
+        prof["dense_zombie_n1024"] = profile_run(
+            lambda: Simulation(wide_family_cfg("dense_zombie", DENSE_WIDE),
+                               device="cuda").run())
+        prof["overlay_partition_heal_n65536"] = profile_run(
+            lambda: OverlaySimulation(wide_family_cfg(
+                "overlay_partition_heal", 65536), device="cuda").run())
         details["profile"] = prof
         say("phase 5d: profiled; device idle share " + json.dumps(
             {k: v.get("idle_share") for k, v in prof.items()})
@@ -1844,6 +2192,7 @@ def main(argv=None) -> int:
     # launch early and the next launch's input is built as the run
     # builds it.
     timing = dense_timing(dev, describe=True)
+    timing.update(world_timing(dev))
     otiming, oerrs = overlay_timing(ocfg)
     timing.update(otiming)
     for name, e in oerrs.items():
@@ -1863,7 +2212,11 @@ def main(argv=None) -> int:
                                    timing["k2_n64"]["max_abs_err"])
     errs["drop_masks"] = max(errs["drop_masks"],
                              *(timing[k]["max_abs_err"] for k in
-                               ("draw_t300", "draw_t699", "draw_stack")))
+                               ("draw_t300", "draw_t699", "draw_stack",
+                                "draw_asym4096")))
+    for name in ("masked_max3", "tick_epilogue"):
+        errs[name] = max(errs[name],
+                         timing["k1_asym4096"]["max_abs_err"][name])
     if any(v != 0 for v in errs.values()):
         raise AssertionError(f"kernel != plain on a launch input: {errs}")
     details["timing"] = timing
@@ -1912,7 +2265,23 @@ def main(argv=None) -> int:
             "bound_by": tm["bound"][1], "library_ms": None, "shape": shape})
         if "bound_needed" in tm:
             kernels[-1]["needed_bytes_bound_ms"] = tm["bound_needed"][0]
-    for key in ("k1", "k1_n1024", "k1_n10"):
+    # the world inputs at N=4096 (the asym4096 run): their own rows, with
+    # that run's launches
+    asym = runs["worlds_dense"]["asym4096"]["launches"]
+    for name, tm, shape in (
+            ("drop_masks", timing["draw_asym4096"],
+             {"n": 4096, "tick": 300, "s_ticks": 1, "world": "asym"}),
+            ("masked_max3", timing["k1_asym4096"]["masked_max3"],
+             {"n": 4096, "tick": 699, "world": "asym"}),
+            ("tick_epilogue", timing["k1_asym4096"]["tick_epilogue"],
+             {"n": 4096, "tick": 699, "world": "asym"})):
+        base = next(k for k in kernels if k["name"] == name)
+        kernels.append({
+            **base, "name": f"{name}/asym4096", "launches": asym[name],
+            "max_abs_err": errs[name], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
+            "bound_by": tm["bound"][1], "library_ms": None, "shape": shape})
+    for key in ("k1", "k1_n1024", "k1_n10", "k1_asym4096"):
         t = timing[key]
         say(f"phase 6: masked_max3 at N={t['n']}, tick {t['tick']}: "
             f"{json.dumps(t['merge_stats'])}")

@@ -3,8 +3,8 @@
 The port keeps its own copy so it never imports the JAX package.  The
 fields, defaults, validation and ``to_dict`` are identical, so a config
 built by either package compares equal field for field.  One addition:
-the port runs the dense full-view model and the overlay on the course
-worlds only, so every adversarial world (and any other model name)
+the port runs the dense full-view model and the overlay, every
+adversarial world of ``worlds.py`` included, so any other model name
 raises ``NotImplementedError`` instead of silently computing something
 else.
 
@@ -158,11 +158,6 @@ class SimConfig:
             raise NotImplementedError(
                 f"model={self.model!r} is not a model of "
                 "gossip_protocol_tpu_torch (full_view or overlay)")
-        if self.has_worlds:
-            raise NotImplementedError(
-                f"adversarial worlds {self.worlds_key()} are not yet "
-                "ported to gossip_protocol_tpu_torch; use "
-                "gossip_protocol_tpu for world configs")
 
     def _validate(self):
         if self.model == "overlay":

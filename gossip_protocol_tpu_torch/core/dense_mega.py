@@ -24,10 +24,14 @@ from .tick import TickEvents
 
 def dense_mega_supported(cfg: SimConfig, with_events: bool = False) -> bool:
     """The megakernel envelope, kept from the TPU (``core/dense_mega.py:32``)
-    so both packages route the same configs through K2.  The port's
-    config refuses every adversarial world, so no world gate is needed."""
+    so both packages route the same configs through K2.  Of the
+    adversarial worlds only the wave rides K2: it is schedule data (the
+    fail-tick column K2 already reads); every other world changes the
+    tick and takes the per-tick path (``core/dense_mega.py:42-44``)."""
     limit = DENSE_MEGA_N_LIMIT if with_events else DENSE_MEGA_N_LIMIT_BENCH
-    return 16 <= cfg.n <= limit and cfg.n % 8 == 0
+    non_schedule_worlds = any(w[0] != "wave" for w in cfg.worlds_key())
+    return 16 <= cfg.n <= limit and cfg.n % 8 == 0 \
+        and not non_schedule_worlds
 
 
 def drop_stack(rng, t0: int, s_ticks: int, n: int, sched: Schedule, device):

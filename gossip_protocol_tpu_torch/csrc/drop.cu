@@ -8,8 +8,23 @@
 //                  draw embedded at [:na, :na] of an N x N plane), the
 //                  JOINREQ vector (draw row na) and the JOINREP vector (draw
 //                  row na + 1), all zero past na.  A tick whose drop window
-//                  is closed draws nothing and is all zeros, as the JAX
-//                  package's lax.cond skips the draw.
+//                  is closed draws nothing, as the JAX package's lax.cond
+//                  skips the draw.
+//
+// Two optional inputs carry the adversarial worlds (worlds.py), both at
+// full width (na == N):
+//   thr    f32[N, N] sender-major per-link probabilities (asym drop): the
+//          gossip cell (r, c) compares against thr[r N + c], JOINREQ cell c
+//          against thr[c N + INTRODUCER] (c's link to the introducer),
+//          JOINREP cell c against thr[INTRODUCER N + c]
+//          (gossip_protocol_tpu/ops/drop.py:49-57);
+//   group  i32[N] partition groups, with bit s of part_active set when the
+//          partition is open at tick t0 + s: the gossip cell (r, c) ORs in
+//          group[r] != group[c], cell c of both join rows group[c] !=
+//          group[INTRODUCER] (gossip_protocol_tpu/core/tick.py:238-250).
+//          The gate is deterministic and sits outside the drop window: a
+//          tick whose window is closed but whose partition is open writes
+//          the partition mask and draws nothing.
 //
 // The JAX package leaves this draw to XLA (gossip_protocol_tpu/ops/drop.py
 // tick_drop_masks: jax.random.uniform under a lax.cond), not to a Pallas
@@ -20,7 +35,8 @@
 // row-major flat index in the (na+2, na) draw (20 rounds of add, rotate and
 // xor, and 5 key injections of two adds: 70 int32 operations), so at
 // na = 2816 a tick is 7.9M hashes, 0.033 ms at 16.7 T int32 operations/s,
-// against 0.0024 ms for its 7.9 MB of bytes: operations bound it.
+// against 0.0024 ms for its 7.9 MB of bytes: operations bound it.  The
+// thresholds add 4 bytes a link read.
 // Design: one thread per 4 consecutive output bytes of a row (one 32-bit
 // store where N % 4 == 0), four independent hashes in flight a thread;
 // rotates by __funnelshift_l; each block derives its tick's key (fold_in,
@@ -36,12 +52,14 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int MAX_TICKS = 32;   // ticks a launch: one bit each of `active`
 constexpr uint32_t PARITY = 0x1BD11BDAu;
+constexpr int INTRODUCER = 0;   // config.py INTRODUCER
 
 struct DropArgs {
   uint32_t k0, k1;      // the run's key (PRNGKey(seed))
   int32_t t0;           // tick of z-slice 0
   uint32_t active;      // bit s: the drop window is open for tick t0 + s
-  float prob;           // float32 MSG_DROP_PROB
+  uint32_t part_active; // bit s: the partition is open for tick t0 + s
+  float prob;           // float32 MSG_DROP_PROB (unless thr)
   int n, na;            // output width, draw width (na <= n)
 };
 
@@ -70,14 +88,17 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
 
 // grid (ceil((N + 2) * ceil(N / 4) / THREADS), S): thread i of z-slice s
 // owns output row r = i / ceil(N / 4) (N gossip rows, then JOINREQ, then
-// JOINREP) and its columns 4 (i % ceil(N / 4)) .. + 3.
+// JOINREP) and its columns 4 (i % ceil(N / 4)) .. + 3.  thr and group may
+// be null (no asym / no partition world).
 template <bool VEC>
 __global__ void __launch_bounds__(THREADS)
 drop_masks_kernel(uint8_t* __restrict__ g, uint8_t* __restrict__ q,
-                  uint8_t* __restrict__ p, DropArgs a) {
+                  uint8_t* __restrict__ p, const float* __restrict__ thr,
+                  const int32_t* __restrict__ group, DropArgs a) {
   __shared__ uint32_t key_s[2];
   const int s = blockIdx.y, n = a.n, na = a.na;
   const bool on = (a.active >> s) & 1u;
+  const bool part = group != nullptr && ((a.part_active >> s) & 1u);
   if (on && threadIdx.x == 0) {    // fold_in(key, t) = threefry(key, (0, t))
     uint32_t x0 = 0u, x1 = (uint32_t)(a.t0 + s);
     threefry2x32(a.k0, a.k1, x0, x1);
@@ -105,10 +126,22 @@ drop_masks_kernel(uint8_t* __restrict__ g, uint8_t* __restrict__ q,
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
+      const int col = c + e;
+      float pr = a.prob;
+      if (thr != nullptr && col < na)   // thresholds come at na == n
+        pr = r < n ? thr[(size_t)r * n + col]
+                   : (r == n ? thr[(size_t)col * n + INTRODUCER]
+                             : thr[(size_t)INTRODUCER * n + col]);
       const uint32_t bits = x0[e] ^ x1[e];
       const float u = __uint_as_float((bits >> 9) | 0x3F800000u) - 1.0f;
-      out |= (uint32_t)(c + e < na && u < a.prob) << (8 * e);
+      out |= (uint32_t)(col < na && u < pr) << (8 * e);
     }
+  }
+  if (part) {      // groups come at na == n: every row and column is real
+    const int gr = group[r < n ? r : INTRODUCER];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < n) out |= (uint32_t)(group[c + e] != gr) << (8 * e);
   }
   uint8_t* dst = r < n ? g + ((size_t)s * n + r) * n
                        : (r == n ? q : p) + (size_t)s * n;
@@ -130,17 +163,22 @@ const char* gp_error_string(int code) {
 }
 
 // g u8[S, N, N], q/p u8[S, N] (written whole); (k0, k1) the run's key, tick
-// t0 + s drawn where bit s of `active` is set, at width na <= n.
-int gp_drop_masks(uint8_t* g, uint8_t* q, uint8_t* p, unsigned int k0,
-                  unsigned int k1, int t0, unsigned int active, float prob,
-                  int n, int na, int s_ticks, void* stream_ptr) {
-  if (n < 1 || na < 1 || na > n || s_ticks < 1 || s_ticks > MAX_TICKS)
+// t0 + s drawn where bit s of `active` is set, at width na <= n; thr
+// (f32[N, N]) and group (i32[N]) optional, both only at na == n, the
+// partition applied where bit s of `part_active` is set.
+int gp_drop_masks(uint8_t* g, uint8_t* q, uint8_t* p, const float* thr,
+                  const int32_t* group, unsigned int k0, unsigned int k1,
+                  int t0, unsigned int active, unsigned int part_active,
+                  float prob, int n, int na, int s_ticks, void* stream_ptr) {
+  if (n < 1 || na < 1 || na > n || s_ticks < 1 || s_ticks > MAX_TICKS ||
+      ((thr != nullptr || group != nullptr) && na != n))
     return static_cast<int>(cudaErrorInvalidValue);
   DropArgs a;
   a.k0 = k0;
   a.k1 = k1;
   a.t0 = t0;
   a.active = active;
+  a.part_active = part_active;
   a.prob = prob;
   a.n = n;
   a.na = na;
@@ -148,9 +186,11 @@ int gp_drop_masks(uint8_t* g, uint8_t* q, uint8_t* p, unsigned int k0,
   const dim3 grid((unsigned)((quads + THREADS - 1) / THREADS), s_ticks);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (n % 4 == 0)
-    drop_masks_kernel<true><<<grid, THREADS, 0, stream>>>(g, q, p, a);
+    drop_masks_kernel<true><<<grid, THREADS, 0, stream>>>(g, q, p, thr,
+                                                          group, a);
   else
-    drop_masks_kernel<false><<<grid, THREADS, 0, stream>>>(g, q, p, a);
+    drop_masks_kernel<false><<<grid, THREADS, 0, stream>>>(g, q, p, thr,
+                                                           group, a);
   return static_cast<int>(cudaGetLastError());
 }
 

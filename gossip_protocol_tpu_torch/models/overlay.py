@@ -37,8 +37,11 @@ What differs here, none of it in the bits:
   the grid, mega and per-tick paths bit-identical to its XLA tick, the
   route changes no bit.
 
-The adversarial worlds are not ported: their configs raise in
-``config.py``.
+World configs (worlds.py) route as the JAX package routes them
+(``models/overlay.py:661-662``): never through K3, K4 or K5, but a tick
+at a time through ``ops/overlay_rules.py overlay_world_exchange``, the
+counterpart of the JAX XLA tick, on either device.  The choice is the
+config's.
 """
 
 from __future__ import annotations
@@ -57,7 +60,7 @@ from ..core.sim import _sync
 from ..ops.cuda.overlay_exchange import fused_overlay_tick
 from ..ops.overlay_rules import (_SALT_DEGREE, ID_BITS, METRIC_FIELDS,
                                  OverlaySchedule, OverlayState, RowColumns,
-                                 exchange_mask, overlay_step)
+                                 WorldFlags, exchange_mask, overlay_step)
 from ..state import NEVER, resolve_device
 from ..utils.hash32 import MASK32, mix32_t, threshold32
 
@@ -67,7 +70,9 @@ COVERAGE_N_LIMIT = 4096
 # ------------------------------------------------------- schedule
 
 def make_overlay_schedule(cfg: SimConfig) -> OverlaySchedule:
-    """The JAX ``make_overlay_schedule`` on the course worlds."""
+    """The JAX ``make_overlay_schedule``: host scalars, the worlds'
+    resolved windows included."""
+    from .. import worlds
     from ..utils.prng import fail_schedule_uniform
     from .segments import step_fraction
     n = cfg.n
@@ -91,8 +96,8 @@ def make_overlay_schedule(cfg: SimConfig) -> OverlaySchedule:
         else:
             victim_lo = (int(u * n) % n) // 2
             victim_hi = victim_lo + n // 2
-    flap_lo = cfg.total_ticks // 4 if cfg.flap_open_tick < 0 \
-        else cfg.flap_open_tick
+    part_open, part_close = worlds.partition_window(cfg)
+    flap_lo, flap_hi = worlds.flap_window(cfg)
     return OverlaySchedule(
         seed=cfg.seed & MASK32, step_num=step_num, step_den=step_den,
         victim_lo=victim_lo, victim_hi=victim_hi, fail_tick=cfg.fail_tick,
@@ -108,11 +113,19 @@ def make_overlay_schedule(cfg: SimConfig) -> OverlaySchedule:
         drop_thr=threshold32(cfg.msg_drop_prob),
         deg_thr=tuple(int(x) for x in
                       degree_thresholds(cfg, resolved_dims(cfg)[1])),
-        part_open=cfg.partition_open_tick,
-        part_close=cfg.partition_close_tick,
-        wave_speed=max(cfg.wave_speed, 1), wave_mod=n,
+        part_groups=cfg.partition_groups if cfg.partition_groups >= 2
+        else 0,
+        part_open=part_open, part_close=part_close,
+        asym_on=bool(cfg.asym_drop), wave_size=cfg.wave_size,
+        wave_tick=worlds.wave_start(cfg) if cfg.wave_size > 0 else 0,
+        wave_speed=max(cfg.wave_speed, 1),
+        wave_center=worlds.wave_center(cfg) if cfg.wave_size > 0 else 0,
+        wave_mod=n, zombie_on=bool(cfg.zombie),
+        flap_thr=worlds.flap_threshold(cfg),
         flap_period=max(cfg.flap_period, 1), flap_down=cfg.flap_down,
-        flap_open=flap_lo, byz_boost=cfg.byz_boost)
+        flap_open=flap_lo, flap_close=flap_hi if cfg.flap_rate > 0 else -1,
+        byz_thr=worlds.byz_threshold(cfg), byz_boost=cfg.byz_boost,
+        link_lat=cfg.link_latency)
 
 
 @dataclass
@@ -209,9 +222,21 @@ def schedule_columns(sched: OverlaySchedule, n: int, device) -> RowColumns:
 
 def tick_flags(cfg: SimConfig) -> dict:
     """The config's static switches of the tick: whether peers rejoin
-    (churn or ``rejoin_after``) and whether out-degrees are power-law."""
-    return dict(can_rejoin=cfg.churn_rate > 0 or cfg.rejoin_after is not None,
+    (churn, ``rejoin_after`` or the flap world's up-edges) and whether
+    out-degrees are power-law."""
+    return dict(can_rejoin=cfg.churn_rate > 0 or cfg.rejoin_after is not None
+                or cfg.flap_rate > 0,
                 powerlaw=cfg.topology == "powerlaw")
+
+
+def world_flags(cfg: SimConfig) -> WorldFlags | None:
+    """The adversarial worlds a config turns on, or None (the course
+    worlds): the tick's static branches (JAX ``make_overlay_tick``)."""
+    if not cfg.has_worlds:
+        return None
+    return WorldFlags(part=cfg.partition_groups >= 2, asym=cfg.asym_drop,
+                      zombie=cfg.zombie, flap=cfg.flap_rate > 0,
+                      byz=cfg.byz_rate > 0, latency=cfg.link_latency)
 
 
 def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick):
@@ -220,7 +245,9 @@ def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick):
     ``exchange`` is K3 (the kernel for CUDA tensors, its plain version
     for CPU tensors); passing ``fused_overlay_tick_plain`` runs the plain
     version on any device (the kernel's yardstick), and any function of
-    K3's contract may stand in to capture or compare its inputs.  The
+    K3's contract may stand in to capture or compare its inputs.  A
+    world config never calls ``exchange``: its (N, K) phase is
+    ``overlay_world_exchange`` (the JAX package's XLA tick).  The
     per-tick ``live_uncovered`` histogram is tracked for N <=
     COVERAGE_N_LIMIT, else reported as -1.
     """
@@ -232,8 +259,13 @@ def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick):
     if cfg.total_ticks > 4094:
         raise ValueError("the packed (ts, hb) winner payload caps runs at "
                          "4094 ticks")
+    worlds = world_flags(cfg)
+    if worlds is not None and exchange is not fused_overlay_tick:
+        raise ValueError("a world config runs the worlds' exchange, not K3 "
+                         "or a stand-in for it")
     kw = dict(k=k, f=f, t_remove=cfg.t_remove, exchange=exchange,
-              with_coverage=n <= COVERAGE_N_LIMIT, **tick_flags(cfg))
+              with_coverage=n <= COVERAGE_N_LIMIT, worlds=worlds,
+              **tick_flags(cfg))
     intro_cache = {}
 
     def tick(state: OverlayState, sched: OverlaySchedule,
@@ -264,6 +296,8 @@ def make_overlay_run(cfg: SimConfig, length: int | None = None, *,
     ``mega_supported(cfg)`` holds; else K5 (16 ticks a call,
     ``models/overlay_grid.py``) where ``grid_supported(cfg)`` holds;
     else the per-tick tick with K3.  ``mega`` and ``grid`` override.
+    World configs fall outside both envelopes and run the per-tick tick
+    with the worlds' exchange.
     On CUDA tensors the kernels run, on CPU tensors their plain
     versions.  K4 and K5 report ``live_uncovered`` = -1.  The schedule
     is closed-form in the clock carried in the state, so a shorter run
@@ -280,6 +314,9 @@ def make_overlay_run(cfg: SimConfig, length: int | None = None, *,
         mega = mega_supported(cfg)
     if grid is None:
         grid = not mega and grid_supported(cfg)
+    if (mega or grid) and cfg.has_worlds:
+        raise ValueError("world configs run the per-tick worlds' tick, "
+                         "not K4 or K5")
     if (mega or grid) and exchange is not fused_overlay_tick:
         raise ValueError("exchange replaces K3 on the per-tick route only; "
                          "pass mega=False, grid=False")
@@ -339,9 +376,6 @@ def overlay_state_from_host(host: dict, device=None) -> OverlayState:
         if got != shape:
             raise ValueError(
                 f"checkpoint field {name!r} has shape {got}, expected {shape}")
-    if np.asarray(host["send_hist"]).any():
-        raise ValueError("checkpoint carries a send history (the latency "
-                         "world), which the port does not run")
     return OverlayState(**{
         name: (int(np.asarray(host[name])) if name == "tick"
                else torch.from_numpy(np.array(host[name])).to(dev))
@@ -379,9 +413,13 @@ class OverlayResult:
             return 0.0
         return self.cfg.n * self.ticks_run / self.wall_seconds
 
-    def _failed_at_end(self):
+    def _failed_at_end(self, flap: bool = True):
+        """bool[N] failed at the state's clock: the fail window, and the
+        flap world's down phases unless ``flap`` is False."""
         i = torch.arange(self.cfg.n, dtype=torch.int64)
         t_end = self.final_state.tick
+        if not flap:
+            return self.sched.window_failed_at(i, t_end).numpy()
         return self.sched.failed_at(i, t_end).numpy()
 
     def uncovered_members(self) -> np.ndarray:
@@ -401,9 +439,12 @@ class OverlayResult:
 
     def final_coverage(self):
         """(live_uncovered_count, victim_entries_left) of the final
-        tables; see :meth:`uncovered_members`."""
+        tables; see :meth:`uncovered_members`.  A victim entry names a
+        subject inside its fail window (a flap-down subject is not one,
+        as in the JAX package)."""
         ids = self.final_state.ids.cpu().numpy()
-        victim_left = int(self._failed_at_end()[ids[ids >= 0]].sum())
+        victim_left = int(self._failed_at_end(flap=False)[
+            ids[ids >= 0]].sum())
         return int(self.uncovered_members().size), victim_left
 
 

@@ -26,11 +26,11 @@ launch computes):
 * ``drop_live`` off: the drop window does not intersect the launch.
 
 Every bound comes from the config alone (never from the seed), so every
-lane of a fleet shares one plan.  The adversarial worlds (wave, flap,
-partition) fold their windows in here in the JAX package; the port's
-``config.py`` rejects world configs, so those branches raise.
-``quantized_plan_signature`` (the serving layer's canonical key) needs
-the worlds' canonical key and waits for the worlds slice.
+lane of a fleet shares one plan.  The adversarial worlds fold their
+windows in (:func:`phase_windows`): the wave's radius ramp replaces the
+scripted fail tick, flapping widens the churn and join windows, and the
+partition window unions into the drop window.
+:func:`quantized_plan_signature` is the serving layer's canonical key.
 """
 
 from __future__ import annotations
@@ -101,11 +101,17 @@ def step_fraction(step_rate: float) -> tuple[int, int]:
 
 
 def phase_windows(cfg: SimConfig) -> PhaseWindows:
-    """Seed-independent closed-form liveness windows of a config."""
-    if cfg.wave_size > 0 or cfg.flap_rate > 0 or cfg.partition_groups >= 2:
-        raise NotImplementedError(
-            "the adversarial worlds' phase windows are not ported "
-            f"({cfg.worlds_key()})")
+    """Seed-independent closed-form liveness windows of a config.
+
+    The adversarial worlds (worlds.py) fold in: the correlated failure
+    wave replaces the scripted fail tick with its radius-ramp window,
+    flapping members widen the churn and join windows to the flap window
+    (every up-edge is a rejoin through the JOINREQ path), and the
+    partition window unions into the drop window (it rides the drop
+    plane).  The byz and latency planes are windowless; they enter plan
+    identity through ``worlds_key`` in :func:`plan_signature`.
+    """
+    from .. import worlds
     n, total = cfg.n, cfg.total_ticks
     num, den = step_fraction(cfg.step_rate)
     last_start = (n - 1) * num // den
@@ -116,6 +122,13 @@ def phase_windows(cfg: SimConfig) -> PhaseWindows:
         fail_hi = fail_lo + max(total // 2, 1) - 1
         after = cfg.rejoin_after if cfg.rejoin_after is not None else 40
         rejoin_hi = fail_hi + after
+    elif cfg.wave_size > 0:
+        # the wave's radius ramp: first victim at wave_start, last at
+        # wave_last_fail (config-only: the seed moves which nodes)
+        fail_lo = worlds.wave_start(cfg)
+        fail_hi = worlds.wave_last_fail(cfg)
+        rejoin_hi = fail_hi + cfg.rejoin_after \
+            if cfg.rejoin_after is not None else _INF
     else:
         fail_lo = cfg.fail_tick
         rejoin_hi = cfg.fail_tick + cfg.rejoin_after \
@@ -123,13 +136,28 @@ def phase_windows(cfg: SimConfig) -> PhaseWindows:
     join_events = [last_start]
     if rejoin_hi < _INF:
         join_events.append(rejoin_hi)
+    if cfg.flap_rate > 0:
+        # flappers fail/rejoin inside [flap_open, flap_close]; the first
+        # possible down tick is anchor + 1 >= flap_open + 1
+        flap_lo, flap_hi = worlds.flap_window(cfg)
+        fail_lo = min(fail_lo, flap_lo + 1)
+        rejoin_hi = max(rejoin_hi, flap_hi)
+        join_events.append(flap_hi)
+    drop_lo = cfg.drop_open_tick + 1 if cfg.drop_msg else 0
+    drop_hi = cfg.drop_close_tick if cfg.drop_msg else -1
+    if cfg.partition_groups >= 2:
+        # the partition rides the drop plane: union the two send-
+        # blocking windows (one conservative interval)
+        p_lo, p_hi = cfg.partition_open_tick + 1, cfg.partition_close_tick
+        drop_lo, drop_hi = ((min(drop_lo, p_lo), max(drop_hi, p_hi))
+                            if cfg.drop_msg else (p_lo, p_hi))
     return PhaseWindows(
         last_start=last_start,
         fail_lo=fail_lo,
         rejoin_hi=rejoin_hi,
         join_dead_from=max(join_events) + 3,
-        drop_lo=cfg.drop_open_tick + 1 if cfg.drop_msg else 0,
-        drop_hi=cfg.drop_close_tick if cfg.drop_msg else -1,
+        drop_lo=drop_lo,
+        drop_hi=drop_hi,
     )
 
 
@@ -246,3 +274,19 @@ def quantize_tick(t: int, grid: int = CHECKPOINT_GRID_TICKS,
     if t >= _INF or t < 0:
         return t
     return ((t + grid - 1) // grid) * grid if up else (t // grid) * grid
+
+
+def quantized_plan_signature(cfg: SimConfig,
+                             grid: int = CHECKPOINT_GRID_TICKS) -> tuple:
+    """:func:`plan_signature` over the grid-quantized plan (JAX
+    ``models/segments.py:352``): the only window it carries is the drop
+    draw's, its edges snapped to the ``grid`` (open down, close up), and
+    the worlds tail is the operand-vs-static split
+    (``worlds.canonical_world_key``), so near-identical schedules share
+    one key."""
+    from .. import worlds
+    drop_q = ((quantize_tick(cfg.drop_open_tick, grid),
+               quantize_tick(cfg.drop_close_tick, grid, up=True))
+              if cfg.drop_msg else None)
+    return ("segplan-q", grid, cfg.total_ticks, drop_q,
+            worlds.canonical_world_key(cfg, grid))

@@ -48,7 +48,7 @@ SOURCES = {
         "gp_dense_mega_ticks": [_P] * 15 + [_I] * 6 + [_P],
     },
     "drop.cu": {
-        "gp_drop_masks": [_P] * 3 + [_U, _U, _I, _U, ctypes.c_float]
+        "gp_drop_masks": [_P] * 5 + [_U, _U, _I, _U, _U, ctypes.c_float]
                          + [_I] * 3 + [_P],
     },
     "overlay_tick.cu": {

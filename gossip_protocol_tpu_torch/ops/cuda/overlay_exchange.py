@@ -29,7 +29,7 @@ import torch
 
 from ...utils.hash32 import MASK32
 from ..overlay_rules import (ID_MASK, SLOT_EPOCH, OverlaySchedule, lex_max,
-                             pack_key, pack_th, slot_of)
+                             merge_entry, merge_view, pack_key)
 from ._build import check, check_args, library, ptr, stream_ptr
 
 #: per-row counters: recv, removals, false_removals, victim_slots, adds,
@@ -50,7 +50,6 @@ def fused_overlay_tick_plain(idsaux, pw, intro, masks, scalars, *, k: int,
     t, seed, vlo, vhi, ftick, rafter, cthr, cafter = (int(x) for x in scalars)
     seed &= MASK32
     rows = torch.arange(n, dtype=torch.int64, device=dev)
-    kk = torch.arange(k, dtype=torch.int64, device=dev)
     ep = t // SLOT_EPOCH
     my_ids = idsaux[:, :k]
     bits = idsaux[:, k + 1]
@@ -60,16 +59,6 @@ def fused_overlay_tick_plain(idsaux, pw, intro, masks, scalars, *, k: int,
     pacc = my_p
     recv = torch.zeros(n, dtype=torch.int32, device=dev)
     zero = torch.zeros((), dtype=torch.int32, device=dev)
-
-    def entry(kmax, pacc, subj, e_hb, ok):
-        """Merge one direct (subj, t-1, e_hb) entry per row."""
-        match = slot_of(seed, ep, subj, k)
-        match = (match[:, None] if torch.is_tensor(match) else match) == kk
-        key = torch.where(ok, pack_key(subj, t - 1), 0)
-        p = torch.where(ok, pack_th(t - 1, e_hb), 0)
-        return lex_max(kmax, pacc, torch.where(match, key[:, None], 0),
-                       torch.where(match, p[:, None], zero))
-
     for fi, m in enumerate(masks):
         partner = rows ^ int(m)
         wa, wp = idsaux[partner], pw[partner]
@@ -78,11 +67,10 @@ def fused_overlay_tick_plain(idsaux, pw, intro, masks, scalars, *, k: int,
         in_ts = (wp >> 12) - 1
         valid = ok[:, None] & (in_ids >= 0) & (t - in_ts < t_remove) \
             & (in_ids != rows[:, None])
-        kmax, pacc = lex_max(kmax, pacc,
-                             torch.where(valid, pack_key(in_ids, in_ts), 0),
-                             torch.where(valid, wp, zero))
+        kmax, pacc = merge_view(kmax, pacc, in_ids, in_ts, wp, valid)
         if t_remove > 1:                 # partner self-entry (age 1)
-            kmax, pacc = entry(kmax, pacc, partner, wa[:, k], ok)
+            kmax, pacc = merge_entry(kmax, pacc, seed, ep, partner, t - 1,
+                                     wa[:, k], ok)
         recv += ok.to(torch.int32)
 
     # JOINREP: the introducer's broadcast view and self-entry
@@ -90,12 +78,10 @@ def fused_overlay_tick_plain(idsaux, pw, intro, masks, scalars, *, k: int,
     bc_ts = (bc_p >> 12) - 1
     j_valid = jrep[:, None] & (bc_ids >= 0) & (t - bc_ts < t_remove) \
         & (bc_ids != rows[:, None])
-    kmax, pacc = lex_max(kmax, pacc,
-                         torch.where(j_valid, pack_key(bc_ids, bc_ts), 0),
-                         torch.where(j_valid, bc_p, zero))
+    kmax, pacc = merge_view(kmax, pacc, bc_ids, bc_ts, bc_p, j_valid)
     if t_remove > 1:
-        kmax, pacc = entry(kmax, pacc, 0, intro[2, 0].expand(n),
-                           jrep & (rows != 0))
+        kmax, pacc = merge_entry(kmax, pacc, seed, ep, 0, t - 1,
+                                 intro[2, 0].expand(n), jrep & (rows != 0))
 
     # JOINREQ aggregate into the introducer's row
     is_r0 = (rows == 0)[:, None]

@@ -27,6 +27,7 @@ class VectorStep:
     """Per-peer results of :func:`vector_step`, bool[N] unless noted."""
 
     proc: torch.Tensor          # consumes and acts this tick
+    failed: torch.Tensor        # failed while processing this tick
     rejoining: torch.Tensor     # wiped and re-introduced this tick
     jreq: torch.Tensor          # JOINREQ consumed by the introducer
     jrep: torch.Tensor          # JOINREP consumed
@@ -41,22 +42,31 @@ class VectorStep:
 
 
 def vector_step(t: int, start, fail, rejoin, in_group, own_hb, joinreq,
-                joinrep, qdrop, pdrop, *, churn: bool) -> VectorStep:
+                joinrep, qdrop, pdrop, *, churn: bool,
+                flap=None) -> VectorStep:
     """The per-peer decisions of tick ``t``.
 
     ``start``/``fail``/``rejoin`` are the schedule's i32[N] columns;
     ``in_group``/``own_hb``/``joinreq``/``joinrep`` the state's; ``qdrop``
     / ``pdrop`` bool[N] the tick's JOINREQ / JOINREP drop decisions.
-    Without ``churn`` no peer rejoins.
+    Without ``churn`` no peer rejoins.  ``flap`` is the flap world's
+    ``(down, up_edge)`` bool[N] at ``t`` (``Schedule.flap_state``): its
+    down phases add to ``failed`` and its up-edges rejoin (JAX
+    ``state.py`` ``failed_at`` / ``rejoining_at``); the flap world sets
+    ``churn``.
     """
     i32 = torch.int32
     n = start.shape[0]
     is_intro = torch.arange(n, device=start.device) == INTRODUCER
     failed = (t > fail) & (t <= rejoin)
+    if flap is not None:
+        failed = failed | flap[0]
     # recvLoop/nodeLoop gate (Application.cpp:130,153)
     proc = (t > start) & ~failed
     # churn: a rejoining peer restarts from a fresh nodeStart
     rejoining = (rejoin == t) if churn else torch.zeros_like(proc)
+    if flap is not None:
+        rejoining = rejoining | flap[1]
     in_group0 = in_group & ~rejoining
     own_hb0 = own_hb * ~rejoining
     proc0, failed0 = proc[INTRODUCER], failed[INTRODUCER]
@@ -84,7 +94,8 @@ def vector_step(t: int, start, fail, rejoin, in_group, own_hb, joinreq,
             + torch.where(is_intro, joinrep_sent.sum(dtype=i32), 0)).to(i32)
     recv = (jrep.to(i32)
             + torch.where(is_intro, jreq.sum(dtype=i32), 0)).to(i32)
-    return VectorStep(proc=proc, rejoining=rejoining, jreq=jreq, jrep=jrep,
+    return VectorStep(proc=proc, failed=failed, rejoining=rejoining,
+                      jreq=jreq, jrep=jrep,
                       hold=hold, ops=ops, in_group=in_group_next,
                       own_hb=own_hb_next, joinreq=joinreq_next,
                       joinrep=joinrep_next, sent=sent, recv=recv)

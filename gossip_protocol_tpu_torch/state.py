@@ -12,8 +12,9 @@ representation choices differ:
   drop window (``drop_active``) stays a host numpy array.
 
 The npz checkpoint schema is the JAX package's exactly (``tick`` as an
-int32 scalar, ``rng`` as uint32[2], ``gossip_age`` as an all-zero
-plane), so a checkpoint written by either package loads in the other.
+int32 scalar, ``rng`` as uint32[2], ``gossip_age`` the latency world's
+in-flight message ages), so a checkpoint written by either package
+loads in the other.
 """
 
 from __future__ import annotations
@@ -59,7 +60,8 @@ class WorldState:
     hb: torch.Tensor          # i32[N, N]
     ts: torch.Tensor          # i32[N, N]
     gossip: torch.Tensor      # bool[N, N] (sender, receiver)
-    gossip_age: torch.Tensor  # i32[N, N], all zero (no latency world)
+    gossip_age: torch.Tensor  # i32[N, N] ticks the in-flight message has
+                              #   waited (latency world; else all zero)
     joinreq: torch.Tensor     # bool[N]
     joinrep: torch.Tensor     # bool[N]
     rng: np.ndarray           # uint32[2] threefry key (host)
@@ -78,11 +80,14 @@ class WorldState:
 
 @dataclass
 class Schedule:
-    """Per-run injection schedule (JAX ``Schedule``, course-world fields).
+    """Per-run injection schedule (the JAX ``Schedule``).
 
-    ``start_tick``/``fail_tick``/``rejoin_tick`` are i32[N] — numpy from
-    :func:`make_schedule_host`, tensors on the run's device from
-    :func:`make_schedule`.  The drop window is host data either way.
+    The per-peer columns (``start_tick``/``fail_tick``/``rejoin_tick``
+    and the world arrays) are numpy from :func:`make_schedule_host`,
+    tensors on the run's device from :func:`make_schedule`.  The drop
+    window and every window scalar are host data either way.  A world
+    that is off leaves its fields inert (zeros, or a (0, 0) plane), as
+    in the JAX package.
     """
 
     start_tick: object
@@ -92,17 +97,60 @@ class Schedule:
     drop_prob: np.float32     # MSG_DROP_PROB
     drop_open: int            # exact window open < t <= close
     drop_close: int           #   ((-1, -2) = no window)
+    # --- adversarial worlds (worlds.py) ---
+    part_group: object = None  # i32[N] hashed partition group per node
+    part_on: bool = False      # partition world configured
+    part_open: int = 0         # cross-group sends blocked:
+    part_close: int = 0        #   open < t <= close
+    link_prob: object = None   # f32[N, N] per-link drop probability
+                               #   (sender-major; (0, 0) when asym is off)
+    flap_mask: object = None   # bool[N] which nodes flap
+    flap_phase: object = None  # i32[N] absolute cycle anchor per node
+    flap_period: int = 1
+    flap_down: int = 0         # down ticks per period
+    flap_close: int = -1       # last tick a cycle may end at
+    byz_mask: object = None    # bool[N] seeded liars
+    byz_target: object = None  # bool[N, N] ghost targets ((0, 0) when off)
+    byz_boost: int = 0         # relayed-heartbeat inflation
+    link_lat: object = None    # i32[N, N] per-link delay ((0, 0) when off)
 
     def replace(self, **kw) -> "Schedule":
         return dataclasses.replace(self, **kw)
 
-    def failed_at(self, t: int):
-        """bool[N]: is peer i failed while processing tick ``t``?"""
+    def flap_state(self, t: int):
+        """(failed, rejoining) bool[N] under the flap world: a flapper is
+        down for positions [1, flap_down] of every cycle from its anchor
+        and rejoins at position flap_down, only for cycles completing by
+        ``flap_close`` (JAX ``Schedule._flap_state``)."""
+        per = max(self.flap_period, 1)
+        pos = t - self.flap_phase
+        c = pos // per
+        off = pos - c * per
+        ok = self.flap_mask & (pos >= 1) \
+            & (self.flap_phase + c * per + self.flap_down <= self.flap_close)
+        return (ok & (off >= 1) & (off <= self.flap_down),
+                ok & (off == self.flap_down))
+
+    def window_failed_at(self, t: int):
+        """bool[N]: the scripted / churn / wave fail window alone (the
+        failures the zombie world applies to)."""
         return (t > self.fail_tick) & (t <= self.rejoin_tick)
 
+    def failed_at(self, t: int):
+        """bool[N]: is peer i failed while processing tick ``t``?  The
+        fail window, plus the flap world's down phases."""
+        f, _ = self.flap_state(t)
+        return self.window_failed_at(t) | f
+
     def rejoining_at(self, t: int):
-        """bool[N]: peers wiped and re-introduced at tick ``t``."""
-        return self.rejoin_tick == t
+        """bool[N]: peers wiped and re-introduced at tick ``t`` (the
+        churn rejoin, plus every flap up-edge)."""
+        _, r = self.flap_state(t)
+        return (self.rejoin_tick == t) | r
+
+    def part_active_at(self, t: int) -> bool:
+        """Are cross-group sends blocked at tick ``t``?  (host)"""
+        return bool(self.part_on) and self.part_open < t <= self.part_close
 
     def drop_on(self, t: int) -> bool:
         """Is the drop window open for tick ``t``'s sends?  (A tick past
@@ -110,23 +158,34 @@ class Schedule:
         return bool(self.drop_active[min(t, len(self.drop_active) - 1)])
 
 
+#: the schedule's per-peer columns and planes (numpy on the host, tensors
+#: on the run's device)
+SCHED_ARRAYS = ("start_tick", "fail_tick", "rejoin_tick", "part_group",
+                "link_prob", "flap_mask", "flap_phase", "byz_mask",
+                "byz_target", "link_lat")
+
+
 def make_schedule_host(cfg: SimConfig) -> Schedule:
-    """Host (numpy) schedule — ``gossip_protocol_tpu.state.make_schedule_host``
-    restricted to the course worlds (the port's config refuses the
-    others).  Victims come from the shared counter-based hash PRNG, so
-    one seed gives the same schedule in both packages."""
+    """Host (numpy) schedule — ``gossip_protocol_tpu.state.make_schedule_host``.
+    Victims come from the shared counter-based hash PRNG (a wave's from
+    ``worlds.wave_fail_ticks``), so one seed gives the same schedule in
+    both packages."""
+    from . import worlds
     from .utils.prng import fail_schedule_uniform
 
     n = cfg.n
     start = np.array([cfg.start_tick(i) for i in range(n)], np.int32)
-    fail = np.full(n, NEVER, np.int32)
-    u = fail_schedule_uniform(cfg.seed)
-    if cfg.single_failure:
-        victim = int(u * n) % n
-        fail[victim] = cfg.fail_tick
+    if cfg.wave_size > 0:
+        fail = worlds.wave_fail_ticks(cfg)
     else:
-        r = (int(u * n) % n) // 2
-        fail[r: r + n // 2] = cfg.fail_tick
+        fail = np.full(n, NEVER, np.int32)
+        u = fail_schedule_uniform(cfg.seed)
+        if cfg.single_failure:
+            victim = int(u * n) % n
+            fail[victim] = cfg.fail_tick
+        else:
+            r = (int(u * n) % n) // 2
+            fail[r: r + n // 2] = cfg.fail_tick
     rejoin = np.full(n, NEVER, np.int32)
     if cfg.rejoin_after is not None:
         if cfg.rejoin_after < 1:
@@ -137,27 +196,46 @@ def make_schedule_host(cfg: SimConfig) -> Schedule:
     drop = np.zeros(cfg.total_ticks, bool)
     if cfg.drop_msg:
         drop = (t > cfg.drop_open_tick) & (t <= cfg.drop_close_tick)
+    part_open, part_close = worlds.partition_window(cfg)
+    _, flap_close = worlds.flap_window(cfg)
     return Schedule(
         start_tick=start, fail_tick=fail, rejoin_tick=rejoin,
         drop_active=drop, drop_prob=np.float32(cfg.msg_drop_prob),
         drop_open=cfg.drop_open_tick if cfg.drop_msg else -1,
-        drop_close=cfg.drop_close_tick if cfg.drop_msg else -2)
+        drop_close=cfg.drop_close_tick if cfg.drop_msg else -2,
+        part_group=worlds.partition_groups_host(cfg),
+        part_on=cfg.partition_groups >= 2,
+        part_open=int(part_open), part_close=int(part_close),
+        link_prob=worlds.link_prob_host(cfg),
+        flap_mask=worlds.flap_mask_host(cfg),
+        flap_phase=worlds.flap_anchor_host(cfg),
+        flap_period=max(cfg.flap_period, 1), flap_down=cfg.flap_down,
+        flap_close=int(flap_close) if cfg.flap_rate > 0 else -1,
+        byz_mask=worlds.byz_mask_host(cfg),
+        byz_target=worlds.byz_target_host(cfg),
+        byz_boost=cfg.byz_boost,
+        link_lat=worlds.link_latency_host(cfg))
 
 
 def make_schedule(cfg: SimConfig, device=None) -> Schedule:
-    """:func:`make_schedule_host` with the per-peer columns on ``device``."""
+    """:func:`make_schedule_host` with the per-peer columns and planes
+    on ``device``."""
     dev = resolve_device(device)
     s = make_schedule_host(cfg)
-    return s.replace(
-        start_tick=torch.from_numpy(s.start_tick).to(dev),
-        fail_tick=torch.from_numpy(s.fail_tick).to(dev),
-        rejoin_tick=torch.from_numpy(s.rejoin_tick).to(dev))
+    return s.replace(**{k: torch.from_numpy(np.ascontiguousarray(
+        getattr(s, k))).to(dev) for k in SCHED_ARRAYS})
 
 
 def slice_schedule(s: Schedule, a: int) -> Schedule:
-    """Width-``a`` view of the per-peer columns (core/dense_corner.py)."""
-    return s.replace(start_tick=s.start_tick[:a], fail_tick=s.fail_tick[:a],
-                     rejoin_tick=s.rejoin_tick[:a])
+    """Width-``a`` view of the per-peer columns (core/dense_corner.py;
+    the corner is gated off for world configs, so the world fields
+    sliced here are inert)."""
+    out = {}
+    for k in SCHED_ARRAYS:
+        v = getattr(s, k)
+        out[k] = v if v.shape[0] == 0 else (
+            v[:a] if v.ndim == 1 else v[:a, :a])
+    return s.replace(**out)
 
 
 def init_state(cfg: SimConfig, device=None) -> WorldState:
@@ -221,9 +299,6 @@ def state_from_host(host: dict, device=None) -> WorldState:
         if got != shape:
             raise ValueError(
                 f"checkpoint field {k!r} has shape {got}, expected {shape}")
-    if np.asarray(host["gossip_age"]).any():
-        raise ValueError("checkpoint carries in-flight message ages (the "
-                         "latency world), which the port does not run")
     kw = {}
     for name in _FIELDS:
         v = np.asarray(host[name])

@@ -197,6 +197,122 @@ def test_drop_masks_kernel(dev, n, s_ticks, embedded):
         assert got[0].any()
 
 
+@pytest.mark.parametrize("worlds", ("thresholds", "groups", "both"))
+@pytest.mark.parametrize("s_ticks", (1, 8))
+@pytest.mark.parametrize("n", (10, 64, 1024, 4096))
+def test_drop_masks_kernel_worlds(dev, n, s_ticks, worlds):
+    """The draw kernel with the asym world's per-link thresholds, the
+    partition's groups, or both, against its plain version: in one
+    launch of 8 ticks the drop window and the partition are each open
+    and closed, in all four combinations."""
+    from gossip_protocol_tpu_torch.ops.drop import drop_masks, drop_masks_plain
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    rng = np.random.default_rng(n)
+    lp = torch.from_numpy((rng.random((n, n)) * 0.3).astype(np.float32)) \
+        .to(dev) if worlds != "groups" else None
+    grp = torch.from_numpy(rng.integers(0, 3, n).astype(np.int32)).to(dev) \
+        if worlds != "thresholds" else None
+    active = [True, False, True, False, True, True, False, False][:s_ticks]
+    part = [True, True, False, False, True, False, True, False][:s_ticks]
+    if s_ticks == 1:
+        # thresholds alone: the window open; with groups: the window
+        # closed and the partition open (the gate alone)
+        active, part = [grp is None], [True]
+    before = drop_masks.launches
+    got = drop_masks(prng_key(n), 100, active, np.float32(0.1), n,
+                     device=dev, link_prob=lp, group=grp,
+                     part_active=part if grp is not None else None)
+    assert drop_masks.launches == before + 1
+    want = drop_masks_plain(prng_key(n), 100, active, np.float32(0.1), n,
+                            device=dev, link_prob=lp, group=grp,
+                            part_active=part if grp is not None else None)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[0].any() or got[1].any()
+
+
+#: one world config per route: (model, config, kernels that must launch,
+#: kernels that must not)
+WORLD_ROUTES = {
+    "dense_asym": ("dense", dict(max_nnb=64, drop_msg=True,
+                                 msg_drop_prob=0.12, asym_drop=True,
+                                 drop_open_tick=10, drop_close_tick=90,
+                                 partition_groups=2,
+                                 partition_open_tick=30,
+                                 partition_close_tick=42),
+                   ("drop_masks", "masked_max3", "tick_epilogue"),
+                   ("dense_mega_ticks",)),
+    "dense_wave": ("dense", dict(max_nnb=64, single_failure=False,
+                                 wave_size=6, wave_tick=40, wave_speed=2),
+                   ("drop_masks", "dense_mega_ticks"),
+                   ("masked_max3", "tick_epilogue")),
+    "dense_byz_latency": ("dense", dict(max_nnb=32, byz_rate=0.2,
+                                        byz_boost=8, link_latency=4,
+                                        zombie=True),
+                          ("drop_masks", "masked_max3"),
+                          ("tick_epilogue", "dense_mega_ticks")),
+    "overlay_gauntlet": ("overlay", dict(
+        model="overlay", max_nnb=64, single_failure=False, wave_size=12,
+        wave_tick=48, wave_speed=2, partition_groups=2,
+        partition_open_tick=44, partition_close_tick=56, flap_rate=0.2,
+        flap_period=24, flap_down=6, flap_open_tick=64,
+        flap_close_tick=128, link_latency=3, byz_rate=0.1, byz_boost=4,
+        drop_msg=True, msg_drop_prob=0.06, asym_drop=True,
+        step_rate=8.0 / 64), (),
+        ("fused_overlay_tick", "mega_overlay_ticks", "grid_overlay_ticks")),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WORLD_ROUTES))
+def test_world_routes_cuda_equals_cpu(dev, name):
+    """One world config per route on the card equals its CPU run (dense:
+    events, counters and final state; overlay: state and metrics), and
+    the launch counters show the route."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.sim import Simulation
+    from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    from gossip_protocol_tpu_torch.ops.cuda.dense_mega import \
+        dense_mega_ticks
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import \
+        fused_overlay_tick
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_overlay_ticks
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_mega import \
+        mega_overlay_ticks
+    from gossip_protocol_tpu_torch.ops.cuda.tickfused import tick_epilogue
+    from gossip_protocol_tpu_torch.ops.drop import drop_masks
+    from gossip_protocol_tpu_torch.ops.merge import masked_max3
+    fns = {f.__name__: f for f in (
+        drop_masks, masked_max3, tick_epilogue, dense_mega_ticks,
+        fused_overlay_tick, mega_overlay_ticks, grid_overlay_ticks)}
+    model, kw, used, unused = WORLD_ROUTES[name]
+    cfg = SimConfig(seed=3, total_ticks=140, **kw)
+    before = {k: f.launches for k, f in fns.items()}
+    if model == "dense":
+        a = Simulation(cfg, device="cuda").run()
+        after = {k: f.launches for k, f in fns.items()}
+        b = Simulation(cfg, device="cpu").run()
+        for f in ("added", "removed", "sent", "recv"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+        fields = ("known", "hb", "ts", "gossip", "gossip_age", "in_group")
+    else:
+        a = OverlaySimulation(cfg, device="cuda").run()
+        after = {k: f.launches for k, f in fns.items()}
+        b = OverlaySimulation(cfg, device="cpu").run()
+        for f in vars(a.metrics):
+            assert np.array_equal(getattr(a.metrics, f),
+                                  getattr(b.metrics, f)), f
+        fields = ("ids", "hb", "ts", "send_hist", "send_flags", "in_group")
+    for f in fields:
+        assert torch.equal(getattr(a.final_state, f).cpu(),
+                           getattr(b.final_state, f)), f
+    for k in used:
+        assert after[k] > before[k], (k, after)
+    for k in unused:
+        assert after[k] == before[k], (k, after)
+
+
 def test_cooperative_launch_too_large_raises(dev):
     """A persistent grid larger than the card holds at once is refused by
     the runtime, and the wrappers raise (no fallback); the card stays

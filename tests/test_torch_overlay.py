@@ -135,7 +135,11 @@ def test_checkpoint_hand_over_both_ways(tmp_path):
     resumed = pov.OverlaySimulation(pc, device="cpu").run(resume_from=pmid,
                                                            ticks=37)
     _assert_state(whole, resumed.final_state)
-    bad = dict(host, send_hist=np.ones_like(host["send_hist"]))
+    # a send history (the latency world) loads; a misshapen one raises
+    hist = np.ones_like(host["send_hist"])
+    back = pov.overlay_state_from_host(dict(host, send_hist=hist), "cpu")
+    assert np.array_equal(back.send_hist.numpy(), hist)
+    bad = dict(host, send_hist=hist[:, :1])
     with pytest.raises(ValueError):
         pov.overlay_state_from_host(bad, "cpu")
 

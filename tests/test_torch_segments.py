@@ -105,3 +105,33 @@ def test_steady_tail_and_invariant():
     _, pl = _pair("powerlaw1m")
     tags = {s.flags.tag for s in pseg.plan_segments(pl, 272, 0, GRID_TICKS)}
     assert "steady" in tags and "churn" in tags
+
+
+def _catalog_pairs():
+    from gossip_protocol_tpu_torch.models.scenarios import CATALOG
+    out = []
+    for name in sorted(CATALOG):
+        kw = CATALOG[name].build(1000).to_dict()
+        out.append((name, kw))
+    # a drop window off the quantization grid, and a course config
+    out.append(("drop_offgrid", dict(CONFIGS["drop10"], model="overlay",
+                                     drop_open_tick=21, drop_close_tick=93)))
+    out.append(("churn", dict(CONFIGS["churn"], model="overlay")))
+    return out
+
+
+@pytest.mark.parametrize("name, kw", _catalog_pairs(),
+                         ids=[n for n, _ in _catalog_pairs()])
+def test_world_windows_and_quantized_signature_equal_jax(name, kw):
+    """Over every catalog config (both models, the worlds folded in):
+    the phase windows, the plan signature, the tick-0 plan and
+    ``quantized_plan_signature`` at two grids equal the JAX package's."""
+    jc, pc = JaxConfig(**kw), SimConfig(**kw)
+    assert dataclasses.astuple(pseg.phase_windows(pc)) == \
+        dataclasses.astuple(jseg.phase_windows(jc))
+    assert pseg.plan_signature(pc) == jseg.plan_signature(jc)
+    assert _plan(pseg.plan_segments(pc, pc.total_ticks, 0, GRID_TICKS)) \
+        == _plan(jseg.plan_segments(jc, jc.total_ticks, 0, JAX_GRID_TICKS))
+    for grid in (16, 8):
+        assert pseg.quantized_plan_signature(pc, grid) \
+            == jseg.quantized_plan_signature(jc, grid)

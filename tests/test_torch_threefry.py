@@ -82,9 +82,20 @@ def test_random_bits_odd_shape():
 
 
 def test_asym_link_prob_raises():
-    with pytest.raises(NotImplementedError):
+    """Per-link thresholds (the asym world) and partition groups are
+    drawn at full width only: a narrower draw raises; at full width the
+    thresholds replace the uniform probability, so all-ones thresholds
+    drop every message of an open tick."""
+    lp = np.ones((8, 8), np.float32)
+    with pytest.raises(ValueError):
         tick_drop_masks(threefry.prng_key(0), 60, 8, True, np.float32(0.1),
-                        "cpu", link_prob=np.zeros((8, 8), np.float32))
+                        "cpu", link_prob=lp, n_active=6)
+    with pytest.raises(ValueError):
+        tick_drop_masks(threefry.prng_key(0), 60, 8, True, np.float32(0.1),
+                        "cpu", group=np.zeros(8, np.int32), n_active=6)
+    g, q, p = tick_drop_masks(threefry.prng_key(0), 60, 8, True,
+                              np.float32(0.1), "cpu", link_prob=lp)
+    assert g.all() and q.all() and p.all()
 
 
 @pytest.mark.parametrize("prob", (0.0, 0.1, 0.25, 1.0))
