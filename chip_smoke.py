@@ -11,7 +11,9 @@ PyTorch version on the card, drives the port's dense and overlay main
 paths at full width, checks the results, times every kernel, and prints
 one line per phase:
 
-1. the card (``nvidia-smi`` name and power limit) and the kernel build;
+1. the card (``nvidia-smi`` name and power limit), the kernel build, and
+   the native C++ engine (``libgossip_native.so``, built with ``make``
+   through ``compat/native.py require``; a failed build fails the run);
 2. kernel vs plain version on the card, bit-exact, on random inputs:
    ``masked_max3`` + ``tick_epilogue`` at N in {10, 64, 1024, 2816}, dense
    and sparse (empty delivery slabs); ``dense_mega_ticks`` at N in
@@ -34,6 +36,13 @@ one line per phase:
    N in {10, 64, 1024, 4096}: S=8 launches in which the drop window and
    the partition are each open and closed in all four combinations, and
    S=1 launches with the window open, or closed and the partition open;
+   the fleet's lane axis: ``masked_max3`` and ``tick_epilogue`` as one
+   launch each for B lanes at (B, N) = (3, 10), (4, 64), (8, 512) and
+   (4, 2816), each lane the real input of its own seed at its own tick
+   (one lane at tick 0, with no sender in flight), and the lane-axis
+   draw (``drop_masks_lanes``) at B=3 N=10 with one lane's window open,
+   B=4 N=896 embedded at 672, B=2 N=4096 with per-link thresholds and
+   with partition groups;
 3. the graded path: the three N=10 testcases on ``cuda``, each timed,
    must grade 90;
 4. card vs CPU: N=64 multifailure and N=64 drop, 700 ticks — the
@@ -47,6 +56,14 @@ one line per phase:
    equal, dense ``dbg.log`` and ``msgcount.log`` bytes too, each run on
    its route (the draw and the K1 pair, K2 for the wave, ``masked_max3``
    on the zombie / byz / latency route, no K3/K4/K5 on the overlay);
+   4b. ``cuda`` runs against engines that are neither the JAX package
+   nor the port's tick (``testing/checks.py``, the rules of the JAX
+   package's own parity tests): the message-level dense oracle
+   (``testing/oracle.py``, dropsync's masks under drop) on the three
+   testcases, a churn N=32, a drop N=48 and two world (partition, flap)
+   N=24 runs; the overlay oracle on N=64 churn and N=128 drop; the
+   native engine's join / removal event sets (N=10 single and multi,
+   N=24 start-after-fail, N=16 churn with rejoin 10 and 25);
 5. full-width runs with closed-form oracles: N=512 multifailure trace
    (K2), N=1024 multifailure 10% drop trace (K1 at full width), and
    bench N=4096 10% drop at 700 ticks (corner 2816, K1) and 200 ticks
@@ -73,7 +90,22 @@ one line per phase:
    BASELINE's 65k join ramp (5h), each graded by its oracle and the
    overlay validation, none launching K3, K4 or K5; each with its
    node-ticks/s (a family the JAX package itself fails at that width is
-   left out, ``WIDE_LEFT_OUT``);
+   left out, ``WIDE_LEFT_OUT``); the fleets (5i, ``core/fleet.py``), each
+   lane held equal to its solo ``cuda`` run on every state field,
+   counter and event or metric, with the fleet's wall, aggregate
+   node-ticks/s and the solo walls' sum: ``grade_all_fleet`` (B=3, grade
+   90, one draw, merge and epilogue launch a tick), BASELINE's N=4096
+   10% drop bench at B=4 (seeds 0-3, corner 2816, its device idle share
+   from one more profiled run), the same launch deferred, started and
+   polled under ``set_sync_debug_mode("error")``, the N=512
+   multifailure trace at B=8 (removals at t=121/122) and again with
+   ``n_real=6``, BASELINE's overlay N=65,536 20% churn
+   (``bench_overlay_fleet``) and N=4096 drop at B=8 (seeds 101-108, 38
+   K5 calls each, ``validate_overlay`` on every lane, the 65,536 fleet's
+   idle share profiled), the B=8 N=512 trace and N=65,536 fleets cut at
+   a legal segment tick into two legs and finished with ``finish_lane``,
+   and ``dense_zombie`` at N=1024, B=4 (its lanes through the counted
+   composable lane loop, each graded by its family's oracle);
 6. each kernel held against its plain version and timed on the input
    of a launch the main path makes (the run stopped one launch early:
    tick 699 of the 700-tick corner (N=2816), of the N=1024 trace and of
@@ -89,7 +121,11 @@ one line per phase:
    at ticks 300 (window open) and 699 (closed) of the 700-tick corner
    (N=2816, S=1) and for the last K2 launch of the 200-tick corner (N=896,
    S=8); the threshold draw and the K1 pair at N=4096 on the ``asym4096``
-   run's ticks 300 and 699, in rows of their own), then a ``kernels``
+   run's ticks 300 and 699, in rows of their own; the lane-axis kernels
+   in ``/fleet`` rows: the merge and the epilogue at tick 699 and the
+   draw at tick 300 of the B=4 N=4096 bench fleet, K5 on the last full
+   call of the B=8 N=65,536 fleet, each bound B times the per-lane one,
+   the data-dependent terms summed over the lanes), then a ``kernels``
    JSON line: per kernel its launches on the main path (phases 3-5,
    counters zeroed before each path and read after it, bench warm-ups
    and kernel-vs-plain comparisons not counted), its time, its plain
@@ -154,6 +190,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 
 def say(msg: str) -> None:
     print(msg, flush=True)
+
+
+#: seconds since the start of the run at each phase's end (``mark``)
+PHASE_SECONDS: dict = {}
+
+
+def mark(phase: str, t_start: float) -> None:
+    """Record and print the seconds since ``t_start`` at a phase's end."""
+    PHASE_SECONDS[phase] = round(time.perf_counter() - t_start, 1)
+    say(f"elapsed after phase {phase}: {PHASE_SECONDS[phase]} s")
 
 
 # ---------------------------------------------------------------- inputs
@@ -882,8 +928,15 @@ def k4_bound(n: int, k: int, f: int, s_ticks: int,
 
 def k5_bound(n: int, k: int, met, reslots: int,
              needed: bool = False) -> tuple[float, str]:
-    """K5's least time for one call.  Bytes: where the plane's two phases
-    (N rows of 128 words each) fit on chip (:data:`ON_CHIP_BYTES`), as at
+    """K5's least time for one call: :func:`k5_work` over the card's
+    rates."""
+    return bound(*k5_work(n, k, met, reslots, needed))
+
+
+def k5_work(n: int, k: int, met, reslots: int,
+            needed: bool = False) -> tuple[float, float]:
+    """The bytes and operations of one K5 call.  Bytes: where the plane's
+    two phases (N rows of 128 words each) fit on chip (:data:`ON_CHIP_BYTES`), as at
     N=65,536 (67 MB), the plane and boot block read once and both phases
     written once; where they do not, as at N=2^20 (1.07 GB, twenty times
     the L2), the plane read once and written once per tick.  Plus the
@@ -911,7 +964,7 @@ def k5_bound(n: int, k: int, met, reslots: int,
         nbytes += recv * 2 * k * 4
     ops = recv * 8 * (k + 1) + s_ticks * n * (40 * k + 30) \
         + reslots * n * 8 * k
-    return bound(nbytes, ops)
+    return nbytes, ops
 
 
 def boot_bound(n: int) -> tuple[float, str]:
@@ -1042,6 +1095,561 @@ def overlay_equal(a, b, ma, mb, skip=()) -> list:
     return bad
 
 
+# ------------------------------------------- fleets and independent engines
+
+@contextlib.contextmanager
+def capture_calls(module, name: str, keep=None):
+    """Record the ``(args, kwargs)`` of the calls of ``module.name`` for
+    which ``keep(args, kwargs)`` holds (all without ``keep``), the
+    function still running; restored on exit."""
+    orig = getattr(module, name)
+    seen = []
+
+    def spy(*a, **k):
+        if keep is None or keep(a, k):
+            seen.append((a, k))
+        return orig(*a, **k)
+
+    setattr(module, name, spy)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
+
+
+def lane_k1_inputs(n: int, lanes, dev) -> dict:
+    """Real K1 launch inputs of B lanes at width ``n``: lane b is tick
+    ``t_b`` of the 10% drop multifailure run with seed ``s_b`` on the
+    per-tick route, captured where the tick calls the epilogue; a lane at
+    tick 0 has no sender in flight.  ``lanes`` holds the (seed, tick)
+    pairs; the shared clock of the lane-axis launch is the largest tick."""
+    import torch
+
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core import tick as tick_mod
+    from gossip_protocol_tpu_torch.state import init_state, make_schedule
+    per_lane = []
+    for seed, t in lanes:
+        cfg = SimConfig(max_nnb=n, single_failure=False, drop_msg=True,
+                        msg_drop_prob=0.1, seed=seed, total_ticks=700)
+        tick = tick_mod.make_tick(cfg)
+        st, sc = init_state(cfg, dev), make_schedule(cfg, dev)
+        for _ in range(t):
+            st, _ = tick(st, sc)
+        with capture_calls(tick_mod, "tick_epilogue") as seen:
+            tick(st, sc)
+        per_lane.append(seen[0][0])
+    names = ("gossip", "proc", "known", "hb", "ts", "gdrop", "ops", "jrep",
+             "jreq", "live_hold")
+    x = {k: torch.stack([a[3 + i] for a in per_lane]).contiguous()
+         for i, k in enumerate(names)}
+    x["t"] = max(t for _, t in lanes)
+    x["lanes"] = [{"seed": s, "tick": t} for s, t in lanes]
+    return x
+
+
+def compare_lane_k1(x: dict, t_remove: int) -> dict:
+    """The lane-axis ``masked_max3`` and ``tick_epilogue`` (one launch
+    each) against their plain versions, the epilogue with and without
+    events; returns max abs errors and each lane's deliveries."""
+    import torch
+
+    from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
+        tick_epilogue, tick_epilogue_lanes_plain)
+    from gossip_protocol_tpu_torch.ops.merge import (
+        masked_max3, masked_max3_lanes_plain)
+    args = (x["gossip"], x["proc"], x["known"], x["hb"], x["ts"], x["t"])
+    before = masked_max3.launches
+    m = masked_max3(*args, t_remove=t_remove)
+    if masked_max3.launches != before + 1:
+        raise AssertionError("lane-axis masked_max3 was not one launch")
+    want = masked_max3_lanes_plain(*args, t_remove=t_remove)
+    err = {"masked_max3": max(max_abs_err(a, b) for a, b in zip(m, want)),
+           "tick_epilogue": 0.0}
+    for ev in (True, False):
+        e_args = (*m, x["gossip"], x["proc"], x["known"], x["hb"], x["ts"],
+                  x["gdrop"], x["ops"], x["jrep"], x["jreq"], x["live_hold"],
+                  x["t"])
+        before = tick_epilogue.launches
+        got = tick_epilogue(*e_args, t_remove=t_remove, with_events=ev)
+        if tick_epilogue.launches != before + 1:
+            raise AssertionError("lane-axis tick_epilogue was not one launch")
+        want = tick_epilogue_lanes_plain(*e_args, t_remove=t_remove,
+                                         with_events=ev)
+        err["tick_epilogue"] = max(
+            err["tick_epilogue"],
+            max(max_abs_err(a, b) for a, b in zip(got, want)
+                if a is not None))
+    torch.cuda.synchronize()
+    deliveries = (x["gossip"] & x["proc"][:, None, :]).sum((1, 2))
+    return {"err": err, "deliveries": deliveries.tolist()}
+
+
+#: phase 2's lane-axis K1 shapes: (B, N) and each lane's (seed, tick)
+LANE_K1_CASES = (
+    (3, 10, ((0, 0), (1, 30), (2, 400))),
+    (4, 64, ((3, 0), (4, 12), (5, 150), (6, 650))),
+    (8, 512, tuple(zip(range(7, 15), (0, 5, 40, 121, 122, 200, 400, 699)))),
+    (4, 2816, ((15, 0), (16, 100), (17, 300), (18, 699))))
+
+
+def lane_draw_checks(dev) -> tuple[float, int]:
+    """Phase 2's lane-axis draws against their plain version: B=3 N=10
+    with one lane's window open, B=4 N=896 embedded at 672 with a
+    probability a lane, B=2 N=4096 with per-link thresholds and with
+    partition groups (lane 1's partition open, lane 0's closed), at a
+    tick with the windows open and one past them."""
+    import torch
+
+    from gossip_protocol_tpu_torch.ops.drop import (
+        LaneDrop, drop_masks_lanes, drop_masks_lanes_plain)
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    err, checked = 0.0, 0
+    for b, n, na, world in ((3, 10, 10, None), (4, 896, 672, None),
+                            (2, 4096, 4096, "thresholds"),
+                            (2, 4096, 4096, "groups")):
+        rng = np.random.default_rng(b * n + len(world or ""))
+        active = np.zeros((b, 400), bool)
+        active[:, 50:300] = True
+        if n == 10:
+            active[:2] = False
+        part = link = group = None
+        if world == "thresholds":
+            link = torch.from_numpy(
+                rng.random((b, n, n), np.float32) * 0.3).to(dev)
+        if world == "groups":
+            group = torch.from_numpy(rng.integers(
+                0, 3, (b, n), dtype=np.int32)).to(dev)
+            part = np.zeros((b, 400), bool)
+            part[1, 100:350] = True
+        plan = LaneDrop(np.stack([prng_key(n + i) for i in range(b)]),
+                        np.float32([0.1, 0.2, 0.3, 0.4][:b]), active, part)
+        for t in (120, 320):
+            before = drop_masks_lanes.launches
+            got = drop_masks_lanes(plan, t, n, na, dev, link, group)
+            if drop_masks_lanes.launches != before + 1:
+                raise AssertionError("lane-axis draw was not one launch")
+            want = drop_masks_lanes_plain(plan, t, n, na, dev, link, group)
+            err = max(err, max(max_abs_err(a, c) for a, c in zip(got, want)))
+            if n == 10 and t == 120 and (got[0][:2].any()
+                                         or not got[0][2].any()):
+                raise AssertionError("B=3 draw: closed lanes drew or the "
+                                     "open lane did not")
+            checked += 1
+    torch.cuda.synchronize()
+    return err, checked
+
+
+def independent_engines(main_path) -> dict:
+    """Phase 4b: ``cuda`` runs held against engines that are neither the
+    JAX package nor the port's tick: the dense message-level oracle
+    (``testing/oracle.py``, with dropsync's masks), the overlay oracle
+    (``testing/overlay_oracle.py``) and the native C++ engine built in
+    phase 1 (``compat/native.py``), by the rules of the JAX package's own
+    tests (``testing/checks.py``)."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.sim import Simulation
+    from gossip_protocol_tpu_torch.grader import SCENARIOS
+    from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    from gossip_protocol_tpu_torch.testing import checks
+    out = {}
+
+    def drive(fn):
+        res, counts = main_path.drive(fn, ())
+        if not any(counts.values()):
+            raise AssertionError("phase 4b run launched no kernel")
+        return res, {k: v for k, v in counts.items() if v}
+
+    dense = {s: SimConfig.from_conf(os.path.join(REPO, "testcases",
+                                                 f"{s}.conf"))
+             for s in SCENARIOS}
+    dense.update({
+        "churn_n32": SimConfig(max_nnb=32, single_failure=True, seed=4,
+                               total_ticks=200, fail_tick=60,
+                               rejoin_after=25),
+        "drop_n48": SimConfig(max_nnb=48, single_failure=False,
+                              drop_msg=True, msg_drop_prob=0.1, seed=5,
+                              total_ticks=200, fail_tick=60,
+                              drop_open_tick=20, drop_close_tick=150),
+        "partition_n24": SimConfig(max_nnb=24, single_failure=True, seed=2,
+                                   total_ticks=120, fail_tick=40,
+                                   partition_groups=2,
+                                   partition_open_tick=30,
+                                   partition_close_tick=70),
+        "flap_n24": SimConfig(max_nnb=24, single_failure=True, seed=2,
+                              total_ticks=120, fail_tick=10_000,
+                              flap_rate=0.4, flap_period=24, flap_down=6)})
+    for name, cfg in dense.items():
+        r, counts = drive(lambda: Simulation(cfg, device="cuda").run())
+        out[name] = dict(checks.check_dense_oracle(r), launches=counts)
+    for name in ("churn64", "drop128"):
+        cfg = overlay_cfg(name)
+        r, counts = drive(lambda: OverlaySimulation(cfg, device="cuda").run())
+        out[f"overlay_{name}"] = dict(checks.check_overlay_oracle(r),
+                                      launches=counts)
+    for case in checks.NATIVE_CASES:
+        o, counts = drive(lambda: checks.check_native_case(case, "cuda"))
+        out[f"native_{case[0]}"] = dict(o, launches=counts)
+    say("phase 4b: cuda runs == independent engines: the dense oracle "
+        "(three testcases, churn N=32, drop N=48, partition and flap "
+        "N=24), the overlay oracle (N=64 churn, N=128 drop), the native "
+        "engine's event sets (N=10 single and multi, N=24 start-after-"
+        f"fail, N=16 churn rejoin 10 and 25) {json.dumps(out)}")
+    return out
+
+
+def dense_lane_diff(a, b, bench: bool = False) -> list:
+    """Fields of two dense results that differ."""
+    import torch
+    bad = [f for f in ("sent", "recv") + (() if bench else
+                                          ("added", "removed"))
+           if not np.array_equal(getattr(a, f), getattr(b, f))]
+    bad += [f for f in ("in_group", "own_hb", "known", "hb", "ts", "gossip",
+                        "gossip_age", "joinreq", "joinrep")
+            if not torch.equal(getattr(a.final_state, f).cpu(),
+                               getattr(b.final_state, f).cpu())]
+    if int(a.final_state.tick) != int(b.final_state.tick):
+        bad.append("tick")
+    return bad
+
+
+def victim_removal_ticks(res) -> dict:
+    """{tick: removals} of the victims by the live members of a trace
+    run."""
+    from gossip_protocol_tpu_torch.state import NEVER
+    victims = res.fail_tick != NEVER
+    members = ~victims & res.final_state.in_group.cpu().numpy()
+    per_tick = res.removed[:, members][:, :, victims].sum((1, 2))
+    return {int(t): int(c) for t, c in enumerate(per_tick) if c}
+
+
+#: the dense fleet's lane-axis kernels (one launch a tick for the fleet)
+FLEET_K1 = ("drop_masks_lanes", "masked_max3", "tick_epilogue")
+
+
+def fleet_runs(main_path) -> dict:
+    """Phase 5i: fleets at full width, every lane held equal to the port's
+    solo ``cuda`` run of its config on every state field, counter and
+    event or metric; each line gives the route's launches, the fleet's
+    wall and aggregate node-ticks/s, and the sum of the solo walls."""
+    import torch
+
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    from gossip_protocol_tpu_torch.core.sim import Simulation
+    from gossip_protocol_tpu_torch.core.tick import composable_lanes
+    from gossip_protocol_tpu_torch.grader import SCENARIOS, grade_all_fleet
+    from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    from gossip_protocol_tpu_torch.models.scenarios import (CATALOG,
+                                                            grade_config)
+    from gossip_protocol_tpu_torch.models.segments import checkpoint_ticks
+    out = {}
+    lane_axis = dict.fromkeys(FLEET_K1 + ("grid_overlay_ticks",), 0)
+
+    def drive(fn, expect, axis=True):
+        res, counts = main_path.drive(fn, expect)
+        if axis:
+            for k in lane_axis:
+                lane_axis[k] += counts[k]
+        return res, {k: v for k, v in counts.items() if v}
+
+    def line(key, fr, counts, solo_walls, extra=""):
+        out[key] = dict(batch=fr.batch, wall_s=fr.wall_seconds,
+                        pack_s=fr.pack_seconds, device_s=fr.device_seconds,
+                        fetch_s=fr.fetch_seconds,
+                        aggregate_node_ticks_per_s=(
+                            fr.aggregate_node_ticks_per_second),
+                        solo_walls_sum_s=sum(solo_walls), launches=counts,
+                        **out.get(key, {}))
+        say(f"phase 5i: {key}: B={fr.batch}, wall {fr.wall_seconds:.3f} s "
+            f"(pack {fr.pack_seconds:.3f}, device {fr.device_seconds:.3f}, "
+            f"fetch {fr.fetch_seconds:.3f}), "
+            f"{fr.aggregate_node_ticks_per_second:.1f} node-ticks/s "
+            f"aggregate; solo walls sum {sum(solo_walls):.3f} s; "
+            f"launches {counts}{extra}")
+
+    def same(key, fr, solos, bench=False, skip=()):
+        for i, solo in enumerate(solos):
+            if hasattr(solo, "metrics"):
+                bad = overlay_equal(fr.lanes[i].final_state,
+                                    solo.final_state, fr.lanes[i].metrics,
+                                    solo.metrics, skip=skip)
+            else:
+                bad = dense_lane_diff(fr.lanes[i], solo, bench)
+            if bad:
+                raise AssertionError(f"{key}: lane {i} != its solo run in "
+                                     f"{bad}")
+
+    def one_each(ticks):
+        return {k: ticks for k in FLEET_K1}
+
+    # the grader's B=3 fleet: one draw, merge and epilogue a tick
+    cfgs = [SimConfig.from_conf(os.path.join(REPO, "testcases", f"{s}.conf"))
+            for s in SCENARIOS]
+    with tempfile.TemporaryDirectory() as wd:
+        res, counts = drive(lambda: grade_all_fleet(
+            os.path.join(REPO, "testcases"), wd, "cuda"), FLEET_K1)
+    if res["total"] != 90:
+        raise AssertionError(f"fleet grade {res['total']} != 90")
+    if {k: counts.get(k) for k in FLEET_K1} != one_each(cfgs[0].total_ticks):
+        raise AssertionError(f"grader fleet launches {counts}")
+    fr = FleetSimulation(cfgs[0], device="cuda").run(configs=cfgs)
+    solos = [Simulation(c, device="cuda").run() for c in cfgs]
+    same("grader_b3", fr, solos)
+    out["grader_b3"] = {"grade": res["total"]}
+    line("grader_b3", fr, counts, [r.wall_seconds for r in solos])
+
+    # BASELINE's dense N=4096 10% drop bench, B=4 seeds, corner 2816
+    cfg = bench_cfg(700)
+    sim = FleetSimulation(cfg, device="cuda")
+    sim.run_bench(seeds=range(4), warmup=False)    # untimed, not counted
+    fr, counts = drive(lambda: sim.run_bench(seeds=range(4), warmup=False),
+                       FLEET_K1)
+    if {k: counts.get(k) for k in FLEET_K1} != one_each(cfg.total_ticks):
+        raise AssertionError(f"bench fleet launches {counts}")
+    solos = [Simulation(cfg.replace(seed=s), device="cuda").run_bench(
+        warmup=False) for s in range(4)]
+    same("bench_n4096_b4", fr, solos, bench=True)
+    for lane in fr.lanes:
+        oracle_bench(lane)
+    bench_fr = fr
+    prof = profile_run(lambda: sim.run_bench(seeds=range(4), warmup=False))
+    out["bench_n4096_b4"] = {
+        "corner": fr.lanes[0].counter_stream_width,
+        "solo_node_ticks_per_s": [r.node_ticks_per_second for r in solos],
+        "idle_share": prof.get("idle_share"), "profile": prof}
+    line("bench_n4096_b4", fr, counts, [r.wall_seconds for r in solos],
+         f"; device idle {prof.get('idle_share')} (profiled run)")
+    # the same launch, deferred, started and polled under the sync-debug
+    # mode "error": nothing may synchronize the device before resolve
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = sim.launch_bench(seeds=range(4), warmup=False, defer=True)
+        if pending.started:
+            raise AssertionError("a deferred launch started")
+        pending.start()
+        polls = 0
+        while not pending.is_ready():
+            polls += 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    same("pending_b4", pending.resolve(), bench_fr.lanes, bench=True)
+    out["pending_b4"] = {"polls_before_ready": polls}
+    say(f"phase 5i: PendingFleet: launch(defer=True), start, is_ready "
+        f"polled {polls} times under set_sync_debug_mode('error'), then "
+        "resolve: lanes equal the bench fleet's")
+    del sim, fr, bench_fr, solos
+
+    # BASELINE's intermediate N=512 multifailure trace, B=8 seeds
+    cfg = trace_cfgs()["trace_n512_multi"]
+    fr, counts = drive(lambda: FleetSimulation(cfg, device="cuda").run(
+        seeds=range(8)), FLEET_K1)
+    solos = [Simulation(cfg.replace(seed=s), device="cuda").run()
+             for s in range(8)]
+    same("trace_n512_b8", fr, solos)
+    # each lane removes its victims when its solo run does (equal above);
+    # seed 0's at t=121/122 exactly (phase 5a)
+    for lane in fr.lanes:
+        oracle_trace(lane, exact_removal=False)
+    rm = [victim_removal_ticks(lane) for lane in fr.lanes]
+    out["trace_n512_b8"] = {"victim_removal_ticks": rm}
+    line("trace_n512_b8", fr, counts, [r.wall_seconds for r in solos],
+         f"; victim removals by tick per lane {rm}")
+    fr6, counts6 = drive(lambda: FleetSimulation(cfg, device="cuda").run(
+        seeds=range(8), n_real=6), FLEET_K1)
+    if fr6.batch != 6 or fr6.padded_batch != 8:
+        raise AssertionError("n_real=6 did not unstack 6 of 8 lanes")
+    same("trace_n512_b8_nreal6", fr6, fr.lanes[:6])
+    out["trace_n512_b8_nreal6"] = {"lanes": fr6.batch,
+                                   "padded_batch": fr6.padded_batch,
+                                   "occupancy": fr6.occupancy}
+    line("trace_n512_b8_nreal6", fr6, counts6, [])
+    trace_fr = fr
+    del fr6, solos
+
+    # BASELINE's overlay churn N=65,536 (bench.py:384 bench_overlay_fleet)
+    # and drop N=4096, B=8 seeds 101-108, on K5's lane axis
+    ofr = {}
+    for name in ("churn65k", "drop4096"):
+        cfg = overlay_cfg(name)
+        seeds = range(101, 109)
+        fr, counts = drive(lambda: FleetSimulation(cfg, device="cuda").run(
+            seeds=seeds, warmup=False), ("grid_overlay_ticks",))
+        if counts.get("grid_overlay_ticks") != 38 or \
+                counts.get("fused_overlay_tick"):
+            raise AssertionError(f"overlay fleet {name} launches {counts}")
+        solos = [OverlaySimulation(cfg.replace(seed=s), device="cuda").run()
+                 for s in seeds]
+        same(f"overlay_{name}_b8", fr, solos)
+        val = [validate_overlay(lane) for lane in fr.lanes]
+        out[f"overlay_{name}_b8"] = {"validate": val}
+        extra = ""
+        if name == "churn65k":
+            prof = profile_run(lambda: FleetSimulation(cfg, device="cuda")
+                               .run(seeds=seeds, warmup=False))
+            out["overlay_churn65k_b8"].update(
+                idle_share=prof.get("idle_share"), profile=prof)
+            extra = f"; device idle {prof.get('idle_share')} (profiled run)"
+        line(f"overlay_{name}_b8", fr, counts,
+             [r.wall_seconds for r in solos],
+             f"; validate_overlay passed on every lane{extra}")
+        ofr[name] = fr
+        del solos
+
+    # legs: each run cut at a legal segment tick and finished
+    for key, cfg, seeds, mono, expect in (
+            ("legs_trace_n512_b8", trace_cfgs()["trace_n512_multi"],
+             range(8), trace_fr, FLEET_K1),
+            ("legs_overlay_churn65k_b8", overlay_cfg("churn65k"),
+             range(101, 109), ofr["churn65k"], ("grid_overlay_ticks",))):
+        cuts = checkpoint_ticks(cfg)
+        cut = cuts[len(cuts) // 2]
+        sim = FleetSimulation(cfg, device="cuda")
+        leg, counts = drive(lambda: sim.run_leg(resume=sim.run_leg(
+            seeds=seeds, ticks=cut).checkpoints), expect)
+        if not leg.done:
+            raise AssertionError(f"{key}: the second leg did not finish")
+        same(key, leg.results(), mono.lanes)
+        out[key] = {"cut": cut, "digests": [ck.digest()
+                                            for ck in leg.checkpoints]}
+        say(f"phase 5i: {key}: cut at t={cut}, resumed and finished with "
+            f"finish_lane: every lane == the monolithic fleet's; launches "
+            f"{counts}")
+    del trace_fr, ofr
+
+    # a composable world: its lanes one at a time inside the fleet tick
+    base = wide_family_cfg("dense_zombie", DENSE_WIDE)
+    zcfgs = [base.replace(seed=WORLD_SEED + b) for b in range(4)]
+    before = composable_lanes.calls
+    fr, counts = drive(lambda: FleetSimulation(base, device="cuda").run(
+        configs=zcfgs), ("drop_masks_lanes", "masked_max3"), axis=False)
+    calls = composable_lanes.calls - before
+    if calls != 4 * base.total_ticks or counts.get("tick_epilogue") \
+            or counts.get("drop_masks_lanes") != base.total_ticks:
+        raise AssertionError(f"zombie fleet route: {calls} lane calls, "
+                             f"launches {counts}")
+    lane_axis["drop_masks_lanes"] += counts["drop_masks_lanes"]
+    for c, lane in zip(zcfgs, fr.lanes):
+        verdict = grade_config(CATALOG["dense_zombie"], c, lane)
+        if verdict:
+            raise AssertionError(f"zombie fleet lane seed {c.seed}: "
+                                 f"{verdict[:3]}")
+    solos = [Simulation(c, device="cuda").run() for c in zcfgs]
+    same("zombie_n1024_b4", fr, solos)
+    out["zombie_n1024_b4"] = {"composable_lane_calls": calls}
+    line("zombie_n1024_b4", fr, counts, [r.wall_seconds for r in solos],
+         f"; composable lane calls {calls}; family oracle passed on every "
+         "lane")
+    out["lane_axis_launches"] = lane_axis
+    return out
+
+
+def fleet_timing(dev) -> dict:
+    """Phase 6's lane-axis kernels on the inputs of launches the fleets
+    make: ``masked_max3`` and ``tick_epilogue`` at tick 699 and the draw
+    at tick 300 of the B=4 N=4096 bench fleet (corner 2816), K5 on the
+    last full call (tick 592) of the B=8 N=65,536 churn fleet; each held
+    against its plain version and timed, with B times the per-lane bound
+    of the same formula (the merge's and K5's data-dependent terms summed
+    over the lanes)."""
+    import torch
+
+    from gossip_protocol_tpu_torch.core import tick as tick_mod
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    from gossip_protocol_tpu_torch.models import overlay_grid as og
+    from gossip_protocol_tpu_torch.models.overlay import resolved_dims
+    from gossip_protocol_tpu_torch.ops.cuda import overlay_grid as ogk
+    from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
+        tick_epilogue, tick_epilogue_lanes_plain)
+    from gossip_protocol_tpu_torch.ops.drop import (drop_masks_lanes,
+                                                    drop_masks_lanes_plain)
+    from gossip_protocol_tpu_torch.ops.merge import (
+        masked_max3, masked_max3_lanes_plain)
+    out = {}
+    cfg = bench_cfg(700)
+    t_last, t_draw = cfg.total_ticks - 1, min(300, cfg.total_ticks - 1)
+    sim = FleetSimulation(cfg, device="cuda")
+    with capture_calls(tick_mod, "tick_epilogue",
+                       lambda a, k: a[13] == t_last) as ep, \
+            capture_calls(tick_mod, "drop_masks_lanes",
+                          lambda a, k: a[1] == t_draw) as dr:
+        sim.run_bench(seeds=range(4), warmup=False)
+    a, k = ep[0]
+    b, n = a[5].shape[:2]
+    t_remove = cfg.t_remove
+    margs = (a[3], a[4], a[5], a[6], a[7], a[13])
+    m = masked_max3(*margs, t_remove=t_remove)
+    err = max(max_abs_err(x, y) for x, y in zip(
+        m, masked_max3_lanes_plain(*margs, t_remove=t_remove)))
+    nbytes = macs = 0
+    for i in range(b):
+        st = merge_stats(dict(gossip=a[3][i], proc=a[4][i], known=a[5][i],
+                              hb=a[6][i], ts=a[7][i], t=a[13]), t_remove)
+        nbytes += st["bytes"]
+        macs += st["tensor_core_macs"]
+    out["masked_max3"] = dict(
+        n=n, batch=b, tick=t_last, max_abs_err=err,
+        ms=cuda_ms(lambda: masked_max3(*margs, t_remove=t_remove), 20),
+        plain_ms=cuda_ms(lambda: masked_max3_lanes_plain(
+            *margs, t_remove=t_remove), 1, warm=0),
+        bound=bound_tc(nbytes, 2 * macs))
+    e_args = (*m, *a[3:14])
+    got = tick_epilogue(*e_args, t_remove=t_remove, with_events=False)
+    want = tick_epilogue_lanes_plain(*e_args, t_remove=t_remove,
+                                     with_events=False)
+    ep_bytes = n * n * (12 + 8 + 3 + 8 + 2) + 13 * n
+    out["tick_epilogue"] = dict(
+        n=n, batch=b, tick=t_last,
+        max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)
+                        if x is not None),
+        ms=cuda_ms(lambda: tick_epilogue(*e_args, t_remove=t_remove,
+                                         with_events=False), 20),
+        plain_ms=cuda_ms(lambda: tick_epilogue_lanes_plain(
+            *e_args, t_remove=t_remove, with_events=False), 2),
+        bound=bound(b * ep_bytes, b * 40 * n * n))
+    da, dk = dr[0]
+    plan = da[0]
+    drawn = sum(plan.lane(plan.active, i, t_draw)
+                for i in range(plan.batch))
+    got = drop_masks_lanes(*da, **dk)
+    want = drop_masks_lanes_plain(*da, **dk)
+    out["drop_masks"] = dict(
+        n=da[2], n_active=da[3], batch=plan.batch, tick=t_draw,
+        drawn_lanes=drawn,
+        max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
+        ms=cuda_ms(lambda: drop_masks_lanes(*da, **dk), 50),
+        plain_ms=cuda_ms(lambda: drop_masks_lanes_plain(*da, **dk), 2),
+        bound=draw_bound(da[2], da[3], drawn, plan.batch))
+    del ep, dr, sim, m, got, want
+    torch.cuda.empty_cache()
+    # K5 on the B=8 N=65,536 churn fleet's last full call
+    ocfg = overlay_cfg("churn65k")
+    with capture_calls(og, "grid_overlay_ticks",
+                       lambda a, k: k["s_ticks"] == 16) as calls:
+        FleetSimulation(ocfg, device="cuda").run(seeds=range(101, 109),
+                                                 warmup=False)
+    a, k = calls[-1]
+    del calls
+    got = ogk.grid_overlay_ticks(*a, **k)
+    want = ogk.grid_overlay_ticks_plain(*a, **k)
+    kk = resolved_dims(ocfg)[0]
+    t0 = int(np.asarray(a[1])[0, 0])
+    reslots = sum((t + 1) % 16 == 0 for t in range(t0, t0 + 16))
+    work = [k5_work(ocfg.n, kk, got[1][i], reslots)
+            for i in range(k["batch"])]
+    out["grid_overlay_ticks"] = dict(
+        n=ocfg.n, k=kk, batch=k["batch"], s_ticks=16, sp=t0,
+        max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
+        ms=cuda_ms(lambda: ogk.grid_overlay_ticks(*a, **k), 10),
+        plain_ms=cuda_ms(lambda: ogk.grid_overlay_ticks_plain(*a, **k), 1,
+                         warm=0),
+        bound=bound(sum(w[0] for w in work), sum(w[1] for w in work)))
+    del got, want, a, k
+    torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------- phases
 
 def wrappers() -> dict:
@@ -1067,6 +1675,9 @@ def wrappers() -> dict:
     from gossip_protocol_tpu_torch.ops import drop as drop_ops
     if hasattr(drop_ops, "drop_masks"):
         out["drop_masks"] = drop_ops.drop_masks
+    # the fleet's lane-axis draw (a checkout before the fleet has none)
+    if hasattr(drop_ops, "drop_masks_lanes"):
+        out["drop_masks_lanes"] = drop_ops.drop_masks_lanes
     return out
 
 
@@ -1886,6 +2497,15 @@ def main(argv=None) -> int:
     say(f"phase 1: {torch.cuda.get_device_name(0)} (torch {torch.__version__},"
         f" CUDA {torch.version.cuda}); kernels built in {build_s:.1f} s "
         f"-> {', '.join(os.path.relpath(p, REPO) for p in libs)}")
+    if not (args.turns or only):
+        # the native C++ engine phase 4b holds the port against
+        from gossip_protocol_tpu_torch.compat import native
+        tb = time.perf_counter()
+        native.require()
+        details["native_build_s"] = time.perf_counter() - tb
+        say(f"phase 1: {native.LIB_NAME} built with make from native/ in "
+            f"{details['native_build_s']:.1f} s")
+    mark("1", t_start)
     if args.turns:
         details["turns"] = turns(args.turns, args.turns_path)
         say(json.dumps(details["turns"]))
@@ -2031,9 +2651,25 @@ def main(argv=None) -> int:
         errs["fused_overlay_tick"],
         compare_k3(k3_launch_input(cfg1m, mid.final_state)))
     del mid
+    mark("2 (solo kernels)", t_start)
+    # the fleet's lane axis: masked_max3 and tick_epilogue on real states
+    # of lanes with their own seeds and ticks (a silent lane among them),
+    # and the lane-axis draw
+    lane_k1 = {}
+    for b, n, lanes in LANE_K1_CASES:
+        r = compare_lane_k1(lane_k1_inputs(n, lanes, dev), t_remove=20)
+        for k, v in r["err"].items():
+            errs[k] = max(errs[k], v)
+        lane_k1[f"b{b}_n{n}"] = r["deliveries"]
+    errs["drop_masks_lanes"], lane_draws = lane_draw_checks(dev)
+    details["lane_k1_deliveries"] = lane_k1
+    say(f"phase 2: lane-axis masked_max3 + tick_epilogue (one launch each "
+        f"for the lanes) at B,N = 3,10 4,64 8,512 4,2816, deliveries a "
+        f"lane {json.dumps(lane_k1)}; {lane_draws} lane-axis draws")
     torch.cuda.synchronize()
     if any(v != 0 for v in errs.values()):
         raise AssertionError(f"kernel != plain version: {errs}")
+    mark("2 (lane axis)", t_start)
     say(f"phase 2: kernels == plain versions bit for bit "
         f"(max abs err {errs}; {k5_checked} K5 launches; {world_draws} "
         f"world draws (thresholds, groups, both; window and partition "
@@ -2042,6 +2678,7 @@ def main(argv=None) -> int:
     details["max_abs_err_phase2"] = dict(errs)
 
     main_path = MainPath()
+    mark("2", t_start)
     # ---- phase 3: graded path on the card ----------------------------
     details["phase3"] = graded_path(main_path)
 
@@ -2087,6 +2724,9 @@ def main(argv=None) -> int:
         f"{ {k: v for k, v in out4.items() if k.startswith('overlay')} }")
     details["phase4"] = out4
     details["phase4_worlds"] = world_families_card_vs_cpu(main_path)
+    mark("4", t_start)
+    details["phase4b"] = independent_engines(main_path)
+    mark("4b", t_start)
 
     # ---- phase 5: full-width runs -------------------------------------
     runs = dense_runs(main_path)
@@ -2153,6 +2793,9 @@ def main(argv=None) -> int:
     # the worlds at full width: dense (5g) and overlay (5h)
     runs["worlds_dense"] = dense_world_runs(main_path)
     runs["worlds_overlay"] = overlay_world_runs(main_path)
+    mark("5a-h", t_start)
+    runs["fleet"] = fleet_runs(main_path)
+    mark("5i", t_start)
     details["phase5"] = runs
     if args.profile:
         prof = {key: profile_run(lambda: Simulation(cfg, device="cuda").run())
@@ -2175,6 +2818,11 @@ def main(argv=None) -> int:
         prof["overlay_partition_heal_n65536"] = profile_run(
             lambda: OverlaySimulation(wide_family_cfg(
                 "overlay_partition_heal", 65536), device="cuda").run())
+        # the two fleets, profiled in phase 5i
+        prof["fleet_bench_n4096_b4"] = \
+            runs["fleet"]["bench_n4096_b4"]["profile"]
+        prof["overlay_fleet_churn65k_b8"] = \
+            runs["fleet"]["overlay_churn65k_b8"]["profile"]
         details["profile"] = prof
         say("phase 5d: profiled; device idle share " + json.dumps(
             {k: v.get("idle_share") for k, v in prof.items()})
@@ -2185,6 +2833,7 @@ def main(argv=None) -> int:
             raise AssertionError("a dense cuda run issued threefry torch "
                                  "operators")
     details["main_path_launches"] = main_path.total
+    mark("5", t_start)
 
     # ---- phase 6: kernel times on real launch inputs ------------------
     # Each kernel is timed, and held against its plain version, on the
@@ -2193,6 +2842,10 @@ def main(argv=None) -> int:
     # builds it.
     timing = dense_timing(dev, describe=True)
     timing.update(world_timing(dev))
+    timing["fleet"] = fleet_timing(dev)
+    for name, tm in timing["fleet"].items():
+        key = "drop_masks_lanes" if name == "drop_masks" else name
+        errs[key] = max(errs[key], tm["max_abs_err"])
     otiming, oerrs = overlay_timing(ocfg)
     timing.update(otiming)
     for name, e in oerrs.items():
@@ -2281,6 +2934,25 @@ def main(argv=None) -> int:
             "max_abs_err": errs[name], "ms": tm["ms"],
             "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
             "bound_by": tm["bound"][1], "library_ms": None, "shape": shape})
+    # the lane-axis launches of the fleets (phase 5i): rows of their own;
+    # the solo rows keep the solo launches
+    lane = runs["fleet"]["lane_axis_launches"]
+    for name, wrapper in (("masked_max3", "masked_max3"),
+                          ("tick_epilogue", "tick_epilogue"),
+                          ("drop_masks", "drop_masks_lanes"),
+                          ("grid_overlay_ticks", "grid_overlay_ticks")):
+        tm = timing["fleet"][name]
+        base = next(k for k in kernels if k["name"] == name)
+        if wrapper != "drop_masks_lanes":
+            base["launches"] -= lane[wrapper]
+        kernels.append({
+            **base, "name": f"{name}/fleet", "launches": lane[wrapper],
+            "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
+            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
+            "bound_by": tm["bound"][1], "library_ms": None,
+            "shape": {k: tm[k] for k in ("n", "batch", "tick", "s_ticks")
+                      if k in tm}})
+        kernels[-1].pop("needed_bytes_bound_ms", None)
     for key in ("k1", "k1_n1024", "k1_n10", "k1_asym4096"):
         t = timing[key]
         say(f"phase 6: masked_max3 at N={t['n']}, tick {t['tick']}: "
@@ -2292,6 +2964,8 @@ def main(argv=None) -> int:
     say(json.dumps({"kernels": kernels}))
     details["kernels"] = kernels
 
+    mark("6", t_start)
+    details["phase_seconds"] = PHASE_SECONDS
     details["seconds"] = time.perf_counter() - t_start
     if args.details:
         write_details(args.details, details)

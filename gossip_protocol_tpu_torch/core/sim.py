@@ -8,8 +8,13 @@ Modes:
   the device and is timed end to end, with a device synchronize inside
   the timed region.
 
-Each chunk's masks are copied to the host directly; the JAX package's
-sparse packing (``_pack_sparse``) is not ported.
+Each chunk's masks cross to the host sparse (the JAX package's
+``_pack_sparse`` rule, as torch operations): the subject axis is
+bit-packed into int32 words, the nonzero words are compacted on the
+device without a sync, and only they cross, through pinned host
+buffers; a chunk denser than the word cap falls back to the dense copy.
+The fleet (core/fleet.py) stages a whole ``(chunk * lanes, N, N)`` stack
+this way once a chunk.
 """
 
 from __future__ import annotations
@@ -30,6 +35,108 @@ from .tick import make_run
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def to_host_async(x: torch.Tensor) -> torch.Tensor:
+    """Start the copy of a device tensor into a pinned host buffer
+    (non-blocking; valid once the stream reaches it).  A CPU tensor is
+    returned as it is."""
+    if x.device.type == "cpu":
+        return x
+    out = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    out.copy_(x, non_blocking=True)
+    return out
+
+
+def _packbits(m: torch.Tensor) -> torch.Tensor:
+    """bool[C, N, N] -> the subject axis packed into int32 words, flat
+    [C * N * ceil(N / 32)]: bit b of word w is subject 32 w + b (eight
+    bits a byte, four little-endian bytes a word)."""
+    c, n, _ = m.shape
+    nw = (n + 31) // 32
+    u = m.to(torch.uint8)
+    if nw * 32 != n:
+        u = torch.nn.functional.pad(u, (0, nw * 32 - n))
+    # 1, 2, 4, ... 128, made on the device (no host copy)
+    weights = torch.pow(2, torch.arange(8, dtype=torch.int32,
+                                        device=m.device)).to(torch.uint8)
+    packed = (u.view(c, n, nw * 4, 8) * weights).sum(-1, dtype=torch.uint8)
+    return packed.view(torch.int32).reshape(-1)
+
+
+def _pack_sparse(added: torch.Tensor, removed: torch.Tensor, cap: int):
+    """Device-side sparse encoding of two (C, N, N) bool event masks (the
+    JAX ``core/sim.py _pack_sparse``): the packed words of both, and the
+    first ``cap`` nonzero ones compacted.  Returns ``(idx i32[cap], vals
+    i32[cap], nz_words)``, all on the device, with no sync (the
+    compaction is a prefix sum and a scatter, not a data-dependent
+    shape); if ``nz_words > cap`` the caller falls back to the dense
+    copy (correctness never depends on the cap)."""
+    flat = torch.cat([_packbits(added), _packbits(removed)])
+    nz = flat != 0
+    nzw = nz.sum()
+    pos = torch.cumsum(nz, 0) - 1
+    # nonzero word k goes to slot pos[k] < cap; everything else to the
+    # spare slot cap, which is dropped
+    slot = torch.where(nz & (pos < cap), pos, cap)
+    idx = torch.zeros(cap + 1, dtype=torch.int64, device=flat.device)
+    idx.scatter_(0, slot, torch.arange(flat.numel(), device=flat.device))
+    idx = idx[:cap]
+    return idx.to(torch.int32), flat[idx], nzw
+
+
+def _finish_masks_host(added, removed, idx, vals, nzw, cap: int):
+    """Host half of the sparse mask transfer: consume the outputs of
+    :func:`_pack_sparse` (``nzw`` may already be a host tensor) and
+    unpack to numpy; the dense copy of the masks when the realized
+    nonzero count overflowed the cap."""
+    c, n, _ = added.shape
+    nzw = int(nzw)
+    if nzw > cap:                       # denser than the sparse budget
+        return added.cpu().numpy(), removed.cpu().numpy()
+    pair = torch.stack([idx[:nzw], vals[:nzw]])
+    pair = to_host_async(pair)
+    if added.device.type == "cuda":
+        torch.cuda.current_stream(added.device).synchronize()
+    pair = pair.numpy()
+    nw = (n + 31) // 32
+    # only the nonzero words are unpacked: word w of row r (of the 2c n
+    # rows of both stacks) holds subjects 32 w .. 32 w + 31
+    bits = np.unpackbits(pair[1].view(np.uint32).view(np.uint8)
+                         .reshape(-1, 4), axis=1, bitorder="little")
+    k, b = np.nonzero(bits)
+    row, word = np.divmod(pair[0][k].astype(np.int64), nw)
+    both_h = np.zeros((2 * c * n, n), bool)
+    both_h[row, word * 32 + b] = True
+    both_h = both_h.reshape(2 * c, n, n)
+    return both_h[:c], both_h[c:]
+
+
+def _masks_to_host(added, removed, cap: int):
+    """Two (C, N, N) bool masks on the device -> host numpy, sparse when
+    possible (one compaction pass over both)."""
+    c, n, _ = added.shape
+    if c == 0 or n < 2:
+        return added.cpu().numpy(), removed.cpu().numpy()
+    idx, vals, nzw = _pack_sparse(added, removed, cap=cap)
+    return _finish_masks_host(added, removed, idx, vals, nzw, cap)
+
+
+def sparse_cap(length: int, n: int) -> int:
+    """The compaction's word cap for ``length`` tick planes (the JAX
+    rule: a sixteenth of the packed words, at least 2^14)."""
+    nw = (n + 31) // 32
+    return max(1 << 14, (2 * length * n * nw) // 16)
+
+
+def counters_to_host(sent: torch.Tensor, recv: torch.Tensor) -> np.ndarray:
+    """(sent, recv) stacked and copied in one transfer; int16 where the
+    counters fit (N <= 8192: a tick's counts are bounded by ~2N), as
+    the JAX package copies them."""
+    sr = torch.stack([sent, recv])
+    if sent.shape[-1] <= 8192:
+        sr = sr.to(torch.int16)
+    return sr.cpu().numpy().astype(np.int32, copy=False)
 
 
 @dataclass
@@ -124,9 +231,12 @@ class Simulation:
             length = min(self.chunk_ticks, t_end - done)
             run = make_run(cfg.replace(total_ticks=length), with_events=True)
             state, ev = run(state, sched)
-            added.append(ev.added.cpu().numpy())
-            removed.append(ev.removed.cpu().numpy())
-            sr = torch.stack([ev.sent, ev.recv]).cpu().numpy()
+            # sparse device -> host event staging
+            a_h, r_h = _masks_to_host(ev.added, ev.removed,
+                                      sparse_cap(length, cfg.n))
+            added.append(a_h)
+            removed.append(r_h)
+            sr = counters_to_host(ev.sent, ev.recv)
             sent.append(sr[0])
             recv.append(sr[1])
             done += length

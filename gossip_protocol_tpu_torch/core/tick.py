@@ -31,6 +31,14 @@ device.
 
 :func:`make_run` keeps the JAX routing precedence, corner -> mega ->
 per-tick (``core/tick.py:529-573``).
+
+:func:`make_fleet_tick` is the same tick over B lanes of a fleet at one
+shared clock (core/fleet.py), where the JAX package runs the XLA tick
+under ``jax.vmap``: every state and schedule tensor carries a leading
+lane axis, and the K1 route makes three launches a tick for the whole
+fleet (``drop_masks_lanes``, ``masked_max3``, ``tick_epilogue``, each
+with a lane axis).  The composable worlds run their lanes one at a time
+through :func:`_composable_phases` (:func:`composable_lanes`, counted).
 """
 
 from __future__ import annotations
@@ -42,10 +50,30 @@ import torch
 from ..config import INTRODUCER, SimConfig
 from ..ops.cuda.tickfused import tick_epilogue
 from ..ops.detect import staleness_mask
-from ..ops.drop import tick_drop_masks
+from ..ops.drop import drop_masks_lanes, tick_drop_masks
 from ..ops.merge import masked_max3
-from ..ops.vector import vector_step
+from ..ops.vector import VectorStep, vector_step
 from ..state import Schedule, WorldState
+
+
+#: whole-run builds so far (see :func:`run_build_count`)
+_BUILD_COUNT = 0
+
+
+def run_build_count() -> int:
+    """Number of whole-run functions built so far: the misses of the
+    fleet program caches (core/fleet.py, models/overlay.py
+    ``make_overlay_fleet_run``), each recorded by :func:`note_build`.
+    The JAX package's ``make_run`` counts its own cache misses too; the
+    port's ``make_run`` keeps no cache (its closure costs nothing to
+    build), so it adds nothing here."""
+    return _BUILD_COUNT
+
+
+def note_build() -> None:
+    """Record a whole-run build (a fleet program cache miss)."""
+    global _BUILD_COUNT
+    _BUILD_COUNT += 1
 
 
 @dataclass
@@ -248,6 +276,107 @@ def _composable_phases(cfg: SimConfig, state: WorldState, sched: Schedule,
     added = known1 & ~exists if with_events else None
     return (known2, hb1, ts1, gossip_next, gossip_age, sent_row, recv_row,
             added, stale if with_events else None)
+
+
+def composable_lanes(cfg: SimConfig, state: WorldState, lane_scheds, v,
+                     known, hb, ts, gdrop, t: int, with_events: bool):
+    """The composable worlds' matrix phases of a fleet tick, one lane at a
+    time through :func:`_composable_phases` (the lane axis of the K1
+    route does not reach these worlds' torch phases yet).  Adds one to
+    ``composable_lanes.calls`` a lane.  Returns the stacked outputs of
+    :func:`_composable_phases`."""
+    outs = []
+    for b, sched_b in enumerate(lane_scheds):
+        lane = WorldState(
+            tick=t, in_group=state.in_group[b], own_hb=state.own_hb[b],
+            known=state.known[b], hb=state.hb[b], ts=state.ts[b],
+            gossip=state.gossip[b], gossip_age=state.gossip_age[b],
+            joinreq=state.joinreq[b], joinrep=state.joinrep[b],
+            rng=state.rng[b])
+        v_b = VectorStep(**{f: getattr(v, f)[b]
+                            for f in VectorStep.__dataclass_fields__})
+        outs.append(_composable_phases(cfg, lane, sched_b, v_b, known[b],
+                                       hb[b], ts[b], gdrop[b], t,
+                                       with_events))
+        composable_lanes.calls += 1
+    return tuple(None if col[0] is None else torch.stack(col)
+                 for col in zip(*outs))
+
+
+composable_lanes.calls = 0
+
+
+def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
+                    n_active: int | None = None):
+    """Build ``tick(states, sched, drop, lane_scheds=None) -> (states',
+    TickEvents)`` over B lanes at one shared clock.
+
+    ``states`` is a stacked :class:`WorldState` (one host clock, tensors
+    [B, ...], ``rng`` uint32[B, 2]); ``sched`` a stacked
+    :class:`Schedule` (columns [B, N], planes [B, N, N]; its scalars are
+    config values every lane shares); ``drop`` the fleet's
+    :class:`~..ops.drop.LaneDrop` (each lane's key, probability and
+    windows); ``lane_scheds`` the B per-lane schedules, which only the
+    composable worlds read.  Events come back as [B, N, N] masks and
+    [B, N] counters.  Each lane equals :func:`make_tick` of its own
+    state and schedule, bit for bit.
+    """
+    n = cfg.n
+    na = n if n_active is None else n_active
+    if not 0 < na <= n:
+        raise ValueError(f"n_active={na} outside (0, {n}]")
+    t_remove = cfg.t_remove
+    flap = cfg.flap_rate > 0
+    churn = cfg.rejoin_after is not None or flap
+    partition = cfg.partition_groups >= 2
+    asym = cfg.asym_drop
+    composable = cfg.zombie or cfg.byz_rate > 0 or cfg.link_latency > 0
+    if (partition or asym) and na < n:
+        raise ValueError("the partition and asym worlds draw at full width")
+
+    def tick(state: WorldState, sched: Schedule, drop, lane_scheds=None):
+        t = state.tick
+        dev = state.device
+        # one launch for every lane's draw
+        gdrop, qdrop, pdrop = drop_masks_lanes(
+            drop, t, n, na, dev, link_prob=sched.link_prob if asym else None,
+            group=sched.part_group if partition else None)
+        v = vector_step(t, sched.start_tick, sched.fail_tick,
+                        sched.rejoin_tick, state.in_group, state.own_hb,
+                        state.joinreq, state.joinrep, qdrop, pdrop,
+                        churn=churn,
+                        flap=sched.flap_state(t) if flap else None)
+        known, hb, ts = state.known, state.hb, state.ts
+        if churn:
+            keep = ~v.rejoining[..., None]
+            known, hb, ts = known & keep, hb * keep, ts * keep
+        if composable:
+            if lane_scheds is None:
+                raise ValueError("the composable worlds need the lanes' "
+                                 "own schedules (lane_scheds)")
+            known, hb, ts, gossip_next, gossip_age, gsent_row, grecv_row, \
+                added, removed = composable_lanes(
+                    cfg, state, lane_scheds, v, known, hb, ts, gdrop, t,
+                    with_events)
+        else:
+            m_all, m_fresh, t_fresh = masked_max3(
+                state.gossip, v.proc, known, hb, ts, t, t_remove=t_remove)
+            known, hb, ts, gossip_next, gsent_row, grecv_row, added, \
+                removed = tick_epilogue(
+                    m_all, m_fresh, t_fresh, state.gossip, v.proc, known,
+                    hb, ts, gdrop, v.ops, v.jrep, v.jreq, v.hold, t,
+                    t_remove=t_remove, with_events=with_events)
+            gossip_age = state.gossip_age
+        events = TickEvents(added=added, removed=removed,
+                            sent=(gsent_row + v.sent).to(torch.int32),
+                            recv=(grecv_row + v.recv).to(torch.int32))
+        new_state = WorldState(
+            tick=t + 1, in_group=v.in_group, own_hb=v.own_hb, known=known,
+            hb=hb, ts=ts, gossip=gossip_next, gossip_age=gossip_age,
+            joinreq=v.joinreq, joinrep=v.joinrep, rng=state.rng)
+        return new_state, events
+
+    return tick
 
 
 def stack_events(events: list, with_events: bool, n: int,

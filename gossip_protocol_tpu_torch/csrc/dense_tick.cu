@@ -15,6 +15,13 @@
 //                      launch (vector step, churn wipe, masked_max3,
 //                      epilogue), its phases separated by grid barriers.
 //
+// The K1 pair also takes a leading lane axis: B independent N x N
+// simulations of a fleet at one shared clock (gossip_protocol_tpu_torch/
+// core/fleet.py) in one launch each, the lane one more grid coordinate
+// (the merge's z = 3 lane + plane, the epilogue's z = lane) and every
+// plane, vector, row and merge scratch offset by its lane.  The JAX
+// package's fleet runs its XLA tick under vmap here instead.
+//
 // Every value is an integer or a 0/1 byte, so each kernel agrees with its
 // plain PyTorch version bit for bit.
 //
@@ -133,12 +140,27 @@ __device__ __forceinline__ void merge_prep_tile(const uint8_t* gossip,
   if (tx == 0 && ty == 0) tany[(size_t)rt * words + w] = any;
 }
 
+__host__ __device__ inline int words_for(int n) {
+  return (n + WORD - 1) / WORD;
+}
+
+// the merge scratch of one lane: dbits u32[words, n], then tany
+// u32[words, words] (the receiver tiles of 32 are as many as the sender
+// words); a fleet's lanes follow one another
+__host__ __device__ inline size_t merge_scratch_words(int n) {
+  const size_t words = words_for(n);
+  return words * n + words * words;
+}
+
+// grid (words, words, B): lane blockIdx.z of a fleet (B = 1 solo)
 __global__ void __launch_bounds__(256)
 merge_prep_kernel(const uint8_t* __restrict__ gossip,
                   const uint8_t* __restrict__ proc,
-                  uint32_t* __restrict__ dbits, uint32_t* __restrict__ tany,
-                  int n, int words) {
-  merge_prep_tile(gossip, proc, dbits, tany, n, words, blockIdx.x,
+                  uint32_t* __restrict__ scratch, int n, int words) {
+  const size_t lane = blockIdx.z, nn = (size_t)n * n;
+  uint32_t* dbits = scratch + lane * merge_scratch_words(n);
+  merge_prep_tile(gossip + lane * nn, proc + lane * n, dbits,
+                  dbits + (size_t)words * n, n, words, blockIdx.x,
                   blockIdx.y, threadIdx.x, threadIdx.y);
 }
 
@@ -329,17 +351,21 @@ __device__ __forceinline__ void descent_tile(
   }
 }
 
+// grid (row tiles, column tiles, 3 B): plane blockIdx.z % 3 of lane
+// blockIdx.z / 3 (B = 1 solo); every lane reads its own scratch
 __global__ void __launch_bounds__(MM_THREADS, 2)
-masked_max3_kernel(const uint32_t* __restrict__ dbits,
-                   const uint32_t* __restrict__ tany,
+masked_max3_kernel(const uint32_t* __restrict__ scratch,
                    const uint8_t* __restrict__ known,
                    const int32_t* __restrict__ hb,
                    const int32_t* __restrict__ ts,
                    int32_t* __restrict__ m_all, int32_t* __restrict__ m_fresh,
                    int32_t* __restrict__ t_fresh, int n, int words, int now,
                    int t_remove) {
-  descent_tile(dbits, tany, known, hb, ts, m_all, m_fresh, t_fresh, n, words,
-               now, t_remove, blockIdx.x, blockIdx.y, blockIdx.z);
+  const size_t lane = blockIdx.z / 3, nn = (size_t)n * n, o = lane * nn;
+  const uint32_t* dbits = scratch + lane * merge_scratch_words(n);
+  descent_tile(dbits, dbits + (size_t)words * n, known + o, hb + o, ts + o,
+               m_all + o, m_fresh + o, t_fresh + o, n, words, now, t_remove,
+               blockIdx.x, blockIdx.y, blockIdx.z % 3);
 }
 
 struct CellOut {
@@ -562,10 +588,15 @@ tick_epilogue_kernel(const int32_t* __restrict__ m_all,
                      uint8_t* __restrict__ added_o,
                      uint8_t* __restrict__ removed_o,
                      int n, int t, int t_remove, int store_rows) {
-  epilogue_tile<VEC>(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
-                     gdrop, ops, jrep, jreq, hold, known_o, hb_o, ts_o,
-                     gossip_o, sent_row, recv_row, added_o, removed_o, n, t,
-                     t_remove, store_rows, blockIdx.x, blockIdx.y);
+  // lane blockIdx.z of a fleet (B = 1 solo): its planes, vectors and rows
+  const size_t lane = blockIdx.z, o = lane * n * (size_t)n, v = lane * n;
+  epilogue_tile<VEC>(m_all + o, m_fresh + o, t_fresh + o, gossip + o,
+                     proc + v, known + o, hb + o, ts + o, gdrop + o, ops + v,
+                     jrep + v, jreq + v, hold + v, known_o + o, hb_o + o,
+                     ts_o + o, gossip_o + o, sent_row + v, recv_row + v,
+                     added_o ? added_o + o : nullptr,
+                     removed_o ? removed_o + o : nullptr, n, t, t_remove,
+                     store_rows, blockIdx.x, blockIdx.y);
 }
 
 // K2's per-tick vector step (ops/pallas/dense_mega.py:146-207 and the
@@ -623,10 +654,6 @@ __device__ __forceinline__ void vec_rows(int32_t* aux, const uint8_t* qdrop,
   atomicAdd(&req_total, my_req);
   __syncthreads();
   if (threadIdx.x == 0) { sent_s[0] += rep_total; recv_s[0] += req_total; }
-}
-
-__host__ __device__ inline int words_for(int n) {
-  return (n + WORD - 1) / WORD;
 }
 
 // K2's launch: state planes updated in place (gossip ping-pongs with
@@ -781,32 +808,26 @@ cudaError_t launch_dense_mega(K2Args& a, int blocks, cudaStream_t stream) {
 }
 
 
-// the merge scratch: dbits u32[words, n], then tany u32[words, words]
-// (the receiver tiles of 32 are as many as the sender words)
-int merge_scratch_words(int n) {
-  const int words = words_for(n);
-  return words * n + words * words;
-}
-
+// b lanes, each an independent N x N merge: the lane is one more grid
+// coordinate of both launches
 cudaError_t launch_masked_max3(const uint8_t* gossip, const uint8_t* proc,
                                const uint8_t* known, const int32_t* hb,
                                const int32_t* ts, int32_t* m_all,
                                int32_t* m_fresh, int32_t* t_fresh,
-                               uint32_t* scratch, int n, int t, int t_remove,
-                               cudaStream_t stream) {
+                               uint32_t* scratch, int n, int b, int t,
+                               int t_remove, cudaStream_t stream) {
   const int words = words_for(n);
-  uint32_t* dbits = scratch;
-  uint32_t* tany = scratch + (size_t)words * n;
-  merge_prep_kernel<<<dim3(words, words), dim3(WORD, 8), 0, stream>>>(
-      gossip, proc, dbits, tany, n, words);
+  const size_t smem = (size_t)words * sizeof(int);
+  if (b < 1 || b > 65535 / 3 || smem > 48 * 1024)
+    return cudaErrorInvalidValue;
+  merge_prep_kernel<<<dim3(words, words, b), dim3(WORD, 8), 0, stream>>>(
+      gossip, proc, scratch, n, words);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem = (size_t)words * sizeof(int);
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  const dim3 grid((n + MM_ROWS - 1) / MM_ROWS, (n + MM_COLS - 1) / MM_COLS, 3);
+  const dim3 grid((n + MM_ROWS - 1) / MM_ROWS, (n + MM_COLS - 1) / MM_COLS,
+                  3 * b);
   masked_max3_kernel<<<grid, MM_THREADS, smem, stream>>>(
-      dbits, tany, known, hb, ts, m_all, m_fresh, t_fresh, n, words, t,
-      t_remove);
+      scratch, known, hb, ts, m_all, m_fresh, t_fresh, n, words, t, t_remove);
   return cudaGetLastError();
 }
 
@@ -820,13 +841,16 @@ cudaError_t launch_epilogue(const int32_t* m_all, const int32_t* m_fresh,
                             int32_t* hb_o, int32_t* ts_o, uint8_t* gossip_o,
                             int32_t* sent_row, int32_t* recv_row,
                             uint8_t* added_o, uint8_t* removed_o, int n,
-                            int t, int t_remove, cudaStream_t stream) {
-  const dim3 grid((n + EP_COLS - 1) / EP_COLS, (n + EP_ROWS - 1) / EP_ROWS);
-  // the rows are stored by the kernel when one block spans a row, else
-  // zeroed here and added to
+                            int b, int t, int t_remove, cudaStream_t stream) {
+  if (b < 1 || b > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((n + EP_COLS - 1) / EP_COLS, (n + EP_ROWS - 1) / EP_ROWS,
+                  b);
+  // the rows are stored by the kernel when one block spans a row (each
+  // lane's rows by that lane's blocks), else zeroed here, all b lanes'
+  // at once, and added to
   const int store = grid.x == 1;
   if (!store) {
-    const size_t row = (size_t)n * sizeof(int32_t);
+    const size_t row = (size_t)b * n * sizeof(int32_t);
     cudaError_t err = cudaMemsetAsync(sent_row, 0, row, stream);
     if (err == cudaSuccess) err = cudaMemsetAsync(recv_row, 0, row, stream);
     if (err != cudaSuccess) return err;
@@ -852,22 +876,27 @@ const char* gp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// i32 words of the scratch gp_masked_max3 takes
-int gp_merge_scratch_words(int n) { return merge_scratch_words(n); }
+// i32 words of the scratch gp_masked_max3 takes for one lane
+int gp_merge_scratch_words(int n) {
+  return static_cast<int>(merge_scratch_words(n));
+}
 
-// scratch: gp_merge_scratch_words(n) i32 words
+// b lanes (1 solo): gossip/known u8[b, n, n], proc u8[b, n], hb/ts and the
+// three outputs i32[b, n, n]; scratch b * gp_merge_scratch_words(n) i32
+// words.  now and t_remove are shared by the lanes.
 int gp_masked_max3(const uint8_t* gossip, const uint8_t* proc,
                    const uint8_t* known, const int32_t* hb, const int32_t* ts,
                    int32_t* m_all, int32_t* m_fresh, int32_t* t_fresh,
-                   int32_t* scratch, int n, int t, int t_remove,
+                   int32_t* scratch, int n, int b, int t, int t_remove,
                    void* stream) {
   return static_cast<int>(launch_masked_max3(
       gossip, proc, known, hb, ts, m_all, m_fresh, t_fresh,
-      reinterpret_cast<uint32_t*>(scratch), n, t, t_remove,
+      reinterpret_cast<uint32_t*>(scratch), n, b, t, t_remove,
       static_cast<cudaStream_t>(stream)));
 }
 
-// sent_row/recv_row are written (zeroed on the stream, then added to)
+// b lanes (1 solo), every plane [b, n, n] and vector [b, n]; sent_row and
+// recv_row i32[b, n] are written (zeroed on the stream, then added to)
 int gp_tick_epilogue(const int32_t* m_all, const int32_t* m_fresh,
                      const int32_t* t_fresh, const uint8_t* gossip,
                      const uint8_t* proc, const uint8_t* known,
@@ -877,11 +906,11 @@ int gp_tick_epilogue(const int32_t* m_all, const int32_t* m_fresh,
                      const uint8_t* hold, uint8_t* known_o, int32_t* hb_o,
                      int32_t* ts_o, uint8_t* gossip_o, int32_t* sent_row,
                      int32_t* recv_row, uint8_t* added_o, uint8_t* removed_o,
-                     int n, int t, int t_remove, void* stream) {
+                     int n, int b, int t, int t_remove, void* stream) {
   return static_cast<int>(launch_epilogue(
       m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop, ops, jrep,
       jreq, hold, known_o, hb_o, ts_o, gossip_o, sent_row, recv_row, added_o,
-      removed_o, n, t, t_remove, static_cast<cudaStream_t>(stream)));
+      removed_o, n, b, t, t_remove, static_cast<cudaStream_t>(stream)));
 }
 
 // K2: s_ticks whole ticks from t0 in one cooperative launch.  known/gossip

@@ -26,6 +26,13 @@
 //          tick whose window is closed but whose partition is open writes
 //          the partition mask and draws nothing.
 //
+//   gp_drop_masks_lanes  one tick of a fleet of B runs in one launch (the
+//                  lane is the grid's second coordinate): lane b draws with
+//                  its own key, probability, window, thresholds and groups
+//                  at the shared clock, as each lane of the JAX package's
+//                  vmapped fleet tick draws (gossip_protocol_tpu/core/
+//                  fleet.py).  Its bound is B times one tick's.
+//
 // The JAX package leaves this draw to XLA (gossip_protocol_tpu/ops/drop.py
 // tick_drop_masks: jax.random.uniform under a lax.cond), not to a Pallas
 // kernel; in the port's torch form it is about 100 elementwise int64
@@ -86,26 +93,15 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
 }
 
-// grid (ceil((N + 2) * ceil(N / 4) / THREADS), S): thread i of z-slice s
-// owns output row r = i / ceil(N / 4) (N gossip rows, then JOINREQ, then
-// JOINREP) and its columns 4 (i % ceil(N / 4)) .. + 3.  thr and group may
-// be null (no asym / no partition world).
+// Thread i of one tick's draw: output row r = i / ceil(N / 4) (N gossip
+// rows, then JOINREQ, then JOINREP) and its columns 4 (i % ceil(N / 4))
+// .. + 3.  g/q/p are that tick's planes, (k0, k1) its folded key (read
+// only when `on`), thr and group null without the asym / partition world.
 template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-drop_masks_kernel(uint8_t* __restrict__ g, uint8_t* __restrict__ q,
-                  uint8_t* __restrict__ p, const float* __restrict__ thr,
-                  const int32_t* __restrict__ group, DropArgs a) {
-  __shared__ uint32_t key_s[2];
-  const int s = blockIdx.y, n = a.n, na = a.na;
-  const bool on = (a.active >> s) & 1u;
-  const bool part = group != nullptr && ((a.part_active >> s) & 1u);
-  if (on && threadIdx.x == 0) {    // fold_in(key, t) = threefry(key, (0, t))
-    uint32_t x0 = 0u, x1 = (uint32_t)(a.t0 + s);
-    threefry2x32(a.k0, a.k1, x0, x1);
-    key_s[0] = x0;
-    key_s[1] = x1;
-  }
-  __syncthreads();
+__device__ __forceinline__ void draw_quad(
+    uint8_t* g, uint8_t* q, uint8_t* p, const float* __restrict__ thr,
+    const int32_t* __restrict__ group, bool on, bool part, uint32_t k0,
+    uint32_t k1, float prob, int n, int na) {
   const int qpr = (n + 3) / 4;
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= (long long)(n + 2) * qpr) return;
@@ -114,7 +110,6 @@ drop_masks_kernel(uint8_t* __restrict__ g, uint8_t* __restrict__ q,
   const int dr = r < n ? (r < na ? r : -1) : na + (r - n);
   uint32_t out = 0u;
   if (on && dr >= 0) {
-    const uint32_t k0 = key_s[0], k1 = key_s[1];
     const uint64_t base = (uint64_t)dr * (uint64_t)na;
     uint32_t x0[4], x1[4];
 #pragma unroll
@@ -127,7 +122,7 @@ drop_masks_kernel(uint8_t* __restrict__ g, uint8_t* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = c + e;
-      float pr = a.prob;
+      float pr = prob;
       if (thr != nullptr && col < na)   // thresholds come at na == n
         pr = r < n ? thr[(size_t)r * n + col]
                    : (r == n ? thr[(size_t)col * n + INTRODUCER]
@@ -143,8 +138,7 @@ drop_masks_kernel(uint8_t* __restrict__ g, uint8_t* __restrict__ q,
     for (int e = 0; e < 4; ++e)
       if (c + e < n) out |= (uint32_t)(group[c + e] != gr) << (8 * e);
   }
-  uint8_t* dst = r < n ? g + ((size_t)s * n + r) * n
-                       : (r == n ? q : p) + (size_t)s * n;
+  uint8_t* dst = r < n ? g + (size_t)r * n : (r == n ? q : p);
   if (VEC) {
     *reinterpret_cast<uint32_t*>(dst + c) = out;
   } else {
@@ -152,6 +146,66 @@ drop_masks_kernel(uint8_t* __restrict__ g, uint8_t* __restrict__ q,
     for (int e = 0; e < 4; ++e)
       if (c + e < n) dst[c + e] = (out >> (8 * e)) & 0xFFu;
   }
+}
+
+// fold_in(key, t) = threefry(key, (0, t)), by thread 0 into key_s
+__device__ __forceinline__ void fold_key(uint32_t k0, uint32_t k1, int t,
+                                         uint32_t* key_s) {
+  if (threadIdx.x == 0) {
+    uint32_t x0 = 0u, x1 = (uint32_t)t;
+    threefry2x32(k0, k1, x0, x1);
+    key_s[0] = x0;
+    key_s[1] = x1;
+  }
+  __syncthreads();
+}
+
+// grid (ceil((N + 2) * ceil(N / 4) / THREADS), S): z-slice s draws tick
+// t0 + s of one run.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+drop_masks_kernel(uint8_t* __restrict__ g, uint8_t* __restrict__ q,
+                  uint8_t* __restrict__ p, const float* __restrict__ thr,
+                  const int32_t* __restrict__ group, DropArgs a) {
+  __shared__ uint32_t key_s[2];
+  const int s = blockIdx.y, n = a.n;
+  const bool on = (a.active >> s) & 1u;
+  const bool part = group != nullptr && ((a.part_active >> s) & 1u);
+  if (on) fold_key(a.k0, a.k1, a.t0 + s, key_s);
+  const size_t nn = (size_t)n * n;
+  draw_quad<VEC>(g + s * nn, q + (size_t)s * n, p + (size_t)s * n, thr,
+                 group, on, part, key_s[0], key_s[1], a.prob, n, a.na);
+}
+
+// A fleet's tick: lane b's run key, probability and window flags come
+// from device tables the fleet uploads once a run, so a tick passes only
+// its clock.
+struct LaneArgs {
+  const uint32_t* keys;     // u32[B, 2] each lane's PRNGKey(seed)
+  const float* prob;        // f32[B] each lane's MSG_DROP_PROB
+  const uint8_t* active;    // drop window of lane b: active[b * stride + ti]
+  const uint8_t* part;      // partition window, same layout (or null)
+  int t, ti, stride;        // the clock, its table column, the lane stride
+  int n, na;                // output width, draw width (na <= n)
+};
+
+// grid (ceil((N + 2) * ceil(N / 4) / THREADS), B): z-slice b draws lane b
+// at the shared clock t; thr (f32[B, N, N]) and group (i32[B, N]) per lane.
+template <bool VEC>
+__global__ void __launch_bounds__(THREADS)
+drop_lanes_kernel(uint8_t* __restrict__ g, uint8_t* __restrict__ q,
+                  uint8_t* __restrict__ p, const float* __restrict__ thr,
+                  const int32_t* __restrict__ group, LaneArgs a) {
+  __shared__ uint32_t key_s[2];
+  const int b = blockIdx.y, n = a.n;
+  const size_t row = (size_t)b * a.stride + a.ti, nn = (size_t)n * n;
+  const bool on = a.active[row] != 0;
+  const bool part = group != nullptr && a.part[row] != 0;
+  if (on) fold_key(a.keys[2 * b], a.keys[2 * b + 1], a.t, key_s);
+  draw_quad<VEC>(g + b * nn, q + (size_t)b * n, p + (size_t)b * n,
+                 thr ? thr + b * nn : nullptr,
+                 group ? group + (size_t)b * n : nullptr, on, part, key_s[0],
+                 key_s[1], a.prob[b], n, a.na);
 }
 
 }  // namespace
@@ -190,6 +244,44 @@ int gp_drop_masks(uint8_t* g, uint8_t* q, uint8_t* p, const float* thr,
                                                           group, a);
   else
     drop_masks_kernel<false><<<grid, THREADS, 0, stream>>>(g, q, p, thr,
+                                                           group, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One tick t of b lanes in one launch: g u8[b, N, N], q/p u8[b, N]
+// (written whole); keys u32[b, 2], prob f32[b]; lane l's drop window is
+// open where active[l * stride + ti] (ti = t clamped to the table, stride
+// 0 when the lanes share one window), its partition where part[...] (same
+// layout; null without the partition world).  thr (f32[b, N, N]) and
+// group (i32[b, N]) optional, both only at na == n.
+int gp_drop_masks_lanes(uint8_t* g, uint8_t* q, uint8_t* p, const float* thr,
+                        const int32_t* group, const uint32_t* keys,
+                        const float* prob, const uint8_t* active,
+                        const uint8_t* part, int t, int ti, int stride,
+                        int n, int na, int b, void* stream_ptr) {
+  if (n < 1 || na < 1 || na > n || b < 1 || b > 65535 || ti < 0 ||
+      stride < 0 || keys == nullptr || prob == nullptr || active == nullptr ||
+      ((thr != nullptr || group != nullptr) && na != n) ||
+      (group != nullptr && part == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  LaneArgs a;
+  a.keys = keys;
+  a.prob = prob;
+  a.active = active;
+  a.part = part;
+  a.t = t;
+  a.ti = ti;
+  a.stride = stride;
+  a.n = n;
+  a.na = na;
+  const long long quads = (long long)(n + 2) * ((n + 3) / 4);
+  const dim3 grid((unsigned)((quads + THREADS - 1) / THREADS), b);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n % 4 == 0)
+    drop_lanes_kernel<true><<<grid, THREADS, 0, stream>>>(g, q, p, thr, group,
+                                                          a);
+  else
+    drop_lanes_kernel<false><<<grid, THREADS, 0, stream>>>(g, q, p, thr,
                                                            group, a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -176,6 +176,41 @@ def _default_runner(conf: str, workdir: str, device=None) -> None:
 SCENARIOS = ("singlefailure", "multifailure", "msgdropsinglefailure")
 
 
+def grade_all_fleet(testcases_dir: str = "testcases", workdir: str = ".",
+                    device=None) -> dict:
+    """Grade the three shipped scenarios from one fleet run (the JAX
+    ``grade_all_fleet``).
+
+    The scenarios share a fleet shape (N=10, 700 ticks; their single /
+    multi / drop differences are all schedule data), so they run as one
+    B=3 :class:`~.core.fleet.FleetSimulation` on ``device`` (``cuda``
+    unless ``cpu``): one draw, one merge and one epilogue launch a tick
+    for the three lanes on a card.  Per-lane events are bit-identical
+    to the solo runs, so the grades and totals equal :func:`grade_all`'s.
+    The command line has no switch for it, as in the JAX package.
+    """
+    from .config import SimConfig
+    from .core.fleet import FleetSimulation
+
+    cfgs = [SimConfig.from_conf(os.path.join(testcases_dir, f"{s}.conf"))
+            for s in SCENARIOS]
+    fleet = FleetSimulation(cfgs[0], device=device).run(configs=cfgs)
+    dbg = os.path.join(workdir, "dbg.log")
+    results = {}
+    for name, lane in zip(SCENARIOS, fleet.lanes):
+        lane.write_logs(workdir)
+        if name == "singlefailure":
+            results[name] = grade_single(dbg)
+        elif name == "multifailure":
+            results[name] = grade_multi(dbg)
+        else:
+            results[name] = grade_single(dbg, join_pts=15, comp_pts=15,
+                                         acc_pts=None)
+    results["total"] = sum(r.points for r in results.values()
+                           if isinstance(r, ScenarioGrade))
+    return results
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Grade the three scenarios "

@@ -239,7 +239,8 @@ def world_flags(cfg: SimConfig) -> WorldFlags | None:
                       byz=cfg.byz_rate > 0, latency=cfg.link_latency)
 
 
-def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick):
+def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick,
+                      with_coverage: bool | None = None):
     """Build ``tick(state, sched, cols=None) -> (state', metrics i32[9])``.
 
     ``exchange`` is K3 (the kernel for CUDA tensors, its plain version
@@ -249,7 +250,8 @@ def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick):
     world config never calls ``exchange``: its (N, K) phase is
     ``overlay_world_exchange`` (the JAX package's XLA tick).  The
     per-tick ``live_uncovered`` histogram is tracked for N <=
-    COVERAGE_N_LIMIT, else reported as -1.
+    COVERAGE_N_LIMIT, else reported as -1; ``with_coverage`` overrides
+    (the fleet passes False, as the JAX fleet does).
     """
     n = cfg.n
     k, f = resolved_dims(cfg)
@@ -264,7 +266,8 @@ def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick):
         raise ValueError("a world config runs the worlds' exchange, not K3 "
                          "or a stand-in for it")
     kw = dict(k=k, f=f, t_remove=cfg.t_remove, exchange=exchange,
-              with_coverage=n <= COVERAGE_N_LIMIT, worlds=worlds,
+              with_coverage=(n <= COVERAGE_N_LIMIT if with_coverage is None
+                             else with_coverage), worlds=worlds,
               **tick_flags(cfg))
     intro_cache = {}
 
@@ -336,6 +339,76 @@ def make_overlay_run(cfg: SimConfig, length: int | None = None, *,
             (0, len(METRIC_FIELDS)), dtype=torch.int32, device=state.device)
         return state, OverlayMetrics.from_rows(met)
 
+    return run
+
+
+# ------------------------------------------------------------------ fleet
+
+#: fleet run closures by (seed-stripped config, batch, length, route,
+#: start tick); misses count on core/tick.py run_build_count
+_OVERLAY_FLEET_CACHE: dict = {}
+
+
+def make_overlay_fleet_run(cfg: SimConfig, batch: int,
+                           length: int | None = None, start_tick: int = 0):
+    """``run(states, scheds) -> (finals, OverlayMetrics[batch, length])``
+    over ``batch`` lanes of one config shape at one shared clock:
+    ``states`` a stacked :class:`OverlayState` (``models/overlay_grid.py
+    stack_states``), ``scheds`` the B lane schedules.
+
+    Routing (core/fleet.py is the orchestrator), the same on ``cuda``
+    and ``cpu``:
+
+    * where :func:`~.overlay_grid.grid_supported` holds, K5's leading
+      lane axis (:func:`~.overlay_grid.make_grid_fleet_run`): one K5
+      call a launch for the whole fleet, the plan segmented from
+      ``start_tick``;
+    * elsewhere (the worlds, K > 64 or F > 8) each lane runs the
+      per-tick route (K3, or the worlds' exchange) in turn, with the
+      per-tick ``live_uncovered`` off (-1), as the JAX fleet's vmapped
+      XLA tick reports it.
+
+    Each lane equals :func:`make_overlay_run` of its schedule bit for
+    bit, ``live_uncovered`` aside.
+    """
+    from ..core.tick import note_build
+    from .overlay_grid import (grid_supported, lane_state,
+                               make_grid_fleet_run, stack_states)
+    length = cfg.total_ticks if length is None else length
+    grid = grid_supported(cfg)
+    key = (cfg.replace(seed=0), batch, length, grid,
+           start_tick if grid else 0)
+    if key in _OVERLAY_FLEET_CACHE:
+        return _OVERLAY_FLEET_CACHE[key]
+    note_build()
+    if grid:
+        run = make_grid_fleet_run(cfg, length, batch, start_tick=start_tick)
+        _OVERLAY_FLEET_CACHE[key] = run
+        return run
+    tick = make_overlay_tick(cfg, with_coverage=False)
+
+    def run(states: OverlayState, scheds):
+        if len(scheds) != batch or states.ids.shape[0] != batch:
+            raise ValueError(f"expected {batch} lanes, got "
+                             f"{states.ids.shape[0]} states and "
+                             f"{len(scheds)} schedules")
+        finals, mets = [], []
+        for b, sched in enumerate(scheds):
+            state = lane_state(states, b)
+            cols = schedule_columns(sched, cfg.n, state.device)
+            rows = []
+            for _ in range(length):
+                state, m = tick(state, sched, cols)
+                rows.append(m)
+            finals.append(state)
+            mets.append(torch.stack(rows) if rows else torch.zeros(
+                (0, len(METRIC_FIELDS)), dtype=torch.int32,
+                device=state.device))
+        met = torch.stack(mets)
+        return stack_states(finals), OverlayMetrics(**{
+            f: met[..., j] for j, f in enumerate(METRIC_FIELDS)})
+
+    _OVERLAY_FLEET_CACHE[key] = run
     return run
 
 

@@ -931,9 +931,10 @@ def run_solo(family: str, seed: int, device=None):
 def sweep(*args, **kwargs):
     """The JAX package's fleet-scale sweep grades every
     ``(family, seed)`` variant as one ``FleetService`` run.  The port has
-    no fleet or service layer yet (ROADMAP M9/M10), so the sweep waits
-    for them; :func:`variants` and :func:`run_solo` grade the same
-    variants one run at a time."""
+    the fleet (core/fleet.py) but not the service layer that buckets the
+    variants into fleets (ROADMAP M10), so the sweep waits for it;
+    :func:`variants` and :func:`run_solo` grade the same variants one run
+    at a time."""
     raise NotImplementedError(
-        "scenarios.sweep needs the fleet service (not yet ported); grade "
-        "variants with run_solo")
+        "scenarios.sweep needs the fleet service (service/, not yet "
+        "ported); grade variants with run_solo")

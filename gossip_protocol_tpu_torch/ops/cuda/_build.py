@@ -42,14 +42,15 @@ _U = ctypes.c_uint
 #: each source is one library: its C entry points and their arguments
 SOURCES = {
     "dense_tick.cu": {
-        "gp_masked_max3": [_P] * 9 + [_I] * 3 + [_P],
+        "gp_masked_max3": [_P] * 9 + [_I] * 4 + [_P],
         "gp_merge_scratch_words": [_I],
-        "gp_tick_epilogue": [_P] * 21 + [_I] * 3 + [_P],
+        "gp_tick_epilogue": [_P] * 21 + [_I] * 4 + [_P],
         "gp_dense_mega_ticks": [_P] * 15 + [_I] * 6 + [_P],
     },
     "drop.cu": {
         "gp_drop_masks": [_P] * 5 + [_U, _U, _I, _U, _U, ctypes.c_float]
                          + [_I] * 3 + [_P],
+        "gp_drop_masks_lanes": [_P] * 9 + [_I] * 6 + [_P],
     },
     "overlay_tick.cu": {
         "gp_fused_overlay_tick": [_P] * 8 + [_I] * 6 + [_P],

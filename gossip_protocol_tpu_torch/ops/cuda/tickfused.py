@@ -77,6 +77,22 @@ def tick_epilogue_plain(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
             known4 & ~exists, stale)
 
 
+def tick_epilogue_lanes_plain(m_all, m_fresh, t_fresh, gossip, proc, known,
+                              hb, ts, gdrop, ops, jrep, jreq, live_hold,
+                              t: int, *, t_remove: int,
+                              with_events: bool = True):
+    """Plain version of the lane-axis ``tick_epilogue``: every input with
+    a leading lane axis B, :func:`tick_epilogue_plain` applied lane by
+    lane and each output stacked (None stays None)."""
+    ins = (m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop, ops,
+           jrep, jreq, live_hold)
+    outs = [tick_epilogue_plain(*(x[b] for x in ins), t, t_remove=t_remove,
+                                with_events=with_events)
+            for b in range(known.shape[0])]
+    return tuple(None if col[0] is None else torch.stack(col)
+                 for col in zip(*outs))
+
+
 def tick_epilogue(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
                   gdrop, ops, jrep, jreq, live_hold, t: int, *,
                   t_remove: int, with_events: bool = True):
@@ -87,40 +103,44 @@ def tick_epilogue(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
     this tick, the post-wipe ``known`` bool / ``hb``, ``ts`` i32 tables,
     this tick's gossip drop mask ``gdrop`` (sender-major), the row
     vectors ``ops``/``jrep`` and the column vectors ``jreq``/
-    ``live_hold`` (bool[N]), and the clock ``t``.
+    ``live_hold`` (bool[N]), and the clock ``t``.  With a leading lane
+    axis on every input ([B, N, N] planes, [B, N] vectors) it updates B
+    lanes of a fleet at the shared clock, in one launch on a card.
 
     Returns ``(known', hb', ts', gossip', sent_row, recv_row, added,
     removed)``; the event masks are None without ``with_events``.
-    CPU tensors take :func:`tick_epilogue_plain`; CUDA tensors launch
-    the kernel (or raise).
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (or raise).
     """
+    lanes = known.dim() == 3
     if known.device.type == "cpu":
-        return tick_epilogue_plain(m_all, m_fresh, t_fresh, gossip, proc,
-                                   known, hb, ts, gdrop, ops, jrep, jreq,
-                                   live_hold, t, t_remove=t_remove,
-                                   with_events=with_events)
-    n = known.shape[0]
+        fn = tick_epilogue_lanes_plain if lanes else tick_epilogue_plain
+        return fn(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
+                  gdrop, ops, jrep, jreq, live_hold, t, t_remove=t_remove,
+                  with_events=with_events)
+    n = known.shape[-1]
+    b = known.shape[0] if lanes else 1
     dev = known.device
     ins = (m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop, ops,
            jrep, jreq, live_hold)
-    i32, b8, plane, vec = torch.int32, torch.bool, (n, n), (n,)
+    lead = (b,) if lanes else ()
+    i32, b8, plane, vec = torch.int32, torch.bool, lead + (n, n), lead + (n,)
     check_args("tick_epilogue", *zip(
         ins, (i32, i32, i32, b8, b8, b8, i32, i32, b8, b8, b8, b8, b8),
         (plane,) * 4 + (vec,) + (plane,) * 4 + (vec,) * 4))
 
-    def plane(dt):
-        return torch.empty((n, n), dtype=dt, device=dev)
+    def out(shape, dt):
+        return torch.empty(shape, dtype=dt, device=dev)
 
-    known_o, gossip_o = plane(torch.bool), plane(torch.bool)
-    hb_o, ts_o = plane(torch.int32), plane(torch.int32)
-    sent_row = torch.empty(n, dtype=torch.int32, device=dev)
-    recv_row = torch.empty(n, dtype=torch.int32, device=dev)
-    added = plane(torch.bool) if with_events else None
-    removed = plane(torch.bool) if with_events else None
+    known_o, gossip_o = out(plane, torch.bool), out(plane, torch.bool)
+    hb_o, ts_o = out(plane, torch.int32), out(plane, torch.int32)
+    sent_row, recv_row = out(vec, torch.int32), out(vec, torch.int32)
+    added = out(plane, torch.bool) if with_events else None
+    removed = out(plane, torch.bool) if with_events else None
     code = library().gp_tick_epilogue(
         *(ptr(x) for x in ins), ptr(known_o), ptr(hb_o), ptr(ts_o),
         ptr(gossip_o), ptr(sent_row), ptr(recv_row), ptr(added),
-        ptr(removed), n, int(t), int(t_remove), stream_ptr(dev))
+        ptr(removed), n, b, int(t), int(t_remove), stream_ptr(dev))
     tick_epilogue.launches += 1
     check(code, "tick_epilogue")
     return known_o, hb_o, ts_o, gossip_o, sent_row, recv_row, added, removed

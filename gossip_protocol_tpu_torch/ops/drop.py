@@ -154,3 +154,125 @@ def tick_drop_masks(rng, t: int, n: int, active: bool, prob, device,
                          link_prob, group,
                          None if group is None else (part_active,))
     return g[0], q[0], p[0]
+
+
+class LaneDrop:
+    """A fleet's drop plan, one row a lane: the run keys, probabilities
+    and per-tick drop / partition windows that ``drop_masks_lanes``
+    reads.  The JAX fleet splits these into a shared (unbatched) and a
+    per-lane (vmapped) schedule (``core/fleet.py`` ``_shared_drop``);
+    here the split is data: ``active`` / ``part`` hold one row when
+    every lane shares the plan, else one row a lane.  The host arrays
+    serve the plain version; on a card the tables go to the device once,
+    through pinned memory without a sync (:meth:`device_tables`)."""
+
+    def __init__(self, keys, prob, active, part=None):
+        self.keys = np.ascontiguousarray(keys, np.uint32).reshape(-1, 2)
+        self.prob = np.ascontiguousarray(prob, np.float32).reshape(-1)
+        self.active = np.ascontiguousarray(active, bool)
+        self.part = None if part is None else np.ascontiguousarray(part, bool)
+        b = self.keys.shape[0]
+        if self.prob.shape != (b,):
+            raise ValueError(f"{b} keys but {self.prob.shape[0]} "
+                             "probabilities")
+        for name, tab in (("active", self.active), ("part", self.part)):
+            if tab is not None and (tab.ndim != 2
+                                    or tab.shape[0] not in (1, b)):
+                raise ValueError(f"{name} has shape {tab.shape}: one row, "
+                                 f"or one a lane of {b}")
+        self._dev = {}
+
+    @property
+    def batch(self) -> int:
+        return self.keys.shape[0]
+
+    def lane(self, tab, b: int, t: int) -> bool:
+        """Lane ``b``'s flag at tick ``t`` (a tick past the table reads
+        its last column, as ``Schedule.drop_on``)."""
+        row = tab[b if tab.shape[0] > 1 else 0]
+        return bool(row[min(t, len(row) - 1)])
+
+    def device_tables(self, device):
+        """``(keys u32 as i32[B, 2], prob f32[B], active u8, part u8 or
+        None)`` on ``device``, uploaded once."""
+        key = str(device)
+        if key not in self._dev:
+            def up(a):
+                return torch.from_numpy(np.ascontiguousarray(a)) \
+                    .pin_memory().to(device, non_blocking=True)
+            self._dev[key] = (
+                up(self.keys.view(np.int32)), up(self.prob),
+                up(self.active.astype(np.uint8)),
+                None if self.part is None else up(self.part.astype(np.uint8)))
+        return self._dev[key]
+
+
+def drop_masks_lanes_plain(plan: LaneDrop, t: int, n: int,
+                           n_active: int | None = None, device="cpu",
+                           link_prob=None, group=None):
+    """Plain version of :func:`drop_masks_lanes`: :func:`drop_masks_plain`
+    of one tick a lane, each with that lane's key, probability, window,
+    thresholds and groups, stacked."""
+    outs = []
+    for b in range(plan.batch):
+        part = None if group is None else (plan.lane(plan.part, b, t),)
+        outs.append(drop_masks_plain(
+            plan.keys[b], t, (plan.lane(plan.active, b, t),), plan.prob[b],
+            n, n_active, device, None if link_prob is None else link_prob[b],
+            None if group is None else group[b], part))
+    return tuple(torch.cat(col) for col in zip(*outs))
+
+
+def drop_masks_lanes(plan: LaneDrop, t: int, n: int,
+                     n_active: int | None = None, device="cpu",
+                     link_prob=None, group=None):
+    """The drop decisions of tick ``t`` for every lane of a fleet:
+    gossip bool[B, N, N] (sender-major), JOINREQ / JOINREP bool[B, N].
+
+    Lane ``b`` draws ``fold_in(keys[b], t)`` where its drop window is
+    open, against ``prob[b]`` or its per-link thresholds ``link_prob[b]``
+    (f32[B, N, N]), and ORs in its partition (``group`` i32[B, N]) where
+    its partition is open, exactly as its solo run's
+    :func:`tick_drop_masks` at ``t``; ``n_active`` embeds every lane's
+    draw.  On a CPU device :func:`drop_masks_lanes_plain`; on a CUDA
+    device one kernel launch for the whole fleet (or an exception).
+    """
+    na = n if n_active is None else n_active
+    if not 0 < na <= n:
+        raise ValueError(f"n_active={na} outside (0, {n}]")
+    if (link_prob is not None or group is not None) and na != n:
+        raise ValueError("per-link thresholds and partition groups run at "
+                         f"full width only (n_active={na} < N={n})")
+    if group is not None and plan.part is None:
+        raise ValueError("partition groups need the plan's part windows")
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return drop_masks_lanes_plain(plan, t, n, na, dev, link_prob, group)
+    from .cuda._build import check, check_args, library, ptr, stream_ptr
+    b = plan.batch
+    specs = []
+    if link_prob is not None:
+        specs.append((link_prob, torch.float32, (b, n, n)))
+    if group is not None:
+        specs.append((group, torch.int32, (b, n)))
+    if specs:
+        check_args("drop_masks_lanes", *specs)
+    keys, prob, active, part = plan.device_tables(dev)
+    t_len = plan.active.shape[1]
+    stride = t_len if plan.active.shape[0] > 1 else 0
+    if part is not None and plan.part.shape != plan.active.shape:
+        raise ValueError("the part and active windows must share a layout")
+    g = torch.empty((b, n, n), dtype=torch.bool, device=dev)
+    q = torch.empty((b, n), dtype=torch.bool, device=dev)
+    p = torch.empty((b, n), dtype=torch.bool, device=dev)
+    code = library("drop.cu").gp_drop_masks_lanes(
+        g.data_ptr(), q.data_ptr(), p.data_ptr(), ptr(link_prob), ptr(group),
+        keys.data_ptr(), prob.data_ptr(), active.data_ptr(),
+        None if part is None or group is None else part.data_ptr(), int(t),
+        min(int(t), t_len - 1), stride, n, na, b, stream_ptr(dev))
+    drop_masks_lanes.launches += 1
+    check(code, "drop_masks_lanes")
+    return g, q, p
+
+
+drop_masks_lanes.launches = 0

@@ -123,33 +123,50 @@ def masked_max3_descent(gossip, proc, known, hb, ts, now: int, *,
     return tuple(outs), levels
 
 
+def masked_max3_lanes_plain(gossip, proc, known, hb, ts, now: int, *,
+                            t_remove: int):
+    """Plain version of the lane-axis ``masked_max3``: inputs with a
+    leading lane axis B, :func:`masked_max3_plain` applied lane by
+    lane, the maxima stacked to i32[B, N, N]."""
+    outs = [masked_max3_plain(gossip[b], proc[b], known[b], hb[b], ts[b],
+                              now, t_remove=t_remove)
+            for b in range(known.shape[0])]
+    return tuple(torch.stack(planes) for planes in zip(*outs))
+
+
 def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int):
     """The three merge maxima of one tick (see the module docstring).
 
     ``gossip`` bool[N, N] (sender, receiver), ``proc`` bool[N] (which
     receivers consume this tick), ``known`` bool / ``hb``, ``ts`` i32
-    [N, N] the senders' rows.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (or raise).
+    [N, N] the senders' rows.  With a leading lane axis (``known``
+    [B, N, N], ``proc`` [B, N], ...) it merges B independent lanes of a
+    fleet at the shared clock ``now``, in one launch on a card.  CPU
+    tensors take the plain version; CUDA tensors launch the kernel (or
+    raise).
     """
+    lanes = known.dim() == 3
     if known.device.type == "cpu":
-        return masked_max3_plain(gossip, proc, known, hb, ts, now,
-                                 t_remove=t_remove)
+        fn = masked_max3_lanes_plain if lanes else masked_max3_plain
+        return fn(gossip, proc, known, hb, ts, now, t_remove=t_remove)
     from .cuda._build import check, check_args, library, ptr, stream_ptr
-    n = known.shape[0]
-    plane = (n, n)
+    n = known.shape[-1]
+    b = known.shape[0] if lanes else 1
+    lead = (b,) if lanes else ()
+    plane = lead + (n, n)
     check_args("masked_max3", (gossip, torch.bool, plane),
-               (proc, torch.bool, (n,)), (known, torch.bool, plane),
+               (proc, torch.bool, lead + (n,)), (known, torch.bool, plane),
                (hb, torch.int32, plane), (ts, torch.int32, plane))
-    m_all, m_fresh, t_fresh = (torch.empty((n, n), dtype=torch.int32,
+    m_all, m_fresh, t_fresh = (torch.empty(plane, dtype=torch.int32,
                                            device=known.device)
                                for _ in range(3))
     lib = library()
-    scratch = torch.empty(lib.gp_merge_scratch_words(n), dtype=torch.int32,
-                          device=known.device)
+    scratch = torch.empty(b * lib.gp_merge_scratch_words(n),
+                          dtype=torch.int32, device=known.device)
     code = lib.gp_masked_max3(
         ptr(gossip), ptr(proc), ptr(known), ptr(hb), ptr(ts),
-        ptr(m_all), ptr(m_fresh), ptr(t_fresh), ptr(scratch), n, int(now),
-        int(t_remove), stream_ptr(known.device))
+        ptr(m_all), ptr(m_fresh), ptr(t_fresh), ptr(scratch), n, b,
+        int(now), int(t_remove), stream_ptr(known.device))
     masked_max3.launches += 1
     check(code, "masked_max3")
     return m_all, m_fresh, t_fresh

@@ -54,9 +54,13 @@ def vector_step(t: int, start, fail, rejoin, in_group, own_hb, joinreq,
     down phases add to ``failed`` and its up-edges rejoin (JAX
     ``state.py`` ``failed_at`` / ``rejoining_at``); the flap world sets
     ``churn``.
+
+    Every per-peer argument may carry a leading lane axis ([B, N], a
+    fleet at the shared clock ``t``): the decisions broadcast over it,
+    lane for lane the same bits as the solo step.
     """
     i32 = torch.int32
-    n = start.shape[0]
+    n = start.shape[-1]
     is_intro = torch.arange(n, device=start.device) == INTRODUCER
     failed = (t > fail) & (t <= rejoin)
     if flap is not None:
@@ -69,7 +73,9 @@ def vector_step(t: int, start, fail, rejoin, in_group, own_hb, joinreq,
         rejoining = rejoining | flap[1]
     in_group0 = in_group & ~rejoining
     own_hb0 = own_hb * ~rejoining
-    proc0, failed0 = proc[INTRODUCER], failed[INTRODUCER]
+    # the introducer's gates, [..., 1] so they broadcast over each lane
+    proc0 = proc[..., INTRODUCER, None]
+    failed0 = failed[..., INTRODUCER, None]
 
     # the join traffic consumed this tick
     jreq = joinreq & proc0
@@ -91,9 +97,11 @@ def vector_step(t: int, start, fail, rejoin, in_group, own_hb, joinreq,
     joinrep_next = joinrep_sent | (joinrep & hold)
 
     sent = (joinreq_sent.to(i32)
-            + torch.where(is_intro, joinrep_sent.sum(dtype=i32), 0)).to(i32)
+            + torch.where(is_intro, joinrep_sent.sum(-1, keepdim=True,
+                                                     dtype=i32), 0)).to(i32)
     recv = (jrep.to(i32)
-            + torch.where(is_intro, jreq.sum(dtype=i32), 0)).to(i32)
+            + torch.where(is_intro, jreq.sum(-1, keepdim=True, dtype=i32),
+                          0)).to(i32)
     return VectorStep(proc=proc, failed=failed, rejoining=rejoining,
                       jreq=jreq, jrep=jrep,
                       hold=hold, ops=ops, in_group=in_group_next,

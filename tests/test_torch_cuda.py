@@ -812,3 +812,192 @@ def test_fused_overlay_tick_wide_and_narrow(dev, view, fanout):
     b = fused_overlay_tick_plain(*got["args"], **got["kw"])
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+# ---- the fleet's lane axis --------------------------------------------
+
+def _lane_k1(b, n, dev, seed=0):
+    """B lanes of merge/epilogue inputs, each from its own seed; the
+    number of delivering senders differs lane to lane (lane 0 silent)."""
+    from test_torch_merge_cases import merge_case
+    rng = np.random.default_rng(seed)
+    lanes = []
+    for i in range(b):
+        case = (0.0, 0.05, 0.6, 1.0)[i % 4]
+        g, p, kn, hb, ts = merge_case(case, n, seed + i)
+        lanes.append(dict(
+            gossip=g, proc=p, known=kn, hb=hb, ts=ts,
+            gdrop=rng.random((n, n)) < 0.1, ops=rng.random(n) < 0.85,
+            jrep=rng.random(n) < 0.2, jreq=rng.random(n) < 0.2,
+            live_hold=rng.random(n) < 0.1))
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        np.stack([x[k] for x in lanes]))).to(dev) for k in lanes[0]}
+
+
+@pytest.mark.parametrize("b,n", [(3, 10), (4, 64), (8, 512), (4, 2816)])
+def test_lane_axis_k1_equals_plain(dev, b, n):
+    """masked_max3 and tick_epilogue with a lane axis: one launch each for
+    the B lanes, equal to the plain versions and to the solo kernel of
+    each lane, with and without events."""
+    from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
+        tick_epilogue, tick_epilogue_lanes_plain)
+    from gossip_protocol_tpu_torch.ops.merge import (masked_max3,
+                                                     masked_max3_lanes_plain)
+    x = _lane_k1(b, n, dev, seed=n)
+    margs = (x["gossip"], x["proc"], x["known"], x["hb"], x["ts"], T)
+    before = masked_max3.launches
+    m = masked_max3(*margs, t_remove=T_REMOVE)
+    assert masked_max3.launches == before + 1
+    want = masked_max3_lanes_plain(*margs, t_remove=T_REMOVE)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(m, want))
+    assert (m[0][0] == -1).all()            # the silent lane is all FILL
+    for i in range(b):
+        solo = masked_max3(*(a[i] for a in margs[:5]), T,
+                           t_remove=T_REMOVE)
+        assert all(torch.equal(a[i], s) for a, s in zip(m, solo))
+    for ev in (True, False):
+        args = (*m, x["gossip"], x["proc"], x["known"], x["hb"], x["ts"],
+                x["gdrop"], x["ops"], x["jrep"], x["jreq"], x["live_hold"],
+                T)
+        before = tick_epilogue.launches
+        got = tick_epilogue(*args, t_remove=T_REMOVE, with_events=ev)
+        assert tick_epilogue.launches == before + 1
+        want = tick_epilogue_lanes_plain(*args, t_remove=T_REMOVE,
+                                         with_events=ev)
+        torch.cuda.synchronize()
+        for a, w in zip(got, want):
+            assert (a is None and w is None) or torch.equal(a, w)
+
+
+@pytest.mark.parametrize("case", ["b3_n10_one_open", "b4_n896_embedded",
+                                  "b2_n4096_thresholds", "b2_n4096_groups"])
+def test_lane_axis_drop_equals_plain(dev, case):
+    from gossip_protocol_tpu_torch.ops.drop import (LaneDrop,
+                                                    drop_masks_lanes,
+                                                    drop_masks_lanes_plain)
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    b, n = {"b3_n10_one_open": (3, 10), "b4_n896_embedded": (4, 896)}.get(
+        case, (2, 4096))
+    rng = np.random.default_rng(b * n)
+    na = 672 if case == "b4_n896_embedded" else n
+    active = np.ones((b, 400), bool)
+    if case == "b3_n10_one_open":
+        active[:2] = False
+    part = link = group = None
+    if case == "b2_n4096_thresholds":
+        link = torch.from_numpy(rng.random((b, n, n), np.float32) * 0.3) \
+            .to(dev)
+    if case == "b2_n4096_groups":
+        group = torch.from_numpy(rng.integers(0, 3, (b, n), dtype=np.int32)
+                                 ).to(dev)
+        part = np.zeros((b, 400), bool)
+        part[1] = True
+    plan = LaneDrop(np.stack([prng_key(s) for s in range(b)]),
+                    np.float32([0.1, 0.2, 0.3, 0.4][:b]), active, part)
+    for t in (0, 300):
+        before = drop_masks_lanes.launches
+        got = drop_masks_lanes(plan, t, n, na, dev, link, group)
+        assert drop_masks_lanes.launches == before + 1
+        want = drop_masks_lanes_plain(plan, t, n, na, dev, link, group)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+        if case == "b3_n10_one_open":
+            assert not got[0][:2].any() and got[0][2].any()
+
+
+def test_lane_axis_refused_launch_raises(dev):
+    """A launch the entry refuses (more lanes than a grid coordinate
+    holds) raises; nothing falls back to a lane loop or the plain
+    version."""
+    from gossip_protocol_tpu_torch.ops.merge import masked_max3
+    z = torch.zeros((21846, 1, 1), dtype=torch.bool, device=dev)
+    zi = torch.zeros((21846, 1, 1), dtype=torch.int32, device=dev)
+    before = masked_max3.launches
+    with pytest.raises(RuntimeError, match="masked_max3: CUDA error"):
+        masked_max3(z, z[:, 0], z, zi, zi, T, t_remove=T_REMOVE)
+    assert masked_max3.launches == before + 1
+    x = _lane_k1(2, 64, dev)
+    m = masked_max3(x["gossip"], x["proc"], x["known"], x["hb"], x["ts"], T,
+                    t_remove=T_REMOVE)
+    assert m[0].shape == (2, 64, 64)
+
+
+def test_grader_fleet_cuda_equals_cpu(dev, tmp_path):
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    from gossip_protocol_tpu_torch.grader import SCENARIOS, grade_all_fleet
+    from gossip_protocol_tpu_torch.ops.drop import drop_masks_lanes
+    from gossip_protocol_tpu_torch.ops.merge import masked_max3
+    cfgs = [SimConfig.from_conf(f"testcases/{s}.conf") for s in SCENARIOS]
+    before = (drop_masks_lanes.launches, masked_max3.launches)
+    a = FleetSimulation(cfgs[0], device="cuda").run(configs=cfgs)
+    assert (drop_masks_lanes.launches - before[0],
+            masked_max3.launches - before[1]) == (700, 700)
+    b = FleetSimulation(cfgs[0], device="cpu").run(configs=cfgs)
+    for la, lb in zip(a.lanes, b.lanes):
+        for name in ("added", "removed", "sent", "recv"):
+            assert np.array_equal(getattr(la, name), getattr(lb, name))
+    assert grade_all_fleet("testcases", str(tmp_path), "cuda")["total"] == 90
+
+
+def test_grid_fleet_whole_run_equals_solo_lanes(dev):
+    """A B=2 K5 fleet over a whole 608-tick N=4096 churn run equals each
+    lane's solo K5 run."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    from gossip_protocol_tpu_torch.models import overlay_grid as og
+    from gossip_protocol_tpu_torch.models.overlay import (
+        init_overlay_state, make_overlay_schedule)
+    cfg = SimConfig(max_nnb=4096, model="overlay", single_failure=False,
+                    seed=0, total_ticks=608, churn_rate=0.2, rejoin_after=40,
+                    step_rate=64.0 / 4096)
+    res = FleetSimulation(cfg, device="cuda").run(seeds=[3, 4])
+    for lane, s in zip(res.lanes, (3, 4)):
+        c = cfg.replace(seed=s)
+        fin, met = og.make_grid_run(cfg, 608, start_tick=0)(
+            init_overlay_state(c, dev), make_overlay_schedule(c))
+        for f in ("ids", "hb", "ts", "in_group", "own_hb", "send_flags",
+                  "joinreq", "joinrep"):
+            assert torch.equal(getattr(lane.final_state, f),
+                               getattr(fin, f)), f
+        for f in ("sent", "recv", "removals", "adds", "view_slots"):
+            assert np.array_equal(getattr(lane.metrics, f),
+                                  getattr(met, f).cpu().numpy()), f
+
+
+@pytest.mark.parametrize("model", ["dense", "overlay"])
+def test_pending_fleet_never_syncs_before_resolve(dev, model):
+    """launch(defer=True), start and is_ready under the sync-debug mode
+    "error": nothing synchronizes the device before resolve."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    if model == "dense":
+        cfg = SimConfig(max_nnb=64, single_failure=False, drop_msg=True,
+                        msg_drop_prob=0.1, seed=0, total_ticks=120,
+                        rejoin_after=20)
+    else:
+        cfg = SimConfig(max_nnb=4096, model="overlay", single_failure=False,
+                        seed=0, total_ticks=272, churn_rate=0.2,
+                        rejoin_after=40, step_rate=64.0 / 4096)
+    sim = FleetSimulation(cfg, device="cuda")
+    ref = sim.run(seeds=[1, 2], warmup=True)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pending = sim.launch(seeds=[1, 2], warmup=False, defer=True)
+        assert not pending.started
+        pending.start()
+        polls = 0
+        while not pending.is_ready():
+            polls += 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    res = pending.resolve()
+    for la, lb in zip(ref.lanes, res.lanes):
+        if model == "dense":
+            assert np.array_equal(la.added, lb.added)
+            assert np.array_equal(la.sent, lb.sent)
+        else:
+            assert np.array_equal(la.metrics.sent, lb.metrics.sent)
+            assert torch.equal(la.final_state.ids, lb.final_state.ids)
