@@ -142,8 +142,35 @@ one line per phase:
    levels and tile products of each plane, the share of cells the
    pre-resolve closes, the share of empty delivery slabs the earlier
    int32 product-max design (32 senders x 64 receivers a slab) skipped,
-   and both bounds.
+   and both bounds;
+7. the fleet service (``service/``, ``store/``), after phase 6's timing
+   and before its kernels line, every path driven as a main path:
+   7a ``grade_all_service`` on ``cuda`` (90); 7b the 204-request
+   acceptance replay (``grader_templates() + overlay_templates(n=512,
+   ticks=96)``, 34 seeds, ``max_batch=8``) with per-request parity
+   against the sequential ``solo_execute`` leg, requests/s, aggregate
+   against sequential node-ticks/s, occupancy, p50/p99 latency and the
+   pack / device-wait / fetch split; 7c full-width serving (4 seeds of
+   the dense N=4096 10% drop bench, 8 of the overlay N=65,536 churn run,
+   2 of the N=2^20 power-law run, interleaved, ``pad_policy="pow2"``):
+   three buckets, every digest equal to its solo ``cuda`` run, the dense
+   bucket on the K1 lane axis with 700 lane draws and the overlay ones
+   on K5's lane axis (55 calls, no K3), with the wall, aggregate
+   node-ticks/s, the solo walls' sum and (``--profile``) the idle
+   share; 7d a canonical bucket at width (``canonicalize=True``: asym
+   drop at real N=1000 in rung 1024, B=4; partition with 10% drop at
+   real N=900, B=2; 300-tick traces), every lane equal to its exact solo
+   run, and the corner draw (``drop_masks_lanes`` at N=1024, na=1000,
+   thresholds) held against its plain version and timed; 7e
+   ``chaos_replay`` at fault rate 0.12, seed 0, twice (every request
+   terminal, parity, equal digests, every failure injected); 7f
+   ``kill_restart_replay`` (34 seeds, the doomed child on ``cuda``) at
+   three kill points; 7g the scenario ``sweep`` (``--sweep-seeds``,
+   default 8: 200 variants) and its rerun on the same service (all
+   oracles green, equal digests).  7a-d and 7g must end with zero
+   retries, degraded requests and breaker opens.
 
+``--serving-only`` runs phase 1 and phase 7 alone.
 ``--dense-only TREE`` runs, after the first phase, only the dense path
 of the package in the checkout at ``TREE``: the dense kernels of phase
 6, then phases 3 and 5a-c; ``--overlay-only TREE`` only the overlay
@@ -1763,6 +1790,368 @@ def profile_run(fn) -> dict:
                           "calls": c} for us, k, c in sorted(host)[::-1][:8]]}
 
 
+# ------------------------------------------------------------ serving
+
+#: the failure counters a fault-free serving run must leave at zero
+FAILURE_KEYS = ("retries", "breaker_opens", "degraded_dispatches",
+                "degraded_requests", "failed_requests", "device_losses",
+                "faults_injected", "poisoned_lanes")
+
+
+def no_failures(tag: str, stats: dict) -> None:
+    """Phase 7's no-hidden-fallback gate: a fault-free serving run ends
+    with zero retries, degraded requests and breaker opens."""
+    f = stats["failures"]
+    bad = {k: f[k] for k in FAILURE_KEYS if f.get(k)}
+    if bad or stats.get("failed"):
+        raise AssertionError(f"{tag}: the service absorbed failures {bad}: "
+                             f"{stats.get('last_errors')}")
+
+
+def injected_only(tag: str, m: dict) -> None:
+    """Phase 7's chaos gate: every failure the service counted is one the
+    injector recorded."""
+    f, inj = m["failures"], m["faults"]
+    failing = inj["compile"] + inj["dispatch"] + inj["poison"] \
+        + inj["device_loss"]
+    if f["faults_injected"] != inj["total"] or f["retries"] > failing \
+            or f["poisoned_lanes"] != inj["poison"] \
+            or f["device_losses"] != inj["device_loss"] \
+            or any("Injected" not in e and "PoisonedLane" not in e
+                   for e in m["last_errors"]):
+        raise AssertionError(f"{tag}: a failure nobody injected: {f} vs "
+                             f"{inj}; {m['last_errors']}")
+
+
+class LaneAxisCount:
+    """Counts the K1 pair's lane-axis launches (3-D ``gossip``) by a spy
+    on ``core/tick.py``'s module globals; the wrappers' own counters
+    count every launch."""
+
+    def __init__(self):
+        from gossip_protocol_tpu_torch.core import tick
+        self.tick = tick
+        self.n = {"masked_max3": 0, "tick_epilogue": 0}
+
+    def __enter__(self):
+        self.orig = {}
+        for name in self.n:
+            fn = getattr(self.tick, name)
+            self.orig[name] = fn
+
+            def spy(*a, _fn=fn, _name=name, **k):
+                g = a[0] if _name == "masked_max3" else a[3]
+                if g.dim() == 3 and g.is_cuda:
+                    self.n[_name] += 1
+                return _fn(*a, **k)
+            setattr(self.tick, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.tick, name, fn)
+        return False
+
+
+def canonical_cfgs() -> dict:
+    """Phase 7d's canonical classes below the 1024 rung: asym drop at
+    real N=1000 (4 seeds), partition with 10% drop at real N=900 (2
+    seeds); 300-tick traces."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    base = dict(single_failure=True, drop_msg=True, msg_drop_prob=0.1,
+                total_ticks=300, fail_tick=150)
+    return {
+        "asym_n1000": [SimConfig(max_nnb=1000, asym_drop=True, seed=s,
+                                 **base) for s in range(4)],
+        "partition_n900": [SimConfig(max_nnb=900, partition_groups=2,
+                                     partition_open_tick=120,
+                                     partition_close_tick=200, seed=s,
+                                     **base) for s in range(2)]}
+
+
+def corner_draw_timing(cfgs, dev) -> dict:
+    """The canonical rung's corner draw on the input a launch of the
+    asym class makes at tick 150 (window open): ``drop_masks_lanes`` at
+    N=1024 drawing B lanes' real 1000 x 1000 corners against their
+    per-link thresholds, held against its plain version and timed, with
+    B times the per-lane draw bound plus the thresholds' bytes."""
+    import torch
+    from gossip_protocol_tpu_torch.core.fleet import CanonicalFleetSimulation
+    from gossip_protocol_tpu_torch.ops import drop as drop_ops
+    sim = CanonicalFleetSimulation(cfgs[0], device="cuda")
+    scheds = sim._lane_schedules(cfgs)
+    sched, plan, _ = sim._stage_dense(cfgs, scheds, False)
+    n, na, b, t = sim.rung, cfgs[0].n, len(cfgs), 150
+    args = (plan, t, n, na, dev, sched.link_prob, None)
+    got = drop_ops.drop_masks_lanes(*args)
+    want = drop_ops.drop_masks_lanes_plain(*args)
+    drawn = sum(plan.lane(plan.active, i, t) for i in range(b))
+    # the draw bound of drawn lanes, plus each lane's thresholds read once
+    nbytes = b * (n * n + 2 * n) + b * na * na * 4
+    bnd = bound(nbytes, 70 * drawn * (na + 2) * na)
+    out = dict(n=n, na=na, batch=b, tick=t, s_ticks=1,
+               max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
+               ms=cuda_ms(lambda: drop_ops.drop_masks_lanes(*args), 50),
+               plain_ms=cuda_ms(lambda: drop_ops.drop_masks_lanes_plain(
+                   *args), 3),
+               bound=bnd)
+    torch.cuda.synchronize()
+    return out
+
+
+def serving(main_path, dev, profile: bool, sweep_seeds: int,
+            t_start: float) -> dict:
+    """Phase 7: the fleet service (``service/``, ``store/``) on the card.
+    Every path is driven as a main path (counters zeroed before it, read
+    after it); the K1 pair's lane-axis launches are counted apart."""
+    import torch
+    from gossip_protocol_tpu_torch.grader import grade_all_service
+    from gossip_protocol_tpu_torch.models.scenarios import sweep
+    from gossip_protocol_tpu_torch.service import (
+        FleetService, chaos_replay, grader_templates, overlay_templates,
+        replay, result_digest, solo_execute)
+    from gossip_protocol_tpu_torch.service.replay import (_mismatch,
+                                                          Template,
+                                                          build_trace,
+                                                          run_sequential)
+    from gossip_protocol_tpu_torch.store.harness import kill_restart_replay
+    out = {"lane_axis": dict.fromkeys(("masked_max3", "tick_epilogue",
+                                       "drop_masks_lanes",
+                                       "grid_overlay_ticks"), 0)}
+
+    def drive(tag, fn, expect, lane=True):
+        with LaneAxisCount() as la:
+            res, counts = main_path.drive(fn, expect)
+        if lane:
+            for k in ("masked_max3", "tick_epilogue"):
+                out["lane_axis"][k] += la.n[k]
+            for k in ("drop_masks_lanes", "grid_overlay_ticks"):
+                out["lane_axis"][k] += counts[k]
+        out.setdefault("launches", {})[tag] = {k: v for k, v in
+                                               counts.items() if v}
+        return res, counts
+
+    # 7a: the grader through the service
+    svc = FleetService(max_batch=3, pad_policy="none")
+    with tempfile.TemporaryDirectory() as wd:
+        res, _ = drive("grade", lambda: grade_all_service(
+            os.path.join(REPO, "testcases"), wd, service=svc),
+            ("masked_max3", "tick_epilogue", "drop_masks_lanes"))
+    no_failures("7a", svc.stats())
+    if res["total"] != 90:
+        raise AssertionError(f"grade_all_service graded {res['total']}")
+    say(f"phase 7a: grade_all_service on cuda graded {res['total']}/90 "
+        f"({svc.stats()['dispatches']} dispatches)")
+    out["grade"] = res["total"]
+    mark("7a", t_start)
+
+    # 7b: the acceptance replay (204 requests), parity against the
+    # sequential solo_execute leg
+    tpls = grader_templates() + overlay_templates(n=512, ticks=96)
+    trace = build_trace(tpls, 34)
+    seq = run_sequential(trace, "cuda")
+    (m, _), _ = drive("replay", lambda: replay(tpls, 34, max_batch=8,
+                                          sequential=seq, device="cuda",
+                                          return_legs=True),
+                 ("masked_max3", "tick_epilogue", "drop_masks_lanes"))
+    no_failures("7b", {"failures": m["failures"]})
+    rps = m["requests"] / m["service_wall_s"]
+    say(f"phase 7b: replay {m['requests']} requests, parity with the "
+        f"sequential solo leg: {rps:.1f} requests/s; aggregate "
+        f"{m['aggregate_node_ticks_per_s']:.4g} node-ticks/s against "
+        f"{m['sequential_node_ticks_per_s']:.4g} sequential (walls "
+        f"{m['service_wall_s']} / {m['sequential_wall_s']} s); mean "
+        f"occupancy {m['mean_occupancy']}; latency p50 "
+        f"{m['latency_p50_s']} s, p99 {m['latency_p99_s']} s; a dispatch "
+        f"packs {m['mean_pack_s']} s, waits {m['mean_device_wait_s']} s "
+        f"on the device, fetches {m['mean_fetch_s']} s; "
+        f"{m['dispatches']} dispatches in {m['buckets']} buckets, ring "
+        f"stalls {m['ring_stalls']}")
+    out["replay"] = dict(m, requests_per_s=rps)
+    mark("7b", t_start)
+
+    # 7c: full-width serving, three buckets interleaved
+    dense = bench_cfg(700)
+    churn, power = overlay_cfg("churn65k"), overlay_cfg("powerlaw1m")
+    reqs = []
+    for i in range(8):
+        reqs.append((churn.replace(seed=101 + i), "trace"))
+        if i < 4:
+            reqs.append((dense.replace(seed=i), "bench"))
+        if i < 2:
+            reqs.append((power.replace(seed=i), "trace"))
+
+    def serve_wide():
+        s = FleetService(max_batch=8, pad_policy="pow2")
+        t0 = time.perf_counter()
+        hs = [s.submit(c, mode=md) for c, md in reqs]
+        s.drain()
+        return s, hs, time.perf_counter() - t0
+
+    (wsvc, hs, wall), counts = drive(
+        "wide", serve_wide, ("masked_max3", "tick_epilogue",
+                             "drop_masks_lanes", "grid_overlay_ticks"))
+    st = wsvc.stats()
+    no_failures("7c", st)
+    if st["cache"]["buckets"] != 3:
+        raise AssertionError(f"7c: {st['cache']['buckets']} buckets")
+    if counts["drop_masks_lanes"] != 700 or counts["grid_overlay_ticks"] \
+            != 38 + 17 or counts["fused_overlay_tick"] \
+            or counts.get("drop_masks"):
+        raise AssertionError(f"7c: off the fleet routes: {counts}")
+    solo_walls, nt = [], 0
+    for (c, md), h in zip(reqs, hs):
+        ref = solo_execute(c, md, "cuda")
+        solo_walls.append(ref.wall_seconds)
+        nt += c.n * c.total_ticks
+        if result_digest(h.result()) != result_digest(ref):
+            raise AssertionError(f"7c: {c.model} N={c.n} seed {c.seed}: "
+                                 f"{_mismatch(Template('w', c), ref, h.result())}")
+        del ref
+    wide = {"wall_s": wall, "node_ticks_per_s": nt / wall,
+            "solo_walls_sum_s": sum(solo_walls),
+            "dispatches": st["dispatches"], "launches": counts,
+            "mean_pack_s": st["mean_pack_s"],
+            "mean_device_wait_s": st["mean_device_wait_s"],
+            "mean_fetch_s": st["mean_fetch_s"]}
+    del hs, wsvc
+    if profile:
+        wide["profile"] = profile_run(serve_wide)
+    say(f"phase 7c: full-width serving, 14 requests in 3 buckets (dense "
+        f"N=4096 bench B=4 on the K1 lane axis + draw, overlay N=65,536 "
+        f"churn B=8 and N=2^20 power-law B=2 on K5's lane axis), each "
+        f"digest == its solo cuda run: wall {wall:.3f} s, "
+        f"{wide['node_ticks_per_s']:.4g} node-ticks/s aggregate; solo "
+        f"walls sum {wide['solo_walls_sum_s']:.3f} s; idle "
+        f"{wide.get('profile', {}).get('idle_share', 'not profiled')}")
+    out["wide"] = wide
+    mark("7c", t_start)
+
+    # 7d: a canonical bucket at width: the corner draw with thresholds
+    # and with groups on the card
+    ccfgs = canonical_cfgs()
+
+    def serve_canon():
+        s = FleetService(max_batch=4, canonicalize=True, pad_policy="pow2")
+        hs = {k: [s.submit(c) for c in v] for k, v in ccfgs.items()}
+        s.drain()
+        return s, hs
+
+    (csvc, chs), counts = drive("canonical", serve_canon,
+                                ("masked_max3", "tick_epilogue",
+                                 "drop_masks_lanes"))
+    st = csvc.stats()
+    no_failures("7d", st)
+    if st["cache"]["buckets"] != 2:
+        raise AssertionError(f"7d: {st['cache']['buckets']} buckets")
+    for k, v in ccfgs.items():
+        for c, h in zip(v, chs[k]):
+            ref = solo_execute(c, "trace", "cuda")
+            bad = _mismatch(Template(k, c), ref, h.result())
+            if bad:
+                raise AssertionError(f"7d: {k} seed {c.seed}: canonical "
+                                     f"lane != exact solo run in {bad}")
+            del ref
+    out["canonical"] = {"launches": counts,
+                        "draws": counts["drop_masks_lanes"],
+                        "dispatches": st["dispatches"],
+                        "timing": corner_draw_timing(ccfgs["asym_n1000"],
+                                                     dev)}
+    del chs, csvc
+    say(f"phase 7d: canonical rung 1024: asym N=1000 (B=4) and partition "
+        f"+ 10% drop N=900 (B=2), 300-tick traces, every lane == its "
+        f"exact solo cuda run; corner draw {json.dumps(out['canonical'])}")
+    mark("7d", t_start)
+
+    # 7e: chaos, twice, same seed
+    chaos = []
+    for _ in range(2):
+        (cm, _), _ = drive("chaos", lambda: chaos_replay(
+            tpls, 34, max_batch=8, fault_rate=0.12, fault_seed=0,
+            sequential=seq, device="cuda", return_legs=True),
+            ("masked_max3", "tick_epilogue", "drop_masks_lanes"))
+        injected_only("7e", cm)
+        chaos.append(cm)
+    if chaos[0]["schedule_digest"] != chaos[1]["schedule_digest"] or \
+            chaos[0]["outcome_digest"] != chaos[1]["outcome_digest"]:
+        raise AssertionError("7e: the chaos digests differ across runs")
+    out["chaos"] = [{k: c[k] for k in (
+        "requests", "completed", "degraded_requests", "faults",
+        "schedule_digest", "outcome_digest", "failures",
+        "service_wall_s")} for c in chaos]
+    say(f"phase 7e: chaos_replay at fault_rate 0.12, seed 0, twice: 100% "
+        f"terminal, parity held, digests equal "
+        f"({chaos[0]['schedule_digest']}, {chaos[0]['outcome_digest']}); "
+        f"faults {chaos[0]['faults']}, degraded "
+        f"{chaos[0]['degraded_requests']}, walls "
+        f"{[c['service_wall_s'] for c in chaos]} s")
+    del seq
+    mark("7e", t_start)
+
+    # 7f: crash and recover, the doomed child on cuda, three kill points.
+    # The harness opens its crash window once every request is submitted
+    # (journaled); full buckets dispatch during the submits, about 64 of
+    # the stream's ~77 dispatches, so the kill points sit in the last
+    # fifth of the run, where each leaves a different set in flight
+    kills, base = [], None
+    for frac in (0.84, 0.9, 0.95):
+        (km, base), _ = drive("kill_restart", lambda: kill_restart_replay(
+            seeds_per_template=34, kill_frac=frac, baseline=base,
+            device="cuda"), ("masked_max3", "tick_epilogue"))
+        no_failures("7f", {"failures": km["failures"]})
+        kills.append({k: km[k] for k in (
+            "completed", "completed_before_kill", "recovered_requests",
+            "restarted_lanes", "kill_after_dispatches", "outcome_digest",
+            "baseline_digest")})
+    out["kill_restart"] = kills
+    mark("7f", t_start)
+    say(f"phase 7f: kill_restart_replay (204 requests, the doomed child on "
+        f"cuda) at 3 kill points: every request terminal once, 0 "
+        f"restarted lanes, digests == the uninterrupted baseline {kills}")
+
+    # 7g: the scenario sweep, and its rerun in a process of its own,
+    # started beside it: both passes are host-bound (the overlay worlds'
+    # lane loops) and the card has room for two
+    keys = ("variants", "families", "passed", "failed", "verdict_digest",
+            "outcome_digest", "wall_s", "dispatches", "mean_occupancy",
+            "service_failures")
+    code = ("import json\n"
+            "from gossip_protocol_tpu_torch.models.scenarios import sweep\n"
+            f"r = sweep(seeds_per_family={sweep_seeds}, device='cuda')\n"
+            f"print(json.dumps({{k: r[k] for k in {keys!r}}}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    child = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    try:
+        ssvc = FleetService(max_batch=8)
+        r, _ = drive("sweep", lambda: sweep(seeds_per_family=sweep_seeds,
+                                            service=ssvc),
+                     ("masked_max3", "drop_masks_lanes"))
+        c_out, c_err = child.communicate(timeout=1100)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"7g: the rerun process failed: {c_err[-3000:]}")
+    reps = [{k: r[k] for k in keys}, json.loads(c_out.strip().splitlines()[-1])]
+    no_failures("7g", ssvc.stats())
+    no_failures("7g rerun", {"failures": reps[1]["service_failures"]})
+    if reps[0]["verdict_digest"] != reps[1]["verdict_digest"] or \
+            reps[0]["outcome_digest"] != reps[1]["outcome_digest"]:
+        raise AssertionError("7g: sweep digests differ on the rerun")
+    out["sweep"] = reps
+    say(f"phase 7g: sweep of {reps[0]['variants']} variants "
+        f"({reps[0]['families']} families): all oracles green, digests "
+        f"equal on the rerun in a second process ({reps[0]['verdict_digest']}"
+        f", {reps[0]['outcome_digest']}); walls, side by side "
+        f"{[r['wall_s'] for r in reps]} s")
+    torch.cuda.synchronize()
+    return out
+
+
 def bench_cfg(ticks: int):
     """BASELINE's dense N=4096 10% drop bench (bench.py:419-434)."""
     from gossip_protocol_tpu_torch.config import SimConfig
@@ -1983,15 +2372,17 @@ def world_families_card_vs_cpu(main_path) -> dict:
     import torch
 
     from gossip_protocol_tpu_torch.models.scenarios import (
-        CATALOG, _lane_digest, grade, solo_execute)
+        CATALOG, _lane_digest, grade)
+    from gossip_protocol_tpu_torch.service.resilience import solo_execute
     t0 = time.perf_counter()
     out = {}
     for name in sorted(CATALOG):
         fam = CATALOG[name]
         cfg = fam.build(WORLD_SEED)
         r_gpu, counts = drive_world(main_path,
-                                    lambda: solo_execute(cfg, "cuda"), cfg)
-        r_cpu = solo_execute(cfg, "cpu")
+                                    lambda: solo_execute(cfg, "trace",
+                                                         "cuda"), cfg)
+        r_cpu = solo_execute(cfg, "trace", "cpu")
         if cfg.model == "overlay":
             bad = overlay_equal(r_gpu.final_state, r_cpu.final_state,
                                 r_gpu.metrics, r_cpu.metrics)
@@ -2462,6 +2853,13 @@ def main(argv=None) -> int:
     ap.add_argument("--turns-path", default="dense",
                     choices=("dense", "overlay"),
                     help="the path --turns measures")
+    ap.add_argument("--sweep-seeds", type=int, default=8,
+                    help="seeds a catalog family in phase 7g's sweep "
+                         "(default 8: 200 variants; 40 is the JAX "
+                         "default of 1000)")
+    ap.add_argument("--serving-only", action="store_true",
+                    help="run only phase 1 and phase 7 (the fleet "
+                         "service); no kernels line and no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2523,7 +2921,11 @@ def main(argv=None) -> int:
             raise AssertionError(f"overlay kernel != plain: {errs}")
         details["phase5"] = overlay_runs(MainPath())[2]
         say(json.dumps(overlay_numbers(details)))
-    if args.turns or only:
+    if args.serving_only:
+        details["phase7"] = serving(MainPath(), dev, args.profile,
+                                    args.sweep_seeds, t_start)
+        mark("7", t_start)
+    if args.turns or only or args.serving_only:
         if args.details:
             write_details(args.details, details)
         return 0
@@ -2874,6 +3276,17 @@ def main(argv=None) -> int:
         raise AssertionError(f"kernel != plain on a launch input: {errs}")
     details["timing"] = timing
     details["max_abs_err"] = errs
+    mark("6", t_start)
+
+    # ---- phase 7: the fleet service on the card ----------------------
+    serve = serving(main_path, dev, args.profile, args.sweep_seeds,
+                    t_start)
+    details["phase7"] = serve
+    ctm = serve["canonical"]["timing"]
+    if ctm["max_abs_err"] != 0:
+        raise AssertionError(f"the corner draw != plain: {ctm}")
+    details["main_path_launches"] = main_path.total
+    mark("7", t_start)
     src = "gossip_protocol_tpu_torch/csrc/dense_tick.cu"
     osrc = "gossip_protocol_tpu_torch/csrc/overlay_tick.cu"
     kernels = []
@@ -2936,7 +3349,10 @@ def main(argv=None) -> int:
             "bound_by": tm["bound"][1], "library_ms": None, "shape": shape})
     # the lane-axis launches of the fleets (phase 5i): rows of their own;
     # the solo rows keep the solo launches
-    lane = runs["fleet"]["lane_axis_launches"]
+    lane = {k: v + serve["lane_axis"].get(k, 0)
+            for k, v in runs["fleet"]["lane_axis_launches"].items()}
+    # the canonical rung's corner draws have a row of their own
+    lane["drop_masks_lanes"] -= serve["canonical"]["draws"]
     for name, wrapper in (("masked_max3", "masked_max3"),
                           ("tick_epilogue", "tick_epilogue"),
                           ("drop_masks", "drop_masks_lanes"),
@@ -2953,6 +3369,14 @@ def main(argv=None) -> int:
             "shape": {k: tm[k] for k in ("n", "batch", "tick", "s_ticks")
                       if k in tm}})
         kernels[-1].pop("needed_bytes_bound_ms", None)
+    base = next(k for k in kernels if k["name"] == "drop_masks")
+    kernels.append({
+        **base, "name": "drop_masks/canonical",
+        "launches": serve["canonical"]["draws"],
+        "max_abs_err": ctm["max_abs_err"], "ms": ctm["ms"],
+        "plain_ms": ctm["plain_ms"], "bound_ms": ctm["bound"][0],
+        "bound_by": ctm["bound"][1], "library_ms": None,
+        "shape": {k: ctm[k] for k in ("n", "na", "batch", "tick")}})
     for key in ("k1", "k1_n1024", "k1_n10", "k1_asym4096"):
         t = timing[key]
         say(f"phase 6: masked_max3 at N={t['n']}, tick {t['tick']}: "
@@ -2964,7 +3388,6 @@ def main(argv=None) -> int:
     say(json.dumps({"kernels": kernels}))
     details["kernels"] = kernels
 
-    mark("6", t_start)
     details["phase_seconds"] = PHASE_SECONDS
     details["seconds"] = time.perf_counter() - t_start
     if args.details:

@@ -36,8 +36,9 @@ There is nothing to compile: the process-wide program cache holds the
 built run closures, keyed as the JAX package keys its compiled programs
 (the mesh slot is always None until the multi-device slice), and its
 misses count on ``core/tick.py run_build_count``.
-``CanonicalFleetSimulation`` and the lane mesh come with the serving and
-multi-device slices.
+:class:`CanonicalFleetSimulation` serves one canonical equivalence class
+(service/canonical.py) at its pad-ladder rung; the lane mesh comes with
+the multi-device slice.
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ import torch
 from ..config import SimConfig
 from ..ops.drop import LaneDrop
 from ..state import (SCHED_ARRAYS, WorldState, make_schedule_host,
-                     resolve_device, slice_schedule)
+                     pad_schedule_host, resolve_device, slice_schedule)
 from ..utils.threefry import prng_key
 from .sim import (SimResult, _finish_masks_host, _pack_sparse, sparse_cap,
                   to_host_async)
@@ -573,6 +574,10 @@ class FleetSimulation:
     filler cannot perturb the real lanes.
     """
 
+    #: the drop stream's width (None: the fleet's N); a canonical fleet
+    #: draws its lanes' real width inside the rung
+    _stream_n: Optional[int] = None
+
     def __init__(self, cfg: SimConfig, device=None,
                  chunk_ticks: Optional[int] = None):
         self.cfg = cfg
@@ -700,7 +705,8 @@ class FleetSimulation:
         def build():
             cfg_w = self.cfg.replace(max_nnb=width)
             trace = mode == "trace"
-            tick = make_fleet_tick(cfg_w, with_events=trace)
+            tick = make_fleet_tick(cfg_w, with_events=trace,
+                                   n_active=self._stream_n)
 
             def run(states: WorldState, staged):
                 sched, drop, lanes = staged
@@ -864,6 +870,10 @@ class FleetSimulation:
         return (a_h.reshape(length, nr, n, n),
                 r_h.reshape(length, nr, n, n), sr[0], sr[1])
 
+    def _lane_schedules(self, cfgs) -> list:
+        """Each lane's host schedule at the fleet's width."""
+        return [make_schedule_host(c) for c in cfgs]
+
     def _dense_trace_lanes(self, cfgs, scheds, final, nr: int,
                            added, removed, sent, recv):
         lanes = []
@@ -905,7 +915,7 @@ class FleetSimulation:
         end = start + length
         shared = _shared_drop(cfgs)
         t0 = time.perf_counter()
-        scheds = [make_schedule_host(c) for c in cfgs]
+        scheds = self._lane_schedules(cfgs)
         staged = self._stage_dense(cfgs, scheds, shared)
         if cks is None:
             states0 = self._init_stacked(cfgs, self.cfg.n)
@@ -1234,6 +1244,141 @@ class FleetSimulation:
         if not defer:
             pending.start()
         return pending
+
+
+class CanonicalFleetSimulation(FleetSimulation):
+    """A fleet over one CANONICAL equivalence class (service/canonical.py;
+    JAX ``core/fleet.py CanonicalFleetSimulation``): lanes whose exact
+    configs differ — peer count below the same pad-ladder rung (drop-off
+    classes), drop probability, phase-window jitter within the
+    quantization grid, world operand values — ride ONE fleet program at
+    the rung width.
+
+    It is the dense trace fleet with ``self.cfg`` a rung-width
+    representative (``member.replace(max_nnb=rung)``), so the inherited
+    staging, chunking and sparse event staging run at the rung.  The
+    canonical deltas:
+
+    * lane validation by canonical key equality (not exact shape);
+    * each lane's real-width schedule is padded to the rung with inert
+      filler peers (``state.pad_schedule_host``);
+    * the drop window is EXACT per lane: each lane's own ``drop_active``
+      is its row of the fleet's drop plan (``ops/drop.py LaneDrop``), so
+      nothing draws outside it.  (The JAX package draws a class-shared
+      quantized superset window and masks it back per lane; the draw
+      depends only on (key, tick, stream width), so both give the same
+      bits.)  The flap world's scalars ride as one value a lane;
+    * the drop stream is drawn at the class's ``stream_n`` (the real
+      peer count of drop-on classes) and embedded into the rung: the
+      draw kernel reads the asym thresholds at that corner and gates the
+      partition over the whole rung;
+    * results are sliced back to each lane's real ``n`` on the host —
+      filler PEERS, like filler lanes, are never unstacked.
+
+    Per-lane results are bit-identical to exact unpadded solo runs
+    (tests/test_torch_canonical.py).  Monolithic trace dispatches only:
+    bench mode bakes the active corner and checkpoint legs validate
+    exact-plan cuts, so both keep exact buckets.  Unlike the JAX class
+    a rung too large for one event chunk is chunked like any dense
+    trace fleet rather than refused.
+    """
+
+    def __init__(self, cfg: SimConfig, device=None,
+                 chunk_ticks: Optional[int] = None):
+        from ..service.canonical import (canonical_bucket_key,
+                                         canonical_supported, ladder_rung)
+        if not canonical_supported(cfg, "trace"):
+            raise ValueError(
+                f"config (model={cfg.model!r}) is not canonicalizable; "
+                "use FleetSimulation with the exact bucket key")
+        self.member_cfg = cfg
+        self.rung = ladder_rung(cfg.n)
+        self._canon_key = canonical_bucket_key(cfg, "trace")
+        # the class's drop-stream width: real n for drop-on classes,
+        # None (the rung) otherwise — the stream_n of the canonical key
+        self._stream_n = cfg.n if (cfg.drop_msg or cfg.asym_drop) else None
+        super().__init__(cfg.replace(max_nnb=self.rung), device=device,
+                         chunk_ticks=chunk_ticks)
+
+    def _lane_cfgs(self, seeds, configs) -> list[SimConfig]:
+        from ..service.canonical import canonical_bucket_key
+        if (seeds is None) == (configs is None):
+            raise ValueError("pass exactly one of seeds= or configs=")
+        if configs is None:
+            configs = [self.member_cfg.replace(seed=int(s)) for s in seeds]
+        configs = list(configs)
+        if not configs:
+            raise ValueError("empty fleet")
+        for i, c in enumerate(configs):
+            k = canonical_bucket_key(c, "trace")
+            if k != self._canon_key:
+                raise ValueError(
+                    f"lane {i} is not a member of this canonical "
+                    f"equivalence class: {k} != {self._canon_key}")
+        return configs
+
+    def _key_prefix(self) -> tuple:
+        # the canonical key IS the program identity (rung, stream_n,
+        # static plane set, quantized plan); the mesh slot is None
+        return (self._canon_key, None)
+
+    def _lane_schedules(self, cfgs) -> list:
+        return [pad_schedule_host(make_schedule_host(c), self.rung)
+                for c in cfgs]
+
+    def _stage_dense(self, cfgs, scheds, shared: bool):
+        sched, drop, lanes = super()._stage_dense(cfgs, scheds, shared)
+        if self.cfg.flap_rate > 0:
+            # the flap knobs are runtime operands of the class: one value
+            # a lane, broadcast against the [B, N] anchors
+            def col(name):
+                return _to_device(np.array(
+                    [[getattr(s, name)] for s in scheds], np.int32),
+                    self.device)
+            sched = sched.replace(flap_period=col("flap_period"),
+                                  flap_down=col("flap_down"),
+                                  flap_close=col("flap_close"))
+        return sched, drop, lanes
+
+    def _dense_trace_lanes(self, cfgs, scheds, final, nr: int,
+                           added, removed, sent, recv):
+        from .dense_corner import _slice_state
+        lanes = []
+        for i, (c, s) in enumerate(zip(cfgs[:nr], scheds[:nr])):
+            n = c.n
+            lanes.append(SimResult(
+                cfg=c, start_tick=np.asarray(s.start_tick[:n]),
+                fail_tick=np.asarray(s.fail_tick[:n]),
+                rejoin_tick=np.asarray(s.rejoin_tick[:n]),
+                added=np.concatenate([ch[:, i, :n, :n] for ch in added], 0),
+                removed=np.concatenate([ch[:, i, :n, :n] for ch in removed],
+                                       0),
+                sent=np.concatenate([ch[:, i, :n] for ch in sent], 0).T.copy(),
+                recv=np.concatenate([ch[:, i, :n] for ch in recv], 0).T.copy(),
+                final_state=_slice_state(_lane_state(final, i), n),
+                wall_seconds=0.0))
+        _check_unstacked(lanes, nr)
+        return lanes
+
+    # the modes the canonical path does not serve: the serving layer's
+    # canonical_supported gate routes them to exact buckets first
+    def run_bench(self, *a, **kw):
+        raise NotImplementedError(
+            "canonical buckets serve dense trace only; bench mode "
+            "bakes the active-corner width and keeps exact buckets")
+
+    launch_bench = run_bench
+
+    def run_leg(self, *a, **kw):
+        from ..service.canonical import CanonicalLegUnsupported
+        raise CanonicalLegUnsupported(
+            "canonical buckets serve monolithic traces only: "
+            "checkpoint legs validate resume cuts against the EXACT "
+            "segment plan, which canonical buckets quantize away — "
+            "serve legged work from exact buckets "
+            "(FleetService(canonicalize=False))")
+
+    launch_leg = run_leg
 
 
 def _stack_fleet_events(evs: list, trace: bool, b: int, width: int,

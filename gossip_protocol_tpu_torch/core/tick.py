@@ -93,8 +93,8 @@ def make_tick(cfg: SimConfig, with_events: bool = True,
     ``n_active`` pins the drop-stream width: the Bernoulli lattice is
     drawn at ``n_active`` peers and embedded into the (N, N) masks, so a
     full-width tick can consume the active corner's stream
-    (core/dense_corner.py).  Default: N.  The partition and asym worlds
-    draw at full width only.
+    (core/dense_corner.py) or a canonical rung its lanes' real-width
+    stream (service/canonical.py).  Default: N.
     """
     n = cfg.n
     na = n if n_active is None else n_active
@@ -109,8 +109,6 @@ def make_tick(cfg: SimConfig, with_events: bool = True,
     asym = cfg.asym_drop
     # the worlds the fused K1 path does not compile (JAX core/tick.py:141)
     composable = cfg.zombie or cfg.byz_rate > 0 or cfg.link_latency > 0
-    if (partition or asym) and na < n:
-        raise ValueError("the partition and asym worlds draw at full width")
 
     def tick(state: WorldState, sched: Schedule):
         t = state.tick
@@ -331,8 +329,6 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
     partition = cfg.partition_groups >= 2
     asym = cfg.asym_drop
     composable = cfg.zombie or cfg.byz_rate > 0 or cfg.link_latency > 0
-    if (partition or asym) and na < n:
-        raise ValueError("the partition and asym worlds draw at full width")
 
     def tick(state: WorldState, sched: Schedule, drop, lane_scheds=None):
         t = state.tick

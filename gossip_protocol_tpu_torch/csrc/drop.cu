@@ -11,20 +11,26 @@
 //                  is closed draws nothing, as the JAX package's lax.cond
 //                  skips the draw.
 //
-// Two optional inputs carry the adversarial worlds (worlds.py), both at
-// full width (na == N):
-//   thr    f32[N, N] sender-major per-link probabilities (asym drop): the
-//          gossip cell (r, c) compares against thr[r N + c], JOINREQ cell c
-//          against thr[c N + INTRODUCER] (c's link to the introducer),
-//          JOINREP cell c against thr[INTRODUCER N + c]
+// Two optional inputs carry the adversarial worlds (worlds.py), at any
+// draw width na <= N:
+//   thr    f32[N, N] sender-major per-link probabilities (asym drop), read
+//          at the na x na corner at row stride N (the JAX draw's
+//          link_prob[:na, :na], gossip_protocol_tpu/core/tick.py:219-221):
+//          the gossip cell (r, c) compares against thr[r N + c], JOINREQ
+//          cell c against thr[c N + INTRODUCER] (c's link to the
+//          introducer), JOINREP cell c against thr[INTRODUCER N + c]
 //          (gossip_protocol_tpu/ops/drop.py:49-57);
 //   group  i32[N] partition groups, with bit s of part_active set when the
-//          partition is open at tick t0 + s: the gossip cell (r, c) ORs in
-//          group[r] != group[c], cell c of both join rows group[c] !=
-//          group[INTRODUCER] (gossip_protocol_tpu/core/tick.py:238-250).
-//          The gate is deterministic and sits outside the drop window: a
-//          tick whose window is closed but whose partition is open writes
-//          the partition mask and draws nothing.
+//          partition is open at tick t0 + s, applied over the whole N x N
+//          plane whatever na is: the gossip cell (r, c) ORs in group[r] !=
+//          group[c], cell c of both join rows group[c] != group[INTRODUCER]
+//          (gossip_protocol_tpu/core/tick.py:238-247).  The gate is
+//          deterministic and sits outside the drop window: a tick whose
+//          window is closed but whose partition is open writes the
+//          partition mask and draws nothing.
+// A canonical fleet bucket (service/canonical.py) pads its lanes' peers to
+// a power-of-two rung N and draws at the lanes' real width na < N, which
+// is what the corner read and the full-width gate serve.
 //
 //   gp_drop_masks_lanes  one tick of a fleet of B runs in one launch (the
 //                  lane is the grid's second coordinate): lane b draws with
@@ -123,7 +129,7 @@ __device__ __forceinline__ void draw_quad(
     for (int e = 0; e < 4; ++e) {
       const int col = c + e;
       float pr = prob;
-      if (thr != nullptr && col < na)   // thresholds come at na == n
+      if (thr != nullptr && col < na)   // the na x na corner, stride n
         pr = r < n ? thr[(size_t)r * n + col]
                    : (r == n ? thr[(size_t)col * n + INTRODUCER]
                              : thr[(size_t)INTRODUCER * n + col]);
@@ -132,7 +138,7 @@ __device__ __forceinline__ void draw_quad(
       out |= (uint32_t)(col < na && u < pr) << (8 * e);
     }
   }
-  if (part) {      // groups come at na == n: every row and column is real
+  if (part) {      // the partition gate covers all n rows and columns
     const int gr = group[r < n ? r : INTRODUCER];
 #pragma unroll
     for (int e = 0; e < 4; ++e)
@@ -218,14 +224,13 @@ const char* gp_error_string(int code) {
 
 // g u8[S, N, N], q/p u8[S, N] (written whole); (k0, k1) the run's key, tick
 // t0 + s drawn where bit s of `active` is set, at width na <= n; thr
-// (f32[N, N]) and group (i32[N]) optional, both only at na == n, the
-// partition applied where bit s of `part_active` is set.
+// (f32[N, N], read at its na x na corner) and group (i32[N], over all n)
+// optional, the partition applied where bit s of `part_active` is set.
 int gp_drop_masks(uint8_t* g, uint8_t* q, uint8_t* p, const float* thr,
                   const int32_t* group, unsigned int k0, unsigned int k1,
                   int t0, unsigned int active, unsigned int part_active,
                   float prob, int n, int na, int s_ticks, void* stream_ptr) {
-  if (n < 1 || na < 1 || na > n || s_ticks < 1 || s_ticks > MAX_TICKS ||
-      ((thr != nullptr || group != nullptr) && na != n))
+  if (n < 1 || na < 1 || na > n || s_ticks < 1 || s_ticks > MAX_TICKS)
     return static_cast<int>(cudaErrorInvalidValue);
   DropArgs a;
   a.k0 = k0;
@@ -252,8 +257,9 @@ int gp_drop_masks(uint8_t* g, uint8_t* q, uint8_t* p, const float* thr,
 // (written whole); keys u32[b, 2], prob f32[b]; lane l's drop window is
 // open where active[l * stride + ti] (ti = t clamped to the table, stride
 // 0 when the lanes share one window), its partition where part[...] (same
-// layout; null without the partition world).  thr (f32[b, N, N]) and
-// group (i32[b, N]) optional, both only at na == n.
+// layout; null without the partition world).  thr (f32[b, N, N], each
+// lane's read at its na x na corner) and group (i32[b, N], over all n)
+// optional.
 int gp_drop_masks_lanes(uint8_t* g, uint8_t* q, uint8_t* p, const float* thr,
                         const int32_t* group, const uint32_t* keys,
                         const float* prob, const uint8_t* active,
@@ -261,7 +267,6 @@ int gp_drop_masks_lanes(uint8_t* g, uint8_t* q, uint8_t* p, const float* thr,
                         int n, int na, int b, void* stream_ptr) {
   if (n < 1 || na < 1 || na > n || b < 1 || b > 65535 || ti < 0 ||
       stride < 0 || keys == nullptr || prob == nullptr || active == nullptr ||
-      ((thr != nullptr || group != nullptr) && na != n) ||
       (group != nullptr && part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   LaneArgs a;

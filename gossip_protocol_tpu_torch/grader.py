@@ -211,6 +211,44 @@ def grade_all_fleet(testcases_dir: str = "testcases", workdir: str = ".",
     return results
 
 
+def grade_all_service(testcases_dir: str = "testcases",
+                      workdir: str = ".", service=None, device=None) -> dict:
+    """Grade the three shipped scenarios through the fleet SERVICE (the
+    JAX ``grade_all_service``).
+
+    Each scenario is submitted as a trace request to a
+    :class:`~.service.FleetService` (on ``device``: ``cuda`` unless
+    ``cpu``) and graded from its handle's lane result.  The bucketer
+    does the batching: single and multi share one bucket (equal shape
+    and segment plan), msgdrop's drop window lands in its own.  Per-lane
+    events are bit-identical to solo runs, so the totals mirror
+    :func:`grade_all` exactly.
+    """
+    from .config import SimConfig
+    from .service import FleetService
+
+    svc = service if service is not None else FleetService(
+        max_batch=len(SCENARIOS), pad_policy="none", device=device)
+    handles = [svc.submit(SimConfig.from_conf(
+        os.path.join(testcases_dir, f"{s}.conf")), mode="trace")
+        for s in SCENARIOS]
+    svc.drain()
+    dbg = os.path.join(workdir, "dbg.log")
+    results = {}
+    for name, h in zip(SCENARIOS, handles):
+        h.result().write_logs(workdir)
+        if name == "multifailure":
+            results[name] = grade_multi(dbg)
+        elif name == "msgdropsinglefailure":
+            results[name] = grade_single(dbg, join_pts=15, comp_pts=15,
+                                         acc_pts=None)
+        else:
+            results[name] = grade_single(dbg)
+    results["total"] = sum(r.points for r in results.values()
+                           if isinstance(r, ScenarioGrade))
+    return results
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Grade the three scenarios "

@@ -523,13 +523,17 @@ class OverlayResult:
 
 class OverlaySimulation:
     """Orchestrator for cfg.model == "overlay" runs (metrics mode), on
-    ``cuda`` unless ``device="cpu"``."""
+    ``cuda`` unless ``device="cpu"``.  ``per_tick=True`` takes the
+    per-tick route (K3 a tick on a card) whatever the envelopes say, as
+    the JAX ``OverlaySimulation(use_pallas=False)``; the default routes
+    as :func:`make_overlay_run`."""
 
-    def __init__(self, cfg: SimConfig, device=None):
+    def __init__(self, cfg: SimConfig, device=None, per_tick: bool = False):
         if cfg.model != "overlay":
             raise ValueError("OverlaySimulation requires cfg.model='overlay'")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.per_tick = per_tick
 
     def run(self, profile_dir: str | None = None,
             resume_from: OverlayState | None = None,
@@ -554,7 +558,8 @@ class OverlaySimulation:
         t_end = cfg.total_ticks if ticks is None \
             else min(cfg.total_ticks, first + ticks)
         # the start tick is known here, so the K5 route segments its plan
-        run = make_overlay_run(cfg, t_end - first, start_tick=first)
+        route = dict(mega=False, grid=False) if self.per_tick else {}
+        run = make_overlay_run(cfg, t_end - first, start_tick=first, **route)
         _sync(self.device)
         t0 = time.perf_counter()
         final, metrics = run(state, sched)

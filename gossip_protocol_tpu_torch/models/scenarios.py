@@ -51,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import time
 from typing import Callable
 
 import numpy as np
@@ -908,33 +909,107 @@ def repro_command(family: str, seed: int, device: str = "cuda") -> str:
             f"{family!r}, {seed}, device={device!r}))\"")
 
 
-def solo_execute(cfg: SimConfig, device=None):
-    """One direct trace-mode run of a config, no fleet (the JAX
-    ``service/resilience.py solo_execute``): ``OverlaySimulation`` or
-    ``Simulation``, on ``cuda`` unless ``device`` says ``cpu``."""
-    if cfg.model == "overlay":
-        from .overlay import OverlaySimulation
-        return OverlaySimulation(cfg, device=device).run()
-    from ..core.sim import Simulation
-    return Simulation(cfg, device=device).run()
-
-
 def run_solo(family: str, seed: int, device=None):
     """One variant, no service — the repro path.  Returns
     ``(violations, lane_digest)``."""
+    from ..service.resilience import solo_execute
     fam = CATALOG[family]
     cfg = fam.build(seed)
-    lane = solo_execute(cfg, device)
+    lane = solo_execute(cfg, "trace", device)
     return grade(fam, seed, lane), _lane_digest(cfg, lane)
 
 
-def sweep(*args, **kwargs):
-    """The JAX package's fleet-scale sweep grades every
-    ``(family, seed)`` variant as one ``FleetService`` run.  The port has
-    the fleet (core/fleet.py) but not the service layer that buckets the
-    variants into fleets (ROADMAP M10), so the sweep waits for it;
-    :func:`variants` and :func:`run_solo` grade the same variants one run
-    at a time."""
-    raise NotImplementedError(
-        "scenarios.sweep needs the fleet service (service/, not yet "
-        "ported); grade variants with run_solo")
+def sweep(families=None, seeds_per_family: int = 40, max_batch: int = 8,
+          mesh=None, seed0: int = 1000, service=None,
+          raise_on_fail: bool = True, device=None) -> dict:
+    """Grade ``len(families) * seeds_per_family`` seeded scenario
+    variants as ONE FleetService run on ``device`` (``cuda`` unless
+    ``cpu``; the JAX ``sweep``).
+
+    Gates enforced in-line: 100% of submitted variants reach a
+    terminal completed state (a stranded or failed handle raises), and
+    every variant's oracle verdict is recorded.  With the default
+    catalog and ``seeds_per_family=40`` that is 1000 variants spanning
+    every world on both models.  The returned ``verdict_digest`` /
+    ``outcome_digest`` are pure functions of (families, seeds): the
+    same seeds reproduce them digest for digest, in either package.
+    ``service_failures`` is the service's failure counters (retries,
+    degraded requests), which a fault-free sweep keeps at zero.
+
+    On oracle failures the report names each failing variant with its
+    violations AND the exact single-variant repro command.
+    """
+    from ..service.scheduler import FleetService
+    var = variants(families, seeds_per_family, seed0)
+    svc = service if service is not None else FleetService(
+        max_batch=max_batch, mesh=mesh, device=device)
+    # no warm-up pass: the JAX sweep warms each family to keep XLA
+    # compiles out of its wall, and the port has nothing to compile (the
+    # kernels are built once a process, at first use)
+    t0 = time.perf_counter()
+    handles = [(fam, seed, svc.submit(fam.build(seed), mode="trace"))
+               for fam, seed in var]
+    svc.drain()
+    wall = time.perf_counter() - t0
+    stranded = [h.request.rid for _, _, h in handles if not h.done]
+    failed = [h.request.rid for _, _, h in handles if h.failed]
+    if stranded or failed:
+        errs = "; ".join(f"rid {h.request.rid}: {h.exception()!r}"
+                         for _, _, h in handles if h.failed)[:500]
+        raise RuntimeError(
+            f"scenario sweep left {len(stranded)} stranded and "
+            f"{len(failed)} failed handles of {len(handles)}: {errs}")
+    rows = []
+    fails = []
+    per_family: dict[str, dict] = {}
+    for fam, seed, h in handles:
+        lane = h.result()
+        cfg = fam.build(seed)
+        violations = grade(fam, seed, lane)
+        rows.append((fam.name, seed, tuple(violations),
+                     _lane_digest(cfg, lane)))
+        pf = per_family.setdefault(fam.name, {"pass": 0, "fail": 0})
+        if violations:
+            pf["fail"] += 1
+            fails.append((fam.name, seed, violations))
+        else:
+            pf["pass"] += 1
+    verdict_digest = hashlib.sha256(
+        repr([(r[0], r[1], r[2]) for r in rows]).encode()).hexdigest()[:16]
+    outcome_digest = hashlib.sha256(
+        repr([(r[0], r[1], r[3]) for r in rows]).encode()).hexdigest()[:16]
+    stats = svc.stats()
+    report = {
+        "variants": len(var),
+        "families": len({fam.name for fam, _ in var}),
+        "worlds": len({fam.world for fam, _ in var}),
+        "passed": sum(pf["pass"] for pf in per_family.values()),
+        "failed": sum(pf["fail"] for pf in per_family.values()),
+        "pass_rate": round(sum(pf["pass"] for pf in per_family.values())
+                           / max(len(var), 1), 4),
+        "per_family": per_family,
+        "verdict_digest": verdict_digest,
+        "outcome_digest": outcome_digest,
+        "wall_s": round(wall, 3),
+        "devices": stats["devices"],
+        "dispatches": stats["dispatches"],
+        "mean_occupancy": stats["mean_occupancy"],
+        "buckets": stats["cache"]["buckets"],
+        "completed": stats["completed"],
+        "terminal_rate": round(
+            (len(handles) - len(stranded) - len(failed))
+            / max(len(handles), 1), 4),
+        "service_failures": stats["failures"],
+    }
+    if fails and raise_on_fail:
+        lines = [f"  {f}/{s}: {v[:2]}\n    repro: "
+                 f"{repro_command(f, s, svc.device.type)}"
+                 for f, s, v in fails[:8]]
+        raise RuntimeError(
+            f"scenario sweep: {len(fails)}/{len(var)} variants failed "
+            "their oracle:\n" + "\n".join(lines))
+    report["failures"] = [
+        {"family": f, "seed": s, "violations": list(v)[:4],
+         "repro": repro_command(f, s, svc.device.type)}
+        for f, s, v in fails]
+    return report

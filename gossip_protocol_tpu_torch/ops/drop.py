@@ -13,12 +13,15 @@ one launch of the ``drop_masks`` kernel (csrc/drop.cu), on the CPU
 :func:`drop_masks_plain`, the torch threefry route.  The JAX package
 computes this draw in XLA, outside any Pallas kernel.
 
-Two adversarial worlds (worlds.py) ride the same draw, at full width
-only: the asym world's per-link thresholds replace the uniform
-probability (``link_prob``, JAX ``ops/drop.py:49-57``), and the
-partition world ORs its cross-group mask into every class while the
-partition is open, a deterministic gate outside the drop window (JAX
-``core/tick.py:238-250``).
+Two adversarial worlds (worlds.py) ride the same draw, at any draw
+width: the asym world's per-link thresholds replace the uniform
+probability (``link_prob``, JAX ``ops/drop.py:49-57``), read at the
+``n_active x n_active`` corner as the JAX tick's ``link_prob[:na, :na]``
+(``core/tick.py:219-221``), and the partition world ORs its cross-group
+mask into every class over the whole N x N while the partition is open,
+a deterministic gate outside the drop window (JAX
+``core/tick.py:238-247``).  A canonical bucket (service/canonical.py)
+draws its lanes at their real width inside the padded rung this way.
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ def drop_masks_plain(rng, t0: int, active, prob, n: int,
         lp = torch.as_tensor(np.asarray(link_prob, np.float32)
                              if not torch.is_tensor(link_prob)
                              else link_prob, device=device)
+        lp = lp[:na, :na]
         thr = torch.cat([lp, lp[:, INTRODUCER][None, :],
                          lp[INTRODUCER][None, :]], 0)
     for s, on in enumerate(active):
@@ -89,19 +93,16 @@ def drop_masks(rng, t0: int, active, prob, n: int,
     drop window open for that tick's sends), ``prob`` the float32
     MSG_DROP_PROB.  ``n_active`` (default N) is the draw's width: the
     ``n_active x n_active`` lattice and the first ``n_active`` entries
-    of the two vectors are drawn, the rest is zero.  The worlds' inputs
-    (full width only): ``link_prob`` f32[N, N] sender-major per-link
-    probabilities replacing ``prob``; ``group`` i32[N] partition groups
-    with ``part_active`` S host bools (is the partition open for that
-    tick's sends).  On a CPU device :func:`drop_masks_plain`; on a CUDA
+    of the two vectors are drawn, the rest is zero.  The worlds' inputs:
+    ``link_prob`` f32[N, N] sender-major per-link probabilities replacing
+    ``prob``, read at the ``n_active`` corner; ``group`` i32[N] partition
+    groups with ``part_active`` S host bools (is the partition open for
+    that tick's sends), gating all N peers.  On a CPU device :func:`drop_masks_plain`; on a CUDA
     device one kernel launch (or an exception).
     """
     na = n if n_active is None else n_active
     if not 0 < na <= n:
         raise ValueError(f"n_active={na} outside (0, {n}]")
-    if (link_prob is not None or group is not None) and na != n:
-        raise ValueError("per-link thresholds and partition groups run at "
-                         f"full width only (n_active={na} < N={n})")
     if group is not None and len(part_active) != len(active):
         raise ValueError("part_active needs one flag a tick")
     dev = torch.device(device)
@@ -231,18 +232,15 @@ def drop_masks_lanes(plan: LaneDrop, t: int, n: int,
 
     Lane ``b`` draws ``fold_in(keys[b], t)`` where its drop window is
     open, against ``prob[b]`` or its per-link thresholds ``link_prob[b]``
-    (f32[B, N, N]), and ORs in its partition (``group`` i32[B, N]) where
-    its partition is open, exactly as its solo run's
-    :func:`tick_drop_masks` at ``t``; ``n_active`` embeds every lane's
-    draw.  On a CPU device :func:`drop_masks_lanes_plain`; on a CUDA
+    (f32[B, N, N], read at the ``n_active`` corner), and ORs in its
+    partition (``group`` i32[B, N], all N peers) where its partition is
+    open, exactly as its solo run's :func:`tick_drop_masks` at ``t``;
+    ``n_active`` embeds every lane's draw.  On a CPU device :func:`drop_masks_lanes_plain`; on a CUDA
     device one kernel launch for the whole fleet (or an exception).
     """
     na = n if n_active is None else n_active
     if not 0 < na <= n:
         raise ValueError(f"n_active={na} outside (0, {n}]")
-    if (link_prob is not None or group is not None) and na != n:
-        raise ValueError("per-link thresholds and partition groups run at "
-                         f"full width only (n_active={na} < N={n})")
     if group is not None and plan.part is None:
         raise ValueError("partition groups need the plan's part windows")
     dev = torch.device(device)

@@ -122,7 +122,9 @@ class Schedule:
         down for positions [1, flap_down] of every cycle from its anchor
         and rejoins at position flap_down, only for cycles completing by
         ``flap_close`` (JAX ``Schedule._flap_state``)."""
-        per = max(self.flap_period, 1)
+        per = self.flap_period
+        # a canonical fleet carries the flap scalars a lane ([B, 1])
+        per = per.clamp(min=1) if torch.is_tensor(per) else max(per, 1)
         pos = t - self.flap_phase
         c = pos // per
         off = pos - c * per
@@ -236,6 +238,49 @@ def slice_schedule(s: Schedule, a: int) -> Schedule:
         out[k] = v if v.shape[0] == 0 else (
             v[:a] if v.ndim == 1 else v[:a, :a])
     return s.replace(**out)
+
+
+def pad_schedule_host(s: Schedule, width: int) -> Schedule:
+    """Embed a width-``n`` host schedule into a width-``width`` one with
+    INERT filler peers (JAX ``state.pad_schedule_host``; the canonical
+    pad-ladder of service/canonical.py).  Filler peers get
+    ``start_tick = NEVER``: never introduced, never known, their state
+    rows stay zero, so the real ``n x n`` corner of a padded run equals
+    the unpadded run bit for bit.  Planes pad with values that are dead
+    by construction: ``link_prob`` 0, ``byz_target`` False, ``link_lat``
+    1; a (0, 0) plane (world off) stays as it is.  Window scalars and
+    ``drop_active`` are width-independent and pass through."""
+    n = int(np.asarray(s.start_tick).shape[0])
+    if width == n:
+        return s
+    if width < n:
+        raise ValueError(f"pad width {width} < schedule width {n}")
+
+    def vec(a, fill):
+        a = np.asarray(a)
+        out = np.full((width,), fill, a.dtype)
+        out[:n] = a
+        return out
+
+    def plane(a, fill):
+        a = np.asarray(a)
+        if a.size == 0:
+            return a
+        out = np.full((width, width), fill, a.dtype)
+        out[:n, :n] = a
+        return out
+
+    return s.replace(
+        start_tick=vec(s.start_tick, NEVER),
+        fail_tick=vec(s.fail_tick, NEVER),
+        rejoin_tick=vec(s.rejoin_tick, NEVER),
+        part_group=vec(s.part_group, 0),
+        link_prob=plane(s.link_prob, 0.0),
+        flap_mask=vec(s.flap_mask, False),
+        flap_phase=vec(s.flap_phase, 0),
+        byz_mask=vec(s.byz_mask, False),
+        byz_target=plane(s.byz_target, False),
+        link_lat=plane(s.link_lat, 1))
 
 
 def init_state(cfg: SimConfig, device=None) -> WorldState:

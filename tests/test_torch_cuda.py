@@ -1001,3 +1001,136 @@ def test_pending_fleet_never_syncs_before_resolve(dev, model):
         else:
             assert np.array_equal(la.metrics.sent, lb.metrics.sent)
             assert torch.equal(la.final_state.ids, lb.final_state.ids)
+
+
+# ------------------------------------------ the corner draw and serving
+
+@pytest.mark.parametrize("worlds", ("thresholds", "groups", "both"))
+@pytest.mark.parametrize("n,na", ((16, 13), (1024, 1000), (1024, 900)))
+def test_drop_masks_corner_worlds(dev, n, na, worlds):
+    """A canonical rung's draw: thresholds read at the ``na x na`` corner
+    of the N x N plane, the partition gated over all N, in the solo
+    kernel (8 ticks, window and partition open and closed) and the lane
+    kernel (3 lanes), each equal to its plain version."""
+    from gossip_protocol_tpu_torch.ops.drop import (LaneDrop, drop_masks,
+                                                    drop_masks_lanes,
+                                                    drop_masks_lanes_plain,
+                                                    drop_masks_plain)
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    rng = np.random.default_rng(n + na)
+    b = 3
+    lp = torch.from_numpy((rng.random((b, n, n)) * 0.3).astype(np.float32)) \
+        .to(dev) if worlds != "groups" else None
+    grp = torch.from_numpy(rng.integers(0, 3, (b, n)).astype(np.int32)) \
+        .to(dev) if worlds != "thresholds" else None
+    active = [True, False, True, False, True, True, False, False]
+    part = [True, True, False, False, True, False, True, False]
+    kw = dict(link_prob=None if lp is None else lp[0],
+              group=None if grp is None else grp[0],
+              part_active=part if grp is not None else None)
+    before = drop_masks.launches
+    got = drop_masks(prng_key(n), 100, active, np.float32(0.1), n, na,
+                     dev, **kw)
+    assert drop_masks.launches == before + 1
+    want = drop_masks_plain(prng_key(n), 100, active, np.float32(0.1), n,
+                            na, dev, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    assert got[0].any()
+    if grp is None:
+        assert not got[0][:, na:].any() and not got[0][:, :, na:].any()
+    act = np.ones((b, 400), bool)
+    act[1, :200] = False
+    prt = np.zeros((b, 400), bool)
+    prt[0] = True
+    plan = LaneDrop(np.stack([prng_key(s) for s in range(b)]),
+                    np.float32([0.1, 0.2, 0.3]), act,
+                    prt if grp is not None else None)
+    for t in (100, 300):
+        before = drop_masks_lanes.launches
+        got = drop_masks_lanes(plan, t, n, na, dev, lp, grp)
+        assert drop_masks_lanes.launches == before + 1
+        want = drop_masks_lanes_plain(plan, t, n, na, dev, lp, grp)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+
+
+def _digests(handles):
+    import importlib
+    pr = importlib.import_module("gossip_protocol_tpu_torch.service.replay")
+    return [pr.result_digest(h.result()) for h in handles]
+
+
+def test_fleet_service_cuda_equals_cpu(dev):
+    """A small mixed stream through FleetService on cuda and on cpu:
+    exact and canonical buckets (asym at n=13 in rung 16, partition +
+    drop at n=12), every request's digest equal, no failure counted."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.service import (FleetService,
+                                                   grader_templates,
+                                                   overlay_templates)
+    base = dict(single_failure=True, total_ticks=80, fail_tick=30)
+    canon = [SimConfig(**base, max_nnb=13, drop_msg=True, msg_drop_prob=0.1,
+                       asym_drop=True, drop_open_tick=10, drop_close_tick=60,
+                       seed=s) for s in (1, 2, 3)] \
+        + [SimConfig(**base, max_nnb=12, drop_msg=True, msg_drop_prob=0.1,
+                     partition_groups=2, partition_open_tick=20,
+                     partition_close_tick=50, drop_open_tick=5 + s,
+                     drop_close_tick=60, seed=s) for s in (1, 2)]
+    tpls = grader_templates() + overlay_templates(n=128, ticks=48)
+    out = {}
+    for d in ("cuda", "cpu"):
+        svc = FleetService(max_batch=4, canonicalize=True, device=d)
+        hs = [svc.submit(t.cfg, seed=s, mode=t.mode)
+              for s in (1000, 1001) for t in tpls]
+        hs += [svc.submit(c) for c in canon]
+        svc.drain()
+        st = svc.stats()
+        assert st["failures"]["retries"] == 0, st["last_errors"]
+        assert st["failures"]["degraded_requests"] == 0
+        out[d] = _digests(hs)
+    assert out["cuda"] == out["cpu"]
+
+
+def test_service_pump_never_syncs(dev):
+    """The pipelined pump under the sync-debug mode "error": submits
+    that stage and launch full buckets, and idle pumps that poll the
+    ring heads' CUDA events, never synchronize the device.  Resolution
+    (the fetch, which must wait) is held until the mode is off, then the
+    results equal a synchronous service's."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.service import FleetService
+    cfg = SimConfig(max_nnb=64, single_failure=False, drop_msg=True,
+                    msg_drop_prob=0.1, seed=0, total_ticks=120,
+                    rejoin_after=20)
+    ov = SimConfig(max_nnb=4096, model="overlay", single_failure=False,
+                   drop_msg=False, seed=0, total_ticks=272, churn_rate=0.2,
+                   rejoin_after=40, step_rate=64.0 / 4096)
+    svc = FleetService(max_batch=2, device="cuda", pipeline_depth=2)
+    svc.warm(cfg)
+    svc.warm(ov)
+    ref = FleetService(max_batch=2, device="cuda", pipeline=False)
+    hr = [ref.submit(c, seed=s) for c in (cfg, ov) for s in (1, 2, 3, 4)]
+    ref.drain()
+    resolve, held = svc._resolve, []
+    svc._resolve = held.append         # the harvest's fetch, deferred
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hs = [svc.submit(c, seed=s) for c in (cfg, ov) for s in (1, 2, 3, 4)]
+        polls = 0
+        while svc.in_flight and polls < 100000:
+            svc.pump()
+            polls += 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        svc._resolve = resolve
+    # the four batches (two a bucket, one ring slot each) were all found
+    # ready by polls, during the submits or the idle pumps
+    assert svc.stats()["ring_stalls"] == 0 and svc.in_flight == 0
+    assert len(held) == 4
+    for infl in held:
+        resolve(infl)
+    svc.drain()
+    assert _digests(hs) == _digests(hr)
+    assert svc.stats()["failures"]["retries"] == 0

@@ -31,8 +31,14 @@ def test_catalog_equals_jax():
             jax_scenarios.variants(seeds_per_family=3)]
     assert got == want
     assert scenarios.repro_command("dense_wave", 1003).count("1003") == 1
-    with pytest.raises(NotImplementedError):
-        scenarios.sweep()
+    # the sweep no longer waits for the service: it runs on the card by
+    # default (raising where there is none) and on the CPU when asked
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            scenarios.sweep()
+    rep = scenarios.sweep(families=["dense_asym_drop"], seeds_per_family=1,
+                          device="cpu")
+    assert rep["variants"] == 1 and rep["failed"] == 0
 
 
 @pytest.mark.parametrize("name", DENSE)

@@ -82,19 +82,38 @@ def test_random_bits_odd_shape():
 
 
 def test_asym_link_prob_raises():
-    """Per-link thresholds (the asym world) and partition groups are
-    drawn at full width only: a narrower draw raises; at full width the
-    thresholds replace the uniform probability, so all-ones thresholds
-    drop every message of an open tick."""
-    lp = np.ones((8, 8), np.float32)
-    with pytest.raises(ValueError):
-        tick_drop_masks(threefry.prng_key(0), 60, 8, True, np.float32(0.1),
-                        "cpu", link_prob=lp, n_active=6)
-    with pytest.raises(ValueError):
-        tick_drop_masks(threefry.prng_key(0), 60, 8, True, np.float32(0.1),
-                        "cpu", group=np.zeros(8, np.int32), n_active=6)
-    g, q, p = tick_drop_masks(threefry.prng_key(0), 60, 8, True,
-                              np.float32(0.1), "cpu", link_prob=lp)
+    """Per-link thresholds (the asym world) and partition groups at a
+    draw narrower than the plane (a canonical bucket's real width inside
+    its rung): the thresholds are read at the ``na x na`` corner, as the
+    JAX tick's ``link_prob[:na, :na]`` draw, embedded at ``[:na, :na]``;
+    the partition gate covers the whole plane.  Nothing raises any more;
+    at full width all-ones thresholds still drop every message of an
+    open tick."""
+    n, na, t = 8, 6, 60
+    rng = np.random.default_rng(3)
+    lp = rng.random((n, n)).astype(np.float32)
+    grp = np.array([0, 1, 0, 1, 1, 0, 0, 1], np.int32)
+    key = jax.random.PRNGKey(0)
+    g_j, q_j, p_j = (np.asarray(x) for x in jax_drop_masks(
+        key, t, na, True, np.float32(0.1), link_prob=lp[:na, :na]))
+    g, q, p = tick_drop_masks(threefry.prng_key(0), t, n, True,
+                              np.float32(0.1), "cpu", link_prob=lp,
+                              n_active=na)
+    assert np.array_equal(g[:na, :na].numpy(), g_j)
+    assert np.array_equal(q[:na].numpy(), q_j)
+    assert np.array_equal(p[:na].numpy(), p_j)
+    assert not g[na:].any() and not g[:, na:].any()
+    assert not q[na:].any() and not p[na:].any()
+    g2, q2, p2 = tick_drop_masks(threefry.prng_key(0), t, n, True,
+                                 np.float32(0.1), "cpu", link_prob=lp,
+                                 n_active=na, group=grp, part_active=True)
+    cross = grp[:, None] != grp[None, :]
+    assert np.array_equal(g2.numpy(), g.numpy() | cross)
+    assert np.array_equal(q2.numpy(), q.numpy() | cross[:, 0])
+    assert np.array_equal(p2.numpy(), p.numpy() | cross[0, :])
+    lp1 = np.ones((n, n), np.float32)
+    g, q, p = tick_drop_masks(threefry.prng_key(0), t, n, True,
+                              np.float32(0.1), "cpu", link_prob=lp1)
     assert g.all() and q.all() and p.all()
 
 

@@ -308,9 +308,20 @@ def test_dense_world_routes():
         for ev in (True, False):
             assert dense_mega_supported(cfg, ev) == jax_mega(jcfg, ev) \
                 == (name == "wave"), name
-    with pytest.raises(ValueError):
-        make_tick(SimConfig(**_dense(**DENSE_WORLDS["asym_drop"])),
-                  n_active=8)
+    # a narrower drop stream (a canonical rung's lanes) now draws the
+    # asym thresholds at its corner, tick for tick as the JAX tick does
+    kw = _dense(**DENSE_WORLDS["asym_drop"])
+    jcfg, cfg = JaxConfig(**kw), SimConfig(**kw)
+    na = cfg.n - 4
+    jtick = jax.jit(jax_make_tick(jcfg, use_pallas=False, n_active=na))
+    jsched, jstate = jax_make_schedule(jcfg), jax_init_state(jcfg)
+    tick = make_tick(cfg, n_active=na)
+    sched, state = make_schedule(cfg, "cpu"), init_state(cfg, "cpu")
+    for t in range(70):
+        jstate, jev = jtick(jstate, jsched)
+        state, ev = tick(state, sched)
+        assert_state_equal(state, jstate, ("asym n_active", t))
+        assert_events_equal(ev, jev, ("asym n_active", t))
 
 
 # -------------------------------------------------- the overlay model
