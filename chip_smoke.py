@@ -165,12 +165,40 @@ one line per phase:
    ``chaos_replay`` at fault rate 0.12, seed 0, twice (every request
    terminal, parity, equal digests, every failure injected); 7f
    ``kill_restart_replay`` (34 seeds, the doomed child on ``cuda``) at
-   three kill points; 7g the scenario ``sweep`` (``--sweep-seeds``,
-   default 8: 200 variants) and its rerun on the same service (all
-   oracles green, equal digests).  7a-d and 7g must end with zero
-   retries, degraded requests and breaker opens.
+   one kill point; 7g the scenario ``sweep`` (``--sweep-seeds``,
+   default 2: 50 variants, a dispatch carrying a family's seeds) and
+   its rerun in a second process started before 7f (all oracles green,
+   equal digests).  7a-d and 7g must end with zero retries, degraded
+   requests and breaker opens;
+8. multi-device execution on a mesh of one process, every entry
+   ``cuda:0`` (P shards take turns on the card; their walls are not a
+   multi-card speed): 8a the rectangular ``masked_max3`` at (R, S, C) =
+   1024x1024x4096, 512x512x4096, 128x128x1024 and 5x5x10, each also with
+   a B=2 lane axis, and K3's sharded contract (``masks_local``,
+   ``row_start``, the round planes) on every shard of the real tick-136
+   state of the N=2^20 power-law run over 4 shards and of tick 300 of the
+   N=65,536 churn run over 8, each equal to its plain version and to the
+   single-device kernel's rows; 8b ``make_sharded_run`` over 4 entries:
+   the N=4096 10% drop bench (700 ticks, final state and counters equal
+   to the single-device K1 route; the last ring-step merge timed), the
+   N=1024 10% drop trace (every event mask equal, the dense oracle) and
+   the three testcases over 2 entries; 8c ``make_sharded_overlay_run``
+   (per-tick K3, sharded contract): N=2^20 power-law over 4 entries and
+   N=65,536 churn over 8, equal to the single-device runs and validated
+   as bench.py validates; 8d ``MeshFleetSimulation``: the B=4 N=4096
+   bench on 2 lane entries launched under ``set_sync_debug_mode("error")``,
+   the B=8 N=65,536 churn fleet on 2 lane entries and a B=4 N=1024 trace
+   on a 2x2 lanes x peers mesh, every lane equal to its solo run; 8e
+   the first 8 seeds of 7b's replay served from a 2-entry lane mesh
+   (parity with 7b's sequential leg), ``elastic_replay`` on 4 entries
+   (one loss, one return; its gate) and ``load_openloop_bench(smoke=True)``
+   with its lane-mesh point, run in a second process started when
+   phase 8 starts.  The kernels line gains the ``masked_max3/rect`` and
+   ``fused_overlay_tick/sharded`` rows.
 
-``--serving-only`` runs phase 1 and phase 7 alone.
+``--serving-only`` runs phase 1 and phase 7 alone; ``--mesh-only``
+phase 1 and phase 8 (8e's replay then serves 8 seeds a template with a
+sequential leg of its own).
 ``--dense-only TREE`` runs, after the first phase, only the dense path
 of the package in the checkout at ``TREE``: the dense kernels of phase
 6, then phases 3 and 5a-c; ``--overlay-only TREE`` only the overlay
@@ -1713,13 +1741,30 @@ def draw_kernel() -> tuple:
     return ("drop_masks",) if "drop_masks" in wrappers() else ()
 
 
+#: counts of a contract a wrapper launches besides its own count (the
+#: rectangular merge of the ring, K3's sharded contract): name ->
+#: (wrapper, attribute)
+SUB_COUNTS = {"masked_max3/rect": ("masked_max3", "rect_launches"),
+              "fused_overlay_tick/sharded": ("fused_overlay_tick",
+                                             "sharded_launches")}
+
+
 def reset_counts():
-    for fn in wrappers().values():
+    w = wrappers()
+    for fn in w.values():
         fn.launches = 0
+    for name, attr in SUB_COUNTS.values():
+        if hasattr(w[name], attr):
+            setattr(w[name], attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in wrappers().items()}
+    w = wrappers()
+    out = {name: fn.launches for name, fn in w.items()}
+    for key, (name, attr) in SUB_COUNTS.items():
+        if hasattr(w[name], attr):
+            out[key] = getattr(w[name], attr)
+    return out
 
 
 class MainPath:
@@ -1727,7 +1772,7 @@ class MainPath:
     each and read just after, and totals them."""
 
     def __init__(self):
-        self.total = dict.fromkeys(wrappers(), 0)
+        self.total = dict.fromkeys(read_counts(), 0)
 
     def drive(self, fn, expect: tuple):
         import torch
@@ -1906,7 +1951,6 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
     after it); the K1 pair's lane-axis launches are counted apart."""
     import torch
     from gossip_protocol_tpu_torch.grader import grade_all_service
-    from gossip_protocol_tpu_torch.models.scenarios import sweep
     from gossip_protocol_tpu_torch.service import (
         FleetService, chaos_replay, grader_templates, overlay_templates,
         replay, result_digest, solo_execute)
@@ -1914,7 +1958,6 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
                                                           Template,
                                                           build_trace,
                                                           run_sequential)
-    from gossip_protocol_tpu_torch.store.harness import kill_restart_replay
     out = {"lane_axis": dict.fromkeys(("masked_max3", "tick_epilogue",
                                        "drop_masks_lanes",
                                        "grid_overlay_ticks"), 0)}
@@ -1968,6 +2011,7 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
         f"{m['dispatches']} dispatches in {m['buckets']} buckets, ring "
         f"stalls {m['ring_stalls']}")
     out["replay"] = dict(m, requests_per_s=rps)
+    out["_seq7b"] = seq     # phase 8e serves the same trace from a mesh
     mark("7b", t_start)
 
     # 7c: full-width serving, three buckets interleaved
@@ -2088,13 +2132,45 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
     del seq
     mark("7e", t_start)
 
-    # 7f: crash and recover, the doomed child on cuda, three kill points.
+    # 7g's rerun, in a process of its own, starts here and runs beside 7f
+    # and 7g's own pass: all three are host-bound and the card has room
+    keys = ("variants", "families", "passed", "failed", "verdict_digest",
+            "outcome_digest", "wall_s", "dispatches", "mean_occupancy",
+            "service_failures")
+    code = ("import json\n"
+            "from gossip_protocol_tpu_torch.models.scenarios import sweep\n"
+            f"r = sweep(seeds_per_family={sweep_seeds}, "
+            f"max_batch={sweep_seeds}, device='cuda')\n"
+            f"print(json.dumps({{k: r[k] for k in {keys!r}}}))\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    child = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    try:
+        _serve_7fg(out, drive, child, keys, sweep_seeds, t_start)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    torch.cuda.synchronize()
+    return out
+
+
+def _serve_7fg(out, drive, child, keys, sweep_seeds: int,
+               t_start: float) -> None:
+    """Phases 7f and 7g (the rerun ``child`` already started)."""
+    from gossip_protocol_tpu_torch.models.scenarios import sweep
+    from gossip_protocol_tpu_torch.service import FleetService
+    from gossip_protocol_tpu_torch.store.harness import kill_restart_replay
+    # 7f: crash and recover, the doomed child on cuda, at one kill point.
     # The harness opens its crash window once every request is submitted
     # (journaled); full buckets dispatch during the submits, about 64 of
-    # the stream's ~77 dispatches, so the kill points sit in the last
-    # fifth of the run, where each leaves a different set in flight
+    # the stream's ~77 dispatches, so the kill point sits in the last
+    # fifth of the run (three points until the mesh phase needed the
+    # time: PERF.md §4)
     kills, base = [], None
-    for frac in (0.84, 0.9, 0.95):
+    for frac in (0.9,):
         (km, base), _ = drive("kill_restart", lambda: kill_restart_replay(
             seeds_per_template=34, kill_frac=frac, baseline=base,
             device="cuda"), ("masked_max3", "tick_epilogue"))
@@ -2106,34 +2182,16 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
     out["kill_restart"] = kills
     mark("7f", t_start)
     say(f"phase 7f: kill_restart_replay (204 requests, the doomed child on "
-        f"cuda) at 3 kill points: every request terminal once, 0 "
+        f"cuda) at one kill point: every request terminal once, 0 "
         f"restarted lanes, digests == the uninterrupted baseline {kills}")
 
-    # 7g: the scenario sweep, and its rerun in a process of its own,
-    # started beside it: both passes are host-bound (the overlay worlds'
-    # lane loops) and the card has room for two
-    keys = ("variants", "families", "passed", "failed", "verdict_digest",
-            "outcome_digest", "wall_s", "dispatches", "mean_occupancy",
-            "service_failures")
-    code = ("import json\n"
-            "from gossip_protocol_tpu_torch.models.scenarios import sweep\n"
-            f"r = sweep(seeds_per_family={sweep_seeds}, device='cuda')\n"
-            f"print(json.dumps({{k: r[k] for k in {keys!r}}}))\n")
-    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
-               + os.environ.get("PYTHONPATH", ""))
-    child = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
-                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                             text=True)
-    try:
-        ssvc = FleetService(max_batch=8)
-        r, _ = drive("sweep", lambda: sweep(seeds_per_family=sweep_seeds,
-                                            service=ssvc),
-                     ("masked_max3", "drop_masks_lanes"))
-        c_out, c_err = child.communicate(timeout=1100)
-    finally:
-        if child.poll() is None:
-            child.kill()
-            child.wait()
+    # 7g: the scenario sweep, beside its rerun (a bucket dispatch carries
+    # a family's seeds, no filler lanes)
+    ssvc = FleetService(max_batch=sweep_seeds)
+    r, _ = drive("sweep", lambda: sweep(seeds_per_family=sweep_seeds,
+                                        service=ssvc),
+                 ("masked_max3", "drop_masks_lanes"))
+    c_out, c_err = child.communicate(timeout=1100)
     if child.returncode != 0:
         raise AssertionError(f"7g: the rerun process failed: {c_err[-3000:]}")
     reps = [{k: r[k] for k in keys}, json.loads(c_out.strip().splitlines()[-1])]
@@ -2148,8 +2206,6 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
         f"equal on the rerun in a second process ({reps[0]['verdict_digest']}"
         f", {reps[0]['outcome_digest']}); walls, side by side "
         f"{[r['wall_s'] for r in reps]} s")
-    torch.cuda.synchronize()
-    return out
 
 
 def bench_cfg(ticks: int):
@@ -2815,6 +2871,520 @@ def turns(other: str, path: str = "dense", rounds: int = 2) -> dict:
             "metrics": {k: [n.get(k) for n in numbers] for k in keys}}
 
 
+# ------------------------------------------------- phase 8: the mesh
+
+def rect_inputs(r: int, s: int, c: int, seed: int, dev, lanes=None):
+    """A random rectangular merge input: delivery block bool[S, R] (about
+    a quarter delivering), proc, and payload rows known / hb / ts [S, C]
+    with timestamps on both sides of the freshness gate; a leading lane
+    axis with ``lanes``."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    lead = () if lanes is None else (lanes,)
+
+    def b(p, shape):
+        return (torch.rand(lead + shape, generator=g) < p).to(dev)
+
+    def i(lo, hi, shape):
+        return torch.randint(lo, hi, lead + shape, generator=g,
+                             dtype=torch.int32).to(dev)
+
+    return (b(0.25, (s, r)), b(0.9, (r,)), b(0.7, (s, c)),
+            i(0, 600, (s, c)), i(T8 - 40, T8 + 1, (s, c)))
+
+
+#: the clock of phase 8a's random merge inputs
+T8 = 300
+
+
+def rect_bound(x) -> tuple[float, str]:
+    """The rectangular merge's least time: the delivery block and proc
+    read, known/hb/ts (9 bytes a cell) of the senders that deliver, the
+    three i32 maxima written, against the int8 tensor-core MACs of the
+    one product every descent runs (the pre-resolve: receivers x
+    delivering senders x columns)."""
+    gossip, proc, known = x[0], x[1], x[2]
+    lead = known.shape[:-2]
+    s_dim, r_dim = gossip.shape[-2:]
+    c_dim = known.shape[-1]
+    b = int(np.prod(lead)) if lead else 1
+    senders = int((gossip & proc.unsqueeze(-2)).any(-1).sum())
+    nbytes = b * (s_dim * r_dim + r_dim + 12 * r_dim * c_dim) \
+        + 9 * senders * c_dim
+    return bound_tc(nbytes, 2 * b * r_dim * senders * c_dim)
+
+
+def time_rect(x, reps: int = 20) -> dict:
+    """masked_max3 vs its plain version on one rectangular input: equal,
+    and both timed."""
+    from gossip_protocol_tpu_torch.ops.merge import (masked_max3,
+                                                     masked_max3_lanes_plain,
+                                                     masked_max3_plain)
+    t = x[5] if len(x) > 5 else T8
+    args = x[:5]
+    plain = masked_max3_lanes_plain if args[2].dim() == 3 \
+        else masked_max3_plain
+    got = masked_max3(*args, t, t_remove=20)
+    want = plain(*args, t, t_remove=20)
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    return {"shape": [int(v) for v in args[2].shape[:-2]]
+            + [int(args[0].shape[-1]), int(args[0].shape[-2]),
+               int(args[2].shape[-1])],
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: masked_max3(*args, t, t_remove=20), reps),
+            "plain_ms": cuda_ms(lambda: plain(*args, t, t_remove=20), 2),
+            "bound": rect_bound(args)}
+
+
+def shard_k3(x: dict, p: int, s: int) -> dict:
+    """Shard ``s`` of ``p``'s K3 input from a single-device one: its rows,
+    each round's plane from shard ``s ^ (m // Nl)``, the local masks and
+    the global id of its first row (the sharded contract)."""
+    idsaux, pw, intro, masks, scalars = x["args"]
+    nl = idsaux.shape[0] // p
+
+    def rows(t, q):
+        return t[q * nl:(q + 1) * nl]
+
+    kw = dict(x["kw"], masks_local=[m % nl for m in masks],
+              row_start=s * nl,
+              aux_rounds=[rows(idsaux, s ^ (m // nl)) for m in masks],
+              pw_rounds=[rows(pw, s ^ (m // nl)) for m in masks])
+    return {"args": (rows(idsaux, s), rows(pw, s), intro, masks, scalars),
+            "kw": kw, "nl": nl}
+
+
+def check_k3_sharded(x: dict, p: int, time_shard: int) -> dict:
+    """Every shard of ``p``: the kernel's sharded contract == its plain
+    version == the single-device kernel's rows; shard ``time_shard``
+    (a non-zero row start) timed against its bound."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
+        fused_overlay_tick, fused_overlay_tick_plain)
+    whole = fused_overlay_tick(*x["args"], **x["kw"])
+    err = 0.0
+    out = {}
+    for s in range(p):
+        y = shard_k3(x, p, s)
+        got = fused_overlay_tick(*y["args"], **y["kw"])
+        want = fused_overlay_tick_plain(*y["args"], **y["kw"])
+        rows = [w[s * y["nl"]:(s + 1) * y["nl"]] for w in whole]
+        err = max(err, *(max_abs_err(a, b) for a, b in zip(got, want)),
+                  *(max_abs_err(a, b) for a, b in zip(got, rows)))
+        if s == time_shard:
+            idsaux = y["args"][0]
+            n, k = idsaux.shape[0], y["args"][1].shape[1]
+            f = len(y["args"][3])
+            recv = int(got[3][:, 0].sum())
+            out = {"n": int(x["args"][0].shape[0]), "shards": p, "nl": n,
+                   "k": k, "f": f, "row_start": y["kw"]["row_start"],
+                   "recv": recv,
+                   "ms": cuda_ms(lambda: fused_overlay_tick(
+                       *y["args"], **y["kw"]), 20),
+                   "plain_ms": cuda_ms(lambda: fused_overlay_tick_plain(
+                       *y["args"], **y["kw"]), 2),
+                   "bound": k3_bound(n, k, f, recv=recv)}
+    out["max_abs_err"] = err
+    return out
+
+
+@contextlib.contextmanager
+def keep_last_merge():
+    """Keeps the arguments of the last rectangular merge the comm module
+    launches (parallel/comm.py), for timing on a real ring-step input."""
+    from gossip_protocol_tpu_torch.parallel import comm
+    orig = comm.masked_max3
+    box = {}
+
+    def spy(*a, **k):
+        box["args"] = a
+        return orig(*a, **k)
+
+    comm.masked_max3 = spy
+    try:
+        yield box
+    finally:
+        comm.masked_max3 = orig
+
+
+def mesh_phase(main_path, dev, t_start: float, seq7b=None) -> dict:
+    """Phase 8: multi-device execution on a mesh of one process, every
+    mesh's entries ``cuda:0`` (so P shards take turns on one H100: the
+    walls here are those of P shards on one card, not of P cards)."""
+    out = {"lane_axis": dict.fromkeys(("masked_max3", "tick_epilogue",
+                                       "drop_masks_lanes",
+                                       "grid_overlay_ticks"), 0)}
+    label = "shards on one H100"
+
+    class Drive:
+        """main_path.drive, the K1 pair's lane-axis launches (3-D
+        ``gossip`` through core/tick.py) and the lane-axis draws and K5
+        calls counted apart, as phase 7 counts them."""
+
+        def drive(self, fn, expect):
+            with LaneAxisCount() as la:
+                res, counts = outer.drive(fn, expect)
+            for k in ("masked_max3", "tick_epilogue"):
+                out["lane_axis"][k] += la.n[k]
+            for k in ("drop_masks_lanes", "grid_overlay_ticks"):
+                out["lane_axis"][k] += counts[k]
+            return res, counts
+
+    outer, main_path = main_path, Drive()
+    # 8e's load bench runs in a process of its own, started now beside
+    # 8a-8e: wall-paced, it waits on its arrival schedule most of the time
+    # (its walls and latencies are then those beside phase 8's other work)
+    code = ("import json\n"
+            "from gossip_protocol_tpu_torch.service.loadbench import "
+            "load_openloop_bench\n"
+            "print(json.dumps(load_openloop_bench(smoke=True, "
+            "device='cuda')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    child = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO,
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                             text=True)
+    try:
+        _mesh_8(out, main_path, dev, t_start, seq7b, child, label)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    return out
+
+
+def _mesh_8(out, main_path, dev, t_start: float, seq7b, child,
+            label: str) -> None:
+    """8a-8e (the load bench's ``child`` already started)."""
+    import dataclasses
+
+    import torch
+
+    from gossip_protocol_tpu_torch.core.sim import Simulation
+    from gossip_protocol_tpu_torch.core.tick import make_tick_run
+    from gossip_protocol_tpu_torch.models.overlay import (
+        OverlayResult, OverlaySimulation, init_overlay_state,
+        make_overlay_schedule)
+    from gossip_protocol_tpu_torch.models.overlay_sharded import (
+        make_overlay_mesh, make_sharded_overlay_run, shard_overlay_state)
+    from gossip_protocol_tpu_torch.parallel.fleet_mesh import (
+        MeshFleetSimulation, make_lane_mesh, make_lane_peer_mesh)
+    from gossip_protocol_tpu_torch.parallel.sharded import (
+        make_mesh, make_sharded_run, shard_state)
+    from gossip_protocol_tpu_torch.state import init_state, make_schedule
+
+    # ---- 8a: the two kernel contracts against their plain versions ----
+    rect = {}
+    for r, s_, c in ((1024, 1024, 4096), (512, 512, 4096), (128, 128, 1024),
+                     (5, 5, 10)):
+        rect[f"{r}x{s_}x{c}"] = time_rect(rect_inputs(r, s_, c, r + c, dev))
+        rect[f"b2_{r}x{s_}x{c}"] = time_rect(rect_inputs(r, s_, c, r + 1,
+                                                         dev, lanes=2))
+    err = max(v["max_abs_err"] for v in rect.values())
+    if err:
+        raise AssertionError(f"rectangular masked_max3 != plain: {rect}")
+    say("phase 8a: rectangular masked_max3 == plain bit for bit at (R,S,C) "
+        "1024x1024x4096, 512x512x4096, 128x128x1024, 5x5x10, each also at "
+        "B=2 lanes; ms " + json.dumps({k: round(v["ms"], 4)
+                                       for k, v in rect.items()}))
+    k3s = {}
+    cfg1m = overlay_cfg("powerlaw1m")
+    mid = OverlaySimulation(cfg1m, device="cuda").run(ticks=136)
+    x1m = k3_launch_input(cfg1m, mid.final_state)
+    k3s["powerlaw1m_p4_t136"] = check_k3_sharded(x1m, 4, time_shard=1)
+    del mid, x1m
+    cfg65 = overlay_cfg("churn65k")
+    mid = OverlaySimulation(cfg65, device="cuda").run(ticks=300)
+    k3s["churn65k_p8_t300"] = check_k3_sharded(
+        k3_launch_input(cfg65, mid.final_state), 8, time_shard=5)
+    del mid
+    if any(v["max_abs_err"] for v in k3s.values()):
+        raise AssertionError(f"K3's sharded contract != plain: {k3s}")
+    say("phase 8a: K3's sharded contract == plain == the single-device "
+        "kernel's rows, every shard, on the real tick-136 state of the "
+        "N=2^20 power-law run (4 shards, Nl=2^18, F=8) and tick 300 of "
+        "the N=65,536 churn run (8 shards, F=3): " + json.dumps(
+            {k: {f: v[f] for f in ("row_start", "ms", "plain_ms", "recv")}
+             for k, v in k3s.items()}))
+    out["rect"], out["k3_sharded"] = rect, k3s
+    mark("8a", t_start)
+
+    # ---- 8b: dense peer-sharded runs on cuda:0 x 4 ----------------------
+    runs = {}
+    mesh4 = make_mesh(4)
+    cfg = bench_cfg(700)
+    sched = make_schedule(cfg, dev)
+    ref, rev = make_tick_run(cfg, with_events=False)(init_state(cfg, dev),
+                                                     sched)
+    torch.cuda.synchronize()
+    with keep_last_merge() as merge_in:
+        t0 = time.perf_counter()
+        (fin, ev), counts = main_path.drive(
+            lambda: make_sharded_run(cfg, mesh4, with_events=False)(
+                shard_state(init_state(cfg, dev), mesh4), sched),
+            ("masked_max3", "masked_max3/rect") + draw_kernel())
+        wall = time.perf_counter() - t0
+    bad = [f for f in ("known", "hb", "ts", "gossip", "in_group", "own_hb",
+                       "joinreq", "joinrep")
+           if not torch.equal(getattr(fin, f), getattr(ref, f))]
+    bad += [f for f in ("sent", "recv")
+            if not torch.equal(getattr(ev, f), getattr(rev, f))]
+    if bad or counts["tick_epilogue"]:
+        raise AssertionError(f"8b bench: sharded != single device in {bad}"
+                             f" ({counts})")
+    runs["bench_n4096_p4"] = {"wall_s": wall, "launches": counts,
+                              "node_ticks_per_s": cfg.n * 700 / wall}
+    rect_real = time_rect(tuple(merge_in["args"][:5])
+                          + (merge_in["args"][5],))
+    if rect_real["max_abs_err"]:
+        raise AssertionError("8b: the ring-step merge != plain")
+    out["rect_real"] = dict(rect_real, tick=699, n=4096, shards=4)
+    say(f"phase 8b: N=4096 10% drop bench, 700 ticks, 4 {label}: final "
+        f"state and counters == the single-device K1 route; wall "
+        f"{wall:.2f} s, {cfg.n * 700 / wall:.4g} node-ticks/s; launches "
+        f"{counts}; the last ring-step merge (1024x1024x4096) "
+        f"{rect_real['ms']:.4f} ms")
+    del fin, ev, ref, rev
+    cfg = trace_cfgs()["trace_n1024_drop"]
+    ref = Simulation(cfg, device="cuda").run()
+    t0 = time.perf_counter()
+    (fin, ev), counts = main_path.drive(
+        lambda: make_sharded_run(cfg, mesh4)(
+            shard_state(init_state(cfg, dev), mesh4),
+            make_schedule(cfg, dev)), ("masked_max3/rect",))
+    wall = time.perf_counter() - t0
+    got = dataclasses.replace(ref, added=ev.added.cpu().numpy(),
+                              removed=ev.removed.cpu().numpy(),
+                              sent=ev.sent.cpu().numpy().T,
+                              recv=ev.recv.cpu().numpy().T)
+    bad = [f for f in ("added", "removed", "sent", "recv")
+           if not np.array_equal(getattr(got, f), getattr(ref, f))]
+    if bad:
+        raise AssertionError(f"8b trace: sharded != single device in {bad}")
+    o = oracle_trace(got, exact_removal=False)
+    runs["trace_n1024_p4"] = dict(wall_s=wall, launches=counts, **o)
+    say(f"phase 8b: N=1024 multifailure 10% drop trace over 4 {label}: "
+        f"every event mask == the single-device trace; oracle {o}; wall "
+        f"{wall:.2f} s")
+    del fin, ev, ref, got
+    mesh2 = make_mesh(2)
+    for conf in ("singlefailure", "multifailure", "msgdropsinglefailure"):
+        from gossip_protocol_tpu_torch.config import SimConfig
+        cfg = SimConfig.from_conf(os.path.join(REPO, "testcases",
+                                               f"{conf}.conf"))
+        ref = Simulation(cfg, device="cuda").run()
+        (fin, ev), counts = main_path.drive(
+            lambda: make_sharded_run(cfg, mesh2)(
+                shard_state(init_state(cfg, dev), mesh2),
+                make_schedule(cfg, dev)), ("masked_max3/rect",))
+        if not (np.array_equal(ev.added.cpu().numpy(), ref.added)
+                and np.array_equal(ev.removed.cpu().numpy(), ref.removed)):
+            raise AssertionError(f"8b {conf}: sharded events differ")
+        runs[f"{conf}_p2"] = {"launches": counts}
+    say("phase 8b: the three N=10 testcases over 2 entries: events equal")
+    mark("8b", t_start)
+
+    # ---- 8c: overlay peer-sharded, per-tick K3's sharded contract ------
+    for name, p in (("powerlaw1m", 4), ("churn65k", 8)):
+        cfg = overlay_cfg(name)
+        osched = make_overlay_schedule(cfg)
+        ref = OverlaySimulation(cfg, device="cuda").run()
+        omesh = make_overlay_mesh(p)
+        t0 = time.perf_counter()
+        (fin, met), counts = main_path.drive(
+            lambda: make_sharded_overlay_run(cfg, omesh)(
+                shard_overlay_state(init_overlay_state(cfg, dev), omesh),
+                osched), ("fused_overlay_tick/sharded",))
+        wall = time.perf_counter() - t0
+        bad = overlay_equal(ref.final_state, fin, ref.metrics, met)
+        if bad:
+            raise AssertionError(f"8c {name}: sharded != single device in "
+                                 f"{bad}")
+        res = OverlayResult(cfg=cfg, sched=osched, final_state=fin,
+                            metrics=met.to_numpy(), wall_seconds=wall)
+        v = validate_overlay(res)
+        runs[f"overlay_{name}_p{p}"] = dict(
+            wall_s=wall, launches=counts,
+            node_ticks_per_s=cfg.n * cfg.total_ticks / wall, **v)
+        say(f"phase 8c: overlay {name} ({cfg.total_ticks} ticks) over {p} "
+            f"{label}: final state and every metric == the single-device "
+            f"run; {v}; wall {wall:.2f} s, "
+            f"{cfg.n * cfg.total_ticks / wall:.4g} node-ticks/s; launches "
+            f"{counts}")
+        del ref, fin, met, res
+    mark("8c", t_start)
+
+    # ---- 8d: meshes of fleets -----------------------------------------
+    cfg = bench_cfg(700)
+    msim = MeshFleetSimulation(cfg, make_lane_mesh(2))
+    msim.run_bench(seeds=range(4))          # untimed warm-up, not counted
+    torch.cuda.synchronize()
+
+    def deferred():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pend = msim.launch_bench(seeds=range(4), warmup=False,
+                                     defer=True)
+            pend.start()
+            while not pend.is_ready():
+                pass
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        return pend.resolve()
+
+    fr, counts = main_path.drive(deferred, ("masked_max3", "tick_epilogue",
+                                            "drop_masks_lanes"))
+    for i, lane in enumerate(fr.lanes):
+        bad = dense_lane_diff(lane, Simulation(cfg.replace(seed=i),
+                                               device="cuda").run_bench(),
+                              bench=True)
+        if bad:
+            raise AssertionError(f"8d bench lane {i} != solo in {bad}")
+    runs["fleet_bench_n4096_b4_lanes2"] = dict(
+        wall_s=fr.wall_seconds, launches=counts,
+        node_ticks_per_s=fr.aggregate_node_ticks_per_second)
+    say(f"phase 8d: B=4 N=4096 bench on 2 lane entries, launched under "
+        f"set_sync_debug_mode('error'): every lane == its solo run; wall "
+        f"{fr.wall_seconds:.2f} s, {fr.aggregate_node_ticks_per_second:.4g}"
+        f" node-ticks/s aggregate ({label})")
+    del msim, fr
+    cfg = overlay_cfg("churn65k")
+    fr, counts = main_path.drive(
+        lambda: MeshFleetSimulation(cfg, make_lane_mesh(2)).run(
+            seeds=range(101, 109)), ("grid_overlay_ticks",))
+    for i, lane in enumerate(fr.lanes):
+        solo = OverlaySimulation(cfg.replace(seed=101 + i),
+                                 device="cuda").run()
+        bad = overlay_equal(lane.final_state, solo.final_state,
+                            lane.metrics, solo.metrics)
+        if bad:
+            raise AssertionError(f"8d overlay lane {i} != solo in {bad}")
+    runs["fleet_churn65k_b8_lanes2"] = dict(
+        wall_s=fr.wall_seconds, launches=counts,
+        node_ticks_per_s=fr.aggregate_node_ticks_per_second)
+    say(f"phase 8d: B=8 N=65,536 churn overlay fleet on 2 lane entries: "
+        f"every lane == its solo run; wall {fr.wall_seconds:.2f} s, "
+        f"{fr.aggregate_node_ticks_per_second:.4g} node-ticks/s aggregate")
+    del fr
+    cfg = trace_cfgs()["trace_n1024_drop"]
+    fr, counts = main_path.drive(
+        lambda: MeshFleetSimulation(cfg, make_lane_peer_mesh(2, 2)).run(
+            seeds=range(4)), ("masked_max3/rect", "drop_masks_lanes"))
+    for i, lane in enumerate(fr.lanes):
+        bad = dense_lane_diff(lane, Simulation(cfg.replace(seed=i),
+                                               device="cuda").run())
+        if bad:
+            raise AssertionError(f"8d 2-D trace lane {i} != solo in {bad}")
+    runs["fleet_trace_n1024_b4_2x2"] = dict(wall_s=fr.wall_seconds,
+                                            launches=counts)
+    say(f"phase 8d: B=4 N=1024 trace on a 2x2 lanes x peers mesh (the "
+        f"peer-sharded fleet tick, rectangular merges with a lane axis): "
+        f"every lane == its solo run; wall {fr.wall_seconds:.2f} s; "
+        f"launches {counts}")
+    del fr
+    mark("8d", t_start)
+
+    # ---- 8e: serving on a mesh ----------------------------------------
+    from gossip_protocol_tpu_torch.service import (grader_templates,
+                                                   overlay_templates, replay)
+    from gossip_protocol_tpu_torch.service.replay import (
+        Template, build_trace, elastic_replay, run_sequential)
+    # the first 8 seeds of 7b's stream (its trace is seed-major, so they
+    # are a prefix of 7b's sequential leg)
+    tpls = grader_templates() + overlay_templates(n=512, ticks=96)
+    seeds = 8
+    trace = build_trace(tpls, seeds)
+    if seq7b is None:
+        seq = run_sequential(trace, "cuda")
+    else:
+        # the prefix's results; its own sequential wall is not measured
+        seq = (seq7b[0][:len(trace)], float("nan"))
+    m, counts = main_path.drive(
+        lambda: replay(tpls, seeds, max_batch=4, mesh=make_lane_mesh(2),
+                       sequential=seq), ("masked_max3", "tick_epilogue"))
+    no_failures("8e replay", {"failures": m["failures"]})
+    runs["replay_lanes2"] = {k: m[k] for k in (
+        "requests", "service_wall_s", "latency_p50_s", "latency_p99_s",
+        "mean_occupancy", "dispatches")}
+    say(f"phase 8e: the 7b replay ({m['requests']} requests) served from a "
+        f"2-entry lane mesh: every result digest == its solo run; service "
+        f"{m['service_wall_s']} s, p50 {m['latency_p50_s']} s, p99 "
+        f"{m['latency_p99_s']} s")
+    from gossip_protocol_tpu_torch.config import SimConfig
+    churn_drop = SimConfig(max_nnb=512, model="overlay",
+                           single_failure=False, drop_msg=True,
+                           msg_drop_prob=0.1, seed=0, total_ticks=96,
+                           churn_rate=0.2, rejoin_after=30,
+                           step_rate=12 / 512, drop_open_tick=32,
+                           drop_close_tick=64)
+    etpls = [Template("churn-drop", churn_drop)] \
+        + overlay_templates(n=512, ticks=96)[:1]
+    em, counts = main_path.drive(
+        lambda: elastic_replay(etpls, seeds_per_template=4, max_batch=1,
+                               mesh=make_lane_mesh(4), checkpoint_every=32,
+                               fault_seed=7), ("grid_overlay_ticks",))
+    runs["elastic_lanes4"] = {k: em[k] for k in (
+        "requests", "faults", "restarted_from_zero", "devices_start",
+        "devices_end", "mean_legs", "schedule_digest", "outcome_digest",
+        "service_wall_s")}
+    runs["elastic_lanes4"]["lanes_migrated"] = em["elastic"]["lanes_migrated"]
+    say(f"phase 8e: elastic_replay on 4 lane entries: gate passed (100% "
+        f"complete, {em['faults']['device_loss']} loss and "
+        f"{em['faults']['device_return']} return, 0 restarts, "
+        f"{em['elastic']['lanes_migrated']} lanes migrated, "
+        f"{em['devices_start']} -> {em['devices_end']} entries, parity)")
+    c_out, c_err = child.communicate(timeout=1100)
+    if child.returncode != 0:
+        raise AssertionError(f"8e: the load bench failed: {c_err[-3000:]}")
+    lb = json.loads(c_out.strip().splitlines()[-1])
+    mp = lb["mesh_point"]
+    runs["load_openloop_smoke"] = {
+        "capacity_probe_rps": lb["capacity_probe_rps"],
+        "saturation_offered_rps": lb["saturation_offered_rps"],
+        "points": [{k: r[k] for k in ("offered_rps", "achieved_rps",
+                                      "latency_p50_s", "latency_p99_s",
+                                      "deadline_miss_rate", "saturated")}
+                   for r in lb["points"]],
+        "replay_check": lb["replay_check"]["deterministic"],
+        "mesh_point": {k: mp[k] for k in (
+            "devices", "max_batch_per_device", "offered_rps",
+            "achieved_rps", "latency_p50_s", "latency_p99_s")},
+        "bench_wall_s": lb["bench_wall_s"]}
+    say("phase 8e: load_openloop_bench(smoke=True) on cuda, in a second "
+        "process beside 8a-8e: " + json.dumps(runs["load_openloop_smoke"]))
+    mark("8e", t_start)
+    out["runs"] = runs
+
+
+def mesh_kernel_rows(m8: dict, main_path) -> list:
+    """The kernels-line rows of phase 8's two contracts."""
+    rr = m8["rect_real"]
+    k3 = m8["k3_sharded"]["powerlaw1m_p4_t136"]
+    err = max(v["max_abs_err"] for v in m8["rect"].values())
+    return [
+        {"name": "masked_max3/rect", "route": "cuda",
+         "source": "gossip_protocol_tpu_torch/csrc/dense_tick.cu",
+         "replaces": "gossip_protocol_tpu/parallel/comm.py:130",
+         "launches": main_path.total["masked_max3/rect"],
+         "max_abs_err": max(err, rr["max_abs_err"]), "ms": rr["ms"],
+         "plain_ms": rr["plain_ms"], "bound_ms": rr["bound"][0],
+         "bound_by": rr["bound"][1], "library_ms": None,
+         "shape": {"r": rr["shape"][0], "s": rr["shape"][1],
+                   "c": rr["shape"][2], "tick": rr["tick"],
+                   "shards": rr["shards"]}},
+        {"name": "fused_overlay_tick/sharded", "route": "cuda",
+         "source": "gossip_protocol_tpu_torch/csrc/overlay_tick.cu",
+         "replaces":
+             "gossip_protocol_tpu/ops/pallas/overlay_exchange.py:267",
+         "launches": main_path.total["fused_overlay_tick/sharded"],
+         "max_abs_err": max(v["max_abs_err"]
+                            for v in m8["k3_sharded"].values()),
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
+         "library_ms": None,
+         "shape": {k: k3[k] for k in ("n", "shards", "nl", "k", "f",
+                                      "row_start")}}]
+
+
 def write_details(path: str, details: dict) -> None:
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as f:
@@ -2853,13 +3423,18 @@ def main(argv=None) -> int:
     ap.add_argument("--turns-path", default="dense",
                     choices=("dense", "overlay"),
                     help="the path --turns measures")
-    ap.add_argument("--sweep-seeds", type=int, default=8,
+    ap.add_argument("--sweep-seeds", type=int, default=2,
                     help="seeds a catalog family in phase 7g's sweep "
-                         "(default 8: 200 variants; 40 is the JAX "
-                         "default of 1000)")
+                         "(default 2: 50 variants, cut from 8 to make "
+                         "room for phase 8; 40 is the JAX default of "
+                         "1000)")
     ap.add_argument("--serving-only", action="store_true",
                     help="run only phase 1 and phase 7 (the fleet "
                          "service); no kernels line and no result line")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run only phase 1 and phase 8 (multi-device "
+                         "execution on a mesh of cuda:0 entries); no "
+                         "kernels line and no result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -2924,8 +3499,14 @@ def main(argv=None) -> int:
     if args.serving_only:
         details["phase7"] = serving(MainPath(), dev, args.profile,
                                     args.sweep_seeds, t_start)
+        details["phase7"].pop("_seq7b")
         mark("7", t_start)
-    if args.turns or only or args.serving_only:
+    if args.mesh_only:
+        mp = MainPath()
+        details["phase8"] = mesh_phase(mp, dev, t_start)
+        say("phase 8 kernels: " + json.dumps(
+            mesh_kernel_rows(details["phase8"], mp)))
+    if args.turns or only or args.serving_only or args.mesh_only:
         if args.details:
             write_details(args.details, details)
         return 0
@@ -3281,12 +3862,19 @@ def main(argv=None) -> int:
     # ---- phase 7: the fleet service on the card ----------------------
     serve = serving(main_path, dev, args.profile, args.sweep_seeds,
                     t_start)
+    seq7b = serve.pop("_seq7b")
     details["phase7"] = serve
     ctm = serve["canonical"]["timing"]
     if ctm["max_abs_err"] != 0:
         raise AssertionError(f"the corner draw != plain: {ctm}")
-    details["main_path_launches"] = main_path.total
     mark("7", t_start)
+
+    # ---- phase 8: multi-device execution on a mesh of one process -----
+    m8 = mesh_phase(main_path, dev, t_start, seq7b)
+    del seq7b
+    details["phase8"] = m8
+    details["main_path_launches"] = main_path.total
+    mark("8", t_start)
     src = "gossip_protocol_tpu_torch/csrc/dense_tick.cu"
     osrc = "gossip_protocol_tpu_torch/csrc/overlay_tick.cu"
     kernels = []
@@ -3349,7 +3937,7 @@ def main(argv=None) -> int:
             "bound_by": tm["bound"][1], "library_ms": None, "shape": shape})
     # the lane-axis launches of the fleets (phase 5i): rows of their own;
     # the solo rows keep the solo launches
-    lane = {k: v + serve["lane_axis"].get(k, 0)
+    lane = {k: v + serve["lane_axis"].get(k, 0) + m8["lane_axis"].get(k, 0)
             for k, v in runs["fleet"]["lane_axis_launches"].items()}
     # the canonical rung's corner draws have a row of their own
     lane["drop_masks_lanes"] -= serve["canonical"]["draws"]
@@ -3377,6 +3965,13 @@ def main(argv=None) -> int:
         "plain_ms": ctm["plain_ms"], "bound_ms": ctm["bound"][0],
         "bound_by": ctm["bound"][1], "library_ms": None,
         "shape": {k: ctm[k] for k in ("n", "na", "batch", "tick")}})
+    # the ring's rectangular merges and K3's sharded launches (phase 8)
+    # have rows of their own
+    for name, sub in (("masked_max3", "masked_max3/rect"),
+                      ("fused_overlay_tick", "fused_overlay_tick/sharded")):
+        next(k for k in kernels if k["name"] == name)["launches"] -= \
+            main_path.total[sub]
+    kernels += mesh_kernel_rows(m8, main_path)
     for key in ("k1", "k1_n1024", "k1_n10", "k1_asym4096"):
         t = timing[key]
         say(f"phase 6: masked_max3 at N={t['n']}, tick {t['tick']}: "

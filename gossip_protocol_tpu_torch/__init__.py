@@ -13,7 +13,10 @@ in ``grid_overlay_ticks`` (K5, with the schedule's dead phases left out
 per launch) above it; ``fused_overlay_tick`` (K3) runs one tick's whole
 (N, K) phase on the per-tick route that remains for the other configs.
 Runs go to the card unless ``device="cpu"`` is asked for; on the CPU
-every kernel runs its plain PyTorch version.
+every kernel runs its plain PyTorch version.  Multi-device execution
+(``parallel/``, ``models/overlay_sharded.py``) runs on a mesh of one
+process whose entries may repeat a device: peer-sharded dense and
+overlay runs, meshes of fleets, and elastic serving from a mesh.
 
 This package never imports JAX or ``gossip_protocol_tpu``.
 """

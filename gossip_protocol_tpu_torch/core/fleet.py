@@ -34,11 +34,12 @@ What stands where the JAX package has ``jax.vmap`` of its XLA tick:
 
 There is nothing to compile: the process-wide program cache holds the
 built run closures, keyed as the JAX package keys its compiled programs
-(the mesh slot is always None until the multi-device slice), and its
-misses count on ``core/tick.py run_build_count``.
+(the mesh slot, :meth:`FleetSimulation._mesh_entry`, is None on one
+device and the mesh descriptor under parallel/fleet_mesh.py's
+``MeshFleetSimulation``, so a mesh shrink never finds a stale program),
+and its misses count on ``core/tick.py run_build_count``.
 :class:`CanonicalFleetSimulation` serves one canonical equivalence class
-(service/canonical.py) at its pad-ladder rung; the lane mesh comes with
-the multi-device slice.
+(service/canonical.py) at its pad-ladder rung.
 """
 
 from __future__ import annotations
@@ -288,7 +289,10 @@ class LaneCheckpoint:
     ``chunks``: overlay lanes accumulate per-leg ``OverlayMetrics`` of
     numpy ``[leg_ticks]`` fields; dense trace lanes ``(added, removed,
     sent, recv)`` tuples (``[leg_ticks, N, N]`` masks, ``[leg_ticks,
-    N]`` counters).
+    N]`` counters).  ``mesh_desc`` is the descriptor of the mesh the leg
+    ran on (None: one device); it is neither serialized nor digested, as
+    in the JAX package, and the serving layer counts a resume on another
+    mesh as a lane migration.
     """
 
     cfg: SimConfig
@@ -619,10 +623,22 @@ class FleetSimulation:
         return configs
 
     # ---- shared program cache ---------------------------------------
+    def _mesh_entry(self):
+        """The mesh slot of this fleet's program-cache keys: None on one
+        device; parallel/fleet_mesh.py overrides it with the mesh
+        descriptor, so a mesh change is a different key."""
+        return None
+
+    def _staging_out_shardings(self, state_cls):
+        """How a staged stacked state is placed for the run: None here
+        (whole on ``self.device``); the mesh subclass returns the spec
+        tree its ``shard_map`` splits the state by."""
+        return None
+
     def _key_prefix(self) -> tuple:
         from ..models.segments import plan_signature
-        # the mesh slot: None on one device
-        return (fleet_shape_key(self.cfg), plan_signature(self.cfg), None)
+        return (fleet_shape_key(self.cfg), plan_signature(self.cfg),
+                self._mesh_entry())
 
     def _cache_key(self, *extra):
         return self._key_prefix() + extra
@@ -636,7 +652,7 @@ class FleetSimulation:
             if _FLEET_FN_CACHE.pop(k, None) is not None:
                 n += 1
         self._program_keys.clear()
-        if self.cfg.model == "overlay":
+        if self.cfg.model == "overlay" and self._mesh_entry() is None:
             from ..models.overlay import _OVERLAY_FLEET_CACHE
             shape = self.cfg.replace(seed=0)
             stale = [k for k in _OVERLAY_FLEET_CACHE if k[0] == shape]
@@ -1018,7 +1034,7 @@ class FleetSimulation:
                 wall_seconds=(prev.wall_seconds if prev is not None
                               else 0.0) + wall,
                 legs=(prev.legs if prev is not None else 0) + 1,
-                mesh_desc=None))
+                mesh_desc=self._mesh_entry()))
         return out
 
     def _dense_leg(self, cfgs, cks, final_h, chunks, start, length, nr,
@@ -1283,6 +1299,10 @@ class CanonicalFleetSimulation(FleetSimulation):
     trace fleet rather than refused.
     """
 
+    #: the pad ladder's rung multiple (a mesh service's full-strength
+    #: peer count, parallel/fleet_mesh.py CanonicalMeshFleetSimulation)
+    _rung_multiple = 1
+
     def __init__(self, cfg: SimConfig, device=None,
                  chunk_ticks: Optional[int] = None):
         from ..service.canonical import (canonical_bucket_key,
@@ -1292,8 +1312,9 @@ class CanonicalFleetSimulation(FleetSimulation):
                 f"config (model={cfg.model!r}) is not canonicalizable; "
                 "use FleetSimulation with the exact bucket key")
         self.member_cfg = cfg
-        self.rung = ladder_rung(cfg.n)
-        self._canon_key = canonical_bucket_key(cfg, "trace")
+        self.rung = ladder_rung(cfg.n, multiple=self._rung_multiple)
+        self._canon_key = canonical_bucket_key(cfg, "trace",
+                                               peers=self._rung_multiple)
         # the class's drop-stream width: real n for drop-on classes,
         # None (the rung) otherwise — the stream_n of the canonical key
         self._stream_n = cfg.n if (cfg.drop_msg or cfg.asym_drop) else None
@@ -1310,7 +1331,7 @@ class CanonicalFleetSimulation(FleetSimulation):
         if not configs:
             raise ValueError("empty fleet")
         for i, c in enumerate(configs):
-            k = canonical_bucket_key(c, "trace")
+            k = canonical_bucket_key(c, "trace", peers=self._rung_multiple)
             if k != self._canon_key:
                 raise ValueError(
                     f"lane {i} is not a member of this canonical "
@@ -1319,8 +1340,8 @@ class CanonicalFleetSimulation(FleetSimulation):
 
     def _key_prefix(self) -> tuple:
         # the canonical key IS the program identity (rung, stream_n,
-        # static plane set, quantized plan); the mesh slot is None
-        return (self._canon_key, None)
+        # static plane set, quantized plan), beside the mesh slot
+        return (self._canon_key, self._mesh_entry())
 
     def _lane_schedules(self, cfgs) -> list:
         return [pad_schedule_host(make_schedule_host(c), self.rung)

@@ -1,7 +1,6 @@
 """One dense simulation tick, and the whole-run routing.
 
-Counterpart of ``gossip_protocol_tpu/core/tick.py`` (single device; the
-sharded ``RingComm`` path is not ported yet).  The tick's semantics,
+Counterpart of ``gossip_protocol_tpu/core/tick.py``.  The tick's semantics,
 and why it can be computed as order-free tensor algebra over the peer
 axis, are documented there; this module keeps its order and formulas:
 the per-peer vector decisions (start, JOINREQ/JOINREP, in_group, ops,
@@ -39,6 +38,13 @@ lane axis, and the K1 route makes three launches a tick for the whole
 fleet (``drop_masks_lanes``, ``masked_max3``, ``tick_epilogue``, each
 with a lane axis).  The composable worlds run their lanes one at a time
 through :func:`_composable_phases` (:func:`composable_lanes`, counted).
+
+``comm=`` (parallel/comm.py) makes either tick one shard of a
+peer-sharded run: under a ``RingComm`` the tick takes the composable
+route, as the JAX tick leaves its fused path for any comm but
+``LocalComm`` (``core/tick.py:139-141``), so K1 never runs sharded.  The
+tables hold the shard's rows; each shard draws the whole drop plane and
+takes its rows (``core/tick.py:248``), the per-peer vectors stay whole.
 """
 
 from __future__ import annotations
@@ -48,8 +54,8 @@ from dataclasses import dataclass
 import torch
 
 from ..config import INTRODUCER, SimConfig
+from ..ops.cuda._build import count_launch
 from ..ops.cuda.tickfused import tick_epilogue
-from ..ops.detect import staleness_mask
 from ..ops.drop import drop_masks_lanes, tick_drop_masks
 from ..ops.merge import masked_max3
 from ..ops.vector import VectorStep, vector_step
@@ -86,15 +92,22 @@ class TickEvents:
     recv: torch.Tensor     # i32[rows] — messages consumed (EmulNet.cpp:172)
 
 
+def _sharded(comm) -> bool:
+    from ..parallel.comm import LocalComm
+    return comm is not None and not isinstance(comm, LocalComm)
+
+
 def make_tick(cfg: SimConfig, with_events: bool = True,
-              n_active: int | None = None):
+              n_active: int | None = None, comm=None):
     """Build ``tick(state, sched) -> (state', TickEvents)`` for a config.
 
     ``n_active`` pins the drop-stream width: the Bernoulli lattice is
     drawn at ``n_active`` peers and embedded into the (N, N) masks, so a
     full-width tick can consume the active corner's stream
     (core/dense_corner.py) or a canonical rung its lanes' real-width
-    stream (service/canonical.py).  Default: N.
+    stream (service/canonical.py).  Default: N.  ``comm`` makes the tick
+    one shard of a peer-sharded run (module docstring); its tables,
+    events and counters then hold the shard's rows.
     """
     n = cfg.n
     na = n if n_active is None else n_active
@@ -107,8 +120,14 @@ def make_tick(cfg: SimConfig, with_events: bool = True,
     churn = cfg.rejoin_after is not None or flap
     partition = cfg.partition_groups >= 2
     asym = cfg.asym_drop
-    # the worlds the fused K1 path does not compile (JAX core/tick.py:141)
-    composable = cfg.zombie or cfg.byz_rate > 0 or cfg.link_latency > 0
+    # the worlds the fused K1 path does not compile, and any comm but one
+    # device (JAX core/tick.py:139-141)
+    sharded = _sharded(comm)
+    composable = cfg.zombie or cfg.byz_rate > 0 or cfg.link_latency > 0 \
+        or sharded
+    if sharded and n % comm.n_shards:
+        raise ValueError("peer count must divide the mesh axis")
+    rows = comm.rows_of if sharded else (lambda x: x)
 
     def tick(state: WorldState, sched: Schedule):
         t = state.tick
@@ -131,14 +150,14 @@ def make_tick(cfg: SimConfig, with_events: bool = True,
                         flap=sched.flap_state(t) if flap else None)
         known, hb, ts = state.known, state.hb, state.ts
         if churn:   # a rejoining peer's row is wiped before the merge
-            keep = ~v.rejoining[:, None]
+            keep = ~rows(v.rejoining)[:, None]
             known, hb, ts = known & keep, hb * keep, ts * keep
 
         if composable:
             known, hb, ts, gossip_next, gossip_age, gsent_row, grecv_row, \
                 added, removed = _composable_phases(
                     cfg, state, sched, v, known, hb, ts, gdrop, t,
-                    with_events)
+                    with_events, comm=comm if sharded else None)
         else:
             # the two matrix phases (kernels on CUDA, plain on CPU);
             # gossip delivery is read inside them as gossip & proc
@@ -153,8 +172,8 @@ def make_tick(cfg: SimConfig, with_events: bool = True,
 
         # accounting (EmulNet.cpp:111,172)
         events = TickEvents(added=added, removed=removed,
-                            sent=(gsent_row + v.sent).to(torch.int32),
-                            recv=(grecv_row + v.recv).to(torch.int32))
+                            sent=(gsent_row + rows(v.sent)).to(torch.int32),
+                            recv=(grecv_row + rows(v.recv)).to(torch.int32))
         new_state = WorldState(
             tick=t + 1, in_group=v.in_group, own_hb=v.own_hb, known=known,
             hb=hb, ts=ts, gossip=gossip_next, gossip_age=gossip_age,
@@ -165,21 +184,37 @@ def make_tick(cfg: SimConfig, with_events: bool = True,
 
 
 def _composable_phases(cfg: SimConfig, state: WorldState, sched: Schedule,
-                       v, known, hb, ts, gdrop, t: int, with_events: bool):
-    """The matrix phases of the zombie / byz / latency worlds (JAX
+                       v, known, hb, ts, gdrop, t: int, with_events: bool,
+                       comm=None):
+    """The matrix phases of the composable route (JAX
     ``core/tick.py:180-196, 293-471``): ``masked_max3`` on what enters
     the merge (the forged planes, the delivered messages), the rest in
     torch.  ``known``/``hb``/``ts`` are the post-wipe tables.  Returns
     ``(known', hb', ts', gossip', gossip_age', gsent_row, grecv_row,
-    added, removed)``."""
+    added, removed)``.
+
+    ``comm`` (parallel/comm.py; default one device) places the tables:
+    under a ``RingComm`` they hold the shard's rows, which carry their
+    global ids (``comm.row_ids``) for the self diagonal and the
+    introducer row, delivery crosses the shards through
+    ``comm.transpose``, the merge is the ring of ``comm.merge_reduce``
+    and the introducer's row goes through ``comm.or_across``.  ``gdrop``
+    and every per-peer vector are the whole-width ones.  Every tensor
+    may carry a leading lane axis (a fleet, with the schedule stacked).
+    """
+    from ..parallel.comm import LocalComm
+    comm = comm or LocalComm()
     n = cfg.n
     dev = known.device
     t_remove = cfg.t_remove
     zombie, byz = cfg.zombie, cfg.byz_rate > 0
     latency = cfg.link_latency > 0
     idx = torch.arange(n, device=dev)
-    self_mask = idx[:, None] == idx[None, :]
+    row_ids = comm.row_ids(n, dev)                       # global ids
+    self_mask = row_ids[:, None] == idx[None, :]
     is_intro = idx == INTRODUCER
+    is_intro_row = row_ids == INTRODUCER
+    rows = comm.rows_of
 
     # ---- phase A: the messages consumed this tick ([s, r]) -----------
     if latency:
@@ -187,26 +222,24 @@ def _composable_phases(cfg: SimConfig, state: WorldState, sched: Schedule,
         # it has been in flight lat(s, r) ticks; undelivered ones keep
         # aging, one in flight a link; traffic to failed receivers rots
         age1 = state.gossip_age + 1
-        deliver = state.gossip & (age1 >= sched.link_lat) & v.proc[None, :]
-        held = state.gossip & ~deliver & ~v.failed[None, :]
+        deliver = state.gossip & (age1 >= comm.slice_rows(sched.link_lat)) \
+            & v.proc[..., None, :]
+        held = state.gossip & ~deliver & ~v.failed[..., None, :]
     else:
-        deliver = state.gossip & v.proc[None, :]
-    dcred = deliver.t()                                  # recv_from [r, s]
+        deliver = state.gossip & v.proc[..., None, :]
+    recv_from = comm.transpose(deliver)                  # [r, s]
+    dcred = recv_from
 
     # ---- the merge, on what liar senders present (byz) ---------------
     if byz:
-        liar = sched.byz_mask[:, None]
-        f_known = known | sched.byz_target
+        liar = rows(sched.byz_mask)[..., :, None]
+        f_known = known | comm.slice_rows(sched.byz_target)
         f_hb = torch.where(liar, hb + sched.byz_boost, hb)
         f_ts = torch.where(liar, torch.full_like(ts, t - 1), ts)
     else:
         f_known, f_hb, f_ts = known, hb, ts
-    # the delivery plane goes in whole (proc all true): the merge reads
-    # delivery as gossip & proc
-    m_all, m_fresh, t_fresh = masked_max3(
-        deliver.contiguous(), torch.ones(n, dtype=torch.bool, device=dev),
-        f_known.contiguous(), f_hb.contiguous(), f_ts.contiguous(), t,
-        t_remove=t_remove)
+    m_all, m_fresh, t_fresh = comm.merge_reduce(
+        recv_from, f_known, f_hb, f_ts, t, t_remove=t_remove)
     any_fresh = t_fresh >= 0
 
     exists = known
@@ -226,13 +259,13 @@ def _composable_phases(cfg: SimConfig, state: WorldState, sched: Schedule,
     known_pb = exists | padd
     if zombie and latency:
         # the liveness claim is dated at the message's true send tick
-        # t - age1, per (sender, receiver) cell
+        # t - age1, per (sender, receiver) cell of the sender-major rows
         sent_t = t - age1
-        zbad = (sent_t > sched.fail_tick[:, None]) \
-            & (sent_t <= sched.rejoin_tick[:, None])
-        dcred = dcred & ~zbad.t()
+        zbad = (sent_t > rows(sched.fail_tick)[..., :, None]) \
+            & (sent_t <= rows(sched.rejoin_tick)[..., :, None])
+        dcred = dcred & ~comm.transpose(zbad)
     elif zombie:
-        dcred = dcred & ~sched.window_failed_at(t - 1)[None, :]
+        dcred = dcred & ~sched.window_failed_at(t - 1)[..., None, :]
     dinc = dcred & known_pb
     hb1 = torch.where(dinc, hb1 + 1, hb1)
     ts1 = torch.where(dinc, t, ts1)
@@ -242,35 +275,38 @@ def _composable_phases(cfg: SimConfig, state: WorldState, sched: Schedule,
     known1 = exists | padd | dadd
 
     # ---- JOINREQ at the introducer, JOINREP at the joiner ------------
-    qadd = v.jreq & ~known1[INTRODUCER] & ~is_intro
-    q_cell = is_intro[:, None] & qadd[None, :]
+    intro_row = comm.or_across((known1 & is_intro_row[:, None]).any(-2))
+    qadd = v.jreq & ~intro_row & ~is_intro
+    q_cell = is_intro_row[:, None] & qadd[..., None, :]
     known1 = known1 | q_cell
     hb1 = torch.where(q_cell, 1, hb1)
     ts1 = torch.where(q_cell, t, ts1)
-    r_cell = (v.jrep & ~known1[:, INTRODUCER])[:, None] & is_intro[None, :]
+    r_cell = (rows(v.jrep) & ~known1[..., :, INTRODUCER])[..., :, None] \
+        & is_intro
     known1 = known1 | r_cell
     hb1 = torch.where(r_cell, 1, hb1).to(torch.int32)
     ts1 = torch.where(r_cell, t, ts1).to(torch.int32)
 
     # ---- detection and dissemination ---------------------------------
-    stale = staleness_mask(v.ops, known1, ts1, t, t_remove)
+    ops_rows = rows(v.ops)
+    stale = ops_rows[..., :, None] & known1 & (t - ts1 >= t_remove)
     known2 = known1 & ~stale
-    send_rows = v.ops
+    send_rows = ops_rows
     if zombie:
         # window-failed peers that were in the group keep gossiping
         # their frozen tables
-        send_rows = send_rows | (sched.window_failed_at(t) & v.in_group)
-    gossip_sent = send_rows[:, None] & known2 & ~gdrop
+        send_rows = send_rows | rows(sched.window_failed_at(t) & v.in_group)
+    gossip_sent = send_rows[..., :, None] & known2 & ~comm.slice_rows(gdrop)
     if latency:
         # one message in flight a link: a busy link skips this send
         gossip_sent = gossip_sent & ~held
         gossip_next = gossip_sent | held
         gossip_age = torch.where(held, age1, 0).to(torch.int32)
     else:
-        gossip_next = gossip_sent | (state.gossip & v.hold[None, :])
+        gossip_next = gossip_sent | (state.gossip & v.hold[..., None, :])
         gossip_age = state.gossip_age
-    sent_row = gossip_sent.sum(1, dtype=torch.int32)
-    recv_row = deliver.sum(0, dtype=torch.int32)
+    sent_row = gossip_sent.sum(-1, dtype=torch.int32)
+    recv_row = recv_from.sum(-1, dtype=torch.int32)
     added = known1 & ~exists if with_events else None
     return (known2, hb1, ts1, gossip_next, gossip_age, sent_row, recv_row,
             added, stale if with_events else None)
@@ -296,7 +332,7 @@ def composable_lanes(cfg: SimConfig, state: WorldState, lane_scheds, v,
         outs.append(_composable_phases(cfg, lane, sched_b, v_b, known[b],
                                        hb[b], ts[b], gdrop[b], t,
                                        with_events))
-        composable_lanes.calls += 1
+        count_launch(composable_lanes, "calls")
     return tuple(None if col[0] is None else torch.stack(col)
                  for col in zip(*outs))
 
@@ -305,7 +341,7 @@ composable_lanes.calls = 0
 
 
 def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
-                    n_active: int | None = None):
+                    n_active: int | None = None, comm=None):
     """Build ``tick(states, sched, drop, lane_scheds=None) -> (states',
     TickEvents)`` over B lanes at one shared clock.
 
@@ -317,7 +353,10 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
     windows); ``lane_scheds`` the B per-lane schedules, which only the
     composable worlds read.  Events come back as [B, N, N] masks and
     [B, N] counters.  Each lane equals :func:`make_tick` of its own
-    state and schedule, bit for bit.
+    state and schedule, bit for bit.  ``comm`` makes it one peer shard
+    of each lane (a fleet on a 2-D lanes x peers mesh): the composable
+    route over the stacked schedule, every lane at once, with the lane
+    axis of the rectangular ``masked_max3``.
     """
     n = cfg.n
     na = n if n_active is None else n_active
@@ -329,6 +368,10 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
     partition = cfg.partition_groups >= 2
     asym = cfg.asym_drop
     composable = cfg.zombie or cfg.byz_rate > 0 or cfg.link_latency > 0
+    sharded = _sharded(comm)
+    if sharded and n % comm.n_shards:
+        raise ValueError("peer count must divide the mesh axis")
+    rows = comm.rows_of if sharded else (lambda x: x)
 
     def tick(state: WorldState, sched: Schedule, drop, lane_scheds=None):
         t = state.tick
@@ -344,9 +387,14 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
                         flap=sched.flap_state(t) if flap else None)
         known, hb, ts = state.known, state.hb, state.ts
         if churn:
-            keep = ~v.rejoining[..., None]
+            keep = ~rows(v.rejoining)[..., None]
             known, hb, ts = known & keep, hb * keep, ts * keep
-        if composable:
+        if sharded:
+            known, hb, ts, gossip_next, gossip_age, gsent_row, grecv_row, \
+                added, removed = _composable_phases(
+                    cfg, state, sched, v, known, hb, ts, gdrop, t,
+                    with_events, comm=comm)
+        elif composable:
             if lane_scheds is None:
                 raise ValueError("the composable worlds need the lanes' "
                                  "own schedules (lane_scheds)")
@@ -364,8 +412,8 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
                     t_remove=t_remove, with_events=with_events)
             gossip_age = state.gossip_age
         events = TickEvents(added=added, removed=removed,
-                            sent=(gsent_row + v.sent).to(torch.int32),
-                            recv=(grecv_row + v.recv).to(torch.int32))
+                            sent=(gsent_row + rows(v.sent)).to(torch.int32),
+                            recv=(grecv_row + rows(v.recv)).to(torch.int32))
         new_state = WorldState(
             tick=t + 1, in_group=v.in_group, own_hb=v.own_hb, known=known,
             hb=hb, ts=ts, gossip=gossip_next, gossip_age=gossip_age,

@@ -22,6 +22,14 @@
 // plane, vector, row and merge scratch offset by its lane.  The JAX
 // package's fleet runs its XLA tick under vmap here instead.
 //
+// gp_masked_max3 also takes a rectangular block: S senders x R receivers
+// against S payload rows of C columns, the ring merge of a peer-sharded run
+// (gossip_protocol_tpu/parallel/comm.py RingComm.merge_reduce: an Nl x Nl
+// delivery block against Nl x N rows, each of the P ring steps a launch);
+// the tiling is the square one's over (R, C), the live-word lists over S.
+// The square block of a tick keeps a template instance of its own, so its
+// code is the one extent's.
+//
 // Every value is an integer or a 0/1 byte, so each kernel agrees with its
 // plain PyTorch version bit for bit.
 //
@@ -107,33 +115,43 @@ enum { V_PROC = 0, V_OPS, V_JREP, V_JREQ, V_HOLD, V_REJOIN, VEC_LANES };
 enum { A_IN_GROUP = 0, A_OWN_HB, A_JOINREQ, A_JOINREP, A_START, A_FAIL,
        A_REJOIN, AUX_LANES = 8 };
 
-// Prep: dbits[w * n + r] has bit b set iff gossip[32 w + b, r] & proc[r];
+// The merge takes a delivery block of S senders x R receivers
+// (gossip[s, r], sender-major as the state holds it) against S payload
+// rows of C columns: a tick merges the square N x N block, the ring merge
+// of a peer-sharded run (parallel/comm.py RingComm.merge_reduce) an
+// Nl x Nl block against Nl x N payload rows.  rn, sn and cn below are R,
+// S and C; words is the sender words, words_for(S).
+//
+// Prep: dbits[w * R + r] has bit b set iff gossip[32 w + b, r] & proc[r];
 // tany[(r / 32) * words + w] says whether word w reaches any receiver of
 // r's 32-receiver tile.  Tile (w, rt) covers 32 senders x 32 receivers with
-// 256 threads as (tx, ty) = (32, 8).
+// 256 threads as (tx, ty) = (32, 8).  SQ: the square block of a tick
+// (S = R), compiled as it was before the rectangular form.
+template <bool SQ>
 __device__ __forceinline__ void merge_prep_tile(const uint8_t* gossip,
                                                 const uint8_t* proc,
                                                 uint32_t* dbits,
-                                                uint32_t* tany, int n,
-                                                int words, int w, int rt,
-                                                int tx, int ty) {
+                                                uint32_t* tany, int rn,
+                                                int sn, int words, int w,
+                                                int rt, int tx, int ty) {
+  if (SQ) sn = rn;
   __shared__ uint8_t g_s[WORD][WORD + 4];
   __syncthreads();   // the block's previous tile is done with g_s
   const int s0 = w * WORD, c0 = rt * WORD;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int ss = ty + 8 * k, s = s0 + ss, r = c0 + tx;
-    g_s[ss][tx] = (s < n && r < n) ? gossip[(size_t)s * n + r] : 0;
+    g_s[ss][tx] = (s < sn && r < rn) ? gossip[(size_t)s * rn + r] : 0;
   }
   __syncthreads();
   uint32_t any = 0;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int rr = ty + 8 * k, r = c0 + rr;   // uniform across the warp
-    if (r >= n) continue;
+    if (r >= rn) continue;
     const uint32_t bits =
         __ballot_sync(0xffffffffu, g_s[tx][rr] != 0 && proc[r] != 0);
-    if (tx == 0) dbits[(size_t)w * n + r] = bits;
+    if (tx == 0) dbits[(size_t)w * rn + r] = bits;
     any |= bits;
   }
   any = __syncthreads_or(any != 0);
@@ -144,24 +162,27 @@ __host__ __device__ inline int words_for(int n) {
   return (n + WORD - 1) / WORD;
 }
 
-// the merge scratch of one lane: dbits u32[words, n], then tany
-// u32[words, words] (the receiver tiles of 32 are as many as the sender
-// words); a fleet's lanes follow one another
-__host__ __device__ inline size_t merge_scratch_words(int n) {
-  const size_t words = words_for(n);
-  return words * n + words * words;
+// the merge scratch of one lane: dbits u32[words_for(S), R], then tany
+// u32[words_for(R), words_for(S)] (a row per 32-receiver tile); a fleet's
+// lanes follow one another
+__host__ __device__ inline size_t merge_scratch_words(int rn, int sn) {
+  const size_t words = words_for(sn);
+  return words * rn + (size_t)words_for(rn) * words;
 }
 
-// grid (words, words, B): lane blockIdx.z of a fleet (B = 1 solo)
+// grid (sender words, receiver tiles, B): lane blockIdx.z of a fleet
+// (B = 1 solo)
+template <bool SQ>
 __global__ void __launch_bounds__(256)
 merge_prep_kernel(const uint8_t* __restrict__ gossip,
                   const uint8_t* __restrict__ proc,
-                  uint32_t* __restrict__ scratch, int n, int words) {
-  const size_t lane = blockIdx.z, nn = (size_t)n * n;
-  uint32_t* dbits = scratch + lane * merge_scratch_words(n);
-  merge_prep_tile(gossip + lane * nn, proc + lane * n, dbits,
-                  dbits + (size_t)words * n, n, words, blockIdx.x,
-                  blockIdx.y, threadIdx.x, threadIdx.y);
+                  uint32_t* __restrict__ scratch, int rn, int sn, int words) {
+  if (SQ) sn = rn;
+  const size_t lane = blockIdx.z;
+  uint32_t* dbits = scratch + lane * merge_scratch_words(rn, sn);
+  merge_prep_tile<SQ>(gossip + lane * (size_t)sn * rn, proc + lane * rn,
+                      dbits, dbits + (size_t)words * rn, rn, sn, words,
+                      blockIdx.x, blockIdx.y, threadIdx.x, threadIdx.y);
 }
 
 // 4 delivery bits -> 4 bytes of 0/1 (bit e -> byte e)
@@ -192,12 +213,14 @@ __device__ __forceinline__ int32_t payload(int p, uint8_t kn, int32_t h,
 
 // The level descent of tile (bx, by) (rows 256 bx.., columns 64 by..) of
 // plane p; output shifted back down (FILL = -1 where no sender
-// contributes).
+// contributes).  SQ: the square block (S = C = R).
+template <bool SQ>
 __device__ __forceinline__ void descent_tile(
     const uint32_t* dbits, const uint32_t* tany, const uint8_t* known,
     const int32_t* hb, const int32_t* ts, int32_t* m_all, int32_t* m_fresh,
-    int32_t* t_fresh, int n, int words, int now, int t_remove, int bx,
-    int by, int p) {
+    int32_t* t_fresh, int rn, int sn, int cn, int words, int now,
+    int t_remove, int bx, int by, int p) {
+  if (SQ) { sn = rn; cn = rn; }
   extern __shared__ int live[];                   // the tile's live words
   __shared__ uint32_t a_s[MM_KW][MM_ROWS];        // delivery bits [kw][r]
   __shared__ __align__(16) uint8_t w_s[MM_COLS][MM_WSTRIDE];  // witness [j][s]
@@ -211,7 +234,7 @@ __device__ __forceinline__ void descent_tile(
 
   // the words that reach one of the tile's 32-receiver tiles, compacted
   const int rt0 = r0 / WORD;
-  const int rt1 = min(words, rt0 + MM_ROWS / WORD);
+  const int rt1 = min(SQ ? words : words_for(rn), rt0 + MM_ROWS / WORD);
   for (int w = tid; w < words; w += MM_THREADS) {
     uint32_t any = 0;
     for (int rt = rt0; rt < rt1; ++rt) any |= tany[(size_t)rt * words + w];
@@ -247,7 +270,7 @@ __device__ __forceinline__ void descent_tile(
       for (int c = 0; c < 4; ++c) {
         const int r = r0 + rw + 16 * mi + g + 8 * (c >> 1);
         const int j = j0 + 8 * ni + 2 * t4 + (c & 1);
-        if (r < n && j < n) open |= 1ull << ((mi * 8 + ni) * 4 + c);
+        if (r < rn && j < cn) open |= 1ull << ((mi * 8 + ni) * 4 + c);
       }
   // witness builder: column bj, sender quads bq and bq + 4 of each word
   const int bj = tid & (MM_COLS - 1), bq = tid / MM_COLS;
@@ -266,22 +289,23 @@ __device__ __forceinline__ void descent_tile(
     for (int c0 = 0; c0 < nlive; c0 += MM_KW) {
       for (int i = tid; i < MM_KW * MM_ROWS; i += MM_THREADS) {
         const int kw = i / MM_ROWS, rr = i % MM_ROWS, r = r0 + rr;
-        a_s[kw][rr] = (c0 + kw < nlive && r < n)
-                          ? dbits[(size_t)live[c0 + kw] * n + r] : 0u;
+        a_s[kw][rr] = (c0 + kw < nlive && r < rn)
+                          ? dbits[(size_t)live[c0 + kw] * rn + r] : 0u;
       }
 #pragma unroll
       for (int kw = 0; kw < MM_KW; ++kw) {
         // senders 4 bq .. 4 bq + 3 and 4 bq + 16 .. 4 bq + 19 of the word
         // (8 cells, all loads issued before any is used; an index past
         // the plane is clamped and its value masked to 0)
-        const bool ok = c0 + kw < nlive && jb < n;
+        const bool ok = c0 + kw < nlive && jb < cn;
         const int sw = (ok ? live[c0 + kw] : 0) * WORD + 4 * bq;
-        const size_t jc = min(jb, n - 1);
+        const size_t jc = min(jb, cn - 1);
         uint8_t kn[8];
         int32_t h[8], st[8];
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const size_t o = (size_t)min(sw + e + (e & 4) * 3, n - 1) * n + jc;
+          const size_t o =
+              (size_t)min(sw + e + (e & 4) * 3, sn - 1) * cn + jc;
           kn[e] = known[o];
           h[e] = p != 2 ? hb[o] : 0;     // each plane loads what it reads
           st[e] = p != 0 ? ts[o] : 0;
@@ -289,7 +313,7 @@ __device__ __forceinline__ void descent_tile(
         uint32_t bytes[2] = {0u, 0u};
 #pragma unroll
         for (int e = 0; e < 8; ++e) {
-          const int32_t v = (ok && sw + e + (e & 4) * 3 < n)
+          const int32_t v = (ok && sw + e + (e & 4) * 3 < sn)
               ? payload(p, kn[e], h[e], st[e], now, t_remove) : 0;
           const bool wit = first ? v > 0 : (cur > 0 && v == cur);
           nxt = max(nxt, first ? v : (v < cur ? v : 0));
@@ -336,7 +360,7 @@ __device__ __forceinline__ void descent_tile(
           if ((open & bit) && (first ? !hit : hit)) {
             const int r = r0 + rw + 16 * mi + g + 8 * (c >> 1);
             const int jj = 8 * ni + 2 * t4 + (c & 1);
-            out[(size_t)r * n + j0 + jj] = first ? -1 : cur_s[jj] - 1;
+            out[(size_t)r * cn + j0 + jj] = first ? -1 : cur_s[jj] - 1;
             open &= ~bit;
           }
         }
@@ -353,19 +377,23 @@ __device__ __forceinline__ void descent_tile(
 
 // grid (row tiles, column tiles, 3 B): plane blockIdx.z % 3 of lane
 // blockIdx.z / 3 (B = 1 solo); every lane reads its own scratch
+template <bool SQ>
 __global__ void __launch_bounds__(MM_THREADS, 2)
 masked_max3_kernel(const uint32_t* __restrict__ scratch,
                    const uint8_t* __restrict__ known,
                    const int32_t* __restrict__ hb,
                    const int32_t* __restrict__ ts,
                    int32_t* __restrict__ m_all, int32_t* __restrict__ m_fresh,
-                   int32_t* __restrict__ t_fresh, int n, int words, int now,
-                   int t_remove) {
-  const size_t lane = blockIdx.z / 3, nn = (size_t)n * n, o = lane * nn;
-  const uint32_t* dbits = scratch + lane * merge_scratch_words(n);
-  descent_tile(dbits, dbits + (size_t)words * n, known + o, hb + o, ts + o,
-               m_all + o, m_fresh + o, t_fresh + o, n, words, now, t_remove,
-               blockIdx.x, blockIdx.y, blockIdx.z % 3);
+                   int32_t* __restrict__ t_fresh, int rn, int sn, int cn,
+                   int words, int now, int t_remove) {
+  if (SQ) { sn = rn; cn = rn; }
+  const size_t lane = blockIdx.z / 3;
+  const size_t o = lane * (size_t)sn * cn, q = lane * (size_t)rn * cn;
+  const uint32_t* dbits = scratch + lane * merge_scratch_words(rn, sn);
+  descent_tile<SQ>(dbits, dbits + (size_t)words * rn, known + o, hb + o,
+                   ts + o, m_all + q, m_fresh + q, t_fresh + q, rn, sn, cn,
+                   words, now, t_remove, blockIdx.x, blockIdx.y,
+                   blockIdx.z % 3);
 }
 
 struct CellOut {
@@ -739,15 +767,17 @@ dense_mega_kernel(const __grid_constant__ K2Args a) {
           }
     const int prep = a.words * a.words;
     for (int i = tile_first(prep); i < prep; i += tile_step(prep))
-      merge_prep_tile(cur, vec + V_PROC * n, a.dbits, a.tany, n, a.words,
-                      i % a.words, i / a.words, tid & 31, tid >> 5);
+      merge_prep_tile<true>(cur, vec + V_PROC * n, a.dbits, a.tany, n, n,
+                            a.words, i % a.words, i / a.words, tid & 31,
+                            tid >> 5);
     phase_sync(grid);
     // (2) the descent tiles of the three planes
     const int descent = a.rt * a.ct * 3;
     for (int i = tile_first(descent); i < descent; i += tile_step(descent))
-      descent_tile(a.dbits, a.tany, a.known, a.hb, a.ts, a.m_all, a.m_fresh,
-                   a.t_fresh, n, a.words, a.t0 + s, a.t_remove, i % a.rt,
-                   (i / a.rt) % a.ct, i / (a.rt * a.ct));
+      descent_tile<true>(a.dbits, a.tany, a.known, a.hb, a.ts, a.m_all,
+                         a.m_fresh, a.t_fresh, n, n, n, a.words, a.t0 + s,
+                         a.t_remove, i % a.rt, (i / a.rt) % a.ct,
+                         i / (a.rt * a.ct));
     phase_sync(grid);
     // (3) the epilogue, adding onto the rows the vector step seeded, and
     // the next tick's vector step into the other parity of the lanes
@@ -808,26 +838,42 @@ cudaError_t launch_dense_mega(K2Args& a, int blocks, cudaStream_t stream) {
 }
 
 
-// b lanes, each an independent N x N merge: the lane is one more grid
-// coordinate of both launches
+// b lanes, each an independent merge of an S x R delivery block against
+// S x C payload rows: the lane is one more grid coordinate of both launches
 cudaError_t launch_masked_max3(const uint8_t* gossip, const uint8_t* proc,
                                const uint8_t* known, const int32_t* hb,
                                const int32_t* ts, int32_t* m_all,
                                int32_t* m_fresh, int32_t* t_fresh,
-                               uint32_t* scratch, int n, int b, int t,
-                               int t_remove, cudaStream_t stream) {
-  const int words = words_for(n);
+                               uint32_t* scratch, int rn, int sn, int cn,
+                               int b, int t, int t_remove,
+                               cudaStream_t stream) {
+  const int words = words_for(sn);
   const size_t smem = (size_t)words * sizeof(int);
-  if (b < 1 || b > 65535 / 3 || smem > 48 * 1024)
+  if (rn < 1 || sn < 1 || cn < 1 || b < 1 || b > 65535 / 3 ||
+      smem > 48 * 1024 || words_for(rn) > 65535 ||
+      (cn + MM_COLS - 1) / MM_COLS > 65535)
     return cudaErrorInvalidValue;
-  merge_prep_kernel<<<dim3(words, words, b), dim3(WORD, 8), 0, stream>>>(
-      gossip, proc, scratch, n, words);
+  // the square block of a tick keeps its own instance (one extent)
+  const bool sq = rn == sn && sn == cn;
+  const dim3 pgrid(words, words_for(rn), b), pblock(WORD, 8);
+  if (sq)
+    merge_prep_kernel<true><<<pgrid, pblock, 0, stream>>>(
+        gossip, proc, scratch, rn, sn, words);
+  else
+    merge_prep_kernel<false><<<pgrid, pblock, 0, stream>>>(
+        gossip, proc, scratch, rn, sn, words);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + MM_ROWS - 1) / MM_ROWS, (n + MM_COLS - 1) / MM_COLS,
+  const dim3 grid((rn + MM_ROWS - 1) / MM_ROWS, (cn + MM_COLS - 1) / MM_COLS,
                   3 * b);
-  masked_max3_kernel<<<grid, MM_THREADS, smem, stream>>>(
-      scratch, known, hb, ts, m_all, m_fresh, t_fresh, n, words, t, t_remove);
+  if (sq)
+    masked_max3_kernel<true><<<grid, MM_THREADS, smem, stream>>>(
+        scratch, known, hb, ts, m_all, m_fresh, t_fresh, rn, sn, cn, words,
+        t, t_remove);
+  else
+    masked_max3_kernel<false><<<grid, MM_THREADS, smem, stream>>>(
+        scratch, known, hb, ts, m_all, m_fresh, t_fresh, rn, sn, cn, words,
+        t, t_remove);
   return cudaGetLastError();
 }
 
@@ -876,22 +922,24 @@ const char* gp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// i32 words of the scratch gp_masked_max3 takes for one lane
-int gp_merge_scratch_words(int n) {
-  return static_cast<int>(merge_scratch_words(n));
+// i32 words of the scratch gp_masked_max3 takes for one lane of r
+// receivers and s senders
+int gp_merge_scratch_words(int r, int s) {
+  return static_cast<int>(merge_scratch_words(r, s));
 }
 
-// b lanes (1 solo): gossip/known u8[b, n, n], proc u8[b, n], hb/ts and the
-// three outputs i32[b, n, n]; scratch b * gp_merge_scratch_words(n) i32
-// words.  now and t_remove are shared by the lanes.
+// b lanes (1 solo): gossip u8[b, s, r] (sender, receiver), proc u8[b, r],
+// known u8 / hb, ts i32 [b, s, c], the three outputs i32[b, r, c]; scratch
+// b * gp_merge_scratch_words(r, s) i32 words.  now and t_remove are shared
+// by the lanes.  A tick's merge is the square r = s = c = N.
 int gp_masked_max3(const uint8_t* gossip, const uint8_t* proc,
                    const uint8_t* known, const int32_t* hb, const int32_t* ts,
                    int32_t* m_all, int32_t* m_fresh, int32_t* t_fresh,
-                   int32_t* scratch, int n, int b, int t, int t_remove,
-                   void* stream) {
+                   int32_t* scratch, int r, int s, int c, int b, int t,
+                   int t_remove, void* stream) {
   return static_cast<int>(launch_masked_max3(
       gossip, proc, known, hb, ts, m_all, m_fresh, t_fresh,
-      reinterpret_cast<uint32_t*>(scratch), n, b, t, t_remove,
+      reinterpret_cast<uint32_t*>(scratch), r, s, c, b, t, t_remove,
       static_cast<cudaStream_t>(stream)));
 }
 
@@ -916,7 +964,7 @@ int gp_tick_epilogue(const int32_t* m_all, const int32_t* m_fresh,
 // K2: s_ticks whole ticks from t0 in one cooperative launch.  known/gossip
 // are u8 planes, hb/ts i32, all updated in place (gossip ping-pongs with
 // gossip_tmp; the final plane is back in gossip).  m_scratch holds 3 N^2
-// i32 and then gp_merge_scratch_words(n) more, vec_scratch 2 VEC_LANES N
+// i32 and then gp_merge_scratch_words(n, n) more, vec_scratch 2 VEC_LANES N
 // bytes.  added/removed (u8[S, N, N]) may be null.  blocks: the persistent
 // grid's size, 0 for as many blocks as fit on the card (capped by the
 // work); a grid that cannot be co-resident is refused with an error.
@@ -950,7 +998,7 @@ int gp_dense_mega_ticks(uint8_t* known, int32_t* hb, int32_t* ts,
   a.t_fresh = m_scratch + 2 * nn;
   a.words = words_for(n);
   a.dbits = reinterpret_cast<uint32_t*>(m_scratch + 3 * nn);
-  a.tany = a.dbits + (size_t)a.words * n;
+  a.tany = a.dbits + (size_t)a.words * n;   // merge_scratch_words(n, n)
   a.vec = vec_scratch;
   a.rt = (n + MM_ROWS - 1) / MM_ROWS;
   a.ct = (n + MM_COLS - 1) / MM_COLS;

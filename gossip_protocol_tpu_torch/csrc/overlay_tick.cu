@@ -372,10 +372,18 @@ __device__ __forceinline__ int warp_sum(int v) {
 }
 
 // ---- K3 -------------------------------------------------------------------
+// The sharded contract (one shard of a peer-sharded run, n = Nl rows): the
+// global masks name the partners, the local masks m % Nl index the round
+// planes aux[f] / pwr[f] (the planes of shard s ^ (m / Nl), routed by the
+// comm), and row_start is the global id of local row 0.
 struct K3Args {
   Sched s;
   int32_t t;
   int32_t masks[MAX_F];
+  int32_t masks_local[MAX_F];
+  int32_t row_start;
+  const int32_t* aux[MAX_F];
+  const int32_t* pwr[MAX_F];
 };
 
 // Partner rows a K3 row loads before it merges them (bounds the registers
@@ -386,8 +394,10 @@ constexpr int K3_CHUNK = 4;
 // (1) its own ids, pw and bits beside the F partners' round flags (lane fi
 // loads partner fi's), then (2) the views of every flagged partner, up to
 // K3_CHUNK at once, before any of them is merged.  Rounds merge in their
-// order, and a round whose flag is off merges nothing, as before.
-template <int NS>
+// order, and a round whose flag is off merges nothing, as before.  SH:
+// the sharded contract (K3Args); without it the partners are rows of
+// idsaux / pw and the global id is the row.
+template <int NS, bool SH>
 __global__ void __launch_bounds__(WARPS * 32)
 fused_overlay_tick_kernel(const int32_t* __restrict__ idsaux,
                           const int32_t* __restrict__ pw,
@@ -399,6 +409,7 @@ fused_overlay_tick_kernel(const int32_t* __restrict__ idsaux,
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (row >= n) return;   // uniform across the warp
+  const int32_t grow = SH ? a.row_start + row : row;   // global id
   const int w = k + 2 + f;
   const int32_t t = a.t;
   const uint32_t ep = (uint32_t)(t / SLOT_EPOCH);
@@ -406,12 +417,22 @@ fused_overlay_tick_kernel(const int32_t* __restrict__ idsaux,
   const int32_t* my = idsaux + (size_t)row * w;
   // lane fi holds round fi's mask: static indices keep the argument struct
   // in the parameter bank (a dynamic index copies it to local memory)
-  int32_t my_mask = 0;
+  int32_t my_mask = 0, my_lo = 0;
+  const int32_t* my_aux = idsaux;
+  const int32_t* my_pw = pw;
 #pragma unroll
   for (int i = 0; i < MAX_F; ++i)
-    if (lane == i) my_mask = a.masks[i];
+    if (lane == i) {
+      my_mask = a.masks[i];
+      if (SH) {
+        my_lo = a.masks_local[i];
+        my_aux = a.aux[i];
+        my_pw = a.pwr[i];
+      }
+    }
+  if (!SH) my_lo = my_mask;
   int32_t flag = 0;
-  if (lane < f) flag = idsaux[(size_t)(row ^ my_mask) * w + k + 2 + lane];
+  if (lane < f) flag = my_aux[(size_t)(row ^ my_lo) * w + k + 2 + lane];
   const int32_t bits = my[k + 1];
   ViewRegs<NS> own;
   load_view(own, my, pw + (size_t)row * k, k, lane);
@@ -426,31 +447,41 @@ fused_overlay_tick_kernel(const int32_t* __restrict__ idsaux,
 #pragma unroll
     for (int c = 0; c < K3_CHUNK; ++c) {
       const int fi = base + c;
-      const int32_t mask = __shfl_sync(0xffffffffu, my_mask, fi & 31);
+      const int32_t lo = __shfl_sync(0xffffffffu, my_lo, fi & 31);
+      const int32_t* src = idsaux;
+      const int32_t* srcp = pw;
+      if (SH) {
+        src = reinterpret_cast<const int32_t*>(__shfl_sync(
+            0xffffffffu, reinterpret_cast<unsigned long long>(my_aux),
+            fi & 31));
+        srcp = reinterpret_cast<const int32_t*>(__shfl_sync(
+            0xffffffffu, reinterpret_cast<unsigned long long>(my_pw),
+            fi & 31));
+      }
       if (fi < f && (sent >> fi & 1u)) {
-        const size_t partner = (size_t)(row ^ mask);
-        load_view(pv[c], idsaux + partner * w, pw + partner * k, k, lane);
-        phb[c] = idsaux[partner * w + k];
+        const size_t partner = (size_t)(row ^ lo);
+        load_view(pv[c], src + partner * w, srcp + partner * k, k, lane);
+        phb[c] = src[partner * w + k];
       }
     }
 #pragma unroll
     for (int c = 0; c < K3_CHUNK; ++c) {
       const int fi = base + c;
       if (!(fi < f && (sent >> fi & 1u))) continue;
-      merge_view(r, pv[c], true, row, t, a.s.t_remove, k, lane);
+      merge_view(r, pv[c], true, grow, t, a.s.t_remove, k, lane);
       if (a.s.t_remove > 1)
-        merge_entry(r, row ^ __shfl_sync(0xffffffffu, my_mask, fi), t - 1,
+        merge_entry(r, grow ^ __shfl_sync(0xffffffffu, my_mask, fi), t - 1,
                     phb[c], true, a.s.seed, ep, km, lane);
     }
   }
   const int recv = __popc(sent);
   ViewRegs<NS> iv;
   if (jrep) load_view(iv, intro, intro + k, k, lane);
-  merge_view(r, iv, jrep, row, t, a.s.t_remove, k, lane);
+  merge_view(r, iv, jrep, grow, t, a.s.t_remove, k, lane);
   if (a.s.t_remove > 1)
-    merge_entry(r, INTRODUCER, t - 1, intro[2 * k], jrep && row != INTRODUCER,
-                a.s.seed, ep, km, lane);
-  merge_joinreq(r, row == INTRODUCER,
+    merge_entry(r, INTRODUCER, t - 1, intro[2 * k],
+                jrep && grow != INTRODUCER, a.s.seed, ep, km, lane);
+  merge_joinreq(r, grow == INTRODUCER,
                 reinterpret_cast<const uint32_t*>(intro + 3 * k), intro + 4 * k,
                 t, k, lane);
   RowOut<NS> o;
@@ -1308,10 +1339,44 @@ int gp_fused_overlay_tick(const int32_t* idsaux, const int32_t* pw,
   const int blocks = (n + WARPS - 1) / WARPS;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (k <= 64)
-    fused_overlay_tick_kernel<2><<<blocks, WARPS * 32, 0, stream>>>(
+    fused_overlay_tick_kernel<2, false><<<blocks, WARPS * 32, 0, stream>>>(
         idsaux, pw, intro, a, ids_o, hb_o, ts_o, ctr, n, k, f);
   else
-    fused_overlay_tick_kernel<SPL><<<blocks, WARPS * 32, 0, stream>>>(
+    fused_overlay_tick_kernel<SPL, false><<<blocks, WARPS * 32, 0, stream>>>(
+        idsaux, pw, intro, a, ids_o, hb_o, ts_o, ctr, n, k, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3's sharded contract: n = Nl local rows; host = [the 8 scalars, the F
+// global masks, the F local masks]; planes = F round idsaux pointers then
+// F round pw pointers (host memory); row_start the global id of row 0.
+int gp_fused_overlay_tick_sharded(const int32_t* idsaux, const int32_t* pw,
+                                  const int32_t* intro, const int32_t* host,
+                                  const uint64_t* planes, int32_t* ids_o,
+                                  int32_t* hb_o, int32_t* ts_o, int32_t* ctr,
+                                  int n, int k, int f, int t_remove,
+                                  int churn_lo, int churn_span, int row_start,
+                                  void* stream_ptr) {
+  if (k < 1 || k > MAX_K || f < 0 || f > MAX_F || n < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K3Args a;
+  a.t = host[0];
+  a.s = make_sched((uint32_t)host[1], host[2], host[3], host[4], host[5],
+                   (uint32_t)host[6], host[7], churn_lo, churn_span, t_remove);
+  a.row_start = row_start;
+  for (int i = 0; i < MAX_F; ++i) {
+    a.masks[i] = i < f ? host[8 + i] : 0;
+    a.masks_local[i] = i < f ? host[8 + f + i] : 0;
+    a.aux[i] = i < f ? reinterpret_cast<const int32_t*>(planes[i]) : idsaux;
+    a.pwr[i] = i < f ? reinterpret_cast<const int32_t*>(planes[f + i]) : pw;
+  }
+  const int blocks = (n + WARPS - 1) / WARPS;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (k <= 64)
+    fused_overlay_tick_kernel<2, true><<<blocks, WARPS * 32, 0, stream>>>(
+        idsaux, pw, intro, a, ids_o, hb_o, ts_o, ctr, n, k, f);
+  else
+    fused_overlay_tick_kernel<SPL, true><<<blocks, WARPS * 32, 0, stream>>>(
         idsaux, pw, intro, a, ids_o, hb_o, ts_o, ctr, n, k, f);
   return static_cast<int>(cudaGetLastError());
 }

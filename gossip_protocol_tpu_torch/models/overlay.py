@@ -21,8 +21,10 @@ What differs here, none of it in the bits:
   the clock alone (the XOR masks, the drop window, the slot epoch) is
   host arithmetic, so a run never waits on the card to learn it.
 * ``x[i ^ m]`` is a plain index: the permutation matmuls of the JAX
-  tick existed only to avoid TPU gathers, and ``LocalOverlayComm`` goes
-  (the sharded path is later work).
+  tick existed only to avoid TPU gathers, and ``LocalOverlayComm`` goes:
+  :func:`make_overlay_tick` takes ``comm=None`` for one device, or a
+  ``RingOverlayComm`` (models/overlay_sharded.py) for one shard of a
+  peer-sharded run.
 * The (N, K) phase of every tick is K3 (``ops/cuda/overlay_exchange.py``
   ``fused_overlay_tick``): the CUDA kernel for CUDA tensors, its plain
   PyTorch version for CPU tensors.  The plain version IS the port's form
@@ -240,7 +242,7 @@ def world_flags(cfg: SimConfig) -> WorldFlags | None:
 
 
 def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick,
-                      with_coverage: bool | None = None):
+                      with_coverage: bool | None = None, comm=None):
     """Build ``tick(state, sched, cols=None) -> (state', metrics i32[9])``.
 
     ``exchange`` is K3 (the kernel for CUDA tensors, its plain version
@@ -251,7 +253,10 @@ def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick,
     ``overlay_world_exchange`` (the JAX package's XLA tick).  The
     per-tick ``live_uncovered`` histogram is tracked for N <=
     COVERAGE_N_LIMIT, else reported as -1; ``with_coverage`` overrides
-    (the fleet passes False, as the JAX fleet does).
+    (the fleet passes False, as the JAX fleet does).  ``comm`` makes the
+    tick one shard of a peer-sharded run (``ops/overlay_rules.py
+    overlay_step``): the state's tables hold the shard's rows, and K3
+    takes its sharded contract.
     """
     n = cfg.n
     k, f = resolved_dims(cfg)
@@ -265,9 +270,11 @@ def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick,
     if worlds is not None and exchange is not fused_overlay_tick:
         raise ValueError("a world config runs the worlds' exchange, not K3 "
                          "or a stand-in for it")
+    if comm is not None and worlds is not None:
+        raise ValueError("world configs do not run peer-sharded")
     kw = dict(k=k, f=f, t_remove=cfg.t_remove, exchange=exchange,
               with_coverage=(n <= COVERAGE_N_LIMIT if with_coverage is None
-                             else with_coverage), worlds=worlds,
+                             else with_coverage), worlds=worlds, comm=comm,
               **tick_flags(cfg))
     intro_cache = {}
 
@@ -372,8 +379,7 @@ def make_overlay_fleet_run(cfg: SimConfig, batch: int,
     bit, ``live_uncovered`` aside.
     """
     from ..core.tick import note_build
-    from .overlay_grid import (grid_supported, lane_state,
-                               make_grid_fleet_run, stack_states)
+    from .overlay_grid import grid_supported
     length = cfg.total_ticks if length is None else length
     grid = grid_supported(cfg)
     key = (cfg.replace(seed=0), batch, length, grid,
@@ -381,10 +387,20 @@ def make_overlay_fleet_run(cfg: SimConfig, batch: int,
     if key in _OVERLAY_FLEET_CACHE:
         return _OVERLAY_FLEET_CACHE[key]
     note_build()
-    if grid:
-        run = make_grid_fleet_run(cfg, length, batch, start_tick=start_tick)
-        _OVERLAY_FLEET_CACHE[key] = run
-        return run
+    run = build_overlay_fleet_run(cfg, batch, length, start_tick)
+    _OVERLAY_FLEET_CACHE[key] = run
+    return run
+
+
+def build_overlay_fleet_run(cfg: SimConfig, batch: int, length: int,
+                            start_tick: int = 0):
+    """The uncached closure behind :func:`make_overlay_fleet_run` (a
+    mesh fleet's lane shards build theirs inside its own cached, counted
+    program, parallel/fleet_mesh.py)."""
+    from .overlay_grid import (grid_supported, lane_state,
+                               make_grid_fleet_run, stack_states)
+    if grid_supported(cfg):
+        return make_grid_fleet_run(cfg, length, batch, start_tick=start_tick)
     tick = make_overlay_tick(cfg, with_coverage=False)
 
     def run(states: OverlayState, scheds):
@@ -408,7 +424,6 @@ def make_overlay_fleet_run(cfg: SimConfig, batch: int,
         return stack_states(finals), OverlayMetrics(**{
             f: met[..., j] for j, f in enumerate(METRIC_FIELDS)})
 
-    _OVERLAY_FLEET_CACHE[key] = run
     return run
 
 

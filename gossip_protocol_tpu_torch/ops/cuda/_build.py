@@ -26,6 +26,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -42,8 +43,8 @@ _U = ctypes.c_uint
 #: each source is one library: its C entry points and their arguments
 SOURCES = {
     "dense_tick.cu": {
-        "gp_masked_max3": [_P] * 9 + [_I] * 4 + [_P],
-        "gp_merge_scratch_words": [_I],
+        "gp_masked_max3": [_P] * 9 + [_I] * 6 + [_P],
+        "gp_merge_scratch_words": [_I] * 2,
         "gp_tick_epilogue": [_P] * 21 + [_I] * 4 + [_P],
         "gp_dense_mega_ticks": [_P] * 15 + [_I] * 6 + [_P],
     },
@@ -54,6 +55,7 @@ SOURCES = {
     },
     "overlay_tick.cu": {
         "gp_fused_overlay_tick": [_P] * 8 + [_I] * 6 + [_P],
+        "gp_fused_overlay_tick_sharded": [_P] * 9 + [_I] * 7 + [_P],
         "gp_mega_overlay_ticks": [_P] * 5 + [_I] * 10 + [_P],
         "gp_grid_overlay_ticks": [_P, _L] + [_P] * 5 + [_I] * 13 + [_P],
         "gp_grid_boot": [_P, _L, _P, _P] + [_I] * 5 + [_P],
@@ -62,6 +64,16 @@ SOURCES = {
 }
 
 _libs: dict = {}
+#: guards the first load (and build) of a library and the launch counts:
+#: the shards of a mesh (parallel/mesh.py) launch from their own threads
+_LOCK = threading.RLock()
+
+
+def count_launch(fn, attr: str = "launches") -> None:
+    """Add one to a wrapper's launch count (``fn.launches``, or the
+    count named ``attr``), safe from several threads at once."""
+    with _LOCK:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def nvcc_path() -> str:
@@ -122,7 +134,11 @@ def library(source: str = "dense_tick.cu",
     """The loaded library of one source (all are built at first use), or
     of its variant built with ``defines``."""
     key = source if not defines else (source, tuple(defines))
-    if key not in _libs:
+    if key in _libs:
+        return _libs[key]
+    with _LOCK:
+        if key in _libs:
+            return _libs[key]
         path = lib_path(source, defines)
         if not path.exists():
             build(variants=((source, defines),) if defines else ())

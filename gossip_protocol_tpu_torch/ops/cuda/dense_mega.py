@@ -28,7 +28,8 @@ import torch
 
 from ..merge import masked_max3_plain
 from ..vector import vector_step
-from ._build import check, check_args, library, ptr, stream_ptr
+from ._build import (check, check_args, count_launch, library, ptr,
+                     stream_ptr)
 from .tickfused import tick_epilogue_plain
 
 #: dense ticks per launch (halved above 512 peers, as on the TPU, whose
@@ -144,7 +145,7 @@ def dense_mega_ticks(known, hb, ts, gossip, aux, gdrop, qdrop, pdrop, sp, *,
     else:
         added = removed = None
     lib = library()
-    m_scratch = torch.empty(3 * n * n + lib.gp_merge_scratch_words(n),
+    m_scratch = torch.empty(3 * n * n + lib.gp_merge_scratch_words(n, n),
                             dtype=torch.int32, device=dev)
     # the vector lanes of two tick parities
     vec_scratch = torch.empty(2 * _VEC_LANES * n, dtype=torch.uint8,
@@ -155,7 +156,7 @@ def dense_mega_ticks(known, hb, ts, gossip, aux, gdrop, qdrop, pdrop, sp, *,
         ptr(added), ptr(removed), ptr(m_scratch), ptr(vec_scratch), n,
         s_ticks, t0, int(t_remove), int(can_rejoin), int(grid_blocks or 0),
         stream_ptr(dev))
-    dense_mega_ticks.launches += 1
+    count_launch(dense_mega_ticks)
     check(code, "dense_mega_ticks")
     out = (known_b.to(torch.int32), hb_w, ts_w, gossip_b.to(torch.int32),
            aux_w, sent, recv)

@@ -8,9 +8,16 @@ gating, F XOR-partner rounds (each a lane-aligned lexicographic
 JOINREP broadcast merge, the JOINREQ row-0 aggregate merge, winner
 extraction, TREMOVE detection with the subjects' fail/rejoin computed
 in-kernel, and the per-row counters [recv, removals, false_removals,
-victim_slots, adds, view_slots].  The sharded arguments of the TPU
-kernel (``masks_local``, ``row_start``, ``aux_rounds``, ``pw_rounds``)
-wait for the multi-device slice.
+victim_slots, adds, view_slots].  It also takes the TPU kernel's
+sharded contract (``masks_local``, ``row_start``, ``aux_rounds``,
+``pw_rounds``; ``overlay_exchange.py:267-300``), the per-tick overlay
+tick of a peer-sharded run (models/overlay_sharded.py): the XOR exchange
+``i ^ m = (s ^ m_hi) * Nl + (il ^ m_lo)`` splits into shard bits, which
+the comm routes by handing each round the plane of shard ``s ^ m_hi``,
+and local bits ``m_lo = m % Nl``, which the kernel applies.  Round f of
+local row ``il`` reads row ``il ^ masks_local[f]`` of its round plane;
+the partner's identity, the per-receiver tie hash and the introducer's
+row (global row 0) come from the global ids ``row_start + il``.
 
 The TPU kernel folded the high mask bits into its block index map and
 ran a butterfly in VMEM for the low ones.  On the H100 a partner row
@@ -18,8 +25,12 @@ ran a butterfly in VMEM for the low ones.  On the H100 a partner row
 slots.  A row waits on two dependent round trips: its own words beside
 the F partners' round flags (one lane a partner), then the views of
 every flagged partner, four at a time, before it merges them
-(csrc/overlay_tick.cu).  Every value is an integer, so the kernel and
-:func:`fused_overlay_tick_plain` agree bit for bit.
+(csrc/overlay_tick.cu).  Under the sharded contract the round planes
+are F pointers in the launch's arguments (on one card a round's plane is
+the peer shard's own tensor, so nothing is stacked or copied), and
+the single-device call keeps its own template instance, which reads
+``idsaux`` / ``pw`` as before.  Every value is an integer, so the kernel
+and :func:`fused_overlay_tick_plain` agree bit for bit.
 """
 
 from __future__ import annotations
@@ -30,7 +41,8 @@ import torch
 from ...utils.hash32 import MASK32
 from ..overlay_rules import (ID_MASK, SLOT_EPOCH, OverlaySchedule, lex_max,
                              merge_entry, merge_view, pack_key)
-from ._build import check, check_args, library, ptr, stream_ptr
+from ._build import (check, check_args, count_launch, library, ptr,
+                     stream_ptr)
 
 #: per-row counters: recv, removals, false_removals, victim_slots, adds,
 #: view_slots
@@ -41,15 +53,19 @@ MAX_F = 16
 
 
 def fused_overlay_tick_plain(idsaux, pw, intro, masks, scalars, *, k: int,
-                             t_remove: int, churn_lo: int, churn_span: int):
+                             t_remove: int, churn_lo: int, churn_span: int,
+                             masks_local=None, row_start: int = 0,
+                             aux_rounds=None, pw_rounds=None):
     """Plain PyTorch version of :func:`fused_overlay_tick` (the TPU
     kernel's body, ops/pallas/overlay_exchange.py:122-259, on whole
-    planes; ``x[r ^ m]`` is an index)."""
+    planes; ``x[r ^ m]`` is an index), with the same sharded
+    arguments."""
     n = idsaux.shape[0]
     dev = idsaux.device
     t, seed, vlo, vhi, ftick, rafter, cthr, cafter = (int(x) for x in scalars)
     seed &= MASK32
-    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    local = torch.arange(n, dtype=torch.int64, device=dev)
+    rows = local + int(row_start)                # global ids
     ep = t // SLOT_EPOCH
     my_ids = idsaux[:, :k]
     bits = idsaux[:, k + 1]
@@ -61,7 +77,11 @@ def fused_overlay_tick_plain(idsaux, pw, intro, masks, scalars, *, k: int,
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     for fi, m in enumerate(masks):
         partner = rows ^ int(m)
-        wa, wp = idsaux[partner], pw[partner]
+        if aux_rounds is None:
+            wa, wp = idsaux[partner], pw[partner]
+        else:
+            src = local ^ int(masks_local[fi])
+            wa, wp = aux_rounds[fi][src], pw_rounds[fi][src]
         ok = (wa[:, k + 2 + fi] > 0) & proc
         in_ids = wa[:, :k]
         in_ts = (wp >> 12) - 1
@@ -117,7 +137,9 @@ def fused_overlay_tick_plain(idsaux, pw, intro, masks, scalars, *, k: int,
 
 
 def fused_overlay_tick(idsaux, pw, intro, masks, scalars, *, k: int,
-                       t_remove: int, churn_lo: int, churn_span: int):
+                       t_remove: int, churn_lo: int, churn_span: int,
+                       masks_local=None, row_start: int = 0,
+                       aux_rounds=None, pw_rounds=None):
     """The overlay tick's whole (N, K) phase.
 
     Args (the TPU kernel's single-device contract):
@@ -132,6 +154,13 @@ def fused_overlay_tick(idsaux, pw, intro, masks, scalars, *, k: int,
       scalars: 8 host ints — [t, seed, victim_lo, victim_hi, fail_tick,
         rejoin_after, churn_thr (uint32 bits), churn_after].
 
+    The sharded contract (one shard of a peer-sharded run, N = Nl rows
+    held here): ``masks`` are the GLOBAL masks (partner identity),
+    ``masks_local`` F host ints ``m % Nl``, ``row_start`` the global id
+    of local row 0, ``aux_rounds`` / ``pw_rounds`` F tensors each, the
+    planes of shard ``s ^ (m // Nl)`` (i32[Nl, K+2+F] and i32[Nl, K]).
+    A sharded launch also counts on ``fused_overlay_tick.sharded_launches``.
+
     Returns ``(ids2, hb2, ts2 i32[N, K], counters i32[N, 6])``.  CPU
     tensors take :func:`fused_overlay_tick_plain`; CUDA tensors launch
     the kernel (or raise).
@@ -139,9 +168,12 @@ def fused_overlay_tick(idsaux, pw, intro, masks, scalars, *, k: int,
     if idsaux.device.type == "cpu":
         return fused_overlay_tick_plain(
             idsaux, pw, intro, masks, scalars, k=k, t_remove=t_remove,
-            churn_lo=churn_lo, churn_span=churn_span)
+            churn_lo=churn_lo, churn_span=churn_span,
+            masks_local=masks_local, row_start=row_start,
+            aux_rounds=aux_rounds, pw_rounds=pw_rounds)
     n, w = idsaux.shape
     f = len(masks)
+    sharded = aux_rounds is not None
     if w != k + 2 + f or not 1 <= k <= MAX_K or f > MAX_F:
         raise ValueError(f"fused_overlay_tick: idsaux width {w} with "
                          f"K={k}, F={f} (K <= {MAX_K}, F <= {MAX_F})")
@@ -150,11 +182,27 @@ def fused_overlay_tick(idsaux, pw, intro, masks, scalars, *, k: int,
     i32 = torch.int32
     check_args("fused_overlay_tick", (idsaux, i32, (n, w)),
                (pw, i32, (n, k)), (intro, i32, (8, k)))
-    host = np.array([int(x) for x in scalars] + [int(m) for m in masks],
+    if len(scalars) != 8:
+        raise ValueError("fused_overlay_tick: 8 scalars expected")
+    gm = np.array([int(m) for m in masks], np.int64)
+    if not sharded:
+        if ((gm < 1) | (gm >= n)).any():
+            raise ValueError("fused_overlay_tick: masks in [1, N) expected")
+        lm = gm
+    else:
+        lm = np.array([int(m) for m in masks_local], np.int64)
+        if len(aux_rounds) != f or len(pw_rounds) != f or len(lm) != f:
+            raise ValueError("fused_overlay_tick: F round planes and local "
+                             "masks expected")
+        if (gm < 1).any() or (lm != gm % n).any() or row_start % n:
+            raise ValueError("fused_overlay_tick: local masks must be the "
+                             "global masks mod Nl and row_start a multiple "
+                             "of Nl")
+        for a, b in zip(aux_rounds, pw_rounds):
+            check_args("fused_overlay_tick", (idsaux, i32, (n, w)),
+                       (a, i32, (n, w)), (b, i32, (n, k)))
+    host = np.array([int(x) for x in scalars] + list(gm) + list(lm),
                     np.int64)
-    if len(scalars) != 8 or ((host[8:] < 1) | (host[8:] >= n)).any():
-        raise ValueError("fused_overlay_tick: 8 scalars and masks in "
-                         "[1, N) expected")
     host = np.ascontiguousarray((host & 0xFFFFFFFF).astype(np.uint32)
                                 .view(np.int32))
     dev = idsaux.device
@@ -162,13 +210,25 @@ def fused_overlay_tick(idsaux, pw, intro, masks, scalars, *, k: int,
     hb2 = torch.empty((n, k), dtype=i32, device=dev)
     ts2 = torch.empty((n, k), dtype=i32, device=dev)
     ctr = torch.empty((n, N_COUNTERS), dtype=i32, device=dev)
-    code = library("overlay_tick.cu").gp_fused_overlay_tick(
-        ptr(idsaux), ptr(pw), ptr(intro), host.ctypes.data, ptr(ids2),
-        ptr(hb2), ptr(ts2), ptr(ctr), n, k, f, int(t_remove), int(churn_lo),
-        int(churn_span), stream_ptr(dev))
-    fused_overlay_tick.launches += 1
+    lib = library("overlay_tick.cu")
+    if not sharded:
+        code = lib.gp_fused_overlay_tick(
+            ptr(idsaux), ptr(pw), ptr(intro), host.ctypes.data, ptr(ids2),
+            ptr(hb2), ptr(ts2), ptr(ctr), n, k, f, int(t_remove),
+            int(churn_lo), int(churn_span), stream_ptr(dev))
+    else:
+        planes = np.array([a.data_ptr() for a in aux_rounds]
+                          + [b.data_ptr() for b in pw_rounds], np.uint64)
+        code = lib.gp_fused_overlay_tick_sharded(
+            ptr(idsaux), ptr(pw), ptr(intro), host.ctypes.data,
+            planes.ctypes.data, ptr(ids2), ptr(hb2), ptr(ts2), ptr(ctr), n,
+            k, f, int(t_remove), int(churn_lo), int(churn_span),
+            int(row_start), stream_ptr(dev))
+        count_launch(fused_overlay_tick, "sharded_launches")
+    count_launch(fused_overlay_tick)
     check(code, "fused_overlay_tick")
     return ids2, hb2, ts2, ctr
 
 
 fused_overlay_tick.launches = 0
+fused_overlay_tick.sharded_launches = 0

@@ -44,7 +44,8 @@ from ...utils.hash32 import MASK32, mix32_t
 from ..overlay_rules import (_SALT_DEGREE, METRIC_FIELDS, SLOT_EPOCH,
                              OverlaySchedule, OverlayState, RowColumns, as_i32,
                              overlay_step, pack_key, slot_of, u32_to_i32)
-from ._build import check, check_args, library, ptr, stream_ptr
+from ._build import (check, check_args, count_launch, library, ptr,
+                     stream_ptr)
 from .overlay_exchange import fused_overlay_tick_plain
 from .overlay_mega import (MET_ADDS, MET_COLS,  # noqa: F401
                            MET_FALSE_REMOVALS, MET_IN_GROUP, MET_RECV,
@@ -216,7 +217,7 @@ def grid_boot_rows(plane, sp, *, n: int, k: int, batch: int = 1,
         ptr(plane), plane.stride(0), ptr(sp_dev), ptr(boot), n, k, batch,
         host.shape[1], int(join_live), stream_ptr(dev))
     if join_live:
-        grid_boot_rows.launches += 1
+        count_launch(grid_boot_rows)
     check(code, "grid_boot_rows")
     return boot[0] if squeeze else boot
 
@@ -398,7 +399,7 @@ def grid_overlay_ticks(plane, sp, *, n: int, k: int, f_rounds: int,
         int(t_remove), int(churn_lo),
         int(churn_span), int(can_rejoin), int(churn_mode), int(powerlaw),
         flags, stream_ptr(dev))
-    grid_overlay_ticks.launches += 1
+    count_launch(grid_overlay_ticks)
     check(code, "grid_overlay_ticks")
     if squeeze:
         return plane2[0], met[0]

@@ -29,7 +29,8 @@ import torch
 
 from ..overlay_rules import (METRIC_FIELDS, OverlaySchedule, OverlayState,
                              RowColumns, as_i32, overlay_step)
-from ._build import check, check_args, library, ptr, stream_ptr
+from ._build import (check, check_args, count_launch, library, ptr,
+                     stream_ptr)
 from .overlay_exchange import fused_overlay_tick_plain
 
 #: protocol ticks per launch (one slot epoch)
@@ -202,7 +203,7 @@ def mega_overlay_ticks(st, sp, *, n: int, k: int, f_rounds: int,
         f_rounds, s_ticks, int(t_remove), int(churn_lo), int(churn_span),
         int(can_rejoin), int(powerlaw), int(grid_blocks or 0),
         stream_ptr(dev))
-    mega_overlay_ticks.launches += 1
+    count_launch(mega_overlay_ticks)
     check(code, "mega_overlay_ticks")
     return out, met
 

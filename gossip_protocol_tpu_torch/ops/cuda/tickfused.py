@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from ..detect import staleness_mask
-from ._build import check, check_args, library, ptr, stream_ptr
+from ._build import (check, check_args, count_launch, library, ptr,
+                     stream_ptr)
 
 
 def tick_epilogue_plain(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
@@ -141,7 +142,7 @@ def tick_epilogue(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
         *(ptr(x) for x in ins), ptr(known_o), ptr(hb_o), ptr(ts_o),
         ptr(gossip_o), ptr(sent_row), ptr(recv_row), ptr(added),
         ptr(removed), n, b, int(t), int(t_remove), stream_ptr(dev))
-    tick_epilogue.launches += 1
+    count_launch(tick_epilogue)
     check(code, "tick_epilogue")
     return known_o, hb_o, ts_o, gossip_o, sent_row, recv_row, added, removed
 

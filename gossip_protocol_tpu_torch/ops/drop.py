@@ -109,7 +109,8 @@ def drop_masks(rng, t0: int, active, prob, n: int,
     if dev.type == "cpu":
         return drop_masks_plain(rng, t0, active, prob, n, na, dev,
                                 link_prob, group, part_active)
-    from .cuda._build import check, check_args, library, ptr, stream_ptr
+    from .cuda._build import (check, check_args, count_launch,
+                              library, ptr, stream_ptr)
     s_ticks = len(active)
     if not 1 <= s_ticks <= DROP_MAX_TICKS:
         raise ValueError(f"drop_masks: {s_ticks} ticks, expected 1 to "
@@ -132,7 +133,7 @@ def drop_masks(rng, t0: int, active, prob, n: int,
         g.data_ptr(), q.data_ptr(), p.data_ptr(), ptr(link_prob), ptr(group),
         k0, k1, int(t0), bits, pbits, float(np.float32(prob)), n, na,
         s_ticks, stream_ptr(dev))
-    drop_masks.launches += 1
+    count_launch(drop_masks)
     check(code, "drop_masks")
     return g, q, p
 
@@ -186,6 +187,15 @@ class LaneDrop:
     @property
     def batch(self) -> int:
         return self.keys.shape[0]
+
+    def rows(self, lo: int, hi: int) -> "LaneDrop":
+        """The plan of lanes ``[lo, hi)`` (a shared row stays shared): a
+        lane shard's share of a fleet on a mesh (parallel/fleet_mesh.py)."""
+        def pick(tab):
+            return None if tab is None else (tab if tab.shape[0] == 1
+                                             else tab[lo:hi])
+        return LaneDrop(self.keys[lo:hi], self.prob[lo:hi],
+                        pick(self.active), pick(self.part))
 
     def lane(self, tab, b: int, t: int) -> bool:
         """Lane ``b``'s flag at tick ``t`` (a tick past the table reads
@@ -246,7 +256,8 @@ def drop_masks_lanes(plan: LaneDrop, t: int, n: int,
     dev = torch.device(device)
     if dev.type == "cpu":
         return drop_masks_lanes_plain(plan, t, n, na, dev, link_prob, group)
-    from .cuda._build import check, check_args, library, ptr, stream_ptr
+    from .cuda._build import (check, check_args, count_launch,
+                              library, ptr, stream_ptr)
     b = plan.batch
     specs = []
     if link_prob is not None:
@@ -268,7 +279,7 @@ def drop_masks_lanes(plan: LaneDrop, t: int, n: int,
         keys.data_ptr(), prob.data_ptr(), active.data_ptr(),
         None if part is None or group is None else part.data_ptr(), int(t),
         min(int(t), t_len - 1), stride, n, na, b, stream_ptr(dev))
-    drop_masks_lanes.launches += 1
+    count_launch(drop_masks_lanes)
     check(code, "drop_masks_lanes")
     return g, q, p
 

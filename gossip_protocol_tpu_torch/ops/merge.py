@@ -40,16 +40,19 @@ def merge_payloads(known, hb, ts, now: int, t_remove: int):
 def masked_max3_plain(gossip, proc, known, hb, ts, now: int, *,
                       t_remove: int):
     """Plain PyTorch version of the ``masked_max3`` kernel: a blockwise
-    product-max over the sender axis.  Returns ``(m_all, m_fresh,
-    t_fresh)`` i32[N, N] (FILL where no sender contributes)."""
-    n = known.shape[0]
+    product-max over the sender axis.  ``gossip`` bool[S, R] is the
+    delivery block (sender, receiver), ``proc`` bool[R], ``known`` /
+    ``hb`` / ``ts`` [S, C] the senders' payload rows.  Returns ``(m_all,
+    m_fresh, t_fresh)`` i32[R, C] (FILL where no sender contributes)."""
+    s_dim, r_dim = gossip.shape
+    c_dim = known.shape[1]
     recv_from = (gossip & proc[None, :]).t()           # [r, s]
     a1, f1, t1 = merge_payloads(known, hb, ts, now, t_remove)
-    b = max(1, min(n, _PLAIN_BLOCK_ELEMS // max(1, n * n)))
-    m = [torch.zeros((n, n), dtype=torch.int32, device=known.device)
+    b = max(1, min(s_dim, _PLAIN_BLOCK_ELEMS // max(1, r_dim * c_dim)))
+    m = [torch.zeros((r_dim, c_dim), dtype=torch.int32, device=known.device)
          for _ in range(3)]
     zero = torch.zeros((), dtype=torch.int32, device=known.device)
-    for s0 in range(0, n, b):
+    for s0 in range(0, s_dim, b):
         d = recv_from[:, s0:s0 + b, None]                # [R, B, 1]
         for acc, v in zip(m, (a1, f1, t1)):
             blk = torch.where(d, v[None, s0:s0 + b, :], zero).amax(1)
@@ -137,39 +140,51 @@ def masked_max3_lanes_plain(gossip, proc, known, hb, ts, now: int, *,
 def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int):
     """The three merge maxima of one tick (see the module docstring).
 
-    ``gossip`` bool[N, N] (sender, receiver), ``proc`` bool[N] (which
-    receivers consume this tick), ``known`` bool / ``hb``, ``ts`` i32
-    [N, N] the senders' rows.  With a leading lane axis (``known``
-    [B, N, N], ``proc`` [B, N], ...) it merges B independent lanes of a
+    ``gossip`` bool[S, R] (sender, receiver) delivers from S senders to R
+    receivers, ``proc`` bool[R] says which receivers consume this tick,
+    ``known`` bool / ``hb``, ``ts`` i32 [S, C] are the senders' payload
+    rows over C columns; the maxima are i32[R, C].  A tick merges the
+    square N x N block; the ring merge of a peer-sharded run
+    (parallel/comm.py ``RingComm.merge_reduce``) merges an Nl x Nl block
+    against Nl x N payload rows.  With a leading lane axis (``known``
+    [B, S, C], ``proc`` [B, R], ...) it merges B independent lanes of a
     fleet at the shared clock ``now``, in one launch on a card.  CPU
     tensors take the plain version; CUDA tensors launch the kernel (or
-    raise).
+    raise).  A call whose block is not square also counts on
+    ``masked_max3.rect_launches``.
     """
     lanes = known.dim() == 3
     if known.device.type == "cpu":
         fn = masked_max3_lanes_plain if lanes else masked_max3_plain
         return fn(gossip, proc, known, hb, ts, now, t_remove=t_remove)
-    from .cuda._build import check, check_args, library, ptr, stream_ptr
-    n = known.shape[-1]
+    from .cuda._build import (check, check_args, count_launch,
+                              library, ptr, stream_ptr)
+    s_dim, r_dim = gossip.shape[-2:]
+    c_dim = known.shape[-1]
     b = known.shape[0] if lanes else 1
     lead = (b,) if lanes else ()
-    plane = lead + (n, n)
-    check_args("masked_max3", (gossip, torch.bool, plane),
-               (proc, torch.bool, lead + (n,)), (known, torch.bool, plane),
-               (hb, torch.int32, plane), (ts, torch.int32, plane))
-    m_all, m_fresh, t_fresh = (torch.empty(plane, dtype=torch.int32,
+    payload = lead + (s_dim, c_dim)
+    check_args("masked_max3", (gossip, torch.bool, lead + (s_dim, r_dim)),
+               (proc, torch.bool, lead + (r_dim,)),
+               (known, torch.bool, payload), (hb, torch.int32, payload),
+               (ts, torch.int32, payload))
+    out = lead + (r_dim, c_dim)
+    m_all, m_fresh, t_fresh = (torch.empty(out, dtype=torch.int32,
                                            device=known.device)
                                for _ in range(3))
     lib = library()
-    scratch = torch.empty(b * lib.gp_merge_scratch_words(n),
+    scratch = torch.empty(b * lib.gp_merge_scratch_words(r_dim, s_dim),
                           dtype=torch.int32, device=known.device)
     code = lib.gp_masked_max3(
         ptr(gossip), ptr(proc), ptr(known), ptr(hb), ptr(ts),
-        ptr(m_all), ptr(m_fresh), ptr(t_fresh), ptr(scratch), n, b,
-        int(now), int(t_remove), stream_ptr(known.device))
-    masked_max3.launches += 1
+        ptr(m_all), ptr(m_fresh), ptr(t_fresh), ptr(scratch), r_dim, s_dim,
+        c_dim, b, int(now), int(t_remove), stream_ptr(known.device))
+    count_launch(masked_max3)
+    if not r_dim == s_dim == c_dim:
+        count_launch(masked_max3, "rect_launches")
     check(code, "masked_max3")
     return m_all, m_fresh, t_fresh
 
 
 masked_max3.launches = 0
+masked_max3.rect_launches = 0

@@ -472,7 +472,7 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
                  cols: RowColumns, masks, *, k: int, f: int, t_remove: int,
                  can_rejoin: bool, powerlaw: bool, fail0: int, rejoin0: int,
                  exchange, with_coverage: bool = False,
-                 worlds: WorldFlags | None = None):
+                 worlds: WorldFlags | None = None, comm=None):
     """One overlay tick: ``(state', metrics i32[9])``.
 
     The JAX tick (models/overlay.py:707-1220): churn wipe, vector
@@ -491,12 +491,31 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
     rules apply around it: flap phases, the send history, the asym
     per-link thresholds and the partition gate on every send, zombie
     sends.
+
+    ``comm`` (models/overlay_sharded.py ``RingOverlayComm``) makes the
+    tick one shard of a peer-sharded run (JAX ``make_overlay_tick(cfg,
+    comm=)``): the tables, send flags and history hold the shard's Nl
+    rows, the per-peer vectors and ``cols`` stay whole; K3 takes its
+    sharded contract (each round's planes from shard ``s ^ (m // Nl)``,
+    routed by ``comm.xor_perm_shards``), the introducer's row comes from
+    ``comm.bcast_row0`` and every table counter through ``comm.psum``.
+    World configs are not sharded.
     """
     t = state.tick
-    n = state.ids.shape[0]
+    rows, is_intro = cols.rows, cols.is_intro
+    n = rows.shape[0]
+    sh = comm is not None and comm.n_shards > 1
+    nl = state.ids.shape[0]
+    r0 = comm.row_start(n) if sh else 0
+    if sh and worlds is not None:
+        raise ValueError("world configs do not run peer-sharded")
+
+    def loc(v):
+        """A whole per-peer vector at this shard's rows."""
+        return comm.slice_rows(v) if sh else v
+
     dev = state.ids.device
     i32 = torch.int32
-    rows, is_intro = cols.rows, cols.is_intro
     seed = sched.seed
     w = worlds or WorldFlags()
     failed_win = (t > cols.fail) & (t <= cols.rejoin)
@@ -514,9 +533,10 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
         if w.flap:
             rejoining = rejoining | fl_r
         keep = ~rejoining
-        ids0 = torch.where(keep[:, None], state.ids, -1)
-        hb0 = state.hb * keep[:, None]
-        ts0 = state.ts * keep[:, None]
+        keep_l = loc(keep)
+        ids0 = torch.where(keep_l[:, None], state.ids, -1)
+        hb0 = state.hb * keep_l[:, None]
+        ts0 = state.ts * keep_l[:, None]
         in_group0 = state.in_group & keep
         own_hb0 = state.own_hb * keep
     else:
@@ -525,7 +545,7 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
         in_group0, own_hb0 = state.in_group, state.own_hb
     if w.latency:
         # a rejoin is a fresh nodeStart: its in-flight stream dies
-        hist0 = state.send_hist * keep[:, None] if can_rejoin \
+        hist0 = state.send_hist * keep_l[:, None] if can_rejoin \
             else state.send_hist
     slot_ep = t // SLOT_EPOCH
     p0 = torch.where(ids0 >= 0, pack_th(ts0, hb0), 0).to(i32)
@@ -547,23 +567,38 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
 
     # ---- the whole (N, K) phase: K3, or the worlds' exchange ----------
     if worlds is None:
-        bits = proc.to(i32) | (ops.to(i32) << 1) | (jrep.to(i32) << 2)
-        idsaux = torch.cat([ids0, own_hb0[:, None], bits[:, None],
+        bits = loc(proc.to(i32) | (ops.to(i32) << 1) | (jrep.to(i32) << 2))
+        own_hb0_l = loc(own_hb0)
+        idsaux = torch.cat([ids0, own_hb0_l[:, None], bits[:, None],
                             state.send_flags.to(i32)], 1).contiguous()
+        p0 = p0.contiguous()
+        row0 = torch.cat([ids0[0], p0[0], own_hb0_l[:1]])
+        if sh:              # global row 0 lives on shard 0
+            row0 = comm.bcast_row0(row0)
         intro = torch.zeros((8, k), dtype=i32, device=dev)
-        intro[0] = ids0[0]
-        intro[1] = p0[0]
-        intro[2, 0] = own_hb0[0]
+        intro[0] = row0[:k]
+        intro[1] = row0[k:2 * k]
+        intro[2, 0] = row0[2 * k]
         intro[3] = u32_to_i32(q_kf)
         intro[4] = q_pf
         scalars = (t, as_i32(seed), sched.victim_lo, sched.victim_hi,
                    sched.fail_tick, sched.rejoin_after,
                    as_i32(sched.churn_thr), sched.churn_after)
+        shard_kw = {}
+        if sh:
+            shard_kw = dict(
+                masks_local=[m % nl for m in masks], row_start=r0,
+                aux_rounds=[comm.xor_perm_shards(idsaux, m // nl)
+                            for m in masks],
+                pw_rounds=[comm.xor_perm_shards(p0, m // nl)
+                           for m in masks])
         ids2, hb2, ts2, ctr = exchange(
-            idsaux, p0.contiguous(), intro, masks, scalars, k=k,
+            idsaux, p0, intro, masks, scalars, k=k,
             t_remove=t_remove, churn_lo=sched.churn_lo,
-            churn_span=sched.churn_span)
+            churn_span=sched.churn_span, **shard_kw)
         csum = ctr.sum(0)
+        if sh:
+            csum = comm.psum(csum)
     else:
         ids2, hb2, ts2, csum = overlay_world_exchange(
             ids0, p0, own_hb0, hist0 if w.latency else state.send_flags,
@@ -598,11 +633,11 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
         ids2, hb2, ts2 = reslot(ids2, hb2, ts2, seed, (t + 1) // SLOT_EPOCH)
 
     # ---- dissemination: next tick's in-flight flags --------------------
-    send_src = ops
+    send_src = loc(ops)
     if w.zombie:
         # window-failed in-group peers keep gossiping their frozen tables
         send_src = ops | (failed_win & in_group0)
-    send_flags = send_src[:, None].expand(n, f)
+    send_flags = send_src[:, None].expand(nl, f)
     fis = torch.arange(f, dtype=torch.int64, device=dev)
     if w.asym or pa:
         # the partner of row i on slot fi of the next delivery is
@@ -613,16 +648,19 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
     if active:
         gthr = sched.link_thr(ru[:, None], partners) if w.asym \
             else sched.drop_thr
-        gdrop = mix32_t(seed, t, ru[:, None], fis[None, :],
+        gdrop = mix32_t(seed, t, loc(ru)[:, None], fis[None, :],
                         _SALT_GOSSIP_DROP) < gthr
         send_flags = send_flags & ~gdrop
     if pa:
         send_flags = send_flags \
             & (grp[:, None] == sched.group_of(partners))
     if powerlaw:
-        send_flags = send_flags & (fis[None, :] < cols.deg[:, None])
+        send_flags = send_flags & (fis[None, :] < loc(cols.deg)[:, None])
     send_flags = send_flags.contiguous()
-    sent = send_flags.sum() + joinreq_sent.sum() + joinrep_sent.sum()
+    flags_sent = send_flags.sum()
+    if sh:
+        flags_sent = comm.psum(flags_sent)
+    sent = flags_sent + joinreq_sent.sum() + joinrep_sent.sum()
     if w.latency:
         # shift the send history: bit 0 = sent this tick, capped at the
         # largest drawable delay L + 1
@@ -639,8 +677,10 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
 
     if with_coverage:
         live_member = in_group & ~failed & ~is_intro
-        live_uncovered = (live_member
-                          & ~covered_histogram(ids_pre, n)).sum()
+        covered = covered_histogram(ids_pre, n)
+        if sh:
+            covered = comm.psum(covered)      # a bool psum is an OR
+        live_uncovered = (live_member & ~covered).sum()
     else:
         live_uncovered = torch.tensor(-1, device=dev)
     metrics = torch.stack([

@@ -10,8 +10,10 @@ solo runs, with per-request latency and per-dispatch occupancy metrics.
 The failure plane (seeded faults, retry, breaker, solo fallback), the
 open-loop traffic and SLO plane, canonical buckets and checkpointed,
 journaled serving (``store/``) are the JAX package's, on the card
-(``device="cuda"``, the default) or the CPU (``device="cpu"``).  The
-lane-mesh paths wait for the multi-device slice (ROADMAP M11).
+(``device="cuda"``, the default) or the CPU (``device="cpu"``), or
+from a mesh of one process (``mesh=``, parallel/fleet_mesh.py) that
+shrinks on a device loss and grows back on its return
+(``elastic_replay``); ``loadbench.py`` is the open-loop load bench.
 """
 
 from .bucket import bucket_key, pad_configs

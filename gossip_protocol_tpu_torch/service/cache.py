@@ -19,8 +19,12 @@ shape another caller (e.g. the grader) still uses costs that caller one
 rebuild — correctness is never affected.
 
 Every handle runs on the cache's ``device`` (``cuda`` unless the caller
-asks for ``cpu``).  The lane-mesh handles of the JAX package (and
-``rebind_mesh``) come with the multi-device slice, ROADMAP M11.
+asks for ``cpu``), or, with ``mesh=``, on the entries of a port mesh
+(parallel/fleet_mesh.py ``MeshFleetSimulation``).  Entries are keyed
+``(mesh descriptor, bucket key)``: :meth:`ProgramCache.rebind_mesh`
+moves the cache along the elastic ladder and RE-KEYS rather than
+evicts, so a shrink -> grow cycle finds the restored mesh's handles
+warm.
 """
 
 from __future__ import annotations
@@ -34,25 +38,28 @@ from ..core.tick import run_build_count
 from ..state import resolve_device
 
 
-def _mesh_unported(what: str):
-    return NotImplementedError(
-        f"{what} needs the lane mesh, which the port gains with the "
-        "multi-device slice (ROADMAP M11); serve without mesh=")
-
-
 class ProgramCache:
     """bucket key -> :class:`~..core.fleet.FleetSimulation` (or its
-    canonical subclass for ``"canon"`` keys), LRU-bounded."""
+    canonical subclass for ``"canon"`` keys, or the mesh subclasses
+    when constructed with ``mesh=``), LRU-bounded."""
 
     def __init__(self, chunk_ticks: Optional[int] = None, mesh=None,
-                 max_entries: Optional[int] = 64, device=None):
+                 max_entries: Optional[int] = 64, device=None,
+                 canon_rung_multiple: int = 1):
         if max_entries is not None and max_entries < 1:
             raise ValueError(f"max_entries must be >= 1 or None, "
                              f"got {max_entries}")
         if mesh is not None:
-            raise _mesh_unported("ProgramCache(mesh=)")
+            from ..parallel.fleet_mesh import mesh_axis_sizes
+            mesh_axis_sizes(mesh)             # a port mesh, or raise
         self.device = resolve_device(device)
         self._chunk_ticks = chunk_ticks
+        self._mesh = mesh
+        # the pad-ladder snap for canonical handles: the service's
+        # FULL-STRENGTH peer count, fixed for the cache's lifetime so
+        # canonical keys survive elastic peer-shard shrink
+        # (service/canonical.py ladder_rung); rebind_mesh leaves it
+        self._canon_rung_multiple = int(canon_rung_multiple)
         self.max_entries = max_entries
         # entries are keyed (mesh descriptor, bucket key), the JAX
         # layout; the descriptor is None on one device
@@ -70,12 +77,25 @@ class ProgramCache:
 
     def _make_sim(self, cfg: SimConfig,
                   canonical: bool = False) -> FleetSimulation:
+        if self._mesh is not None:
+            from ..parallel.fleet_mesh import (CanonicalMeshFleetSimulation,
+                                               MeshFleetSimulation)
+            if canonical:
+                return CanonicalMeshFleetSimulation(
+                    cfg, self._mesh, chunk_ticks=self._chunk_ticks,
+                    rung_multiple=self._canon_rung_multiple)
+            return MeshFleetSimulation(cfg, self._mesh,
+                                       chunk_ticks=self._chunk_ticks)
         if canonical:
             from ..core.fleet import CanonicalFleetSimulation
             return CanonicalFleetSimulation(
                 cfg, device=self.device, chunk_ticks=self._chunk_ticks)
         return FleetSimulation(cfg, device=self.device,
                                chunk_ticks=self._chunk_ticks)
+
+    def _desc(self):
+        """Hashable identity of the CURRENT mesh (None: no mesh)."""
+        return None if self._mesh is None else self._mesh.descriptor()
 
     def get(self, key: tuple, cfg: SimConfig,
             members=None) -> FleetSimulation:
@@ -99,7 +119,7 @@ class ProgramCache:
             cls["hits"] += 1
             if members is not None:
                 cls["members"].update(members)
-        full = (None, key)
+        full = (self._desc(), key)
         sim = self._sims.get(full)
         if sim is None:
             self.misses += 1
@@ -116,7 +136,26 @@ class ProgramCache:
         return sim
 
     def rebind_mesh(self, mesh, evict: bool = False) -> int:
-        raise _mesh_unported("ProgramCache.rebind_mesh")
+        """Move the cache along the elastic ladder: re-point it at
+        another mesh (or None for one device).  Entries are RE-KEYED,
+        not dropped — the other rungs keep their handles under their own
+        descriptor, so a shrink -> grow cycle serves the restored mesh
+        warm; ``evict=True`` drops every handle and its run closures
+        instead.  Returns how many handles were dropped (0 when
+        re-keying)."""
+        n = 0
+        if evict:
+            n = len(self._sims)
+            for sim in self._sims.values():
+                sim.evict_programs()
+            self._sims.clear()
+        self._mesh = mesh
+        # handles already cached under the NEW descriptor come back into
+        # service (the shrink -> grow payoff)
+        self.rekey_hits += sum(1 for (d, _) in self._sims
+                               if d == self._desc())
+        self.mesh_rebinds += 1
+        return n
 
     def keys(self) -> tuple:
         """The current ``(mesh descriptor, bucket key)`` entries, LRU
@@ -160,4 +199,5 @@ class ProgramCache:
                 "classes": classes,
                 "class_member_buckets": sum(
                     len(v["members"]) for v in self._classes.values()),
-                "devices": 1}
+                "devices": (self._mesh.size
+                            if self._mesh is not None else 1)}

@@ -42,11 +42,13 @@ poison     one lane of the finished FleetResult is corrupted
            only *validation* can catch (service/resilience.py
            ``validate_lane``)
 device_loss raised once, at ``device_loss_at`` — a device dropping
-           out; without a lane mesh (the multi-device slice) the
-           scheduler retries it like any dispatch failure
+           out; a mesh service shrinks its mesh one rung (the peer
+           axis first), and every service retries it like any
+           dispatch failure
 device_return fires once, at ``device_return_at`` — a lost device
-           coming back.  Not a failure; without a lane mesh there is
-           nothing to grow, and the attempt proceeds normally.
+           coming back.  Not a failure: a mesh service grows its mesh
+           back one rung (without a mesh there is nothing to grow),
+           and the attempt proceeds normally.
            Recorded in :attr:`events` like every fault, so the
            schedule replays digest-for-digest.
 ========== =========================================================

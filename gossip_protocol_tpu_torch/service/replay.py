@@ -251,7 +251,9 @@ def replay(templates: list[Template], seeds_per_template: int,
     Raises on any per-request parity mismatch — a serving layer that
     changes results has no throughput to report — and on any failed or
     degraded request; the returned ``failures`` carry the retry count.
-    ``mesh`` waits for the multi-device slice (ROADMAP M11).
+    ``mesh`` serves the stream from a port mesh, 1-D lanes or 2-D lanes
+    x peers (parallel/fleet_mesh.py): ``max_batch`` is then per lane
+    entry, and the mesh's first entry is the device.
 
     The sequential baseline of one trace is the same however the
     service side is configured, so a caller comparing several service
@@ -349,8 +351,9 @@ def chaos_replay(templates: list[Template], seeds_per_template: int,
                  pipeline_depth: int | None = None, device=None):
     """The chaos acceptance harness: the mixed replay under a SEEDED
     fault schedule (service/faults.py) plus one mid-replay device
-    loss (retried like any dispatch failure without a lane mesh), on
-    ``device``, with the gate enforced in-line:
+    loss (retried like any dispatch failure; with ``mesh=`` it also
+    shrinks the mesh one rung), on ``device``, with the gate enforced
+    in-line:
 
     * **100% completion, 0 stranded handles** — every submitted
       request reaches a terminal state, and every terminal state is a
@@ -378,7 +381,10 @@ def chaos_replay(templates: list[Template], seeds_per_template: int,
     from .faults import FaultInjector
     from .resilience import BreakerPolicy, RetryPolicy
     trace = build_trace(templates, seeds_per_template)
-    n_dev = n_lanes = 1
+    # capacity scales with the LANE axis only (2-D meshes spend the
+    # peer axis on each simulation's tables)
+    n_lanes = _lanes(mesh)                  # validates the mesh
+    n_dev = mesh.size if mesh is not None else 1
     if device_loss_at == "mid":
         # roughly the middle fault-free dispatch of the stream
         dispatches = max(1, len(trace) // max(1, max_batch * n_lanes))
@@ -481,13 +487,174 @@ def chaos_replay(templates: list[Template], seeds_per_template: int,
     return metrics
 
 
-def elastic_replay(*args, **kwargs):
-    """The JAX package's elastic acceptance harness serves the replay as
-    resumable legs under a device loss AND a device return, and gates on
-    the mesh shrinking and growing back.  Its gate needs a lane mesh,
-    which the port gains with the multi-device slice (ROADMAP M11);
-    checkpointed serving itself runs here (``FleetService(
-    checkpoint_every=)``, ``store/harness.py kill_restart_replay``)."""
-    raise NotImplementedError(
-        "elastic_replay gates on a mesh shrink and grow; the port's lane "
-        "mesh comes with the multi-device slice (ROADMAP M11)")
+def _lanes(mesh) -> int:
+    if mesh is None:
+        return 1
+    from ..parallel.fleet_mesh import mesh_axis_sizes
+    return mesh_axis_sizes(mesh)[0]
+
+
+def elastic_replay(templates: list[Template], seeds_per_template: int,
+                   max_batch: int = 4, mesh=None,
+                   checkpoint_every: int = 32, fault_seed: int = 0,
+                   fault_rate: float = 0.0, device_loss_at="mid",
+                   device_return_at="after", max_retries: int = 4,
+                   backoff_base_s: float = 0.01, sequential=None,
+                   return_legs: bool = False,
+                   pipeline: bool | None = None,
+                   pipeline_depth: int | None = None, device=None):
+    """The elastic acceptance harness: the mixed replay served as
+    RESUMABLE LEGS (``checkpoint_every`` segment budget) under one
+    seeded device loss AND one device return, with the gate enforced
+    in-line (JAX ``service/replay.py elastic_replay``):
+
+    * **100% completion, 0 stranded handles**;
+    * **zero lanes restarted from tick 0**, and checkpoints, resume
+      dispatches and, with a mesh, lane migrations across the rebuilds
+      actually happened (a run too small to exercise them raises);
+    * **shrink -> grow round trip**: the loss shrinks the mesh, the
+      return grows it back to its starting entry count;
+    * **bit-parity for every request** against the sequential solo leg;
+    * **replayability**: the fault schedule and the per-request outcomes
+      (status, retries, legs) are digest-comparable across two runs.
+
+    Runs on the mesh's entries (``mesh=``) or on ``device``.
+    """
+    from .faults import FaultInjector
+    from .resilience import BreakerPolicy, RetryPolicy
+    trace = build_trace(templates, seeds_per_template)
+    cap = max(1, max_batch * _lanes(mesh))  # validates the mesh
+    n_dev = mesh.size if mesh is not None else 1
+    base_dispatches = max(1, -(-len(trace) // cap))
+    if device_loss_at == "mid":
+        # with legs the attempt stream is ~2-4x the batch count; the
+        # base count lands the loss inside the leg stream's first half,
+        # when checkpoints already exist
+        device_loss_at = max(2, base_dispatches)
+    if device_return_at == "after":
+        device_return_at = device_loss_at + max(2, base_dispatches // 2)
+    injector = FaultInjector(seed=fault_seed, fault_rate=fault_rate,
+                             device_loss_at=device_loss_at,
+                             device_return_at=device_return_at)
+    svc = FleetService(
+        max_batch=max_batch, mesh=mesh, injector=injector,
+        retry=RetryPolicy(max_retries=max_retries,
+                          backoff_base_s=backoff_base_s,
+                          seed=fault_seed),
+        # the chaos_replay determinism pins: no time-based flushes, an
+        # opened bucket stays deterministically quarantined
+        breaker=BreakerPolicy(reset_after_s=float("inf")),
+        checkpoint_every=checkpoint_every, pipeline=pipeline,
+        pipeline_depth=pipeline_depth, device=device)
+    warm(trace, svc)
+    if sequential is None:
+        seq_results, seq_wall = run_sequential(trace, svc.device)
+    else:
+        seq_results, seq_wall = sequential
+        if len(seq_results) != len(trace):
+            raise ValueError(
+                f"sequential= leg has {len(seq_results)} results but "
+                f"the trace has {len(trace)} requests")
+    t0 = time.perf_counter()
+    handles = [svc.submit(tpl.cfg, seed=seed, mode=tpl.mode)
+               for tpl, seed in trace]
+    svc.drain()
+    svc_wall = time.perf_counter() - t0
+
+    stranded = [h.request.rid for h in handles if not h.done]
+    failed = [h.request.rid for h in handles if h.failed]
+    if stranded or failed:
+        errs = "; ".join(
+            f"rid {h.request.rid}: {h.exception()!r}"
+            for h in handles if h.failed)[:500]
+        raise RuntimeError(
+            f"elastic replay left {len(stranded)} stranded and "
+            f"{len(failed)} failed handles of {len(handles)} "
+            f"(seed={fault_seed}): {errs}")
+    svc_results = [h.result() for h in handles]
+    bad = verify_parity(trace, seq_results, svc_results)
+    if bad:
+        raise RuntimeError(
+            f"elastic replay diverged from solo runs ({len(bad)}): "
+            + "; ".join(bad[:5]))
+    stats = svc.stats()
+    summary = injector.summary()
+    if summary["device_loss"] < 1 or summary["device_return"] < 1:
+        raise RuntimeError(
+            f"elastic replay injected {summary['device_loss']} device "
+            f"losses / {summary['device_return']} returns; the gate "
+            "needs >= 1 of each — the attempt stream never reached "
+            f"indices {device_loss_at}/{device_return_at} (stream too "
+            "small for the leg budget?)")
+    el = stats["elastic"]
+    if el["restarted_lanes"] != 0:
+        raise RuntimeError(
+            f"elastic replay restarted {el['restarted_lanes']} "
+            "checkpointed lane(s) from tick 0; interrupted lanes must "
+            "resume from their last checkpoint")
+    if el["checkpoints_taken"] < 1 or el["resume_dispatches"] < 1:
+        raise RuntimeError(
+            f"elastic replay took {el['checkpoints_taken']} "
+            f"checkpoints / {el['resume_dispatches']} resume "
+            "dispatches; the gate is vacuous without resumable legs — "
+            "lower checkpoint_every or lengthen the configs")
+    if mesh is not None:
+        if el["lanes_migrated"] < 1:
+            raise RuntimeError(
+                "elastic replay migrated no lanes across the mesh "
+                "rebuild; the loss/return events missed every "
+                "checkpointed batch")
+        if el["mesh_grows"] < 1 or stats["devices"] != n_dev:
+            raise RuntimeError(
+                f"elastic replay ended at {stats['devices']} devices "
+                f"(started {n_dev}, grows={el['mesh_grows']}); the "
+                "returned device was never reclaimed")
+    degraded = [h.request.rid for h in handles
+                if h.status == "degraded"]
+    outcomes = [(h.request.rid, h.status, h.metrics.retries,
+                 h.metrics.legs) for h in handles]
+    import hashlib
+    outcome_digest = hashlib.sha256(
+        repr(outcomes).encode()).hexdigest()[:16]
+    metrics = {
+        "requests": len(trace),
+        "completed": len(svc_results),
+        "stranded": 0,
+        "failed": 0,
+        "completion_rate": 1.0,
+        "degraded_requests": len(degraded),
+        "parity_checked": True,
+        "fault_seed": fault_seed,
+        "fault_rate": fault_rate,
+        "checkpoint_every": checkpoint_every,
+        "device_loss_at": device_loss_at,
+        "device_return_at": device_return_at,
+        "faults": summary,
+        "fault_events": list(injector.events),
+        "schedule_digest": injector.schedule_digest(),
+        "outcome_digest": outcome_digest,
+        "outcomes": outcomes,
+        "elastic": el,
+        "restarted_from_zero": el["restarted_lanes"],
+        "mean_legs": round(sum(o[3] for o in outcomes)
+                           / max(len(outcomes), 1), 2),
+        "cache_rekey_hits": stats["cache"]["rekey_hits"],
+        "failures": stats["failures"],
+        "devices_start": n_dev,
+        "devices_end": stats["devices"],
+        "lanes_end": stats["lanes"],
+        "peers_end": stats["peers"],
+        "sequential_wall_s": round(seq_wall, 3),
+        "service_wall_s": round(svc_wall, 3),
+        "speedup_vs_sequential": round(seq_wall / svc_wall, 2),
+        "latency_p50_s": stats["latency_p50_s"],
+        "latency_p95_s": stats["latency_p95_s"],
+        "mean_occupancy": stats["mean_occupancy"],
+        "dispatches": stats["dispatches"],
+        "pipeline": stats["pipeline"],
+        "pipeline_depth": stats["pipeline_depth"],
+        "ring_stalls": stats["ring_stalls"],
+    }
+    if return_legs:
+        return metrics, (seq_results, seq_wall)
+    return metrics

@@ -32,8 +32,10 @@ solo-run fallback), or failed with a typed error on its handle.
   mesh.  It is the same execution the parity harness uses as its
   reference, so a degraded request is still served a correct result.
 
-The degradation ladder, top to bottom: a batched fleet (retried) ->
-solo run; the mesh rungs above them come with the multi-device slice.
+The degradation ladder, top to bottom: a fleet on the full mesh ->
+the same on a shrunken mesh (service/scheduler.py ``_degrade_mesh``,
+``parallel/fleet_mesh.py shrink_mesh``) -> a single-device fleet
+(retried) -> solo run.
 Each rung preserves correctness and sheds only throughput.  A solo
 run that degrades a batch is counted (``stats()["failures"]``) and
 never silent: the card's smoke run requires zero of them on its

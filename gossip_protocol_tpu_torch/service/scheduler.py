@@ -56,8 +56,16 @@ batch re-queues under a resume sub-bucket, so any failure retries from
 the last checkpoint, never tick 0 (even the solo fallback resumes,
 ``solo_resume``).  With ``run_dir=`` every decision is journaled and
 every cut spilled (store/), and ``FleetService.recover`` rebuilds the
-run in a fresh process.  The lane mesh of the JAX scheduler (shrink
-and grow, migration) comes with the multi-device slice, ROADMAP M11.
+run in a fresh process.
+
+Serving from a mesh (``mesh=``, a port mesh from parallel/fleet_mesh.py:
+1-D lanes, or 2-D lanes x peers): a dispatch spreads its lanes over the
+lane axis (capacity ``max_batch`` x lanes, widths padded to a multiple
+of it), and a device loss shrinks the mesh one rung (the peer axis
+halves first; ``shrink_mesh``), a device return grows it back
+(``grow_mesh``), the program cache re-keying along the ladder.  Queued
+and checkpointed lanes migrate across every rebuild: their snapshots are
+host numpy, independent of the mesh.
 """
 
 from __future__ import annotations
@@ -125,8 +133,13 @@ class FleetService:
 
     ``max_wait_s`` bounds queueing latency under trickle traffic; it
     is enforced cooperatively (checked on every ``submit``/``pump``
-    against ``clock()``), not by a background thread.  ``mesh`` waits
-    for the multi-device slice (ROADMAP M11) and raises.
+    against ``clock()``), not by a background thread.  ``mesh`` (a 1-D
+    lane mesh, ``parallel.fleet_mesh.make_lane_mesh``, or a 2-D lanes x
+    peers mesh, ``make_lane_peer_mesh``) serves every dispatch from the
+    whole mesh: capacity is ``max_batch`` x the lane axis, each
+    simulation's peer tables additionally shard over a 2-D mesh's peer
+    axis where its width divides it, and the mesh's first entry is the
+    service's device.
     """
 
     def __init__(self, max_batch: int = 8,
@@ -151,10 +164,6 @@ class FleetService:
                  canonicalize: bool = False,
                  store=None, run_dir: Optional[str] = None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "FleetService(mesh=) serves from a lane mesh, which the "
-                "port gains with the multi-device slice (ROADMAP M11)")
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         if pad_policy not in PAD_POLICIES:
@@ -184,18 +193,45 @@ class FleetService:
                 "serving: legs validate resume cuts against the EXACT "
                 "segment plan, which canonical buckets quantize away "
                 "(docs/SERVING.md 'Bucket canonicalization')")
+        # validate the mesh shape early (a typed constructor error) and
+        # learn the axis decomposition the service speaks below
+        if mesh is not None:
+            from ..parallel.fleet_mesh import mesh_axis_sizes
+            n_lanes, n_peers, _ = mesh_axis_sizes(mesh)
+            device = mesh.devices.flat[0]
+        else:
+            n_lanes, n_peers = 1, 1
+        if canonicalize and n_peers & (n_peers - 1):
+            raise ValueError(
+                f"canonicalize over a mesh needs a power-of-two peer "
+                f"axis: the pad ladder doubles, so only pow2 "
+                f"peer-shard counts have peer-divisible rungs; got "
+                f"{n_peers} peers")
         #: the card (or the CPU) every dispatch and solo fallback runs on
+        #: (a mesh's first entry)
         self.device = resolve_device(device)
-        n_lanes, n_peers = 1, 1
         self.max_batch = max_batch
         self.max_wait_s = max_wait_s
         self.pad_policy = pad_policy
         self.mesh = mesh
-        #: the axis decomposition the JAX scheduler speaks: ``n_lanes``
-        #: batch shards x ``n_peers`` peer-table shards (1 x 1 here)
+        #: the CURRENT rung's axis decomposition (``_degrade_mesh`` /
+        #: ``_grow_mesh`` move it): ``n_lanes`` batch shards x
+        #: ``n_peers`` peer-table shards
         self.n_lanes = n_lanes
         self.n_peers = n_peers
-        self.n_devices = 1
+        self.n_devices = mesh.size if mesh is not None else 1
+        #: the full-strength entries, shape and axes, captured at
+        #: construction: the top rung ``grow_mesh`` re-extends toward
+        self._full_devices = tuple(mesh.entries()) \
+            if mesh is not None else None
+        self._full_shape = tuple(mesh.devices.shape) \
+            if mesh is not None else None
+        self._full_axes = tuple(mesh.axis_names) \
+            if mesh is not None else None
+        #: canonical pad-ladder multiple: the FULL-STRENGTH peer count,
+        #: pinned so an elastic peer-shard shrink never moves a
+        #: request's canonical bucket key mid-stream
+        self._canon_peers = n_peers
         #: segment budget (ticks) above which a dispatch runs as
         #: RESUMABLE LEGS: each leg ends at a
         #: segment cut (models/segments.cut_for_budget), the fleet
@@ -225,9 +261,10 @@ class FleetService:
         #: (overlay, bench) fall back to exact buckets per request.
         self.canonicalize = canonicalize
         self.clock = clock
-        self.cache = ProgramCache(chunk_ticks=chunk_ticks,
+        self.cache = ProgramCache(chunk_ticks=chunk_ticks, mesh=mesh,
                                   max_entries=cache_max_entries,
-                                  device=self.device)
+                                  device=self.device,
+                                  canon_rung_multiple=self._canon_peers)
         # failure plane: the (optional) deterministic fault injector
         # and the machinery that survives it (service/resilience.py)
         self.injector = injector
@@ -772,7 +809,10 @@ class FleetService:
         otherwise."""
         if self.canonicalize:
             from .canonical import canonical_bucket_key
-            return canonical_bucket_key(cfg, mode)
+            # the FULL-STRENGTH peer count snaps the pad ladder to
+            # peer-shard-divisible rungs (pinned at construction)
+            return canonical_bucket_key(cfg, mode,
+                                        peers=self._canon_peers)
         return bucket_key(cfg, mode)
 
     @staticmethod
@@ -1185,6 +1225,8 @@ class FleetService:
         while True:
             if isinstance(last_err, InjectedDeviceLoss):
                 self._failures["device_losses"] += 1
+                if self.mesh is not None:
+                    self._degrade_mesh()
             if self.breaker.record_failure(self._base_key(key), self.clock()):
                 self._failures["breaker_opens"] += 1
             now = self.clock()
@@ -1222,8 +1264,11 @@ class FleetService:
         program off the cores until the previous batch resolves."""
         if fault == "device_return":
             # the elastic fault event: a lost device came back.  Not a
-            # failure; without a lane mesh there is nothing to grow
+            # failure — grow the mesh BEFORE this launch so the batch
+            # (and every checkpointed lane it carries) lands on the
+            # wider mesh (a no-op without a mesh or at full strength)
             self._failures["device_returns"] += 1
+            self._grow_mesh()
             fault = None
         if fault == "device_loss":
             raise InjectedDeviceLoss(idx)
@@ -1244,8 +1289,11 @@ class FleetService:
         if leg is not None and reqs[0].resume is not None:
             # resume legs: the batch re-enters the run from its
             # checkpoints; filler is replicated from lane 0's snapshot
-            # inside the engine
+            # inside the engine.  A mesh change since the snapshot is a
+            # MIGRATION: the host carry re-stacks on the new mesh
             cks = [r.resume for r in reqs]
+            self._elastic["lanes_migrated"] += sum(
+                1 for ck in cks if ck.mesh_desc != sim._mesh_entry())
             self._elastic["resume_dispatches"] += 1
             if self.store is not None:
                 # durable serving: queued requests hold lightweight
@@ -1439,6 +1487,41 @@ class FleetService:
         bs = self._bucket_stats[base]
         bs["dispatches"] += 1
         bs["builds"] += builds
+
+    def _degrade_mesh(self) -> None:
+        """One rung down the ladder, axis-aware: on a 2-D mesh a device
+        loss drops a PEER shard first (the peer axis halves, every lane
+        keeps serving), down to a 1-D lane mesh, then lane entries drop
+        one at a time (to no mesh below two).  Rebinds the program cache
+        so the bucket's next attempt builds for the smaller mesh."""
+        from ..parallel.fleet_mesh import mesh_axis_sizes, shrink_mesh
+        self.mesh = shrink_mesh(self.mesh)
+        self.n_lanes, self.n_peers, _ = mesh_axis_sizes(self.mesh)
+        self.n_devices = self.mesh.size if self.mesh is not None else 1
+        self.cache.rebind_mesh(self.mesh)
+        self._failures["mesh_rebuilds"] += 1
+
+    def _grow_mesh(self) -> None:
+        """One rung UP the ladder: re-extend the mesh toward the
+        full-strength entries captured at construction (lanes first,
+        then the peer axis doubles back) and re-key the program cache,
+        so a descriptor that served before the loss finds its handles
+        warm.  A no-op without a mesh or at full strength."""
+        from ..parallel.fleet_mesh import grow_mesh, mesh_axis_sizes
+        new = grow_mesh(self.mesh, self._full_devices,
+                        full_shape=self._full_shape,
+                        full_axes=self._full_axes)
+        new_d = new.size if new is not None else 1
+        if new is self.mesh or (new_d == self.n_devices
+                                and mesh_axis_sizes(new) ==
+                                mesh_axis_sizes(self.mesh)):
+            return
+        self.mesh = new
+        self.n_lanes, self.n_peers, _ = mesh_axis_sizes(new)
+        self.n_devices = new_d
+        self.cache.rebind_mesh(new)
+        self._elastic["mesh_grows"] += 1
+        self._failures["mesh_rebuilds"] += 1
 
     def _degrade_batch(self, key: tuple, reqs: list, t_q0: float,
                        retries: int,

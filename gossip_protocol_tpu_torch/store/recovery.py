@@ -25,6 +25,9 @@ a dead process on a fresh one:
    cut re-admits from tick 0 without counting (no checkpoint ever
    existed).  The kill-and-restart gate therefore asserts
    ``restarted_lanes == 0`` end to end.
+   ``mesh=`` recovers onto a port mesh (parallel/fleet_mesh.py): the
+   spilled snapshots are host numpy, independent of any mesh, so the
+   recovered lanes migrate onto it.
 4. **The program cache is re-warmed** per distinct (bucket, mode)
    before the caller's first flush, so recovery pays compilation
    up front exactly like a fresh service's ``warm()``.

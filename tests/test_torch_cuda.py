@@ -1134,3 +1134,161 @@ def test_service_pump_never_syncs(dev):
     svc.drain()
     assert _digests(hs) == _digests(hr)
     assert svc.stats()["failures"]["retries"] == 0
+
+
+# ---- multi-device execution on a mesh of one card -----------------------
+
+def _rect(r, s, c, seed, dev, lanes=None):
+    g = torch.Generator().manual_seed(seed)
+    lead = () if lanes is None else (lanes,)
+
+    def b(p, shape):
+        return (torch.rand(lead + shape, generator=g) < p).to(dev)
+
+    def i(lo, hi, shape):
+        return torch.randint(lo, hi, lead + shape, generator=g,
+                             dtype=torch.int32).to(dev)
+
+    return (b(0.25, (s, r)), b(0.9, (r,)), b(0.7, (s, c)),
+            i(0, 600, (s, c)), i(T - 40, T + 1, (s, c)))
+
+
+@pytest.mark.parametrize("r,s,c", [(5, 5, 10), (7, 12, 30), (33, 2, 40),
+                                   (128, 128, 1024), (300, 257, 700),
+                                   (512, 512, 4096), (1024, 1024, 4096)])
+@pytest.mark.parametrize("lanes", [None, 2])
+def test_rect_masked_max3_equals_plain(dev, r, s, c, lanes):
+    """The merge's rectangular form (an S x R delivery block against
+    S x C payload rows), solo and with a lane axis, == its plain version;
+    it counts on ``rect_launches`` unless square."""
+    from gossip_protocol_tpu_torch.ops.merge import (masked_max3,
+                                                     masked_max3_lanes_plain,
+                                                     masked_max3_plain)
+    x = _rect(r, s, c, r * 7 + c, dev, lanes)
+    before = (masked_max3.launches, masked_max3.rect_launches)
+    got = masked_max3(*x, T, t_remove=T_REMOVE)
+    assert masked_max3.launches == before[0] + 1
+    assert masked_max3.rect_launches == before[1] + int(not r == s == c)
+    plain = masked_max3_lanes_plain if lanes else masked_max3_plain
+    want = plain(*x, T, t_remove=T_REMOVE)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def _shard_k3(args, kw, p, s):
+    idsaux, pw, intro, masks, scalars = args
+    nl = idsaux.shape[0] // p
+
+    def rows(t, q):
+        return t[q * nl:(q + 1) * nl]
+
+    return ((rows(idsaux, s), rows(pw, s), intro, masks, scalars),
+            dict(kw, masks_local=[m % nl for m in masks], row_start=s * nl,
+                 aux_rounds=[rows(idsaux, s ^ (m // nl)) for m in masks],
+                 pw_rounds=[rows(pw, s ^ (m // nl)) for m in masks]), nl)
+
+
+@pytest.mark.parametrize("name,n,p", [("powerlaw", 1 << 16, 4),
+                                      ("churn", 1 << 16, 8),
+                                      ("churn", 64, 8)])
+def test_fused_overlay_tick_sharded_equals_plain(dev, name, n, p):
+    """K3's sharded contract on every shard of a random state's tick ==
+    its plain version == the single-device kernel's rows."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import (
+        fused_overlay_tick, fused_overlay_tick_plain)
+    cfg = _grid_cfg(name, n)
+    got = {}
+
+    def keep(*args, **kw):
+        got.update(args=args, kw=kw)
+        return fused_overlay_tick_plain(*args, **kw)
+
+    pov.make_overlay_tick(cfg, exchange=keep)(
+        _random_state(cfg, 140, 9, dev), pov.make_overlay_schedule(cfg))
+    whole = fused_overlay_tick(*got["args"], **got["kw"])
+    for s in range(p):
+        args, kw, nl = _shard_k3(got["args"], got["kw"], p, s)
+        before = fused_overlay_tick.sharded_launches
+        a = fused_overlay_tick(*args, **kw)
+        assert fused_overlay_tick.sharded_launches == before + 1
+        b = fused_overlay_tick_plain(*args, **kw)
+        torch.cuda.synchronize()
+        for x, y, w in zip(a, b, whole):
+            assert torch.equal(x, y)
+            assert torch.equal(x, w[s * nl:(s + 1) * nl])
+
+
+def test_sharded_runs_cuda_equal_cpu(dev):
+    """A peer-sharded dense run on cuda:0 x 4 and an overlay run on
+    cuda:0 x 2 equal the same runs on cpu x P: the kernels under the
+    mesh, every table, event and metric."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models.overlay_sharded import (
+        make_overlay_mesh, make_sharded_overlay_run, shard_overlay_state)
+    from gossip_protocol_tpu_torch.ops.merge import masked_max3
+    from gossip_protocol_tpu_torch.parallel.sharded import (
+        make_mesh, make_sharded_run, shard_state)
+    from gossip_protocol_tpu_torch.state import init_state, make_schedule
+    cfg = SimConfig(max_nnb=64, single_failure=False, drop_msg=True,
+                    msg_drop_prob=0.1, seed=3, total_ticks=120)
+    outs = []
+    for d in (dev, "cpu"):
+        mesh = make_mesh(4, device=d)
+        r0 = masked_max3.rect_launches
+        outs.append(make_sharded_run(cfg, mesh)(
+            shard_state(init_state(cfg, d), mesh), make_schedule(cfg, d)))
+        if d == dev:
+            assert masked_max3.rect_launches - r0 == 120 * 16
+    torch.cuda.synchronize()
+    (fa, ea), (fb, eb) = outs
+    for f in ("known", "hb", "ts", "gossip", "in_group", "own_hb"):
+        assert torch.equal(getattr(fa, f).cpu(), getattr(fb, f))
+    for f in ("added", "removed", "sent", "recv"):
+        assert torch.equal(getattr(ea, f).cpu(), getattr(eb, f))
+    ocfg = SimConfig(model="overlay", max_nnb=64, seed=3, total_ticks=90,
+                     single_failure=False, churn_rate=0.3, rejoin_after=20,
+                     step_rate=0.25)
+    res = []
+    for d in (dev, "cpu"):
+        mesh = make_overlay_mesh(2, device=d)
+        res.append(make_sharded_overlay_run(ocfg, mesh)(
+            shard_overlay_state(pov.init_overlay_state(ocfg, d), mesh),
+            pov.make_overlay_schedule(ocfg)))
+    (fa, ma), (fb, mb) = res
+    for f in ("ids", "hb", "ts", "send_flags", "in_group", "own_hb"):
+        assert torch.equal(getattr(fa, f).cpu(), getattr(fb, f))
+    for f in ("in_group", "view_slots", "adds", "removals", "sent", "recv"):
+        assert torch.equal(getattr(ma, f).cpu(), getattr(mb, f))
+
+
+def test_mesh_fleet_never_syncs_before_resolve(dev):
+    """A lane-mesh and a 2-D mesh fleet launch: deferred, started and
+    polled under set_sync_debug_mode("error"); the lanes then equal the
+    single-device fleet's."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    from gossip_protocol_tpu_torch.parallel.fleet_mesh import (
+        MeshFleetSimulation, make_lane_mesh, make_lane_peer_mesh)
+    cfg = SimConfig(max_nnb=64, single_failure=False, drop_msg=True,
+                    msg_drop_prob=0.1, seed=0, total_ticks=80)
+    ref = FleetSimulation(cfg).run_bench(seeds=range(4))
+    for mesh in (make_lane_mesh(2), make_lane_peer_mesh(2, 2)):
+        sim = MeshFleetSimulation(cfg, mesh)
+        sim.run_bench(seeds=range(4))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pend = sim.launch_bench(seeds=range(4), warmup=False,
+                                    defer=True)
+            pend.start()
+            while not pend.is_ready():
+                pass
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = pend.resolve()
+        for a, b in zip(got.lanes, ref.lanes):
+            assert np.array_equal(a.sent, b.sent)
+            assert torch.equal(a.final_state.hb, b.final_state.hb)

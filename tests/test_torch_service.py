@@ -236,10 +236,13 @@ def test_default_device_is_cuda():
 
 
 def test_mesh_waits_for_the_multi_device_slice():
-    with pytest.raises(NotImplementedError, match="M11"):
+    """``mesh=`` takes a port mesh (parallel/fleet_mesh.py); anything
+    else raises the ValueError of ``mesh_axis_sizes``, as the JAX
+    service rejects a foreign mesh (``fleet_mesh.py:119-137``)."""
+    with pytest.raises(ValueError, match="serving meshes are 1-D"):
         FleetService(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M11"):
-        pr.elastic_replay(pr.grader_templates(), 1)
+    with pytest.raises(ValueError, match="serving meshes are 1-D"):
+        pr.elastic_replay(pr.grader_templates(), 1, mesh=object())
 
 
 def test_pump_harvests_ready_batches():
