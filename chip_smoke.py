@@ -145,9 +145,9 @@ one line per phase:
    and both bounds;
 7. the fleet service (``service/``, ``store/``), after phase 6's timing
    and before its kernels line, every path driven as a main path:
-   7a ``grade_all_service`` on ``cuda`` (90); 7b the 204-request
-   acceptance replay (``grader_templates() + overlay_templates(n=512,
-   ticks=96)``, 34 seeds, ``max_batch=8``) with per-request parity
+   7a ``grade_all_service`` on ``cuda`` (90); 7b the acceptance replay
+   (``grader_templates() + overlay_templates(n=512, ticks=96)``, its
+   first 17 of 34 seeds, 102 requests, ``max_batch=8``) with per-request parity
    against the sequential ``solo_execute`` leg, requests/s, aggregate
    against sequential node-ticks/s, occupancy, p50/p99 latency and the
    pack / device-wait / fetch split; 7c full-width serving (4 seeds of
@@ -162,7 +162,7 @@ one line per phase:
    real N=900, B=2; 300-tick traces), every lane equal to its exact solo
    run, and the corner draw (``drop_masks_lanes`` at N=1024, na=1000,
    thresholds) held against its plain version and timed; 7e
-   ``chaos_replay`` at fault rate 0.12, seed 0, twice (every request
+   ``chaos_replay`` of 7b's stream at fault rate 0.12, seed 0, twice (every request
    terminal, parity, equal digests, every failure injected); 7f
    ``kill_restart_replay`` (34 seeds, the doomed child on ``cuda``) at
    one kill point; 7g the scenario ``sweep`` (``--sweep-seeds``,
@@ -193,12 +193,23 @@ one line per phase:
    (parity with 7b's sequential leg), ``elastic_replay`` on 4 entries
    (one loss, one return; its gate) and ``load_openloop_bench(smoke=True)``
    with its lane-mesh point, run in a second process started when
-   phase 8 starts.  The kernels line gains the ``masked_max3/rect`` and
-   ``fused_overlay_tick/sharded`` rows.
+   phase 8 starts; 8f the overlay worlds peer-sharded at full width
+   (5h's two N=65,536 runs over 4 entries, its N=4096 runs over 2), each
+   equal to its single-device run in every state field and metric and
+   passing its family oracle and the overlay validation, with its wall
+   and node-ticks/s.  The kernels line gains the ``masked_max3/rect``
+   and ``fused_overlay_tick/sharded`` rows.
+9. the port's analysis (``gossip_protocol_tpu_torch/analysis/``) on the
+   card: the source pass over the tree, the runtime pass's registered
+   runs on ``cuda`` (the solo tick loops under
+   ``set_sync_debug_mode("error")``) and the guard pass (a warmed fleet
+   lap builds no run and starts no nvcc; a launched fleet's wait and
+   resolve under the sync-debug mode "error"); any finding fails the run.
 
 ``--serving-only`` runs phase 1 and phase 7 alone; ``--mesh-only``
-phase 1 and phase 8 (8e's replay then serves 8 seeds a template with a
-sequential leg of its own).
+phase 1, phase 8 and phase 9 (8e's replay then serves 8 seeds a
+template with a sequential leg of its own, 8f runs its single-device
+runs itself).
 ``--dense-only TREE`` runs, after the first phase, only the dense path
 of the package in the checkout at ``TREE``: the dense kernels of phase
 6, then phases 3 and 5a-c; ``--overlay-only TREE`` only the overlay
@@ -1944,6 +1955,12 @@ def corner_draw_timing(cfgs, dev) -> dict:
     return out
 
 
+#: seeds a template of 7b's replay and 7e's chaos replay of its stream
+#: (the JAX acceptance replay's 34 cut to its first 17, 102 requests; 8e
+#: serves the first 8 of them again)
+REPLAY_7B_SEEDS = 17
+
+
 def serving(main_path, dev, profile: bool, sweep_seeds: int,
             t_start: float) -> dict:
     """Phase 7: the fleet service (``service/``, ``store/``) on the card.
@@ -1988,15 +2005,16 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
     out["grade"] = res["total"]
     mark("7a", t_start)
 
-    # 7b: the acceptance replay (204 requests), parity against the
-    # sequential solo_execute leg
+    # 7b: the acceptance replay, parity against the sequential
+    # solo_execute leg; its first REPLAY_7B_SEEDS of 34 seeds (the depth
+    # cut that keeps the run with phases 8f and 9 under its time limit)
     tpls = grader_templates() + overlay_templates(n=512, ticks=96)
-    trace = build_trace(tpls, 34)
+    trace = build_trace(tpls, REPLAY_7B_SEEDS)
     seq = run_sequential(trace, "cuda")
-    (m, _), _ = drive("replay", lambda: replay(tpls, 34, max_batch=8,
-                                          sequential=seq, device="cuda",
-                                          return_legs=True),
-                 ("masked_max3", "tick_epilogue", "drop_masks_lanes"))
+    (m, _), _ = drive("replay", lambda: replay(
+        tpls, REPLAY_7B_SEEDS, max_batch=8, sequential=seq, device="cuda",
+        return_legs=True), ("masked_max3", "tick_epilogue",
+                            "drop_masks_lanes"))
     no_failures("7b", {"failures": m["failures"]})
     rps = m["requests"] / m["service_wall_s"]
     say(f"phase 7b: replay {m['requests']} requests, parity with the "
@@ -2111,7 +2129,7 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
     chaos = []
     for _ in range(2):
         (cm, _), _ = drive("chaos", lambda: chaos_replay(
-            tpls, 34, max_batch=8, fault_rate=0.12, fault_seed=0,
+            tpls, REPLAY_7B_SEEDS, max_batch=8, fault_rate=0.12, fault_seed=0,
             sequential=seq, device="cuda", return_legs=True),
             ("masked_max3", "tick_epilogue", "drop_masks_lanes"))
         injected_only("7e", cm)
@@ -2536,6 +2554,11 @@ def dense_world_runs(main_path) -> dict:
     return runs
 
 
+#: phase 5h's single-device runs, kept on the host for phase 8f:
+#: (family, N) -> (final state, metrics)
+SOLO_WORLDS: dict = {}
+
+
 def overlay_world_runs(main_path) -> dict:
     """Phase 5h: every overlay family kept at N=4096, and the two at
     N=65,536, each graded by its family's oracle and
@@ -2561,12 +2584,102 @@ def overlay_world_runs(main_path) -> dict:
             node_ticks_per_s=r.node_ticks_per_second,
             digest=_lane_digest(cfg, r),
             launches={k: v for k, v in counts.items() if v}, **o)
+        SOLO_WORLDS[(name, n)] = (r.final_state.to("cpu"), r.metrics)
         say(f"phase 5h: {name} N={n}, {cfg.total_ticks} ticks: oracle and "
             f"validation passed {o}; {r.node_ticks_per_second:.1f} "
             f"node-ticks/s (wall {r.wall_seconds:.3f} s); no K3/K4/K5 "
             "launch")
         del r
     return runs
+
+
+def sharded_world_runs(main_path, dev, label: str) -> dict:
+    """Phase 8f: the overlay worlds peer-sharded at full width, every
+    mesh entry ``cuda:0``: the two N=65,536 runs of 5h over 4 entries,
+    the N=4096 ones over 2.  Each equals its single-device run (5h's,
+    or run here when 5h did not run) in every state field and metric,
+    passes its family oracle and :func:`validate_overlay` (5h's
+    ``JOINS_LOST`` exceptions), and launches no K3, K4 or K5."""
+    import torch
+
+    from gossip_protocol_tpu_torch.models.overlay import (
+        OverlayResult, OverlaySimulation, init_overlay_state,
+        make_overlay_schedule)
+    from gossip_protocol_tpu_torch.models.overlay_sharded import (
+        make_overlay_mesh, make_sharded_overlay_run, shard_overlay_state)
+    from gossip_protocol_tpu_torch.models.scenarios import (
+        CATALOG, grade_config)
+    runs = {}
+    for name, n in wide_runs():
+        if not name.startswith("overlay") or (name, n) in WIDE_LEFT_OUT:
+            continue
+        p = 4 if n == 65536 else 2
+        cfg = wide_family_cfg(name, n)
+        if (name, n) not in SOLO_WORLDS:
+            r = OverlaySimulation(cfg, device="cuda").run()
+            SOLO_WORLDS[(name, n)] = (r.final_state.to("cpu"), r.metrics)
+            del r
+        ref, rmet = SOLO_WORLDS[(name, n)]
+        sched = make_overlay_schedule(cfg)
+        omesh = make_overlay_mesh(p)
+        run = make_sharded_overlay_run(cfg, omesh)
+        state = shard_overlay_state(init_overlay_state(cfg, dev), omesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (fin, met), counts = drive_world(main_path, lambda: run(state, sched),
+                                         cfg)
+        wall = time.perf_counter() - t0
+        bad = overlay_equal(ref, fin, rmet, met)
+        if not torch.equal(ref.send_hist, fin.send_hist.cpu()):
+            bad.append("send_hist")
+        if bad:
+            raise AssertionError(f"8f {name} N={n}: {p} shards != the "
+                                 f"single-device run in {bad}")
+        res = OverlayResult(cfg=cfg, sched=sched, final_state=fin,
+                            metrics=met.to_numpy(), wall_seconds=wall)
+        verdict = grade_config(CATALOG[name], cfg, res)
+        if verdict:
+            raise AssertionError(f"8f {name} N={n}: {verdict[:3]}")
+        v = validate_overlay(res, join_complete=(name, n) not in JOINS_LOST)
+        runs[f"{name}_n{n}_p{p}"] = dict(
+            n=n, shards=p, ticks=cfg.total_ticks, wall_s=wall,
+            node_ticks_per_s=cfg.n * cfg.total_ticks / wall, **v)
+        say(f"phase 8f: {name} N={n} ({cfg.total_ticks} ticks) over {p} "
+            f"{label}: every state field and metric == the single-device "
+            f"run, oracle and validation passed {v}; wall {wall:.3f} s, "
+            f"{cfg.n * cfg.total_ticks / wall:.4g} node-ticks/s; no "
+            "K3/K4/K5 launch")
+        del fin, met, res, state
+    SOLO_WORLDS.clear()
+    return runs
+
+
+def analysis_phase(dev) -> dict:
+    """Phase 9: the port's analysis on the card: the source pass over
+    the tree, and the runtime and guard passes with ``device="cuda"``
+    (the solo tick loops and a launched fleet's wait and resolve under
+    the sync-debug mode "error", a warmed lap's fleet-run builds and
+    nvcc compilations).  Any finding fails the run."""
+    from gossip_protocol_tpu_torch.analysis import guards, run_all, runtime
+    from gossip_protocol_tpu_torch.ops.cuda._build import nvcc_build_count
+    t0 = time.perf_counter()
+    findings = run_all(passes=("ast",))
+    findings += runtime.check(device=str(dev))
+    gate = guards.steady_state_build_gate(str(dev))
+    findings += guards.self_check(device=str(dev))
+    if findings:
+        raise AssertionError("phase 9: analysis findings:\n" + "\n".join(
+            str(f) for f in findings))
+    out = {"programs": [p.name for p in runtime.check.last_programs],
+           "steady_state_gate": gate, "nvcc_builds": nvcc_build_count(),
+           "seconds": round(time.perf_counter() - t0, 1)}
+    say("phase 9: the analysis on cuda: ast, runtime (programs "
+        f"{out['programs']}, the solo tick loops under sync-debug "
+        "'error') and guard passes (a warmed fleet lap built "
+        f"{gate['runs']} runs and started {gate['nvcc']} nvcc; a launched "
+        "fleet's wait and resolve under sync-debug 'error'; both gates "
+        f"trip when injected): no finding; {out['seconds']} s")
+    return out
 
 
 def world_timing(dev) -> dict:
@@ -3332,6 +3445,10 @@ def _mesh_8(out, main_path, dev, t_start: float, seq7b, child,
         f"{em['faults']['device_return']} return, 0 restarts, "
         f"{em['elastic']['lanes_migrated']} lanes migrated, "
         f"{em['devices_start']} -> {em['devices_end']} entries, parity)")
+    mark("8e", t_start)
+    # ---- 8f: the overlay worlds peer-sharded at full width -------------
+    out["worlds"] = sharded_world_runs(main_path, dev, label)
+    mark("8f", t_start)
     c_out, c_err = child.communicate(timeout=1100)
     if child.returncode != 0:
         raise AssertionError(f"8e: the load bench failed: {c_err[-3000:]}")
@@ -3350,8 +3467,7 @@ def _mesh_8(out, main_path, dev, t_start: float, seq7b, child,
             "achieved_rps", "latency_p50_s", "latency_p99_s")},
         "bench_wall_s": lb["bench_wall_s"]}
     say("phase 8e: load_openloop_bench(smoke=True) on cuda, in a second "
-        "process beside 8a-8e: " + json.dumps(runs["load_openloop_smoke"]))
-    mark("8e", t_start)
+        "process beside 8a-8f: " + json.dumps(runs["load_openloop_smoke"]))
     out["runs"] = runs
 
 
@@ -3432,9 +3548,10 @@ def main(argv=None) -> int:
                     help="run only phase 1 and phase 7 (the fleet "
                          "service); no kernels line and no result line")
     ap.add_argument("--mesh-only", action="store_true",
-                    help="run only phase 1 and phase 8 (multi-device "
-                         "execution on a mesh of cuda:0 entries); no "
-                         "kernels line and no result line")
+                    help="run only phase 1, phase 8 (multi-device "
+                         "execution on a mesh of cuda:0 entries) and "
+                         "phase 9 (the analysis); no kernels line and no "
+                         "result line")
     args = ap.parse_args(argv)
 
     import torch
@@ -3506,6 +3623,8 @@ def main(argv=None) -> int:
         details["phase8"] = mesh_phase(mp, dev, t_start)
         say("phase 8 kernels: " + json.dumps(
             mesh_kernel_rows(details["phase8"], mp)))
+        details["phase9"] = analysis_phase(dev)
+        mark("9", t_start)
     if args.turns or only or args.serving_only or args.mesh_only:
         if args.details:
             write_details(args.details, details)
@@ -3875,6 +3994,10 @@ def main(argv=None) -> int:
     details["phase8"] = m8
     details["main_path_launches"] = main_path.total
     mark("8", t_start)
+
+    # ---- phase 9: the port's analysis on the card ----------------------
+    details["phase9"] = analysis_phase(dev)
+    mark("9", t_start)
     src = "gossip_protocol_tpu_torch/csrc/dense_tick.cu"
     osrc = "gossip_protocol_tpu_torch/csrc/overlay_tick.cu"
     kernels = []

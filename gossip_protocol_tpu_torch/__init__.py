@@ -16,7 +16,9 @@ Runs go to the card unless ``device="cpu"`` is asked for; on the CPU
 every kernel runs its plain PyTorch version.  Multi-device execution
 (``parallel/``, ``models/overlay_sharded.py``) runs on a mesh of one
 process whose entries may repeat a device: peer-sharded dense and
-overlay runs, meshes of fleets, and elastic serving from a mesh.
+overlay runs (the adversarial worlds included), meshes of fleets, and
+elastic serving from a mesh.  ``analysis/`` holds the port to the JAX
+package's invariant rules (``python -m gossip_protocol_tpu_torch.analysis``).
 
 This package never imports JAX or ``gossip_protocol_tpu``.
 """

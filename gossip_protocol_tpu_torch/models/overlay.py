@@ -188,10 +188,14 @@ def degree_thresholds(cfg: SimConfig, f: int) -> np.ndarray:
 
 def degree_of(sched: OverlaySchedule, rows: torch.Tensor) -> torch.Tensor:
     """i32 out-degree of each row (F for every row of a uniform graph,
-    up to the rare hash equal to 0xFFFFFFFF)."""
+    up to the rare hash equal to 0xFFFFFFFF).  The thresholds are host
+    ints compared one at a time, so no table is copied to the card (a
+    pageable copy synchronizes the host with it)."""
     du = mix32_t(sched.seed, rows.to(torch.int64) & MASK32, _SALT_DEGREE)
-    thr = torch.tensor(sched.deg_thr, dtype=torch.int64, device=rows.device)
-    return (1 + (du[:, None] < thr[None, :]).sum(1)).to(torch.int32)
+    deg = torch.ones_like(du, dtype=torch.int32)
+    for thr in sched.deg_thr:
+        deg = deg + (du < int(thr)).to(torch.int32)
+    return deg
 
 
 def init_overlay_state(cfg: SimConfig, device=None) -> OverlayState:
@@ -256,7 +260,8 @@ def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick,
     (the fleet passes False, as the JAX fleet does).  ``comm`` makes the
     tick one shard of a peer-sharded run (``ops/overlay_rules.py
     overlay_step``): the state's tables hold the shard's rows, and K3
-    takes its sharded contract.
+    takes its sharded contract (a world config's exchange takes the
+    comm itself).
     """
     n = cfg.n
     k, f = resolved_dims(cfg)
@@ -270,8 +275,6 @@ def make_overlay_tick(cfg: SimConfig, exchange=fused_overlay_tick,
     if worlds is not None and exchange is not fused_overlay_tick:
         raise ValueError("a world config runs the worlds' exchange, not K3 "
                          "or a stand-in for it")
-    if comm is not None and worlds is not None:
-        raise ValueError("world configs do not run peer-sharded")
     kw = dict(k=k, f=f, t_remove=cfg.t_remove, exchange=exchange,
               with_coverage=(n <= COVERAGE_N_LIMIT if with_coverage is None
                              else with_coverage), worlds=worlds, comm=comm,

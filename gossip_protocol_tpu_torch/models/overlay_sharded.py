@@ -85,9 +85,12 @@ def make_sharded_overlay_run(cfg: SimConfig, mesh: Mesh,
     ``cfg.total_ticks`` per-tick K3 ticks from the state's clock, the
     loop inside ``shard_map`` over ``mesh``.  ``exchange``
     stands in for K3 as in :func:`~.overlay.make_overlay_tick` (it is
-    called with the sharded contract).  World configs are refused (the
-    JAX sharded tick runs them on its XLA phases; the port's worlds run
-    on one device)."""
+    called with the sharded contract).  A world config runs the worlds'
+    exchange on each shard instead, never K3, as the JAX sharded tick
+    runs it on its XLA phases: the partner rounds, the introducer's row
+    and the counters go through the comm, the world draws read global
+    ids.  The builder keeps no cache of runs; one keyed on the config
+    would have to hold ``cfg.worlds_key()``."""
     n_shards = mesh.size
     comm = RingOverlayComm(axis, n_shards)
     n = cfg.n
@@ -95,8 +98,6 @@ def make_sharded_overlay_run(cfg: SimConfig, mesh: Mesh,
     if nl * n_shards != n or nl & (nl - 1):
         raise ValueError("shard count must divide the peer count (both "
                          "powers of two)")
-    if cfg.has_worlds:
-        raise ValueError("world configs do not run peer-sharded")
     tick = make_overlay_tick(cfg, exchange, comm=comm)
     length = cfg.total_ticks
 

@@ -69,6 +69,17 @@ _libs: dict = {}
 _LOCK = threading.RLock()
 
 
+#: nvcc processes started so far (see :func:`nvcc_build_count`)
+_NVCC_BUILDS = 0
+
+
+def nvcc_build_count() -> int:
+    """Number of nvcc compilations this process has started: zero once
+    every library is built, so a warm lap that adds one rebuilt a
+    kernel (analysis/guards.py)."""
+    return _NVCC_BUILDS
+
+
 def count_launch(fn, attr: str = "launches") -> None:
     """Add one to a wrapper's launch count (``fn.launches``, or the
     count named ``attr``), safe from several threads at once."""
@@ -100,6 +111,7 @@ def build(verbose: bool = False, variants: tuple = ()) -> list[Path]:
     ``variants``, whose hash has no library yet, one nvcc process each,
     all started together; returns the libraries' paths (the sources'
     first).  ``verbose`` prints the sources' ``-Xptxas -v`` reports."""
+    global _NVCC_BUILDS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = [(s, ()) for s in SOURCES] + [(s, tuple(d)) for s, d in variants]
     outs = [lib_path(s, d) for s, d in jobs]
@@ -114,6 +126,8 @@ def build(verbose: bool = False, variants: tuple = ()) -> list[Path]:
         cmd += ["-o", str(tmp), str(CSRC / source)]
         procs.append((out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        with _LOCK:
+            _NVCC_BUILDS += 1
     failed = []
     for out, tmp, proc in procs:
         stdout, stderr = proc.communicate()

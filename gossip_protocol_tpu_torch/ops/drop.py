@@ -22,6 +22,10 @@ mask into every class over the whole N x N while the partition is open,
 a deterministic gate outside the drop window (JAX
 ``core/tick.py:238-247``).  A canonical bucket (service/canonical.py)
 draws its lanes at their real width inside the padded rung this way.
+
+Each wrapper counts its calls (``calls``, on any device, at entry) apart
+from its kernel launches (``launches``, on a card only): one call a
+fleet tick for all lanes, one a K2 stack (analysis/runtime.py).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from ..config import INTRODUCER
 from ..utils.threefry import fold_in, uniform
+from .cuda._build import count_launch
 
 #: ticks one ``drop_masks`` launch draws at most (a bit each of its
 #: window mask, csrc/drop.cu MAX_TICKS)
@@ -100,6 +105,7 @@ def drop_masks(rng, t0: int, active, prob, n: int,
     that tick's sends), gating all N peers.  On a CPU device :func:`drop_masks_plain`; on a CUDA
     device one kernel launch (or an exception).
     """
+    count_launch(drop_masks, "calls")
     na = n if n_active is None else n_active
     if not 0 < na <= n:
         raise ValueError(f"n_active={na} outside (0, {n}]")
@@ -109,8 +115,7 @@ def drop_masks(rng, t0: int, active, prob, n: int,
     if dev.type == "cpu":
         return drop_masks_plain(rng, t0, active, prob, n, na, dev,
                                 link_prob, group, part_active)
-    from .cuda._build import (check, check_args, count_launch,
-                              library, ptr, stream_ptr)
+    from .cuda._build import check, check_args, library, ptr, stream_ptr
     s_ticks = len(active)
     if not 1 <= s_ticks <= DROP_MAX_TICKS:
         raise ValueError(f"drop_masks: {s_ticks} ticks, expected 1 to "
@@ -139,6 +144,7 @@ def drop_masks(rng, t0: int, active, prob, n: int,
 
 
 drop_masks.launches = 0
+drop_masks.calls = 0
 
 
 def tick_drop_masks(rng, t: int, n: int, active: bool, prob, device,
@@ -248,6 +254,7 @@ def drop_masks_lanes(plan: LaneDrop, t: int, n: int,
     ``n_active`` embeds every lane's draw.  On a CPU device :func:`drop_masks_lanes_plain`; on a CUDA
     device one kernel launch for the whole fleet (or an exception).
     """
+    count_launch(drop_masks_lanes, "calls")
     na = n if n_active is None else n_active
     if not 0 < na <= n:
         raise ValueError(f"n_active={na} outside (0, {n}]")
@@ -256,8 +263,7 @@ def drop_masks_lanes(plan: LaneDrop, t: int, n: int,
     dev = torch.device(device)
     if dev.type == "cpu":
         return drop_masks_lanes_plain(plan, t, n, na, dev, link_prob, group)
-    from .cuda._build import (check, check_args, count_launch,
-                              library, ptr, stream_ptr)
+    from .cuda._build import check, check_args, library, ptr, stream_ptr
     b = plan.batch
     specs = []
     if link_prob is not None:
@@ -285,3 +291,4 @@ def drop_masks_lanes(plan: LaneDrop, t: int, n: int,
 
 
 drop_masks_lanes.launches = 0
+drop_masks_lanes.calls = 0

@@ -360,7 +360,7 @@ def merge_entry(kmax, pacc, seed: int, epoch: int, subj, e_ts, e_hb, ok):
 
 def overlay_world_exchange(ids0, p0, own_hb0, flight, proc, ops, jrep,
                            q_kf, q_pf, masks, sched: OverlaySchedule, t: int,
-                           *, t_remove: int, worlds: WorldFlags):
+                           *, t_remove: int, worlds: WorldFlags, comm=None):
     """The (N, K) phase of one overlay tick under the adversarial worlds:
     the counterpart of the JAX package's XLA tick
     (models/overlay.py:841-1014), which world configs take in place of
@@ -379,28 +379,51 @@ def overlay_world_exchange(ids0, p0, own_hb0, flight, proc, ops, jrep,
     self-entry earns no credit.  Returns ``(ids, hb, ts, sums)`` with
     ``sums`` i64[6]: recv (exchange rounds only), removals,
     false_removals, victim_slots, adds, view_slots.
+
+    ``comm`` (``P > 1`` shards) makes it one shard's phase, as the JAX
+    tick under ``shard_map``: ``ids0``, ``p0`` and ``flight`` hold the
+    shard's Nl rows ``row_start + arange(Nl)``, the (N,) vectors stay
+    whole.  A round takes the partner rows' local bits by indexing and
+    their shard bits through ``comm.xor_perm_shards`` (view, payload and
+    the flight column in one plane), the JOINREP reads the introducer's
+    row through ``comm.bcast_row0``, the JOINREQ lands on global row 0
+    only, and the six sums are one ``comm.psum``.
     """
-    n, k = ids0.shape
+    nl, k = ids0.shape
+    n = own_hb0.shape[0]
     dev = ids0.device
     seed = sched.seed
     ep = t // SLOT_EPOCH
-    rows = torch.arange(n, dtype=torch.int64, device=dev)
+    sh = comm is not None and comm.n_shards > 1
+    r0 = comm.row_start(n) if sh else 0
+    il = torch.arange(nl, dtype=torch.int64, device=dev)
+    rows = il + r0                       # global ids of the held rows
+    if sh:
+        proc, ops, jrep = (comm.slice_rows(v) for v in (proc, ops, jrep))
     occ0 = ids0 >= 0
     kmax = torch.where(occ0, pack_key(ids0, (p0 >> 12) - 1), 0)
     pacc = p0
     recv = torch.zeros((), dtype=torch.int64, device=dev)
     for fi, m in enumerate(masks):
         partner = rows ^ int(m)
-        in_ids, in_p = ids0[partner], p0[partner]
+        if sh:
+            # local bits by indexing, shard bits by the comm (JAX
+            # xor_perm, models/overlay.py:700-706)
+            q = torch.cat([ids0, p0, flight[:, fi:fi + 1].to(torch.int32)],
+                          1)[il ^ (int(m) % nl)]
+            q = comm.xor_perm_shards(q, int(m) // nl)
+            in_ids, in_p, fl = q[:, :k], q[:, k:2 * k], q[:, 2 * k]
+        else:
+            in_ids, in_p, fl = ids0[partner], p0[partner], flight[partner, fi]
         in_ts = (in_p >> 12) - 1
         own_p = own_hb0[partner]
         if worlds.latency:
             lat = link_latency_of(seed, partner, rows, n, worlds.latency)
-            sent = ((flight[partner, fi] >> (lat - 1)) & 1) > 0
+            sent = ((fl >> (lat - 1)) & 1) > 0
             self_ts = t - lat
         else:
-            sent = flight[partner, fi]
-            self_ts = torch.full((n,), t - 1, dtype=torch.int32, device=dev)
+            sent = fl > 0 if sh else fl
+            self_ts = torch.full((nl,), t - 1, dtype=torch.int32, device=dev)
         ok = sent & proc
         if worlds.byz:
             liar = sched.byz_of(partner)[:, None]
@@ -424,8 +447,11 @@ def overlay_world_exchange(ids0, p0, own_hb0, flight, proc, ops, jrep,
                                      own_p, cred)
 
     # JOINREP: the introducer's view and self-entry
-    b_ids = ids0[INTRODUCER][None, :].expand(n, k)
-    b_p = p0[INTRODUCER][None, :].expand(n, k)
+    row0 = torch.cat([ids0[INTRODUCER], p0[INTRODUCER]])
+    if sh:                  # global row 0 lives on shard 0
+        row0 = comm.bcast_row0(row0)
+    b_ids = row0[None, :k].expand(nl, k)
+    b_p = row0[None, k:].expand(nl, k)
     b_ts = (b_p >> 12) - 1
     j_valid = jrep[:, None] & (b_ids >= 0) & (t - b_ts < t_remove) \
         & (b_ids != rows[:, None])
@@ -436,11 +462,11 @@ def overlay_world_exchange(ids0, p0, own_hb0, flight, proc, ops, jrep,
             intro = torch.zeros(1, dtype=torch.int64, device=dev)
             j_ok = j_ok & ~sched.window_failed_at(intro, t - 1)
         kmax, pacc = merge_entry(
-            kmax, pacc, seed, ep, torch.full((n,), INTRODUCER, device=dev),
-            torch.full((n,), t - 1, dtype=torch.int32, device=dev),
-            own_hb0[INTRODUCER].expand(n), j_ok)
+            kmax, pacc, seed, ep, torch.full((nl,), INTRODUCER, device=dev),
+            torch.full((nl,), t - 1, dtype=torch.int32, device=dev),
+            own_hb0[INTRODUCER].expand(nl), j_ok)
 
-    # JOINREQ aggregate into the introducer's row
+    # JOINREQ aggregate into the introducer's row (on shard 0 only)
     is_r0 = (rows == INTRODUCER)[:, None]
     zero = torch.zeros((), dtype=torch.int32, device=dev)
     kmax, pacc = lex_max(kmax, pacc, torch.where(is_r0, q_kf[None, :], 0),
@@ -465,6 +491,8 @@ def overlay_world_exchange(ids0, p0, own_hb0, flight, proc, ops, jrep,
         recv, stale.sum(), (stale & ~subj_failed).sum(),
         ((ids2 >= 0) & subj_failed & ~stale).sum(),
         ((ids1 != ids0) & (ids1 >= 0)).sum(), (ids2 >= 0).sum()])
+    if sh:
+        sums = comm.psum(sums)
     return ids2, hb2, ts2, sums
 
 
@@ -499,7 +527,9 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
     sharded contract (each round's planes from shard ``s ^ (m // Nl)``,
     routed by ``comm.xor_perm_shards``), the introducer's row comes from
     ``comm.bcast_row0`` and every table counter through ``comm.psum``.
-    World configs are not sharded.
+    A world config's exchange takes the comm the same way, and its
+    sends read the shard's rows of the partner, threshold and group
+    planes.
     """
     t = state.tick
     rows, is_intro = cols.rows, cols.is_intro
@@ -507,8 +537,6 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
     sh = comm is not None and comm.n_shards > 1
     nl = state.ids.shape[0]
     r0 = comm.row_start(n) if sh else 0
-    if sh and worlds is not None:
-        raise ValueError("world configs do not run peer-sharded")
 
     def loc(v):
         """A whole per-peer vector at this shard's rows."""
@@ -603,7 +631,7 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
         ids2, hb2, ts2, csum = overlay_world_exchange(
             ids0, p0, own_hb0, hist0 if w.latency else state.send_flags,
             proc, ops, jrep, q_kf, q_pf, masks, sched, t,
-            t_remove=t_remove, worlds=w)
+            t_remove=t_remove, worlds=w, comm=comm)
 
     # ---- nodeStart / rejoin sends --------------------------------------
     joinreq_sent = starting & ~is_intro
@@ -636,24 +664,24 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
     send_src = loc(ops)
     if w.zombie:
         # window-failed in-group peers keep gossiping their frozen tables
-        send_src = ops | (failed_win & in_group0)
+        send_src = loc(ops | (failed_win & in_group0))
     send_flags = send_src[:, None].expand(nl, f)
     fis = torch.arange(f, dtype=torch.int64, device=dev)
     if w.asym or pa:
         # the partner of row i on slot fi of the next delivery is
-        # i ^ mask(t, fi), known at send time
-        nxt = torch.tensor([exchange_mask(seed, t, fi, n) for fi in range(f)],
-                           dtype=torch.int64, device=dev)
-        partners = rows[:, None] ^ nxt[None, :]
+        # i ^ mask(t, fi), known at send time (host ints: no table is
+        # copied to the card)
+        partners = torch.stack([loc(rows) ^ exchange_mask(seed, t, fi, n)
+                                for fi in range(f)], 1)
     if active:
-        gthr = sched.link_thr(ru[:, None], partners) if w.asym \
+        gthr = sched.link_thr(loc(ru)[:, None], partners) if w.asym \
             else sched.drop_thr
         gdrop = mix32_t(seed, t, loc(ru)[:, None], fis[None, :],
                         _SALT_GOSSIP_DROP) < gthr
         send_flags = send_flags & ~gdrop
     if pa:
         send_flags = send_flags \
-            & (grp[:, None] == sched.group_of(partners))
+            & (loc(grp)[:, None] == sched.group_of(partners))
     if powerlaw:
         send_flags = send_flags & (fis[None, :] < loc(cols.deg)[:, None])
     send_flags = send_flags.contiguous()
@@ -682,7 +710,7 @@ def overlay_step(state: OverlayState, sched: OverlaySchedule,
             covered = comm.psum(covered)      # a bool psum is an OR
         live_uncovered = (live_member & ~covered).sum()
     else:
-        live_uncovered = torch.tensor(-1, device=dev)
+        live_uncovered = torch.full((), -1, device=dev)
     metrics = torch.stack([
         in_group.sum(), csum[5], csum[4], csum[1], csum[2], csum[3],
         live_uncovered, sent, csum[0] + joins_recv]).to(i32)

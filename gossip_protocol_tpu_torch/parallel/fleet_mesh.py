@@ -43,6 +43,21 @@ from .sharded import PEER_AXIS, peer_spec_trees
 
 LANE_AXIS = "lanes"
 
+#: collectives a shard-tick of the 2-D lanes x peers fleet tick may issue
+#: on the peer axis (JAX ``LANE_PEER_TICK_COLLECTIVE_BUDGET``): the
+#: ``RingComm`` tick's delivery transpose (1 ``all_to_all``), its merge
+#: ring (P - 1 ``ppermute``s, the three planes riding one) and the
+#: introducer row's OR (1 ``psum``), so 5 at 4 peer shards.
+#: analysis/runtime.py holds every tick of the registered 2-D program to
+#: :func:`lane_peer_tick_collectives` and that to this budget.
+LANE_PEER_TICK_COLLECTIVE_BUDGET = 5
+
+
+def lane_peer_tick_collectives(n_peers: int) -> dict:
+    """The collectives a shard-tick of the 2-D fleet tick owes on the
+    peer axis, by kind, at ``n_peers`` peer shards."""
+    return {"all_to_all": 1, "ppermute": n_peers - 1, "psum": 1}
+
 
 def _mesh_of(entries, shape, axes) -> Mesh:
     """A mesh over ``(id, device)`` entries reshaped to ``shape``."""

@@ -32,6 +32,13 @@ the peer's tensor and is never written in place.
 
 A shard that raises aborts every barrier (no thread hangs) and the
 caller re-raises the first error: a shard's failure fails the run.
+
+Two records serve the runtime analysis (``analysis/runtime.py``):
+:func:`collective_counts` counts the collectives by axis and kind, once
+a collective (counted by the shard at the mesh's origin, as a traced
+program holds one equation for all shards), and :func:`observe_maps`
+records each :func:`shard_map` call's specs and whether every
+replicated (``P()``) output came out equal on all shards.
 """
 
 from __future__ import annotations
@@ -138,6 +145,62 @@ def make_mesh_entries(n: Optional[int], device=None) -> list:
 COLLECTIVE_TIMEOUT_S = 600.0
 
 
+_COUNT_LOCK = threading.Lock()
+_COLLECTIVES: dict = {}
+
+
+def collective_counts() -> dict:
+    """``{(axis, kind): n}``: the collectives run so far, each counted
+    once (by the shard at the mesh's origin), ``kind`` one of
+    ``exchange``, ``ppermute``, ``all_to_all``, ``all_gather``,
+    ``psum``."""
+    with _COUNT_LOCK:
+        return dict(_COLLECTIVES)
+
+
+def reset_collective_counts() -> None:
+    with _COUNT_LOCK:
+        _COLLECTIVES.clear()
+
+
+@dataclasses.dataclass
+class MapRecord:
+    """One observed :func:`shard_map` call."""
+
+    body: str                 # the body's qualified name
+    in_specs: tuple
+    #: indices of the output leaves whose spec is ``P()`` but whose
+    #: shards disagree (the stitch keeps the first shard's)
+    unequal_replicated: list
+
+
+_OBSERVERS: list = []
+
+
+class observe_maps:
+    """``with observe_maps() as records:`` every :func:`shard_map` call
+    in the block appends a :class:`MapRecord` to ``records``; the
+    replicated outputs are compared across shards (a host read of each,
+    so only while observing)."""
+
+    def __enter__(self) -> list:
+        self.records: list = []
+        _OBSERVERS.append(self.records)
+        return self.records
+
+    def __exit__(self, *exc) -> None:
+        _OBSERVERS.remove(self.records)
+
+
+def _leaf_equal(a, b) -> bool:
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.shape == b.shape \
+            and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, np.asarray(b))
+    return a == b
+
+
 class _Group:
     """The shards that one collective over one axis spans."""
 
@@ -205,10 +268,15 @@ class ShardContext:
             torch.cuda.current_stream(self.device).wait_event(event)
         return value.to(self.device, non_blocking=True)
 
-    def exchange(self, axis: str, value) -> list:
+    def exchange(self, axis: str, value, kind: str = "exchange") -> list:
         """Every shard of ``axis``'s group publishes ``value`` (a tensor,
         a tuple of tensors or a host value); returns the group's values
-        in axis order (peers' tensors on this shard's device)."""
+        in axis order (peers' tensors on this shard's device).  ``kind``
+        names the collective in :func:`collective_counts`."""
+        if not any(self.coords):
+            with _COUNT_LOCK:
+                _COLLECTIVES[(axis, kind)] = \
+                    _COLLECTIVES.get((axis, kind), 0) + 1
         g = self._group(axis)
         me = self.axis_index(axis)
         event = None
@@ -234,7 +302,7 @@ class ShardContext:
         """``lax.ppermute`` of a tensor or a tuple of tensors: ``perm``
         pairs (source, destination); a shard no pair sends to receives
         zeros."""
-        vals = self.exchange(axis, x)
+        vals = self.exchange(axis, x, "ppermute")
         me = self.axis_index(axis)
         src = [s for s, d in perm if d == me]
         if src:
@@ -247,17 +315,17 @@ class ShardContext:
         """``lax.all_to_all(x, axis, 0, 0)``: block i of the leading axis
         goes to shard i; returns the blocks received, in origin order,
         stacked on a new leading axis."""
-        vals = self.exchange(axis, x)
+        vals = self.exchange(axis, x, "all_to_all")
         me = self.axis_index(axis)
         return torch.stack([v[me] for v in vals])
 
     def all_gather(self, x, axis: str, dim: int = 0):
         """``lax.all_gather(tiled=True)``: concatenated on ``dim``."""
-        return torch.cat(self.exchange(axis, x), dim)
+        return torch.cat(self.exchange(axis, x, "all_gather"), dim)
 
     def psum(self, x, axis: str):
         """``lax.psum``; a bool tensor sums to an OR."""
-        vals = self.exchange(axis, x)
+        vals = self.exchange(axis, x, "psum")
         if torch.is_tensor(x) and x.dtype == torch.bool:
             return torch.stack(vals).any(0)
         if not torch.is_tensor(x):
@@ -420,6 +488,16 @@ def shard_map(body, mesh: Mesh, in_specs, out_specs):
         per_shard = [_leaves(o) for o in outs]
         specs = []
         _map(lambda x, s: specs.append(s), outs[0], out_specs)
+        if _OBSERVERS:
+            rec = MapRecord(
+                body=getattr(body, "__qualname__", repr(body)),
+                in_specs=tuple(in_specs), unequal_replicated=[
+                    j for j, sp in enumerate(specs)
+                    if not any(a is not None for a in sp)
+                    and not all(_leaf_equal(per_shard[0][j], p[j])
+                                for p in per_shard[1:])])
+            for obs in _OBSERVERS:
+                obs.append(rec)
         stitched = [_stitch([p[j] for p in per_shard], specs[j], mesh,
                             coords, dev0)
                     for j in range(len(specs))]

@@ -1292,3 +1292,71 @@ def test_mesh_fleet_never_syncs_before_resolve(dev):
         for a, b in zip(got.lanes, ref.lanes):
             assert np.array_equal(a.sent, b.sent)
             assert torch.equal(a.final_state.hb, b.final_state.hb)
+
+
+@pytest.mark.parametrize("world", [
+    dict(link_latency=4, zombie=True),
+    dict(partition_groups=2, partition_open_tick=30, partition_close_tick=60,
+         drop_msg=True, msg_drop_prob=0.1, asym_drop=True, drop_open_tick=10,
+         drop_close_tick=80)])
+def test_sharded_world_runs_cuda_equal_cpu(dev, world):
+    """A world config's peer-sharded overlay run on cuda:0 x 2 equals the
+    same run on cpu x 2 and the single-device cuda run: every table,
+    vector and metric; no K3 launch."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models.overlay_sharded import (
+        make_overlay_mesh, make_sharded_overlay_run, shard_overlay_state)
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_exchange import \
+        fused_overlay_tick
+    cfg = SimConfig(**{**dict(model="overlay", max_nnb=64, seed=3,
+                              total_ticks=90, single_failure=True,
+                              drop_msg=False, fail_tick=30), **world})
+    sched = pov.make_overlay_schedule(cfg)
+    k3 = fused_overlay_tick.launches
+    res = []
+    for d in (dev, "cpu"):
+        mesh = make_overlay_mesh(2, device=d)
+        res.append(make_sharded_overlay_run(cfg, mesh)(
+            shard_overlay_state(pov.init_overlay_state(cfg, d), mesh), sched))
+    res.append(pov.make_overlay_run(cfg)(pov.init_overlay_state(cfg, dev),
+                                         sched))
+    torch.cuda.synchronize()
+    assert fused_overlay_tick.launches == k3
+    (fa, ma), (fb, mb), (fc, mc) = res
+    for f in ("ids", "hb", "ts", "send_flags", "send_hist", "in_group",
+              "own_hb", "joinreq", "joinrep"):
+        assert torch.equal(getattr(fa, f).cpu(), getattr(fb, f)), f
+        assert torch.equal(getattr(fa, f), getattr(fc, f)), f
+    for f in pov.METRIC_FIELDS:
+        assert torch.equal(getattr(ma, f).cpu(), getattr(mb, f)), f
+        assert torch.equal(getattr(ma, f), getattr(mc, f)), f
+
+
+# ------------------------------------------------ the analysis on the card
+
+def test_analysis_runtime_and_guards_clean_on_cuda(dev):
+    """The runtime and guard passes on the card: the solo tick loops and
+    a launched fleet's wait and resolve run under the sync-debug mode
+    "error" without raising, a warmed lap builds nothing, no nvcc."""
+    from gossip_protocol_tpu_torch.analysis import guards, runtime
+    findings = runtime.check(device="cuda") + guards.self_check(
+        device="cuda")
+    assert findings == [], "\n".join(str(f) for f in findings)
+
+
+def test_sync_in_tick_loop_is_caught_on_cuda(dev):
+    """no-transfer-in-scan fires on a tick loop that reads a device value
+    to the host."""
+    from gossip_protocol_tpu_torch.analysis import runtime
+
+    def run(device, section):
+        x = torch.ones(4, device=device)
+        with section(sync=True):
+            float(x.sum())
+        return runtime.Observation(ticks=1, expected_draws={})
+    prog = runtime.Program("fixture-sync", "test", ("no-transfer-in-scan",),
+                           run)
+    findings = runtime.check_observation(prog,
+                                         runtime.observe(prog, "cuda"))
+    assert [f.rule for f in findings] == ["no-transfer-in-scan"]

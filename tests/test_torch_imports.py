@@ -104,6 +104,29 @@ def test_package_imports_without_jax(tmp_path):
                    env=env, cwd=str(tmp_path))
 
 
+def test_analysis_is_covered_and_runs_without_jax(tmp_path):
+    """``analysis/`` is among the scanned port files, and its CLI's
+    source pass runs where ``jax`` and ``gossip_protocol_tpu`` cannot be
+    imported."""
+    rels = {os.path.relpath(p, PKG) for p in _port_files()}
+    for m in ("__init__", "__main__", "_astutil", "cache_keys", "guards",
+              "purity_lint", "runtime"):
+        assert os.path.join("analysis", m + ".py") in rels
+    blocker = tmp_path / "sitecustomize.py"
+    blocker.write_text(
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'gossip_protocol_tpu'):\n"
+        "    sys.modules[m] = None\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([str(tmp_path), REPO])
+    proc = subprocess.run(
+        [sys.executable, "-m", "gossip_protocol_tpu_torch.analysis",
+         "--pass", "ast"], env=env, cwd=str(tmp_path), capture_output=True,
+        text=True)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "clean: no findings" in proc.stdout
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible")

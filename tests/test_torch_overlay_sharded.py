@@ -137,6 +137,11 @@ def test_sharded_rejects_non_power_of_two_mesh():
 
 
 def test_sharded_rejects_world_configs():
+    """A world config runs sharded on the worlds' exchange
+    (test_torch_overlay_sharded_worlds.py), never on K3: a stand-in for
+    K3 is refused for it, as on one device."""
     cfg = SimConfig(**_kw("plain"), zombie=True)
-    with pytest.raises(ValueError, match="peer-sharded"):
-        make_sharded_overlay_run(cfg, make_overlay_mesh(2, device="cpu"))
+    mesh = make_overlay_mesh(2, device="cpu")
+    make_sharded_overlay_run(cfg, mesh)
+    with pytest.raises(ValueError, match="worlds' exchange"):
+        make_sharded_overlay_run(cfg, mesh, exchange=fused_overlay_tick_plain)
