@@ -25,13 +25,20 @@ one line per phase:
    ``grid_overlay_ticks`` (K5) at N=64, 4096 and 65,536 on the
    ``churn65k`` and ``powerlaw1m`` shapes: each flag combination their
    segment plans use, all-live launches at ticks 300 and 17 (off the
-   slot-epoch grid), a 12-tick remainder and a B=2 fleet launch; K5's
-   boot pre-pass (``grid_boot_rows``) against ``_boot_rows`` on the real
-   ticks 16 and 20 of the power-law shape at N=64, 4096, 65,536 and
-   2^20 and on a B=2 churn fleet (seeds 0 and 1) at N=4096; the dense
+   slot-epoch grid), a 12-tick remainder and a B=2 fleet launch, each
+   with and without the boot aggregate carried in and with the one it
+   carries out held equal; K5's boot pre-pass (``grid_boot_rows``, which
+   only a run's first launch at a tick > 0 runs) against ``_boot_rows``
+   on the real ticks 16 and 20 of the power-law shape at N=64, 4096,
+   65,536 and 2^20 and on a B=2 churn fleet (seeds 0 and 1) at N=4096;
+   K5's carry at full width: every call of the N=65,536 churn run, the
+   2^20 power-law run and the B=8 N=65,536 churn fleet, its returned
+   aggregate equal to ``_boot_rows`` of its output plane and handed to
+   the next call, no pre-pass launched; the dense
    drop draw (``drop_masks``) at N in {10, 64, 896, 2816} and S in
    {1, 8, 16}, the window closed at every fourth tick of a launch, at
-   full width and embedded at 3/4 of it, and with the worlds' inputs
+   full width and embedded at 3/4 of it, and closed at every tick (S=1
+   and 8: a launch that only zeroes), and with the worlds' inputs
    (the asym world's per-link thresholds, partition groups, both) at
    N in {10, 64, 1024, 4096}: S=8 launches in which the drop window and
    the partition are each open and closed in all four combinations, and
@@ -60,8 +67,8 @@ one line per phase:
    nor the port's tick (``testing/checks.py``, the rules of the JAX
    package's own parity tests): the message-level dense oracle
    (``testing/oracle.py``, dropsync's masks under drop) on the three
-   testcases, a churn N=32, a drop N=48 and two world (partition, flap)
-   N=24 runs; the overlay oracle on N=64 churn and N=128 drop; the
+   testcases, a churn N=32 (120 ticks), a drop N=48 (160) and two
+   world (partition, flap) N=24 runs; the overlay oracle on N=64 churn and N=128 drop; the
    native engine's join / removal event sets (N=10 single and multi,
    N=24 start-after-fail, N=16 churn with rejoin 10 and 25);
 5. full-width runs with closed-form oracles: N=512 multifailure trace
@@ -72,7 +79,8 @@ one line per phase:
    configs
    (5e) — N=4096 10% drop, 608 ticks (K4, 38 launches), N=65,536 20%
    churn, 608 ticks (K5, 38 launches) and N=2^20 power-law single
-   failure, 272 ticks (K5, F=8, 17 launches; no K3 launch on either) —
+   failure, 272 ticks (K5, F=8, 17 launches; no K3 launch and no boot
+   pre-pass launch on either) —
    each validated as bench.py validates it (all in the group, no victim
    slot or entry left, every member uncovered at the end covered again
    within SLOT_EPOCH + 1 ticks), with node-ticks/s (and the N=4096 run's
@@ -98,7 +106,8 @@ one line per phase:
    10% drop bench at B=4 (seeds 0-3, corner 2816, its device idle share
    from one more profiled run), the same launch deferred, started and
    polled under ``set_sync_debug_mode("error")``, the N=512
-   multifailure trace at B=8 (removals at t=121/122) and again with
+   multifailure trace (400 ticks) at B=8 (removals at t=121/122) and
+   again with
    ``n_real=6``, BASELINE's overlay N=65,536 20% churn
    (``bench_overlay_fleet``) and N=4096 drop at B=8 (seeds 101-108, 38
    K5 calls each, ``validate_overlay`` on every lane, the 65,536 fleet's
@@ -112,29 +121,38 @@ one line per phase:
    the N=10 multifailure testcase for K1, the last full K2 launch of
    the 200-tick corner and of the N=512 trace, tick 607 of the N=65,536
    churn run and of the N=4096 drop run for K3, the launch at tick 592
-   of the N=4096 drop run for K4, the last full launches of the N=65,536
-   churn run (tick 592) and
-   of the N=2^20 power-law run (tick 256) for K5, with the boot block
-   built on the card as the route does; K3 also at tick 136 of the N=2^20
-   run, the width of its per-tick cross-check there; the boot pre-pass
-   at tick 16 of both K5 runs; the drop draw as the dense routes call it,
-   at ticks 300 (window open) and 699 (closed) of the 700-tick corner
-   (N=2816, S=1) and for the last K2 launch of the 200-tick corner (N=896,
-   S=8); the threshold draw and the K1 pair at N=4096 on the ``asym4096``
+   of the N=4096 drop run for K4; K5 as the route calls it, with the
+   boot aggregate carried in, at the last full launches of the N=65,536
+   churn run (tick 592), of the N=2^20 power-law run (tick 256) and of
+   the B=8 N=65,536 churn fleet, and at their join-live launches at
+   tick 16; K3 also at tick 136 of the N=2^20 run, the width of its
+   per-tick cross-check there; the boot pre-pass alone at tick 16 of the
+   three; the drop draw as the dense routes call it, at ticks 300
+   (window open) and 699 (closed: the ``drop_masks/closed`` row, beside
+   ``torch.zeros`` of its three outputs) of the 700-tick corner (N=2816,
+   S=1) and for the last K2 launch of the 200-tick corner (N=896, S=8);
+   the threshold draw and the K1 pair at N=4096 on the ``asym4096``
    run's ticks 300 and 699, in rows of their own; the lane-axis kernels
    in ``/fleet`` rows: the merge and the epilogue at tick 699 and the
-   draw at tick 300 of the B=4 N=4096 bench fleet, K5 on the last full
-   call of the B=8 N=65,536 fleet, each bound B times the per-lane one,
-   the data-dependent terms summed over the lanes), then a ``kernels``
-   JSON line: per kernel its launches on the main path (phases 3-5,
-   counters zeroed before each path and read after it, bench warm-ups
-   and kernel-vs-plain comparisons not counted), its time, its plain
-   version's time, and the least time the card could take (bytes over
-   3.35 TB/s or int32 operations over the card's int32 rate, whichever
-   is larger; for ``masked_max3``, whose descent runs on the int8
-   tensor cores, the bytes the function needs or the descent's s8
-   products at the tensor-core rate, the larger; K5 also carries the
-   bytes its data needs, the partner rows it merges included).  K5 is
+   draw at tick 300 of the B=4 N=4096 bench fleet, K5 on the B=8 fleet,
+   each bound B times the per-lane one, the data-dependent terms summed
+   over the lanes), then a ``kernels`` JSON line: per kernel its
+   launches on the main path (phases 3-5, 7 and 8, counters zeroed
+   before each path and read after it, bench warm-ups and
+   kernel-vs-plain comparisons not counted), its times (``kernel_ms``
+   and ``ms``: the device durations of its own kernels a call, from a
+   ``torch.profiler`` trace, a row without them failing the run;
+   ``call_ms``: CUDA events around back-to-back calls, the host's
+   enqueue included; ``device_ms`` where the call issues memsets or
+   copies besides), its plain version's time, ``library_ms`` where one
+   PyTorch call computes the same function, and the least time the card
+   could take (bytes over 3.35 TB/s or int32 operations over the card's
+   int32 rate, whichever is larger; for ``masked_max3``, whose descent
+   runs on the int8 tensor cores, the bytes the function needs or the
+   descent's s8 products at the tensor-core rate, the larger; K5 also
+   carries the bytes its data needs, the partner rows it merges
+   included; the boot pre-pass the 32-byte sector each row's word
+   costs, with the 4 bytes needed beside it).  K5 is
    also timed, in turns with itself, built without its partner loads and
    with its loads alone (``csrc/overlay_tick.cu K5_VARIANT``, built in
    phase 1).  Before the kernels line, each
@@ -147,7 +165,7 @@ one line per phase:
    and before its kernels line, every path driven as a main path:
    7a ``grade_all_service`` on ``cuda`` (90); 7b the acceptance replay
    (``grader_templates() + overlay_templates(n=512, ticks=96)``, its
-   first 17 of 34 seeds, 102 requests, ``max_batch=8``) with per-request parity
+   first 12 of 34 seeds, 72 requests, ``max_batch=8``) with per-request parity
    against the sequential ``solo_execute`` leg, requests/s, aggregate
    against sequential node-ticks/s, occupancy, p50/p99 latency and the
    pack / device-wait / fetch split; 7c full-width serving (4 seeds of
@@ -179,16 +197,18 @@ one line per phase:
    state of the N=2^20 power-law run over 4 shards and of tick 300 of the
    N=65,536 churn run over 8, each equal to its plain version and to the
    single-device kernel's rows; 8b ``make_sharded_run`` over 4 entries:
-   the N=4096 10% drop bench (700 ticks, final state and counters equal
+   the N=4096 10% drop bench (200 ticks, final state and counters equal
    to the single-device K1 route; the last ring-step merge timed), the
-   N=1024 10% drop trace (every event mask equal, the dense oracle) and
+   N=1024 10% drop trace (400 ticks, every event mask equal, the dense
+   oracle) and
    the three testcases over 2 entries; 8c ``make_sharded_overlay_run``
    (per-tick K3, sharded contract): N=2^20 power-law over 4 entries and
    N=65,536 churn over 8, equal to the single-device runs and validated
    as bench.py validates; 8d ``MeshFleetSimulation``: the B=4 N=4096
-   bench on 2 lane entries launched under ``set_sync_debug_mode("error")``,
-   the B=8 N=65,536 churn fleet on 2 lane entries and a B=4 N=1024 trace
-   on a 2x2 lanes x peers mesh, every lane equal to its solo run; 8e
+   bench (200 ticks) on 2 lane entries launched under
+   ``set_sync_debug_mode("error")``, the B=8 N=65,536 churn fleet on 2
+   lane entries and a B=4 N=1024 trace (400 ticks) on a 2x2 lanes x
+   peers mesh, every lane equal to its solo run; 8e
    the first 8 seeds of 7b's replay served from a 2-entry lane mesh
    (parity with 7b's sequential leg), ``elastic_replay`` on 4 entries
    (one loss, one return; its gate) and ``load_openloop_bench(smoke=True)``
@@ -260,11 +280,14 @@ def say(msg: str) -> None:
 
 #: seconds since the start of the run at each phase's end (``mark``)
 PHASE_SECONDS: dict = {}
+#: the phase ``mark`` ended last
+LAST_MARK = ["start"]
 
 
 def mark(phase: str, t_start: float) -> None:
     """Record and print the seconds since ``t_start`` at a phase's end."""
     PHASE_SECONDS[phase] = round(time.perf_counter() - t_start, 1)
+    LAST_MARK[0] = phase
     say(f"elapsed after phase {phase}: {PHASE_SECONDS[phase]} s")
 
 
@@ -468,6 +491,80 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+#: the device functions of each kernel wrapper (substrings of their
+#: names in a profiler trace) and how many times a call launches each:
+#: a call's kernel time is theirs (K5 is timed on 16-tick calls)
+KERNEL_FUNCS = {
+    "masked_max3": {"merge_prep_kernel": 1, "masked_max3_kernel": 1},
+    "tick_epilogue": {"tick_epilogue_kernel": 1},
+    "dense_mega_ticks": {"dense_mega_kernel": 1},
+    "drop_masks": {"drop_masks_kernel": 1},
+    "drop_masks_lanes": {"drop_lanes_kernel": 1},
+    "fused_overlay_tick": {"fused_overlay_tick_kernel": 1},
+    "mega_overlay_ticks": {"mega_overlay_kernel": 1},
+    "grid_overlay_ticks": {"grid_tick_kernel": 16},
+    "grid_boot_rows": {"grid_boot_kernel": 1},
+}
+
+
+def kernel_time(fn, reps: int, wrapper: str | None, warm: int = 1) -> dict:
+    """A call's times on the card, ms a call.  ``call_ms``: CUDA events
+    around ``reps`` back-to-back calls (:func:`cuda_ms`), which measure
+    the host's enqueue wherever it is longer than the device's work.
+    Then a ``torch.profiler`` (CUPTI) trace of ``reps`` more calls, in a
+    ``record_function`` range of their own: ``kernel_ms``, the device
+    durations of the wrapper's own kernels (:data:`KERNEL_FUNCS`) a
+    call, and ``device_ms``, those of every device operation of the
+    calls (memsets and copies too; for ``wrapper`` None, a library call,
+    every operation is its own).  ``ms``
+    is ``kernel_ms``.  On this card the trace loses the device events of
+    its first milliseconds, so calls run first, unmeasured, for a while
+    (longer on each of three attempts) until the range holds every
+    launch it should.  A trace that still does not raises: nothing
+    falls back to the event time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    call = cuda_ms(fn, reps, warm)
+    names = KERNEL_FUNCS[wrapper] if wrapper else {}
+    for lead_s in (0.05, 0.3, 1.0):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t_end = time.perf_counter() + lead_s
+            while time.perf_counter() < t_end:
+                fn()
+                torch.cuda.synchronize()
+            with record_function("kernel_time.measured"):
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+        raw = prof.profiler.kineto_results.events()
+        start = min(e.start_ns() for e in raw
+                    if e.name() == "kernel_time.measured")
+        # (the range's own span on the device is no operation)
+        dev = [e for e in raw if e.device_type() == DeviceType.CUDA
+               and e.start_ns() >= start
+               and e.name() != "kernel_time.measured"]
+        mine = {k: [e for e in dev if k in e.name()] for k in names}
+        if all(len(v) == names[k] * reps for k, v in mine.items()) \
+                and (names or dev and len(dev) % reps == 0):
+            break
+    else:
+        raise AssertionError(
+            f"the profile of {reps} calls of {wrapper or 'the call'} shows "
+            f"{ {k: len(v) for k, v in mine.items()} } launches of "
+            f"{names} and {len(dev)} device operations: not measured")
+    ours = [e for v in mine.values() for e in v] if names else dev
+    kern = sum(e.end_ns() - e.start_ns() for e in ours) / reps / 1e6
+    if kern <= 0:
+        raise AssertionError(f"no device time for {wrapper}: not measured")
+    return dict(ms=kern, kernel_ms=kern, call_ms=call,
+                device_ms=sum(e.end_ns() - e.start_ns() for e in dev)
+                / reps / 1e6, launches_a_call=len(ours) / reps,
+                device_ops_a_call=len(dev) / reps, profile_lead_s=lead_s)
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = ops / INT32_OPS_PER_S * 1e3
@@ -643,7 +740,8 @@ def time_k1(x: dict, t_remove: int, with_events: bool, reps: int,
     out = {"n": n, "tick": x["t"], "with_events": with_events,
            "deliveries": nnz, "max_abs_err": err}
     out["masked_max3"] = dict(
-        ms=cuda_ms(lambda: masked_max3(*args, t_remove=t_remove), reps),
+        **kernel_time(lambda: masked_max3(*args, t_remove=t_remove), reps,
+                      "masked_max3"),
         plain_ms=cuda_ms(
             lambda: masked_max3_plain(*args, t_remove=t_remove), 2))
     if describe:
@@ -659,8 +757,9 @@ def time_k1(x: dict, t_remove: int, with_events: bool, reps: int,
     # the cell rule chain is about 40 integer operations per cell
     ep_ops = 40 * n * n
     out["tick_epilogue"] = dict(
-        ms=cuda_ms(lambda: tick_epilogue(*e_args, t_remove=t_remove,
-                                         with_events=with_events), reps),
+        **kernel_time(lambda: tick_epilogue(*e_args, t_remove=t_remove,
+                                            with_events=with_events), reps,
+                      "tick_epilogue"),
         plain_ms=cuda_ms(lambda: tick_epilogue_plain(
             *e_args, t_remove=t_remove, with_events=with_events), 3),
         bound=bound(ep_bytes, ep_ops))
@@ -702,7 +801,8 @@ def time_k2(x: dict, s_ticks: int, cfg, with_events: bool,
     ops = 3 * nnz * n
     return dict(n=n, s_ticks=s_ticks, sp=t0, with_events=with_events,
                 deliveries=nnz, max_abs_err=err,
-                ms=cuda_ms(lambda: dense_mega_ticks(**x, **kw), reps),
+                **kernel_time(lambda: dense_mega_ticks(**x, **kw), reps,
+                              "dense_mega_ticks"),
                 plain_ms=cuda_ms(lambda: dense_mega_ticks_plain(**x, **kw),
                                  1, warm=0),
                 bound=bound(nbytes, ops))
@@ -888,10 +988,15 @@ def k5_launch_input(cfg, lanes, t0: int, s_ticks: int, flags) -> dict:
     kw = dict(og.grid_kernel_kwargs(cfg, k, f), s_ticks=s_ticks,
               **flags.as_kernel_kwargs())
     if len(xs) == 1:
-        return dict(plane=planes[0], boot=xs[0][0], sp=xs[0][1], kw=kw)
-    return dict(plane=torch.stack(planes),
-                boot=torch.stack([x[0] for x in xs]),
-                sp=np.stack([x[1] for x in xs]), kw=dict(kw, batch=len(xs)))
+        x = dict(plane=planes[0], boot=xs[0][0], sp=xs[0][1], kw=kw)
+    else:
+        x = dict(plane=torch.stack(planes),
+                 boot=torch.stack([x[0] for x in xs]),
+                 sp=np.stack([x[1] for x in xs]), kw=dict(kw, batch=len(xs)))
+    # the aggregate the launch before hands this one (phase 2 holds K5's
+    # carry equal to it)
+    x["agg"] = x["boot"][..., 1, :k].contiguous()
+    return x
 
 
 def k5_args(x: dict) -> tuple:
@@ -904,14 +1009,40 @@ def k5_args(x: dict) -> tuple:
     return x["plane"], x["sp"]
 
 
-def compare_k5(x: dict) -> tuple[float, object]:
-    """grid_overlay_ticks vs its plain version on the same input; the
-    max abs error and the plain version's metric rows."""
+def k5_kw(x: dict, carried: bool = True) -> dict:
+    """K5's keywords as the route passes them: with the aggregate the
+    launch before carried in (``carried``), where the checkout's K5 takes
+    one; otherwise K5 builds it itself (its boot pre-pass)."""
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_overlay_ticks
+    if carried and "agg" in inspect.signature(
+            grid_overlay_ticks).parameters:
+        return dict(x["kw"], agg=x["agg"])
+    return x["kw"]
+
+
+def compare_k5(x: dict) -> tuple[float, object, float]:
+    """grid_overlay_ticks vs its plain version on the same input, K5
+    called with the carried aggregate (where the checkout's K5 takes one)
+    and without it; the max abs error over their outputs (the carry out
+    included), the plain version's metric rows and its time (ms, CUDA
+    events around one call)."""
+    import torch
+
     from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
         grid_overlay_ticks, grid_overlay_ticks_plain)
-    o_k = grid_overlay_ticks(*k5_args(x), **x["kw"])
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
     o_p = grid_overlay_ticks_plain(*k5_args(x), **x["kw"])
-    return max(max_abs_err(a, b) for a, b in zip(o_k, o_p)), o_p[1]
+    e1.record()
+    torch.cuda.synchronize()
+    err = 0.0
+    for carried in (True, False):
+        o_k = grid_overlay_ticks(*k5_args(x), **k5_kw(x, carried))
+        err = max(err, *(max_abs_err(a, b) for a, b in zip(o_k, o_p)))
+        del o_k
+    return err, o_p[1], e0.elapsed_time(e1)
 
 
 def k5_cases(cfg) -> list:
@@ -926,6 +1057,68 @@ def k5_cases(cfg) -> list:
         first.setdefault(seg.flags, seg.start)
     return [(t0, 16, fl) for fl, t0 in first.items()] + [
         (300, 16, ALL_LIVE), (17, 16, ALL_LIVE), (170, 12, ALL_LIVE)]
+
+
+def carry_checks(dev) -> dict:
+    """K5's carried boot aggregate at full width: every K5 call of the
+    N=65,536 churn run (38 calls), of the N=2^20 power-law run (17) and
+    of the B=8 N=65,536 churn fleet (seeds 101-108, 38) on the route,
+    each call's returned aggregate (its slot S) held bit for bit against
+    row 1 of ``_boot_rows`` of its output plane at t0 + S, lane by lane,
+    and handed to the next call; none of the runs launches the boot
+    pre-pass.  Returns the calls checked by run."""
+    import torch
+
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    from gossip_protocol_tpu_torch.models import overlay_grid as og
+    from gossip_protocol_tpu_torch.models.overlay import (
+        OverlaySimulation, make_overlay_schedule, resolved_dims)
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_boot_rows
+    out = {}
+    real = og.grid_overlay_ticks
+    for key, name, seeds in (("churn65k", "churn65k", None),
+                             ("powerlaw1m", "powerlaw1m", None),
+                             ("fleet_churn65k_b8", "churn65k",
+                              range(101, 109))):
+        cfg = overlay_cfg(name)
+        k = resolved_dims(cfg)[0]
+        scheds = [make_overlay_schedule(cfg.replace(seed=s))
+                  for s in (seeds or (cfg.seed,))]
+        b = len(scheds)
+        state = {"prev": None, "calls": 0, "bad": []}
+
+        def check(plane, sp, **kw):
+            o = real(plane, sp, **kw)
+            if kw.get("agg") is not state["prev"]:
+                state["bad"].append((state["calls"], "not the carry"))
+            s_ticks = kw["s_ticks"]
+            ends = o[0][..., s_ticks % 2, :, :].reshape(b, cfg.n, 128)
+            t1 = int(np.asarray(sp).reshape(b, -1)[0, 0]) + s_ticks
+            want = torch.stack([og._boot_rows(cfg, sc, ends[i], t1)[1, :k]
+                                for i, sc in enumerate(scheds)])
+            if not torch.equal(o[2].reshape(b, k), want):
+                state["bad"].append((state["calls"], t1))
+            state["prev"] = o[2]
+            state["calls"] += 1
+            return o
+        og.grid_overlay_ticks = check
+        before = grid_boot_rows.launches
+        try:
+            if seeds:
+                FleetSimulation(cfg, device="cuda").run(seeds=seeds,
+                                                        warmup=False)
+            else:
+                OverlaySimulation(cfg, device="cuda").run()
+            torch.cuda.synchronize()
+        finally:
+            og.grid_overlay_ticks = real
+        if state["bad"] or grid_boot_rows.launches != before:
+            raise AssertionError(
+                f"K5's carry at full width, {key}: {state['bad']}, "
+                f"{grid_boot_rows.launches - before} pre-pass launches")
+        out[key] = state["calls"]
+    return out
 
 
 def boot_input(cfg, lanes, t0: int) -> dict:
@@ -949,12 +1142,17 @@ def boot_input(cfg, lanes, t0: int) -> dict:
 
 def compare_boot(x: dict) -> tuple[float, int]:
     """K5's boot pre-pass vs ``_boot_rows`` on the same plane: the max
-    abs error and the number of aggregate slots that hold a JOINREQ."""
+    abs error of the aggregate (row 1 of the boot block, for a checkout
+    whose pre-pass builds the whole block) and the number of aggregate
+    slots that hold a JOINREQ."""
     from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
         grid_boot_rows
-    return (max_abs_err(grid_boot_rows(x["plane"], x["sp"], **x["kw"]),
-                        x["want"]),
-            int((x["want"][..., 1, :] != 0).sum()))
+    k = x["kw"]["k"]
+    got = grid_boot_rows(x["plane"], x["sp"], **x["kw"])
+    if got.shape[-2:] == x["want"].shape[-2:]:
+        got = got[..., 1, :k]
+    want = x["want"][..., 1, :k]
+    return max_abs_err(got, want), int((want != 0).sum())
 
 
 def k3_ops(n: int, k: int, f: int) -> float:
@@ -1033,12 +1231,15 @@ def k5_work(n: int, k: int, met, reslots: int,
     return nbytes, ops
 
 
-def boot_bound(n: int) -> tuple[float, str]:
-    """The boot pre-pass's least time: each row's aux word read (4 bytes
-    a row), the introducer's row read and the 8-row block written; about
-    25 integer operations a row (the flag test, the slot hash, the
-    key)."""
-    return bound(4 * n + 4 * 128 + 4 * 8 * 128, 25 * n)
+def boot_bound(n: int, k: int, batch: int = 1,
+               needed: bool = False) -> tuple[float, str]:
+    """The boot pre-pass's least time for ``batch`` lanes: each row's aux
+    word read, which costs the 32-byte sector that holds it (the rows are
+    512 bytes apart, so no two words share one); with ``needed`` only the
+    4 bytes themselves.  The K-word aggregate written; about 25 integer
+    operations a row (the flag test, the slot hash, the key)."""
+    return bound(batch * ((4 if needed else 32) * n + 4 * k),
+                 batch * 25 * n)
 
 
 def draw_bound(n: int, na: int, drawn_ticks: int,
@@ -1059,7 +1260,11 @@ def draw_timing(dev) -> dict:
     700-tick bench corner (N=2816), the K2 route's ``drop_stack`` for the
     last full launch of the 200-tick corner (N=896, S=8, ticks 192-199);
     where the checkout has the kernel, also ``drop_masks`` held against
-    its plain version on the same inputs, both timed, with the bound."""
+    its plain version on the same inputs, both timed, with the bound; at
+    tick 699 also the one PyTorch call that computes the same function,
+    ``torch.zeros`` of the three outputs (``library``)."""
+    import torch
+
     from gossip_protocol_tpu_torch.core.dense_corner import bench_stream_width
     from gossip_protocol_tpu_torch.core.dense_mega import drop_stack
     from gossip_protocol_tpu_torch.ops import drop as drop_ops
@@ -1089,11 +1294,24 @@ def draw_timing(dev) -> dict:
             want = drop_ops.drop_masks_plain(*args, device=dev)
             d.update(max_abs_err=max(max_abs_err(x, y)
                                      for x, y in zip(got, want)),
-                     ms=cuda_ms(lambda: drop_ops.drop_masks(
-                         *args, device=dev), 50),
+                     **kernel_time(lambda: drop_ops.drop_masks(
+                         *args, device=dev), 50, "drop_masks"),
                      plain_ms=cuda_ms(lambda: drop_ops.drop_masks_plain(
                          *args, device=dev), 3),
                      bound=draw_bound(a, a, sum(active), s_ticks))
+        if not any(active):
+            def zeros():
+                return (torch.zeros((s_ticks, a, a), dtype=torch.bool,
+                                    device=dev),
+                        torch.zeros((s_ticks, a), dtype=torch.bool,
+                                    device=dev),
+                        torch.zeros((s_ticks, a), dtype=torch.bool,
+                                    device=dev))
+            lib = kernel_time(zeros, 50, None)
+            d["library"] = dict(call_ms=lib["call_ms"],
+                                device_ms=lib["device_ms"],
+                                device_ops_a_call=lib["device_ops_a_call"])
+            d["library_ms"] = lib["device_ms"]
         out[key] = d
     return out
 
@@ -1292,7 +1510,8 @@ def lane_draw_checks(dev) -> tuple[float, int]:
                         np.float32([0.1, 0.2, 0.3, 0.4][:b]), active, part)
         for t in (120, 320):
             before = drop_masks_lanes.launches
-            got = drop_masks_lanes(plan, t, n, na, dev, link, group)
+            got = drop_masks_lanes(plan, t, n, na, device=dev,
+                                   link_prob=link, group=group)
             if drop_masks_lanes.launches != before + 1:
                 raise AssertionError("lane-axis draw was not one launch")
             want = drop_masks_lanes_plain(plan, t, n, na, dev, link, group)
@@ -1330,12 +1549,16 @@ def independent_engines(main_path) -> dict:
                                                  f"{s}.conf"))
              for s in SCENARIOS}
     dense.update({
+        # the JAX tests' 200 ticks cut to 120 and 160 (the scalar
+        # oracle's time grows with the run): the churn run's failure at
+        # 60 and rejoin at 85, and the drop run's window closing at 150,
+        # which the oracle's rule on live ts rows needs, stay inside
         "churn_n32": SimConfig(max_nnb=32, single_failure=True, seed=4,
-                               total_ticks=200, fail_tick=60,
+                               total_ticks=120, fail_tick=60,
                                rejoin_after=25),
         "drop_n48": SimConfig(max_nnb=48, single_failure=False,
                               drop_msg=True, msg_drop_prob=0.1, seed=5,
-                              total_ticks=200, fail_tick=60,
+                              total_ticks=160, fail_tick=60,
                               drop_open_tick=20, drop_close_tick=150),
         "partition_n24": SimConfig(max_nnb=24, single_failure=True, seed=2,
                                    total_ticks=120, fail_tick=40,
@@ -1507,8 +1730,9 @@ def fleet_runs(main_path) -> dict:
         "resolve: lanes equal the bench fleet's")
     del sim, fr, bench_fr, solos
 
-    # BASELINE's intermediate N=512 multifailure trace, B=8 seeds
-    cfg = trace_cfgs()["trace_n512_multi"]
+    # BASELINE's intermediate N=512 multifailure trace, B=8 seeds (400 of
+    # its 700 ticks: the removals at t=121/122 stay inside)
+    cfg = trace_cfgs()["trace_n512_multi"].replace(total_ticks=400)
     fr, counts = drive(lambda: FleetSimulation(cfg, device="cuda").run(
         seeds=range(8)), FLEET_K1)
     solos = [Simulation(cfg.replace(seed=s), device="cuda").run()
@@ -1565,7 +1789,8 @@ def fleet_runs(main_path) -> dict:
 
     # legs: each run cut at a legal segment tick and finished
     for key, cfg, seeds, mono, expect in (
-            ("legs_trace_n512_b8", trace_cfgs()["trace_n512_multi"],
+            ("legs_trace_n512_b8",
+             trace_cfgs()["trace_n512_multi"].replace(total_ticks=400),
              range(8), trace_fr, FLEET_K1),
             ("legs_overlay_churn65k_b8", overlay_cfg("churn65k"),
              range(101, 109), ofr["churn65k"], ("grid_overlay_ticks",))):
@@ -1612,20 +1837,17 @@ def fleet_runs(main_path) -> dict:
 
 
 def fleet_timing(dev) -> dict:
-    """Phase 6's lane-axis kernels on the inputs of launches the fleets
-    make: ``masked_max3`` and ``tick_epilogue`` at tick 699 and the draw
-    at tick 300 of the B=4 N=4096 bench fleet (corner 2816), K5 on the
-    last full call (tick 592) of the B=8 N=65,536 churn fleet; each held
-    against its plain version and timed, with B times the per-lane bound
-    of the same formula (the merge's and K5's data-dependent terms summed
-    over the lanes)."""
+    """Phase 6's lane-axis dense kernels on the inputs of launches the
+    fleets make: ``masked_max3`` and ``tick_epilogue`` at tick 699 and
+    the draw at tick 300 of the B=4 N=4096 bench fleet (corner 2816);
+    each held against its plain version and timed, with B times the
+    per-lane bound of the same formula (the merge's data-dependent terms
+    summed over the lanes).  K5's fleet launch is timed with the overlay
+    kernels (:func:`overlay_timing`)."""
     import torch
 
     from gossip_protocol_tpu_torch.core import tick as tick_mod
     from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
-    from gossip_protocol_tpu_torch.models import overlay_grid as og
-    from gossip_protocol_tpu_torch.models.overlay import resolved_dims
-    from gossip_protocol_tpu_torch.ops.cuda import overlay_grid as ogk
     from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
         tick_epilogue, tick_epilogue_lanes_plain)
     from gossip_protocol_tpu_torch.ops.drop import (drop_masks_lanes,
@@ -1656,7 +1878,8 @@ def fleet_timing(dev) -> dict:
         macs += st["tensor_core_macs"]
     out["masked_max3"] = dict(
         n=n, batch=b, tick=t_last, max_abs_err=err,
-        ms=cuda_ms(lambda: masked_max3(*margs, t_remove=t_remove), 20),
+        **kernel_time(lambda: masked_max3(*margs, t_remove=t_remove), 20,
+                      "masked_max3"),
         plain_ms=cuda_ms(lambda: masked_max3_lanes_plain(
             *margs, t_remove=t_remove), 1, warm=0),
         bound=bound_tc(nbytes, 2 * macs))
@@ -1669,8 +1892,9 @@ def fleet_timing(dev) -> dict:
         n=n, batch=b, tick=t_last,
         max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)
                         if x is not None),
-        ms=cuda_ms(lambda: tick_epilogue(*e_args, t_remove=t_remove,
-                                         with_events=False), 20),
+        **kernel_time(lambda: tick_epilogue(*e_args, t_remove=t_remove,
+                                            with_events=False), 20,
+                      "tick_epilogue"),
         plain_ms=cuda_ms(lambda: tick_epilogue_lanes_plain(
             *e_args, t_remove=t_remove, with_events=False), 2),
         bound=bound(b * ep_bytes, b * 40 * n * n))
@@ -1684,34 +1908,11 @@ def fleet_timing(dev) -> dict:
         n=da[2], n_active=da[3], batch=plan.batch, tick=t_draw,
         drawn_lanes=drawn,
         max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
-        ms=cuda_ms(lambda: drop_masks_lanes(*da, **dk), 50),
+        **kernel_time(lambda: drop_masks_lanes(*da, **dk), 50,
+                      "drop_masks_lanes"),
         plain_ms=cuda_ms(lambda: drop_masks_lanes_plain(*da, **dk), 2),
         bound=draw_bound(da[2], da[3], drawn, plan.batch))
     del ep, dr, sim, m, got, want
-    torch.cuda.empty_cache()
-    # K5 on the B=8 N=65,536 churn fleet's last full call
-    ocfg = overlay_cfg("churn65k")
-    with capture_calls(og, "grid_overlay_ticks",
-                       lambda a, k: k["s_ticks"] == 16) as calls:
-        FleetSimulation(ocfg, device="cuda").run(seeds=range(101, 109),
-                                                 warmup=False)
-    a, k = calls[-1]
-    del calls
-    got = ogk.grid_overlay_ticks(*a, **k)
-    want = ogk.grid_overlay_ticks_plain(*a, **k)
-    kk = resolved_dims(ocfg)[0]
-    t0 = int(np.asarray(a[1])[0, 0])
-    reslots = sum((t + 1) % 16 == 0 for t in range(t0, t0 + 16))
-    work = [k5_work(ocfg.n, kk, got[1][i], reslots)
-            for i in range(k["batch"])]
-    out["grid_overlay_ticks"] = dict(
-        n=ocfg.n, k=kk, batch=k["batch"], s_ticks=16, sp=t0,
-        max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
-        ms=cuda_ms(lambda: ogk.grid_overlay_ticks(*a, **k), 10),
-        plain_ms=cuda_ms(lambda: ogk.grid_overlay_ticks_plain(*a, **k), 1,
-                         warm=0),
-        bound=bound(sum(w[0] for w in work), sum(w[1] for w in work)))
-    del got, want, a, k
     torch.cuda.empty_cache()
     return out
 
@@ -1753,11 +1954,13 @@ def draw_kernel() -> tuple:
 
 
 #: counts of a contract a wrapper launches besides its own count (the
-#: rectangular merge of the ring, K3's sharded contract): name ->
+#: rectangular merge of the ring, K3's sharded contract, the draw's
+#: launches that only zero): name ->
 #: (wrapper, attribute)
 SUB_COUNTS = {"masked_max3/rect": ("masked_max3", "rect_launches"),
               "fused_overlay_tick/sharded": ("fused_overlay_tick",
-                                             "sharded_launches")}
+                                             "sharded_launches"),
+              "drop_masks/closed": ("drop_masks", "closed_launches")}
 
 
 def reset_counts():
@@ -1784,6 +1987,9 @@ class MainPath:
 
     def __init__(self):
         self.total = dict.fromkeys(read_counts(), 0)
+        #: the boot pre-pass's launches, by the phase that ended before
+        #: the run that made them
+        self.boot_after = {}
 
     def drive(self, fn, expect: tuple):
         import torch
@@ -1796,6 +2002,10 @@ class MainPath:
                 raise AssertionError(f"path did not launch {k}: {counts}")
         for k, v in counts.items():
             self.total[k] += v
+        if counts.get("grid_boot_rows"):
+            key = f"after {LAST_MARK[0]}"
+            self.boot_after[key] = self.boot_after.get(key, 0) \
+                + counts["grid_boot_rows"]
         return out, counts
 
 
@@ -1938,27 +2148,29 @@ def corner_draw_timing(cfgs, dev) -> dict:
     scheds = sim._lane_schedules(cfgs)
     sched, plan, _ = sim._stage_dense(cfgs, scheds, False)
     n, na, b, t = sim.rung, cfgs[0].n, len(cfgs), 150
-    args = (plan, t, n, na, dev, sched.link_prob, None)
-    got = drop_ops.drop_masks_lanes(*args)
-    want = drop_ops.drop_masks_lanes_plain(*args)
+    args = (plan, t, n, na)
+    kw = dict(device=dev, link_prob=sched.link_prob)
+    got = drop_ops.drop_masks_lanes(*args, **kw)
+    want = drop_ops.drop_masks_lanes_plain(*args, **kw)
     drawn = sum(plan.lane(plan.active, i, t) for i in range(b))
     # the draw bound of drawn lanes, plus each lane's thresholds read once
     nbytes = b * (n * n + 2 * n) + b * na * na * 4
     bnd = bound(nbytes, 70 * drawn * (na + 2) * na)
     out = dict(n=n, na=na, batch=b, tick=t, s_ticks=1,
                max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)),
-               ms=cuda_ms(lambda: drop_ops.drop_masks_lanes(*args), 50),
+               **kernel_time(lambda: drop_ops.drop_masks_lanes(*args, **kw),
+                             50, "drop_masks_lanes"),
                plain_ms=cuda_ms(lambda: drop_ops.drop_masks_lanes_plain(
-                   *args), 3),
+                   *args, **kw), 3),
                bound=bnd)
     torch.cuda.synchronize()
     return out
 
 
 #: seeds a template of 7b's replay and 7e's chaos replay of its stream
-#: (the JAX acceptance replay's 34 cut to its first 17, 102 requests; 8e
+#: (the JAX acceptance replay's 34 cut to its first 12, 72 requests; 8e
 #: serves the first 8 of them again)
-REPLAY_7B_SEEDS = 17
+REPLAY_7B_SEEDS = 12
 
 
 def serving(main_path, dev, profile: bool, sweep_seeds: int,
@@ -2322,10 +2534,16 @@ def dense_runs(main_path) -> dict:
 
 def overlay_runs(main_path):
     """Phase 5e: BASELINE's three overlay configurations at full width,
-    each timed and held to bench.py's validation; K4 at N=4096, K5 above
-    (with its boot pre-pass where the checkout has one), never K3.
-    Returns the configurations, the results and the phase's numbers."""
+    each timed and held to bench.py's validation; K4 at N=4096, K5 above,
+    never K3.  Where the checkout's K5 carries its boot aggregate from
+    launch to launch, neither K5 run launches the boot pre-pass (both
+    start at tick 0); a checkout without the carry runs the pre-pass in
+    every join-live K5 call.  Returns the configurations, the results and
+    the phase's numbers."""
     from gossip_protocol_tpu_torch.models.overlay import OverlaySimulation
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_overlay_ticks
+    carry = "agg" in inspect.signature(grid_overlay_ticks).parameters
     ocfg = {name: overlay_cfg(name)
             for name in ("drop4096", "churn65k", "powerlaw1m")}
     k5 = ("grid_overlay_ticks",)
@@ -2333,13 +2551,16 @@ def overlay_runs(main_path):
     for name, expect in (("drop4096", ("mega_overlay_ticks",)),
                          ("churn65k", k5 + (("grid_boot_rows",)
                                             if "grid_boot_rows" in wrappers()
-                                            else ())),
+                                            and not carry else ())),
                          ("powerlaw1m", k5)):
         cfg = ocfg[name]
         (r, counts) = main_path.drive(
             lambda: OverlaySimulation(cfg, device="cuda").run(), expect)
         if counts["fused_overlay_tick"]:
             raise AssertionError(f"overlay {name} took the per-tick K3 route")
+        if carry and counts["grid_boot_rows"]:
+            raise AssertionError(f"overlay {name} launched the boot "
+                                 f"pre-pass: {counts}")
         o = validate_overlay(r)
         ores[name] = r
         runs[f"overlay_{name}"] = dict(
@@ -2699,7 +2920,8 @@ def world_timing(dev) -> dict:
     # bytes: the outputs written, the thresholds read (N^2 + 2N floats)
     draw = dict(n=n, tick=t, s_ticks=1, drawn_ticks=1, world="asym",
                 max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
-                ms=cuda_ms(lambda: drop_ops.drop_masks(*args, **kw), 50),
+                **kernel_time(lambda: drop_ops.drop_masks(*args, **kw), 50,
+                              "drop_masks"),
                 plain_ms=cuda_ms(lambda: drop_ops.drop_masks_plain(
                     *args, **kw), 3),
                 bound=bound((n * n + 2 * n) * 5, 70 * (n + 2) * n))
@@ -2750,11 +2972,14 @@ def overlay_timing(ocfg) -> tuple[dict, dict]:
     there): K3 at the last tick of the N=65,536 churn and N=4096 drop
     runs and at tick 136 of the N=2^20 power-law run (the per-tick
     cross-check's launches at those widths), K4 at the last full launch
-    of the N=4096 drop run, K5 at the last full launches of the N=65,536
-    and 2^20 runs (its boot pre-pass inside the call, as the route calls
-    it, where the checkout has one), with both bounds, and the boot
-    pre-pass at tick 16 of both K5 runs; K5 with its resident blocks an
-    SM.  Returns the timings and each kernel's max abs error."""
+    of the N=4096 drop run; K5 as the route calls it (with the aggregate
+    carried from the launch before, where the checkout's K5 takes one,
+    else its boot pre-pass inside the call) at the last full launches of
+    the N=65,536 and 2^20 runs and of the B=8 N=65,536 churn fleet
+    (seeds 101-108), and at their join-live launches at tick 16, with
+    both bounds; the boot pre-pass alone at tick 16 of the three (the
+    first launch of a run that starts there); K5 with its resident blocks
+    an SM.  Returns the timings and each kernel's max abs error."""
     import torch
 
     from gossip_protocol_tpu_torch.models.overlay import (
@@ -2778,8 +3003,8 @@ def overlay_timing(ocfg) -> tuple[dict, dict]:
         timing[key] = dict(
             n=cfg.n, k=k, f=f, tick=tick, recv=recv,
             max_abs_err=compare_k3(x),
-            ms=cuda_ms(lambda: fused_overlay_tick(*x["args"], **x["kw"]),
-                       reps),
+            **kernel_time(lambda: fused_overlay_tick(*x["args"], **x["kw"]),
+                          reps, "fused_overlay_tick"),
             plain_ms=cuda_ms(
                 lambda: fused_overlay_tick_plain(*x["args"], **x["kw"]), 3),
             bound=k3_bound(cfg.n, k, f),
@@ -2795,56 +3020,79 @@ def overlay_timing(ocfg) -> tuple[dict, dict]:
     timing["k4"] = dict(
         n=cfg.n, k=k, f=f, s_ticks=MEGA_TICKS, sp=t0,
         max_abs_err=compare_k4(x),
-        ms=cuda_ms(lambda: mega_overlay_ticks(x["st"], x["sp"], **x["kw"]),
-                   20),
+        **kernel_time(lambda: mega_overlay_ticks(x["st"], x["sp"], **x["kw"]),
+                      20, "mega_overlay_ticks"),
         plain_ms=cuda_ms(lambda: mega_overlay_ticks_plain(
             x["st"], x["sp"], **x["kw"]), 1, warm=0),
         bound=k4_bound(cfg.n, k, f, MEGA_TICKS, reslots=1))
     errs["mega_overlay_ticks"] = timing["k4"]["max_abs_err"]
     del x
-    for key, name, reps in (("k5_churn65k", "churn65k", 20),
-                            ("k5_powerlaw1m", "powerlaw1m", 5)):
+    # K5 as the route calls it: its last full launch of each run, a
+    # join-live launch at tick 16, and both for the B=8 churn fleet
+    for key, name, t0, seeds, reps in (
+            ("k5_churn65k", "churn65k", None, None, 20),
+            ("k5_powerlaw1m", "powerlaw1m", None, None, 5),
+            ("k5_fleet", "churn65k", None, range(101, 109), 10),
+            ("k5join_churn65k", "churn65k", 16, None, 20),
+            ("k5join_powerlaw1m", "powerlaw1m", 16, None, 5),
+            ("k5join_fleet", "churn65k", 16, range(101, 109), 10)):
         cfg = ocfg[name]
-        x, meta = k5_timing_input(cfg)
-        err, met = compare_k5(x)
+        x, meta = k5_timing_input(cfg, t0, seeds)
+        err, met, plain_ms = compare_k5(x)
         k, f = resolved_dims(cfg)
+        mets = met if met.dim() == 3 else met[None]
+        work = [k5_work(cfg.n, k, m, meta["reslots"]) for m in mets]
+        needed = [k5_work(cfg.n, k, m, meta["reslots"], needed=True)
+                  for m in mets]
         timing[key] = dict(
-            n=cfg.n, k=k, f=f, **meta, max_abs_err=err,
-            recv=int(met[:, 7].sum()),
-            ms=cuda_ms(lambda: ogk.grid_overlay_ticks(*k5_args(x), **x["kw"]),
-                       reps),
-            plain_ms=cuda_ms(lambda: ogk.grid_overlay_ticks_plain(
-                *k5_args(x), **x["kw"]), 1, warm=0),
-            bound=k5_bound(cfg.n, k, met, meta["reslots"]),
-            bound_needed=k5_bound(cfg.n, k, met, meta["reslots"],
-                                  needed=True),
+            n=cfg.n, k=k, f=f, batch=len(mets), **meta, max_abs_err=err,
+            recv=int(mets[..., 7].sum()),
+            **kernel_time(lambda: ogk.grid_overlay_ticks(
+                *k5_args(x), **k5_kw(x)), reps, "grid_overlay_ticks"),
+            plain_ms=plain_ms,
+            bound=bound(sum(w[0] for w in work), sum(w[1] for w in work)),
+            bound_needed=bound(sum(w[0] for w in needed),
+                               sum(w[1] for w in needed)),
             blocks_per_sm=k5_blocks_per_sm(f, meta["flag_bits"]))
         errs["grid_overlay_ticks"] = max(errs.get("grid_overlay_ticks", 0.0),
                                          err)
-        del x, met
-        if "grid_boot_rows" in wrappers():
-            sched = make_overlay_schedule(cfg)
-            st = OverlaySimulation(cfg, device="cuda").run(
-                ticks=16).final_state
-            xb = boot_input(cfg, [(st, sched)], 16)
-            del st
-            e, used = compare_boot(xb)
-            timing[f"boot_{name}"] = dict(
-                n=cfg.n, tick=16, max_abs_err=e, slots_used=used,
-                ms=cuda_ms(lambda: ogk.grid_boot_rows(xb["plane"], xb["sp"],
-                                                      **xb["kw"]), 50),
-                plain_ms=cuda_ms(lambda: ogk.grid_boot_rows_plain(
-                    xb["plane"], xb["sp"], **xb["kw"]), 5),
-                bound=boot_bound(cfg.n))
-            errs["grid_boot_rows"] = max(errs.get("grid_boot_rows", 0.0), e)
-            del xb
+        del x, met, mets
+        torch.cuda.empty_cache()
+    # the boot pre-pass alone at tick 16 (JOINREQs in flight): the first
+    # launch of a run that starts there
+    for name, seeds in (("churn65k", None), ("powerlaw1m", None),
+                        ("fleet", range(101, 109))):
+        cfg = ocfg["churn65k" if name == "fleet" else name]
+        lanes = []
+        for seed in seeds or (None,):
+            c = cfg if seed is None else cfg.replace(seed=seed)
+            lanes.append((OverlaySimulation(c, device="cuda").run(
+                ticks=16).final_state, make_overlay_schedule(c)))
+        xb = boot_input(cfg, lanes, 16)
+        del lanes
+        e, used = compare_boot(xb)
+        timing[f"boot_{name}"] = dict(
+            n=cfg.n, batch=len(seeds or (None,)), tick=16, max_abs_err=e,
+            slots_used=used,
+            **kernel_time(lambda: ogk.grid_boot_rows(xb["plane"], xb["sp"],
+                                                     **xb["kw"]), 50,
+                          "grid_boot_rows"),
+            plain_ms=cuda_ms(lambda: ogk.grid_boot_rows_plain(
+                xb["plane"], xb["sp"], **xb["kw"]), 5),
+            bound=boot_bound(cfg.n, xb["kw"]["k"], len(seeds or (None,))),
+            bound_needed=boot_bound(cfg.n, xb["kw"]["k"],
+                                    len(seeds or (None,)), needed=True))
+        errs["grid_boot_rows"] = max(errs.get("grid_boot_rows", 0.0), e)
+        del xb
         torch.cuda.empty_cache()
     return timing, errs
 
 
-def k5_timing_input(cfg) -> tuple[dict, dict]:
-    """The input of the last full K5 launch of ``cfg``'s run (the run
-    stopped there), and that launch's tick, flags and re-slots."""
+def k5_timing_input(cfg, t0: int | None = None,
+                    seeds=None) -> tuple[dict, dict]:
+    """The input of ``cfg``'s K5 launch at ``t0`` (by default its last
+    full launch), the run stopped there: one lane, or a fleet of the
+    ``seeds``' runs; and that launch's tick, flags and re-slots."""
     from gossip_protocol_tpu_torch.models.overlay import (
         OverlaySimulation, make_overlay_schedule)
     from gossip_protocol_tpu_torch.models.segments import plan_segments
@@ -2852,13 +3100,16 @@ def k5_timing_input(cfg) -> tuple[dict, dict]:
     from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
         _FLAG_BITS as flag_bits
     gt = GRID_TICKS
-    t0 = (cfg.total_ticks // gt - 1) * gt
+    t0 = (cfg.total_ticks // gt - 1) * gt if t0 is None else t0
     flags = plan_segments(cfg, gt, t0, gt)[0].flags
-    st = OverlaySimulation(cfg, device="cuda").run(ticks=t0).final_state
-    x = k5_launch_input(cfg, [(st, make_overlay_schedule(cfg))], t0, gt,
-                        flags)
+    lanes = []
+    for seed in seeds or (None,):
+        c = cfg if seed is None else cfg.replace(seed=seed)
+        lanes.append((OverlaySimulation(c, device="cuda").run(
+            ticks=t0).final_state, make_overlay_schedule(c)))
+    x = k5_launch_input(cfg, lanes, t0, gt, flags)
     live = flags.as_kernel_kwargs()
-    return x, dict(s_ticks=gt, sp=t0, flags=flags.tag,
+    return x, dict(s_ticks=gt, tick=t0, flags=flags.tag,
                    flag_bits=sum(b for name, b in flag_bits if live[name]),
                    reslots=sum((t + 1) % 16 == 0 for t in range(t0, t0 + gt)))
 
@@ -2910,8 +3161,9 @@ def k5_variant_timing(ocfg, rounds: int = 2) -> dict:
             for v in K5_VARIANT_NAMES:
                 with k5_variant(v):
                     ms[v].append(cuda_ms(lambda: ogk.grid_overlay_ticks(
-                        *k5_args(x), **x["kw"]), reps))
-        out[name] = dict(n=ocfg[name].n, tick=meta["sp"], flags=meta["flags"],
+                        *k5_args(x), **k5_kw(x)), reps))
+        out[name] = dict(n=ocfg[name].n, tick=meta["tick"],
+                         flags=meta["flags"],
                          ms={K5_VARIANT_NAMES[v]: t for v, t in ms.items()})
         del x
         torch.cuda.empty_cache()
@@ -2927,11 +3179,15 @@ def dense_numbers(details: dict) -> dict:
     for key, v in details["timing"].items():
         if key.startswith("k1"):
             for name in ("masked_max3", "tick_epilogue"):
-                out[f"{name}_n{v['n']}_ms"] = v[name]["ms"]
+                for m in ("ms", "call_ms", "device_ms"):
+                    out[f"{name}_n{v['n']}_{m}"] = v[name].get(m)
         elif key.startswith("k2"):
-            out[f"dense_mega_ticks_n{v['n']}_ms"] = v["ms"]
+            for m in ("ms", "call_ms", "device_ms"):
+                out[f"dense_mega_ticks_n{v['n']}_{m}"] = v.get(m)
         elif key.startswith("draw"):
             out[f"{key}_n{v['n']}_route_ms"] = v["route_ms"]
+            for m in ("ms", "call_ms", "device_ms", "library_ms"):
+                out[f"{key}_n{v['n']}_{m}"] = v.get(m)
     out.update({f"{k}_idle_share": v["idle_share"]
                 for k, v in details["phase5"].items() if "idle_share" in v})
     return out
@@ -2946,7 +3202,8 @@ def overlay_numbers(details: dict) -> dict:
                 for k, v in details["phase5"].items() if "idle_share" in v})
     for key, v in details["timing"].items():
         if key.startswith(("k3", "k4", "k5", "boot")):
-            out[f"{key}_n{v['n']}_ms"] = v["ms"]
+            for m in ("ms", "call_ms", "device_ms"):
+                out[f"{key}_n{v['n']}_{m}"] = v.get(m)
             out[f"{key}_n{v['n']}_bound_ms"] = v["bound"][0]
             if "bound_needed" in v:
                 out[f"{key}_n{v['n']}_needed_bound_ms"] = v["bound_needed"][0]
@@ -3044,7 +3301,8 @@ def time_rect(x, reps: int = 20) -> dict:
             + [int(args[0].shape[-1]), int(args[0].shape[-2]),
                int(args[2].shape[-1])],
             "max_abs_err": err,
-            "ms": cuda_ms(lambda: masked_max3(*args, t, t_remove=20), reps),
+            **kernel_time(lambda: masked_max3(*args, t, t_remove=20), reps,
+                          "masked_max3"),
             "plain_ms": cuda_ms(lambda: plain(*args, t, t_remove=20), 2),
             "bound": rect_bound(args)}
 
@@ -3091,8 +3349,8 @@ def check_k3_sharded(x: dict, p: int, time_shard: int) -> dict:
             out = {"n": int(x["args"][0].shape[0]), "shards": p, "nl": n,
                    "k": k, "f": f, "row_start": y["kw"]["row_start"],
                    "recv": recv,
-                   "ms": cuda_ms(lambda: fused_overlay_tick(
-                       *y["args"], **y["kw"]), 20),
+                   **kernel_time(lambda: fused_overlay_tick(
+                       *y["args"], **y["kw"]), 20, "fused_overlay_tick"),
                    "plain_ms": cuda_ms(lambda: fused_overlay_tick_plain(
                        *y["args"], **y["kw"]), 2),
                    "bound": k3_bound(n, k, f, recv=recv)}
@@ -3222,9 +3480,11 @@ def _mesh_8(out, main_path, dev, t_start: float, seq7b, child,
     mark("8a", t_start)
 
     # ---- 8b: dense peer-sharded runs on cuda:0 x 4 ----------------------
+    # (the bench cut to 200 ticks and the trace to 400, from 700: the
+    # shards take turns at a baton, so the phase's wall is host-bound)
     runs = {}
     mesh4 = make_mesh(4)
-    cfg = bench_cfg(700)
+    cfg = bench_cfg(200)
     sched = make_schedule(cfg, dev)
     ref, rev = make_tick_run(cfg, with_events=False)(init_state(cfg, dev),
                                                      sched)
@@ -3245,19 +3505,19 @@ def _mesh_8(out, main_path, dev, t_start: float, seq7b, child,
         raise AssertionError(f"8b bench: sharded != single device in {bad}"
                              f" ({counts})")
     runs["bench_n4096_p4"] = {"wall_s": wall, "launches": counts,
-                              "node_ticks_per_s": cfg.n * 700 / wall}
+                              "node_ticks_per_s": cfg.n * 200 / wall}
     rect_real = time_rect(tuple(merge_in["args"][:5])
                           + (merge_in["args"][5],))
     if rect_real["max_abs_err"]:
         raise AssertionError("8b: the ring-step merge != plain")
-    out["rect_real"] = dict(rect_real, tick=699, n=4096, shards=4)
-    say(f"phase 8b: N=4096 10% drop bench, 700 ticks, 4 {label}: final "
+    out["rect_real"] = dict(rect_real, tick=199, n=4096, shards=4)
+    say(f"phase 8b: N=4096 10% drop bench, 200 ticks, 4 {label}: final "
         f"state and counters == the single-device K1 route; wall "
-        f"{wall:.2f} s, {cfg.n * 700 / wall:.4g} node-ticks/s; launches "
+        f"{wall:.2f} s, {cfg.n * 200 / wall:.4g} node-ticks/s; launches "
         f"{counts}; the last ring-step merge (1024x1024x4096) "
         f"{rect_real['ms']:.4f} ms")
     del fin, ev, ref, rev
-    cfg = trace_cfgs()["trace_n1024_drop"]
+    cfg = trace_cfgs()["trace_n1024_drop"].replace(total_ticks=400)
     ref = Simulation(cfg, device="cuda").run()
     t0 = time.perf_counter()
     (fin, ev), counts = main_path.drive(
@@ -3275,7 +3535,8 @@ def _mesh_8(out, main_path, dev, t_start: float, seq7b, child,
         raise AssertionError(f"8b trace: sharded != single device in {bad}")
     o = oracle_trace(got, exact_removal=False)
     runs["trace_n1024_p4"] = dict(wall_s=wall, launches=counts, **o)
-    say(f"phase 8b: N=1024 multifailure 10% drop trace over 4 {label}: "
+    say(f"phase 8b: N=1024 multifailure 10% drop trace, 400 ticks, over 4 "
+        f"{label}: "
         f"every event mask == the single-device trace; oracle {o}; wall "
         f"{wall:.2f} s")
     del fin, ev, ref, got
@@ -3327,7 +3588,8 @@ def _mesh_8(out, main_path, dev, t_start: float, seq7b, child,
     mark("8c", t_start)
 
     # ---- 8d: meshes of fleets -----------------------------------------
-    cfg = bench_cfg(700)
+    # (the bench cut to 200 ticks and the trace to 400, from 700)
+    cfg = bench_cfg(200)
     msim = MeshFleetSimulation(cfg, make_lane_mesh(2))
     msim.run_bench(seeds=range(4))          # untimed warm-up, not counted
     torch.cuda.synchronize()
@@ -3378,7 +3640,7 @@ def _mesh_8(out, main_path, dev, t_start: float, seq7b, child,
         f"every lane == its solo run; wall {fr.wall_seconds:.2f} s, "
         f"{fr.aggregate_node_ticks_per_second:.4g} node-ticks/s aggregate")
     del fr
-    cfg = trace_cfgs()["trace_n1024_drop"]
+    cfg = trace_cfgs()["trace_n1024_drop"].replace(total_ticks=400)
     fr, counts = main_path.drive(
         lambda: MeshFleetSimulation(cfg, make_lane_peer_mesh(2, 2)).run(
             seeds=range(4)), ("masked_max3/rect", "drop_masks_lanes"))
@@ -3471,6 +3733,22 @@ def _mesh_8(out, main_path, dev, t_start: float, seq7b, child,
     out["runs"] = runs
 
 
+def row_times(tm: dict) -> dict:
+    """A kernels-line row's numbers from a timing entry: ``ms`` and
+    ``kernel_ms`` the kernel's own device time a call (profiled),
+    ``call_ms`` the wrapper's back-to-back CUDA-event time, ``device_ms``
+    where the call issues device operations besides its kernels (memsets,
+    copies), the plain version's time, the bound, and ``library_ms``
+    where one PyTorch call computes the same function."""
+    out = {"ms": tm["kernel_ms"], "kernel_ms": tm["kernel_ms"],
+           "call_ms": tm["call_ms"], "plain_ms": tm["plain_ms"],
+           "bound_ms": tm["bound"][0], "bound_by": tm["bound"][1],
+           "library_ms": tm.get("library_ms")}
+    if tm["device_ops_a_call"] > tm["launches_a_call"]:
+        out["device_ms"] = tm["device_ms"]
+    return out
+
+
 def mesh_kernel_rows(m8: dict, main_path) -> list:
     """The kernels-line rows of phase 8's two contracts."""
     rr = m8["rect_real"]
@@ -3481,9 +3759,7 @@ def mesh_kernel_rows(m8: dict, main_path) -> list:
          "source": "gossip_protocol_tpu_torch/csrc/dense_tick.cu",
          "replaces": "gossip_protocol_tpu/parallel/comm.py:130",
          "launches": main_path.total["masked_max3/rect"],
-         "max_abs_err": max(err, rr["max_abs_err"]), "ms": rr["ms"],
-         "plain_ms": rr["plain_ms"], "bound_ms": rr["bound"][0],
-         "bound_by": rr["bound"][1], "library_ms": None,
+         "max_abs_err": max(err, rr["max_abs_err"]), **row_times(rr),
          "shape": {"r": rr["shape"][0], "s": rr["shape"][1],
                    "c": rr["shape"][2], "tick": rr["tick"],
                    "shards": rr["shards"]}},
@@ -3494,9 +3770,7 @@ def mesh_kernel_rows(m8: dict, main_path) -> list:
          "launches": main_path.total["fused_overlay_tick/sharded"],
          "max_abs_err": max(v["max_abs_err"]
                             for v in m8["k3_sharded"].values()),
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
-         "bound_ms": k3["bound"][0], "bound_by": k3["bound"][1],
-         "library_ms": None,
+         **row_times(k3),
          "shape": {k: k3[k] for k in ("n", "shards", "nl", "k", "f",
                                       "row_start")}}]
 
@@ -3651,12 +3925,20 @@ def main(argv=None) -> int:
         from gossip_protocol_tpu_torch.ops.drop import (drop_masks,
                                                         drop_masks_plain)
         from gossip_protocol_tpu_torch.utils.threefry import prng_key
+        # and with every tick's window closed (S=1 and S=8: the slices
+        # only zeroed, by a launch that draws nothing)
         for n in (10, 64, 896, 2816):
-            for s in (1, 8, 16):
+            for s, closed in ((1, False), (8, False), (16, False),
+                              (1, True), (8, True)):
                 for na in (n, n * 3 // 4):
                     draw = (prng_key(n + s), 51,
-                            [s == 1 or i % 4 != 0 for i in range(s)],
+                            [not closed and (s == 1 or i % 4 != 0)
+                             for i in range(s)],
                             np.float32(0.1), n)
+                    # bytes left by a freed block: one the kernel does not
+                    # write shows
+                    torch.full((s * n * n,), 0xFF, dtype=torch.uint8,
+                               device=dev)
                     got = drop_masks(*draw, n_active=na, device=dev)
                     want = drop_masks_plain(*draw, na, dev)
                     errs["drop_masks"] = max(
@@ -3703,15 +3985,15 @@ def main(argv=None) -> int:
                 if not flags.join_live:
                     st.joinreq.zero_()
                     st.joinrep.zero_()
-                e, _ = compare_k5(k5_launch_input(cfg, [(st, sched)], t0, s,
-                                                  flags))
+                e = compare_k5(k5_launch_input(cfg, [(st, sched)], t0, s,
+                                               flags))[0]
                 errs["grid_overlay_ticks"] = max(errs["grid_overlay_ticks"],
                                                  e)
                 k5_checked += 1
         cfg = grid_cfg("churn65k", n)
         lanes = [(overlay_state(cfg, 160, n + b, dev),
                   make_overlay_schedule(cfg.replace(seed=b))) for b in (1, 2)]
-        e, _ = compare_k5(k5_launch_input(cfg, lanes, 160, 16, ALL_LIVE))
+        e = compare_k5(k5_launch_input(cfg, lanes, 160, 16, ALL_LIVE))[0]
         errs["grid_overlay_ticks"] = max(errs["grid_overlay_ticks"], e)
         k5_checked += 1
     # K5's boot pre-pass against _boot_rows on join-live launches: the real
@@ -3746,6 +4028,8 @@ def main(argv=None) -> int:
     boot_slots["fleet_n4096_t16"] = used
     details["boot_slots_phase2"] = boot_slots
     del lanes
+    carries = carry_checks(dev)
+    details["k5_carries_phase2"] = carries
     # K3 at N=2^20, F=8 on a real mid-run state (tick 136, the fail tick)
     cfg1m = overlay_cfg("powerlaw1m")
     mid = OverlaySimulation(cfg1m, device="cuda").run(ticks=136)
@@ -3776,7 +4060,8 @@ def main(argv=None) -> int:
         f"(max abs err {errs}; {k5_checked} K5 launches; {world_draws} "
         f"world draws (thresholds, groups, both; window and partition "
         f"open and closed) at N=10..4096; boot pre-pass aggregate slots "
-        f"checked {boot_slots})")
+        f"checked {boot_slots}; K5 carries == _boot_rows of the output "
+        f"plane at every call {carries})")
     details["max_abs_err_phase2"] = dict(errs)
 
     main_path = MainPath()
@@ -3993,6 +4278,10 @@ def main(argv=None) -> int:
     del seq7b
     details["phase8"] = m8
     details["main_path_launches"] = main_path.total
+    details["boot_launches_after"] = main_path.boot_after
+    say(f"phases 3-5, 7, 8: the boot pre-pass launched "
+        f"{main_path.total['grid_boot_rows']} times, by the phase before "
+        f"the runs that launched it: {json.dumps(main_path.boot_after)}")
     mark("8", t_start)
 
     # ---- phase 9: the port's analysis on the card ----------------------
@@ -4037,11 +4326,19 @@ def main(argv=None) -> int:
                        "drop_masks": "gossip_protocol_tpu_torch/csrc/drop.cu"
                        }.get(name, osrc),
             "replaces": replaces, "launches": main_path.total[name],
-            "max_abs_err": errs[name], "ms": tm["ms"],
-            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
-            "bound_by": tm["bound"][1], "library_ms": None, "shape": shape})
+            "max_abs_err": errs[name], **row_times(tm), "shape": shape})
         if "bound_needed" in tm:
             kernels[-1]["needed_bytes_bound_ms"] = tm["bound_needed"][0]
+    # the draw's launches that draw and gate nothing (a closed window):
+    # a row of their own, beside the one PyTorch call that computes the
+    # same zeros
+    base = next(k for k in kernels if k["name"] == "drop_masks")
+    base["launches"] -= main_path.total["drop_masks/closed"]
+    tm = timing["draw_t699"]
+    kernels.append({
+        **base, "name": "drop_masks/closed",
+        "launches": main_path.total["drop_masks/closed"], **row_times(tm),
+        "shape": {k: tm[k] for k in ("n", "tick", "s_ticks")}})
     # the world inputs at N=4096 (the asym4096 run): their own rows, with
     # that run's launches
     asym = runs["worlds_dense"]["asym4096"]["launches"]
@@ -4055,28 +4352,26 @@ def main(argv=None) -> int:
         base = next(k for k in kernels if k["name"] == name)
         kernels.append({
             **base, "name": f"{name}/asym4096", "launches": asym[name],
-            "max_abs_err": errs[name], "ms": tm["ms"],
-            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
-            "bound_by": tm["bound"][1], "library_ms": None, "shape": shape})
+            "max_abs_err": errs[name], **row_times(tm), "shape": shape})
     # the lane-axis launches of the fleets (phase 5i): rows of their own;
     # the solo rows keep the solo launches
     lane = {k: v + serve["lane_axis"].get(k, 0) + m8["lane_axis"].get(k, 0)
             for k, v in runs["fleet"]["lane_axis_launches"].items()}
     # the canonical rung's corner draws have a row of their own
     lane["drop_masks_lanes"] -= serve["canonical"]["draws"]
-    for name, wrapper in (("masked_max3", "masked_max3"),
-                          ("tick_epilogue", "tick_epilogue"),
-                          ("drop_masks", "drop_masks_lanes"),
-                          ("grid_overlay_ticks", "grid_overlay_ticks")):
-        tm = timing["fleet"][name]
+    for name, wrapper, tm in (
+            ("masked_max3", "masked_max3", timing["fleet"]["masked_max3"]),
+            ("tick_epilogue", "tick_epilogue",
+             timing["fleet"]["tick_epilogue"]),
+            ("drop_masks", "drop_masks_lanes", timing["fleet"]["drop_masks"]),
+            ("grid_overlay_ticks", "grid_overlay_ticks",
+             timing["k5_fleet"])):
         base = next(k for k in kernels if k["name"] == name)
         if wrapper != "drop_masks_lanes":
             base["launches"] -= lane[wrapper]
         kernels.append({
             **base, "name": f"{name}/fleet", "launches": lane[wrapper],
-            "max_abs_err": tm["max_abs_err"], "ms": tm["ms"],
-            "plain_ms": tm["plain_ms"], "bound_ms": tm["bound"][0],
-            "bound_by": tm["bound"][1], "library_ms": None,
+            "max_abs_err": tm["max_abs_err"], **row_times(tm),
             "shape": {k: tm[k] for k in ("n", "batch", "tick", "s_ticks")
                       if k in tm}})
         kernels[-1].pop("needed_bytes_bound_ms", None)
@@ -4084,9 +4379,7 @@ def main(argv=None) -> int:
     kernels.append({
         **base, "name": "drop_masks/canonical",
         "launches": serve["canonical"]["draws"],
-        "max_abs_err": ctm["max_abs_err"], "ms": ctm["ms"],
-        "plain_ms": ctm["plain_ms"], "bound_ms": ctm["bound"][0],
-        "bound_by": ctm["bound"][1], "library_ms": None,
+        "max_abs_err": ctm["max_abs_err"], **row_times(ctm),
         "shape": {k: ctm[k] for k in ("n", "na", "batch", "tick")}})
     # the ring's rectangular merges and K3's sharded launches (phase 8)
     # have rows of their own

@@ -378,7 +378,7 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
         dev = state.device
         # one launch for every lane's draw
         gdrop, qdrop, pdrop = drop_masks_lanes(
-            drop, t, n, na, dev, link_prob=sched.link_prob if asym else None,
+            drop, t, n, na, device=dev, link_prob=sched.link_prob if asym else None,
             group=sched.part_group if partition else None)
         v = vector_step(t, sched.start_tick, sched.fail_tick,
                         sched.rejoin_tick, state.in_group, state.own_hb,

@@ -15,9 +15,9 @@
 //                          ticks at any power-of-two N up to 2^20 on a
 //                          ping-pong (B, 2, N, 128) plane, for B fleet
 //                          lanes, one launch a tick.
-//   gp_grid_boot           K5's boot pre-pass: the boot block a
-//                          gp_grid_overlay_ticks call takes (the
-//                          introducer's row and the JOINREQ aggregate).
+//   gp_grid_boot           K5's boot pre-pass: the boot JOINREQ
+//                          aggregate of a launch whose plane no K5
+//                          launch of the run produced.
 //
 // All three call the same __device__ routines (mix32, the key and
 // payload packing, the slot map, the lexicographic merge, the subject
@@ -59,8 +59,9 @@
 //   and the introducer's broadcast row revolved through scratch.  Here each
 //   tick is one launch on one stream (the stream order is the barrier),
 //   reading one phase of the plane and writing the other; the broadcast
-//   row is the input phase's introducer row (the boot row at s = 0), and
-//   tick s+1's aggregate is an atomicMax into a per-lane (S+1, K) buffer.
+//   row is the input phase's introducer row, and tick s+1's aggregate is
+//   an atomicMax into a per-lane (S+1, K) buffer, whose last slot (tick
+//   t0+S's) the caller carries to the next launch.
 //   Per tick it reads and writes the 512-byte row of every peer plus the
 //   row of every partner that sends to it, so at N=2^20 bytes bound it
 //   (1.07 GB a tick, about 2 GB with the partner rows of the power-law
@@ -75,8 +76,10 @@
 //   shared-memory atomicMax, and the metric sums in registers, added to
 //   `met` once a block and tick.  The four phase flags are template
 //   parameters, so a steady-state launch carries none of the ramp, churn,
-//   join or drop work.  The boot block (the introducer's row and the boot
-//   JOINREQ aggregate) is a pre-pass kernel, gp_grid_boot.
+//   join or drop work.  A run's first launch at t0 > 0, which has no
+//   carried aggregate, takes it from a pre-pass kernel, gp_grid_boot: one
+//   word read from every 512-byte row, so its 32-byte sector loads bound
+//   it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -857,9 +860,8 @@ mega_overlay_kernel(const __grid_constant__ K4Args a) {
 // The plane: row r of a lane is PLANE_W words: lanes [0, K) ids, [K, 2K) the
 // 24-bit payload words with the aux bytes in the high byte of payload lanes
 // 0-2 (own_hb low 8 bits; own_hb bits 8-11 | in_group << 4 | joinreq << 5 |
-// joinrep << 6; the F send-flag bits), the rest zero.  The boot block holds
-// 8 rows a lane: row 0 the introducer's row, row 1 lanes [0, K) the boot
-// JOINREQ aggregate (ops/cuda/overlay_grid.py).
+// joinrep << 6; the F send-flag bits), the rest zero.  The boot JOINREQ
+// aggregate is K words a lane (ops/cuda/overlay_grid.py).
 constexpr int PLANE_W = 128;
 constexpr int32_t PW_MASK = 0x00FFFFFF;
 enum { GSP_T0 = 0, GSP_SEED, GSP_VLO, GSP_VHI, GSP_FTICK, GSP_RAFTER,
@@ -891,7 +893,7 @@ struct K5Args {
   int n, k, f, s_ticks, sp_len, t_remove, churn_lo, churn_span;
   int can_rejoin, churn_mode, powerlaw;
   int s;                  // this launch's tick within the call
-  size_t in_lane, bc_lane, out_lane, q_lane;   // lane strides (words)
+  size_t in_lane, out_lane, q_lane;   // lane strides (words)
 };
 
 // ---- cp.async (sm_80+): global -> shared without registers ---------------
@@ -947,7 +949,7 @@ __device__ __forceinline__ bool k5_proc(const Sched& sc, const int32_t* P,
 
 // One tick of every row of every lane.  Reads `in` (the input plane at s =
 // 0, else the previous tick's phase of plane2), writes `out` (the other
-// phase); `bc` is the introducer's broadcast row; `q` holds the tick's
+// phase), whose row INTRODUCER is the broadcast row; `q` holds the tick's
 // JOINREQ aggregate (K words), and tick s+1's aggregate is atomicMax-ed into
 // the K words after it.  The template flags elide the launch's dead phases
 // (models/segments.py guarantees).
@@ -967,8 +969,8 @@ __device__ __forceinline__ bool k5_proc(const Sched& sc, const int32_t* P,
 // the block adds them to `met` once a tick (one set of atomics a block).
 template <bool RAMP, bool CHURN, bool JOIN, bool DROP>
 __global__ void __launch_bounds__(K5_WARPS * 32)
-grid_tick_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bc,
-                 uint32_t* __restrict__ q, int32_t* __restrict__ out,
+grid_tick_kernel(const int32_t* __restrict__ in, uint32_t* __restrict__ q,
+                 int32_t* __restrict__ out,
                  int32_t* __restrict__ met,
                  const int32_t* __restrict__ sp, K5Args a) {
   extern __shared__ __align__(16) int32_t k5_smem[];
@@ -995,7 +997,7 @@ grid_tick_kernel(const int32_t* __restrict__ in, const int32_t* __restrict__ bc,
   const int32_t* masks = P + GSP_NSCALARS + max(f - 1, 0) + a.s * f;
   const int32_t my_mask = lane < f ? masks[lane] : 0;   // lane fi: round fi
   in += b * a.in_lane;
-  bc += b * a.bc_lane;
+  const int32_t* __restrict__ bc = in + (size_t)INTRODUCER * PLANE_W;
   q += b * a.q_lane;
   out += b * a.out_lane;
   met += ((size_t)b * a.s_ticks + a.s) * MET_COLS;
@@ -1262,8 +1264,8 @@ grid_boot_kernel(const int32_t* __restrict__ plane, size_t plane_lane,
               pack_key(row, t0));
 }
 
-typedef void (*GridTickKernel)(const int32_t*, const int32_t*, uint32_t*,
-                               int32_t*, int32_t*, const int32_t*, K5Args);
+typedef void (*GridTickKernel)(const int32_t*, uint32_t*, int32_t*, int32_t*,
+                               const int32_t*, K5Args);
 
 #define GP_GRID_KERNEL(fl)                                               \
   grid_tick_kernel<((fl) & FL_RAMP) != 0, ((fl) & FL_CHURN) != 0,        \
@@ -1442,35 +1444,44 @@ int gp_mega_overlay_ticks(int32_t* st, int32_t* wiped, int32_t* met,
 }
 
 // K5.  plane (B, N, 128; lane l at plane + l * plane_lane words, 16-byte
-// aligned), boot (B, 8, 128; gp_grid_boot's block) and sp (B, sp_len) on
-// the device; plane2 (B, 2, N, 128), met (B, S, 128) and q (scratch: B (S+1)
-// K words) are written here (met zeroed; q zeroed with the boot aggregate
-// in its slot 0).  One launch a tick on one stream: the stream order is the
-// barrier between ticks.  flags: FL_RAMP | FL_CHURN | FL_JOIN | FL_DROP,
-// the launch's live phases.
+// aligned) and sp (B, sp_len) on the device; agg (B, K; lane l at agg +
+// l * agg_lane words) the launch's boot JOINREQ aggregate, or null where
+// it is zero; plane2 (B, 2, N, 128), met (B, S, 128) and q (B (S+1) K
+// words) are written here: met zeroed, q's slot 0 the boot aggregate, its
+// slots 1..S zeroed.  On a join-live launch the last tick leaves the next
+// launch's boot aggregate (tick t0 + S's) in slot S, which the caller
+// hands to that launch as its agg (the carry: no launch reads the plane
+// again for it).  One launch a tick on one stream: the stream order is
+// the barrier between ticks.  flags: FL_RAMP | FL_CHURN | FL_JOIN |
+// FL_DROP, the launch's live phases.
 int gp_grid_overlay_ticks(const int32_t* plane, long long plane_lane,
-                          const int32_t* boot, const int32_t* sp,
-                          int32_t* plane2, int32_t* met, int32_t* q, int n,
-                          int k, int f, int s_ticks, int batch, int sp_len,
-                          int t_remove, int churn_lo, int churn_span,
-                          int can_rejoin, int churn_mode, int powerlaw,
-                          int flags, void* stream_ptr) {
+                          const int32_t* agg, long long agg_lane,
+                          const int32_t* sp, int32_t* plane2, int32_t* met,
+                          int32_t* q, int n, int k, int f, int s_ticks,
+                          int batch, int sp_len, int t_remove, int churn_lo,
+                          int churn_span, int can_rejoin, int churn_mode,
+                          int powerlaw, int flags, void* stream_ptr) {
   if (k < 1 || 2 * k > PLANE_W || f < 1 || f > K5_MAX_F || n < 8 ||
       s_ticks < 1 || batch < 1 || batch > 65535 || flags < 0 || flags > 15 ||
-      !boot || plane_lane % 4 != 0 ||
-      reinterpret_cast<uintptr_t>(plane) % 16 != 0 ||
-      (batch > 1 && plane_lane < (long long)n * PLANE_W))
+      plane_lane % 4 != 0 || reinterpret_cast<uintptr_t>(plane) % 16 != 0 ||
+      (batch > 1 && plane_lane < (long long)n * PLANE_W) ||
+      (agg && agg_lane < k))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaMemsetAsync(
       met, 0, sizeof(int32_t) * (size_t)batch * s_ticks * MET_COLS, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t q_lane = (size_t)(s_ticks + 1) * k;
-  err = cudaMemsetAsync(q, 0, sizeof(int32_t) * batch * q_lane, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemcpy2DAsync(q, sizeof(int32_t) * q_lane, boot + PLANE_W,
-                          sizeof(int32_t) * 8 * PLANE_W, sizeof(int32_t) * k,
-                          batch, cudaMemcpyDeviceToDevice, stream);
+  if (agg) {
+    err = cudaMemset2DAsync(q + k, sizeof(int32_t) * q_lane, 0,
+                            sizeof(int32_t) * s_ticks * k, batch, stream);
+    if (err == cudaSuccess)
+      err = cudaMemcpy2DAsync(q, sizeof(int32_t) * q_lane, agg,
+                              sizeof(int32_t) * agg_lane, sizeof(int32_t) * k,
+                              batch, cudaMemcpyDeviceToDevice, stream);
+  } else {
+    err = cudaMemsetAsync(q, 0, sizeof(int32_t) * batch * q_lane, stream);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   K5Args a;
   a.n = n;
@@ -1495,14 +1506,11 @@ int gp_grid_overlay_ticks(const int32_t* plane, long long plane_lane,
   const dim3 grid(blocks, batch);
   for (int s = 0; s < s_ticks; ++s) {
     a.s = s;
-    // the input plane and the boot block's introducer row at s = 0; after
-    // that phase s % 2, whose introducer row is the broadcast row
+    // the input plane at s = 0, after that phase s % 2
     const int32_t* in = s == 0 ? plane : plane2 + (size_t)(s % 2) * words;
     a.in_lane = s == 0 ? (size_t)plane_lane : a.out_lane;
-    const int32_t* bc = s == 0 ? boot : in + (size_t)INTRODUCER * PLANE_W;
-    a.bc_lane = s == 0 ? (size_t)8 * PLANE_W : a.in_lane;
     kernel<<<grid, K5_WARPS * 32, smem, stream>>>(
-        in, bc, reinterpret_cast<uint32_t*>(q) + (size_t)s * k,
+        in, reinterpret_cast<uint32_t*>(q) + (size_t)s * k,
         plane2 + (size_t)(1 - s % 2) * words, met, sp, a);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -1510,28 +1518,22 @@ int gp_grid_overlay_ticks(const int32_t* plane, long long plane_lane,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5's boot pre-pass: the boot block of a launch (B, 8, 128), zeroed, row 0
-// the plane's introducer row and, on a join-live launch (`join`), row 1
-// lanes [0, K) the JOINREQ aggregate at sp's t0 (grid_boot_kernel).
+// K5's boot pre-pass: the boot JOINREQ aggregate agg (B, K), zeroed, then
+// filled at sp's t0 by grid_boot_kernel.  The route runs it only where no
+// K5 launch of the run produced the plane (gp_grid_overlay_ticks carries
+// it from there).
 int gp_grid_boot(const int32_t* plane, long long plane_lane, const int32_t* sp,
-                 int32_t* boot, int n, int k, int batch, int sp_len, int join,
+                 int32_t* agg, int n, int k, int batch, int sp_len,
                  void* stream_ptr) {
   if (k < 1 || 2 * k > PLANE_W || n < 1 || batch < 1 || batch > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t boot_lane = (size_t)8 * PLANE_W;
-  cudaError_t err = cudaMemsetAsync(
-      boot, 0, sizeof(int32_t) * batch * boot_lane, stream);
+  cudaError_t err =
+      cudaMemsetAsync(agg, 0, sizeof(int32_t) * (size_t)batch * k, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMemcpy2DAsync(boot, sizeof(int32_t) * boot_lane,
-                          plane + (size_t)INTRODUCER * PLANE_W,
-                          sizeof(int32_t) * plane_lane,
-                          sizeof(int32_t) * PLANE_W, batch,
-                          cudaMemcpyDeviceToDevice, stream);
-  if (err != cudaSuccess || !join) return static_cast<int>(err);
   grid_boot_kernel<<<dim3((n + 255) / 256, batch), 256, 0, stream>>>(
-      plane, (size_t)plane_lane, sp, sp_len,
-      reinterpret_cast<uint32_t*>(boot + PLANE_W), boot_lane, n, k);
+      plane, (size_t)plane_lane, sp, sp_len, reinterpret_cast<uint32_t*>(agg),
+      (size_t)k, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 

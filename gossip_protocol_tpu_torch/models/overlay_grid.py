@@ -114,9 +114,10 @@ def _boot_rows(cfg: SimConfig, sched: OverlaySchedule, plane: torch.Tensor,
     """The (8, PLANE_W) boot block of a launch at tick ``t0``: row 0 the
     introducer's plane row, row 1 lanes [0, K) the tick's JOINREQ
     per-slot aggregate (later ticks' aggregates accumulate in K5);
-    ``ops/cuda/overlay_grid.py boot_block``.  The plain version of K5's
-    boot pre-pass (``grid_boot_rows``), which every K5 call runs on the
-    card; the plain K5 derives the block from the state itself."""
+    ``ops/cuda/overlay_grid.py boot_block``.  Row 1 is what K5's carry
+    hands a launch and the plain version of its boot pre-pass
+    (``grid_boot_rows``, which a run's first launch at a tick > 0 runs);
+    the plain K5 derives the block from the state itself."""
     fail0, rejoin0 = _intro_window(sched)
     return boot_block(plane, k=resolved_dims(cfg)[0], t0=t0, seed=sched.seed,
                       fail0=fail0, rejoin0=rejoin0, join_live=join_live)
@@ -142,8 +143,8 @@ def grid_launch_input(cfg: SimConfig, sched: OverlaySchedule,
                       plane: torch.Tensor, t0: int, s_ticks: int,
                       join_live: bool = True):
     """The ``(boot, sp)`` of a K5 launch of ``s_ticks`` at tick ``t0`` on
-    a packed plane: the plain boot block (:func:`_boot_rows`, which K5's
-    pre-pass is held against; K5 builds its own) and the ``sp`` row."""
+    a packed plane: the plain boot block (:func:`_boot_rows`, whose row 1
+    K5's carry and pre-pass are held against) and the ``sp`` row."""
     return (_boot_rows(cfg, sched, plane, t0, join_live),
             _sp_vector(sched, t0, s_ticks, cfg.n, resolved_dims(cfg)[1]))
 
@@ -191,10 +192,11 @@ def make_grid_run(cfg: SimConfig, length: int,
         plane = pack_grid_plane(cfg, state)
         t = state.tick
         parts = []
+        agg = None      # the boot aggregate carried between launches
         for s_ticks, flags in _launches(plan):
-            plane2, met = grid_overlay_ticks(
+            plane2, met, agg = grid_overlay_ticks(
                 plane, _sp_vector(sched, t, s_ticks, cfg.n, f),
-                s_ticks=s_ticks, **kern_kw,
+                s_ticks=s_ticks, agg=agg, **kern_kw,
                 **flags.as_kernel_kwargs())
             plane = plane2[s_ticks % 2]
             t += s_ticks
@@ -251,11 +253,13 @@ def make_grid_fleet_run(cfg: SimConfig, length: int, batch: int,
         planes = pack_grid_plane(cfg, states)
         t = states.tick
         parts = []
+        agg = None      # the lanes' boot aggregates carried between launches
         for s_ticks, flags in _launches(plan):
-            plane2, met = grid_overlay_ticks(
+            plane2, met, agg = grid_overlay_ticks(
                 planes, np.stack([_sp_vector(sc, t, s_ticks, cfg.n, f)
                           for sc in scheds]), s_ticks=s_ticks,
-                batch=batch, **kern_kw, **flags.as_kernel_kwargs())
+                batch=batch, agg=agg, **kern_kw,
+                **flags.as_kernel_kwargs())
             planes = plane2[:, s_ticks % 2]
             t += s_ticks
             parts.append(met)

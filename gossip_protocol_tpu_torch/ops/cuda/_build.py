@@ -57,8 +57,9 @@ SOURCES = {
         "gp_fused_overlay_tick": [_P] * 8 + [_I] * 6 + [_P],
         "gp_fused_overlay_tick_sharded": [_P] * 9 + [_I] * 7 + [_P],
         "gp_mega_overlay_ticks": [_P] * 5 + [_I] * 10 + [_P],
-        "gp_grid_overlay_ticks": [_P, _L] + [_P] * 5 + [_I] * 13 + [_P],
-        "gp_grid_boot": [_P, _L, _P, _P] + [_I] * 5 + [_P],
+        "gp_grid_overlay_ticks": [_P, _L, _P, _L] + [_P] * 4 + [_I] * 13
+                                 + [_P],
+        "gp_grid_boot": [_P, _L, _P, _P] + [_I] * 4 + [_P],
         "gp_grid_blocks_per_sm": [_I] * 2,
     },
 }

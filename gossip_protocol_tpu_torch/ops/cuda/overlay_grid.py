@@ -11,9 +11,13 @@ scalars, the F-1 power-law degree thresholds, then S·F XOR masks) in;
 for a fleet.  The four ``*_live`` flags elide phases a launch provably
 does not need (``models/segments.py``).  The TPU kernel also took the
 launch's boot block (row 0 the introducer's row, row 1 lanes [0, K) the
-boot JOINREQ aggregate) as rows N..N+8 of its ``init``; here the call
-builds it on the card from the plane (:func:`grid_boot_rows`, K5's boot
-pre-pass, whose plain version is :func:`boot_block`).
+boot JOINREQ aggregate) as rows N..N+8 of its ``init``.  Here K5 reads
+the introducer's row from the plane, and the aggregate is carried: the
+last tick of a join-live launch leaves the next launch's aggregate in
+its scratch, the call returns it, and the run loop hands it to the next
+call.  Only a run's first launch at a tick > 0 builds it from the plane,
+with the boot pre-pass (:func:`grid_boot_rows`, whose plain version is
+:func:`boot_block`).
 
 The plane row of a peer: lanes [0, K) ids, [K, 2K) the 24-bit payload
 words ``(ts+1) << 12 | hb+1``, with the aux state in the high byte of
@@ -26,12 +30,12 @@ introducer's row in scratch.  On the H100 one C call launches one kernel
 a tick on one stream (the stream order is the barrier between ticks),
 each reading one phase of the plane and writing the other, with tick
 s+1's aggregate an ``atomicMax`` into a per-lane (S+1, K) buffer
-(csrc/overlay_tick.cu).  Each tick is a persistent grid whose warps run
-a three-stage ``cp.async`` pipeline over their rows (own row and the
-partners' send flags, then the flagged partners' rows, then the merge
-from shared memory), with the metric sums added once a block.  The TPU's
-row-block height is a detail of its blocking and has no counterpart
-here.
+(csrc/overlay_tick.cu) whose slot S is the carry.  Each tick is a
+persistent grid whose warps run a three-stage ``cp.async`` pipeline over
+their rows (own row and the partners' send flags, then the flagged
+partners' rows, then the merge from shared memory), with the metric sums
+added once a block.  The TPU's row-block height is a detail of its
+blocking and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -170,59 +174,87 @@ def boot_block(plane, *, k: int, t0: int, seed: int, fail0: int,
     return boot
 
 
-def grid_boot_rows_plain(plane, sp, *, n: int, k: int, batch: int = 1,
-                         join_live: bool = True):
-    """Plain PyTorch version of :func:`grid_boot_rows`: per lane
-    :func:`boot_block` at the ``sp`` row's tick, seed and introducer
-    window."""
+def _lane_aggs(planes, host, t0s, k: int, join_live: bool = True):
+    """Row 1 lanes [0, K) of each lane's :func:`boot_block` at tick
+    ``t0s[b]``, with the ``sp`` row's seed and introducer window:
+    i32[B, K]."""
+    return torch.stack([boot_block(
+        planes[b], k=k, t0=t0, seed=int(h[_GSP_SEED]) & MASK32,
+        fail0=as_i32(int(h[_GSP_FAIL0])),
+        rejoin0=as_i32(int(h[_GSP_REJOIN0])), join_live=join_live)[1, :k]
+        for b, (h, t0) in enumerate(zip(host, t0s))])
+
+
+def grid_boot_rows_plain(plane, sp, *, n: int, k: int, batch: int = 1):
+    """Plain PyTorch version of :func:`grid_boot_rows`: per lane row 1
+    of :func:`boot_block` at the ``sp`` row's tick."""
     squeeze = plane.dim() == 2
     host = _host_sp(sp)
     if squeeze:
         plane, host = plane[None], host[None]
     assert plane.shape == (batch, n, PLANE_W), (plane.shape, batch)
-    out = torch.stack([boot_block(
-        plane[b], k=k, t0=as_i32(int(h[_GSP_T0])),
-        seed=int(h[_GSP_SEED]) & MASK32, fail0=as_i32(int(h[_GSP_FAIL0])),
-        rejoin0=as_i32(int(h[_GSP_REJOIN0])), join_live=join_live)
-        for b, h in enumerate(host)])
+    out = _lane_aggs(plane, host, [as_i32(int(h[_GSP_T0])) for h in host], k)
     return out[0] if squeeze else out
 
 
-def grid_boot_rows(plane, sp, *, n: int, k: int, batch: int = 1,
-                   join_live: bool = True):
-    """The boot block i32[8, PLANE_W] (i32[B, 8, PLANE_W] for a fleet) of
-    a K5 launch on ``plane`` at the ``sp`` row's tick: K5's boot
-    pre-pass, which :func:`grid_overlay_ticks` runs before its ticks.
-    Row 0 is the plane's introducer row; on a join-live launch
-    ``csrc/overlay_tick.cu grid_boot_kernel`` (one thread a row, the
-    aggregate by ``atomicMax``) fills row 1, and only then does the
-    launch count.  CPU tensors take :func:`grid_boot_rows_plain`; CUDA
-    tensors launch the kernel (or raise)."""
+def grid_boot_rows(plane, sp, *, n: int, k: int, batch: int = 1):
+    """The boot JOINREQ aggregate i32[K] (i32[B, K] for a fleet) of a K5
+    launch on ``plane`` at the ``sp`` row's tick: K5's boot pre-pass.
+    :func:`grid_overlay_ticks` runs it only for a join-live launch at a
+    tick > 0 that has no aggregate carried from the launch before it.
+    ``csrc/overlay_tick.cu grid_boot_kernel`` reads one word of every row
+    (one thread a row, the aggregate by ``atomicMax``).  CPU tensors take
+    :func:`grid_boot_rows_plain`; CUDA tensors launch the kernel (or
+    raise).  Each call counts in ``grid_boot_rows.calls`` on any device,
+    each launch in ``grid_boot_rows.launches``."""
+    count_launch(grid_boot_rows, "calls")
     if plane.device.type == "cpu":
-        return grid_boot_rows_plain(plane, sp, n=n, k=k, batch=batch,
-                                    join_live=join_live)
+        return grid_boot_rows_plain(plane, sp, n=n, k=k, batch=batch)
     squeeze = plane.dim() == 2
     host = _host_sp(sp)
     if squeeze:
         plane, host = plane[None], host[None]
     if plane.shape[0] != batch or host.shape[0] != batch:
         raise ValueError(f"grid_boot_rows: expected {batch} lanes")
-    if not 1 <= k <= PLANE_W // 2:
-        raise ValueError(f"grid_boot_rows: K={k} outside 1..{PLANE_W // 2}")
     check_args("grid_boot_rows", (plane[0], torch.int32, (n, PLANE_W)))
-    dev = plane.device
-    sp_dev = _sp_to_card(host, dev)
-    boot = torch.empty((batch, 8, PLANE_W), dtype=torch.int32, device=dev)
-    code = library("overlay_tick.cu").gp_grid_boot(
-        ptr(plane), plane.stride(0), ptr(sp_dev), ptr(boot), n, k, batch,
-        host.shape[1], int(join_live), stream_ptr(dev))
-    if join_live:
-        count_launch(grid_boot_rows)
-    check(code, "grid_boot_rows")
-    return boot[0] if squeeze else boot
+    agg = _boot_launch(plane, _sp_to_card(host, plane.device), host.shape[1],
+                       n=n, k=k, batch=batch)
+    return agg[0] if squeeze else agg
 
 
 grid_boot_rows.launches = 0
+grid_boot_rows.calls = 0
+
+
+def _launch_agg(plane, host, agg, join_live: bool, sp_dev=None, *, n: int,
+                k: int, batch: int):
+    """A launch's boot aggregate on lanes i32[B, N, PLANE_W] with host
+    ``sp`` rows: the carried ``agg`` where there is one; None (zero) at
+    tick 0 and on a join-dead launch; else the boot pre-pass's, counted
+    in ``grid_boot_rows.calls`` (the card's with ``sp_dev``, the ``sp``
+    rows already there, else the plain version)."""
+    if agg is not None or not join_live or not (host[:, _GSP_T0] > 0).any():
+        return agg
+    count_launch(grid_boot_rows, "calls")
+    if sp_dev is None:
+        return grid_boot_rows_plain(plane, host, n=n, k=k, batch=batch)
+    return _boot_launch(plane, sp_dev, host.shape[1], n=n, k=k, batch=batch)
+
+
+def _boot_launch(plane, sp_dev, length: int, *, n: int, k: int,
+                 batch: int) -> torch.Tensor:
+    """One launch of the boot pre-pass on checked lanes (i32[B, N,
+    PLANE_W]) and ``sp`` rows already on the card: i32[B, K]."""
+    if not 1 <= k <= PLANE_W // 2:
+        raise ValueError(f"grid_boot_rows: K={k} outside 1..{PLANE_W // 2}")
+    dev = plane.device
+    agg = torch.empty((batch, k), dtype=torch.int32, device=dev)
+    code = library("overlay_tick.cu").gp_grid_boot(
+        ptr(plane), plane.stride(0), ptr(sp_dev), ptr(agg), n, k, batch,
+        length, stream_ptr(dev))
+    count_launch(grid_boot_rows)
+    check(code, "grid_boot_rows")
+    return agg
 
 
 def _sp_to_card(host: np.ndarray, dev) -> torch.Tensor:
@@ -297,15 +329,18 @@ def grid_overlay_ticks_plain(plane, sp, *, n: int, k: int, f_rounds: int,
                              churn_mode: bool, powerlaw: bool,
                              ramp_live: bool = True, churn_live: bool = True,
                              join_live: bool = True, drop_live: bool = True,
-                             batch: int = 1):
+                             batch: int = 1, agg=None):
     """Plain PyTorch version of :func:`grid_overlay_ticks`: per lane, S
     calls of the overlay tick (``ops/overlay_rules.py overlay_step``,
     with K3's plain version) on the plane's state and the schedule
     rebuilt from ``sp`` (its churn threshold zeroed outside churn mode:
     every subject then takes the victim interval), packed back; the tick
-    derives the introducer's row and the JOINREQ aggregate (the boot
-    block) from the state.  Under the planner's invariant the all-live
-    tick is exact, so the phase flags are checked, not used."""
+    derives the introducer's row and each tick's JOINREQ aggregate from
+    the state, so a carried ``agg`` is held equal to the one the plane
+    gives (:func:`boot_block`), and the next launch's is row 1 of
+    :func:`boot_block` of the end state at tick t0 + S.  Under the
+    planner's invariant the all-live tick is exact, so the phase flags
+    are checked, not used."""
     _check_flags(ramp_live, churn_live, join_live, can_rejoin)
     del drop_live
     squeeze = plane.dim() == 2
@@ -314,6 +349,11 @@ def grid_overlay_ticks_plain(plane, sp, *, n: int, k: int, f_rounds: int,
         plane, host = plane[None], host[None]
     assert plane.shape == (batch, n, PLANE_W), (plane.shape, batch)
     assert host.shape == (batch, sp_len(f_rounds, s_ticks)), host.shape
+    t0s = [as_i32(int(h[_GSP_T0])) for h in host]
+    if agg is not None:
+        want = _lane_aggs(plane, host, t0s, k, join_live)
+        assert torch.equal(agg.reshape(want.shape).to(want.device), want), \
+            "the carried boot aggregate is not the plane's"
     outs = [_lane_plain(plane[b], host[b], n=n, k=k, f_rounds=f_rounds,
                         s_ticks=s_ticks, t_remove=t_remove,
                         churn_lo=churn_lo, churn_span=churn_span,
@@ -322,9 +362,11 @@ def grid_overlay_ticks_plain(plane, sp, *, n: int, k: int, f_rounds: int,
             for b in range(batch)]
     plane2 = torch.stack([o[0] for o in outs])
     met = torch.stack([o[1] for o in outs])
+    nxt = _lane_aggs(plane2[:, s_ticks % 2], host,
+                     [t + s_ticks for t in t0s], k)
     if squeeze:
-        return plane2[0], met[0]
-    return plane2, met
+        return plane2[0], met[0], nxt[0]
+    return plane2, met, nxt
 
 
 def grid_overlay_ticks(plane, sp, *, n: int, k: int, f_rounds: int,
@@ -332,20 +374,26 @@ def grid_overlay_ticks(plane, sp, *, n: int, k: int, f_rounds: int,
                        churn_span: int, can_rejoin: bool, churn_mode: bool,
                        powerlaw: bool, ramp_live: bool = True,
                        churn_live: bool = True, join_live: bool = True,
-                       drop_live: bool = True, batch: int = 1):
+                       drop_live: bool = True, batch: int = 1, agg=None):
     """Run ``s_ticks`` whole overlay ticks on ``plane`` in one call.
 
     Args as the TPU kernel's, its ``init`` cut to the ``plane``
-    i32[N, PLANE_W] (the boot rows built here by :func:`grid_boot_rows`;
-    the row-block height left out), or i32[B, N, PLANE_W] with
-    ``batch`` = B (not modified; each lane's plane contiguous, the lanes
-    at any stride, so a fleet's phase of ``plane2`` goes in as it is);
-    ``sp`` the scalar row(s) (host ints: a numpy array, a sequence or a
-    tensor).  Returns ``(plane2 i32[2, N, PLANE_W],
-    metrics i32[S, 128])`` (with a leading B for a fleet); the end state
-    is ``plane2[S % 2]``, the other phase the state one tick before it
-    (zero when S = 1).  CPU tensors take :func:`grid_overlay_ticks_plain`;
-    CUDA tensors launch the kernel (or raise).
+    i32[N, PLANE_W] (the row-block height left out), or i32[B, N,
+    PLANE_W] with ``batch`` = B (not modified; each lane's plane
+    contiguous, the lanes at any stride, so a fleet's phase of ``plane2``
+    goes in as it is); ``sp`` the scalar row(s) (host ints: a numpy
+    array, a sequence or a tensor).  The TPU's boot rows are gone: K5
+    reads the introducer's row from the plane, and ``agg`` is the
+    launch's boot JOINREQ aggregate i32[K] (i32[B, K]), the third output
+    of the call that produced ``plane`` (the carry).  Without it the
+    aggregate is zero at tick 0 and on a join-dead launch, and else comes
+    from the boot pre-pass (:func:`grid_boot_rows`).  Returns
+    ``(plane2 i32[2, N, PLANE_W], metrics i32[S, 128], agg i32[K])``
+    (with a leading B for a fleet): the end state is ``plane2[S % 2]``,
+    the other phase the state one tick before it (zero when S = 1), and
+    ``agg`` the next launch's boot aggregate.  CPU tensors take
+    :func:`grid_overlay_ticks_plain`; CUDA tensors launch the kernel (or
+    raise).
     """
     kw = dict(n=n, k=k, f_rounds=f_rounds, s_ticks=s_ticks,
               t_remove=t_remove, churn_lo=churn_lo, churn_span=churn_span,
@@ -353,7 +401,11 @@ def grid_overlay_ticks(plane, sp, *, n: int, k: int, f_rounds: int,
               ramp_live=ramp_live, churn_live=churn_live,
               join_live=join_live, drop_live=drop_live, batch=batch)
     if plane.device.type == "cpu":
-        return grid_overlay_ticks_plain(plane, sp, **kw)
+        host = _host_sp(sp)
+        planes = plane[None] if plane.dim() == 2 else plane
+        agg = _launch_agg(planes, host.reshape(len(planes), -1), agg,
+                          join_live, n=n, k=k, batch=batch)
+        return grid_overlay_ticks_plain(plane, sp, agg=agg, **kw)
     _check_flags(ramp_live, churn_live, join_live, can_rejoin)
     if n < 8 or n & (n - 1) or not 1 <= k <= PLANE_W // 2 \
             or not 1 <= f_rounds <= 8 or s_ticks < 1 or batch < 1:
@@ -380,30 +432,40 @@ def grid_overlay_ticks(plane, sp, *, n: int, k: int, f_rounds: int,
         raise ValueError("grid_overlay_ticks: an XOR mask outside [1, N) "
                          "would read past the plane")
     dev = plane.device
-    boot = grid_boot_rows(plane, host, n=n, k=k, batch=batch,
-                          join_live=join_live)
     sp_dev = _sp_to_card(host, dev)
+    if agg is not None:
+        want = (k,) if squeeze else (batch, k)
+        if agg.device != dev or agg.dtype != torch.int32 \
+                or tuple(agg.shape) != want or agg.stride(-1) != 1:
+            raise ValueError(f"grid_overlay_ticks: agg must be int32 "
+                             f"{want} rows on {dev}, got {agg.dtype} "
+                             f"{tuple(agg.shape)} on {agg.device}")
+        agg = agg.reshape(batch, k)
+    agg = _launch_agg(plane, host, agg, join_live, sp_dev, n=n, k=k,
+                      batch=batch)
     plane2 = torch.empty((batch, 2, n, PLANE_W), dtype=torch.int32,
                          device=dev)
     if s_ticks == 1:
         plane2[:, 0].zero_()
     met = torch.empty((batch, s_ticks, MET_COLS), dtype=torch.int32,
                       device=dev)
-    # the per-tick JOINREQ aggregates of each lane
-    qbuf = torch.empty(batch * (s_ticks + 1) * k, dtype=torch.int32,
+    # the per-tick JOINREQ aggregates of each lane; slot S is the carry
+    qbuf = torch.empty((batch, s_ticks + 1, k), dtype=torch.int32,
                        device=dev)
     flags = sum(bit for name, bit in _FLAG_BITS if kw[name])
     code = library("overlay_tick.cu").gp_grid_overlay_ticks(
-        ptr(plane), plane.stride(0), ptr(boot), ptr(sp_dev), ptr(plane2),
-        ptr(met), ptr(qbuf), n, k, f_rounds, s_ticks, batch, length,
-        int(t_remove), int(churn_lo),
-        int(churn_span), int(can_rejoin), int(churn_mode), int(powerlaw),
-        flags, stream_ptr(dev))
+        ptr(plane), plane.stride(0), ptr(agg),
+        k if agg is None or batch == 1 else agg.stride(0), ptr(sp_dev),
+        ptr(plane2), ptr(met), ptr(qbuf), n, k, f_rounds, s_ticks, batch,
+        length, int(t_remove), int(churn_lo), int(churn_span),
+        int(can_rejoin), int(churn_mode), int(powerlaw), flags,
+        stream_ptr(dev))
     count_launch(grid_overlay_ticks)
     check(code, "grid_overlay_ticks")
+    nxt = qbuf[:, s_ticks]
     if squeeze:
-        return plane2[0], met[0]
-    return plane2, met
+        return plane2[0], met[0], nxt[0]
+    return plane2, met, nxt
 
 
 grid_overlay_ticks.launches = 0

@@ -26,6 +26,8 @@ draws its lanes at their real width inside the padded rung this way.
 Each wrapper counts its calls (``calls``, on any device, at entry) apart
 from its kernel launches (``launches``, on a card only): one call a
 fleet tick for all lanes, one a K2 stack (analysis/runtime.py).
+``drop_masks.closed_launches`` counts the launches among them that draw
+and gate no tick (the kernel only writes zeros).
 """
 
 from __future__ import annotations
@@ -89,7 +91,7 @@ def drop_masks_plain(rng, t0: int, active, prob, n: int,
 
 
 def drop_masks(rng, t0: int, active, prob, n: int,
-               n_active: int | None = None, device="cpu", link_prob=None,
+               n_active: int | None = None, *, device, link_prob=None,
                group=None, part_active=None):
     """The drop decisions of ticks ``t0 .. t0 + S - 1``: gossip
     bool[S, N, N] (sender-major), JOINREQ / JOINREP bool[S, N].
@@ -102,8 +104,9 @@ def drop_masks(rng, t0: int, active, prob, n: int,
     ``link_prob`` f32[N, N] sender-major per-link probabilities replacing
     ``prob``, read at the ``n_active`` corner; ``group`` i32[N] partition
     groups with ``part_active`` S host bools (is the partition open for
-    that tick's sends), gating all N peers.  On a CPU device :func:`drop_masks_plain`; on a CUDA
-    device one kernel launch (or an exception).
+    that tick's sends), gating all N peers.  ``device`` has no default:
+    on a CPU device :func:`drop_masks_plain`; on a CUDA device one kernel
+    launch (or an exception).
     """
     count_launch(drop_masks, "calls")
     na = n if n_active is None else n_active
@@ -139,12 +142,15 @@ def drop_masks(rng, t0: int, active, prob, n: int,
         k0, k1, int(t0), bits, pbits, float(np.float32(prob)), n, na,
         s_ticks, stream_ptr(dev))
     count_launch(drop_masks)
+    if not bits | pbits:    # a launch that only zeroes
+        count_launch(drop_masks, "closed_launches")
     check(code, "drop_masks")
     return g, q, p
 
 
 drop_masks.launches = 0
 drop_masks.calls = 0
+drop_masks.closed_launches = 0
 
 
 def tick_drop_masks(rng, t: int, n: int, active: bool, prob, device,
@@ -158,9 +164,10 @@ def tick_drop_masks(rng, t: int, n: int, active: bool, prob, device,
     ``group`` and ``part_active`` the worlds' inputs, as in
     :func:`drop_masks`.
     """
-    g, q, p = drop_masks(rng, t, (active,), prob, n, n_active, device,
-                         link_prob, group,
-                         None if group is None else (part_active,))
+    g, q, p = drop_masks(rng, t, (active,), prob, n, n_active,
+                         device=device, link_prob=link_prob, group=group,
+                         part_active=None if group is None
+                         else (part_active,))
     return g[0], q[0], p[0]
 
 
@@ -241,7 +248,7 @@ def drop_masks_lanes_plain(plan: LaneDrop, t: int, n: int,
 
 
 def drop_masks_lanes(plan: LaneDrop, t: int, n: int,
-                     n_active: int | None = None, device="cpu",
+                     n_active: int | None = None, *, device,
                      link_prob=None, group=None):
     """The drop decisions of tick ``t`` for every lane of a fleet:
     gossip bool[B, N, N] (sender-major), JOINREQ / JOINREP bool[B, N].
@@ -251,8 +258,9 @@ def drop_masks_lanes(plan: LaneDrop, t: int, n: int,
     (f32[B, N, N], read at the ``n_active`` corner), and ORs in its
     partition (``group`` i32[B, N], all N peers) where its partition is
     open, exactly as its solo run's :func:`tick_drop_masks` at ``t``;
-    ``n_active`` embeds every lane's draw.  On a CPU device :func:`drop_masks_lanes_plain`; on a CUDA
-    device one kernel launch for the whole fleet (or an exception).
+    ``n_active`` embeds every lane's draw.  ``device`` has no default: on
+    a CPU device :func:`drop_masks_lanes_plain`; on a CUDA device one
+    kernel launch for the whole fleet (or an exception).
     """
     count_launch(drop_masks_lanes, "calls")
     na = n if n_active is None else n_active

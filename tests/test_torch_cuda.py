@@ -643,26 +643,37 @@ def test_grid_kernel_rejects_bad_input(dev):
                  (plane.T.contiguous().T, sp)):
         with pytest.raises(ValueError):
             grid_overlay_ticks(*args, **kw)
+    for agg in (torch.zeros(k + 1, dtype=torch.int32, device=dev),
+                torch.zeros(k, dtype=torch.int64, device=dev),
+                torch.zeros(k, dtype=torch.int32)):
+        with pytest.raises(ValueError, match="agg"):
+            grid_overlay_ticks(plane, sp, agg=agg, **kw)
     assert grid_overlay_ticks.launches == before
 
 
 def _grid_check(plane, boot, sp, kw):
-    """K5 and its plain version on one launch input, bit for bit, and
-    K5's boot pre-pass (one launch on a join-live launch, none on a
-    join-dead one) against the plain ``boot``."""
+    """K5 and its plain version on one launch input, bit for bit (the end
+    state, the metrics and the aggregate carried to the next launch):
+    without a carried aggregate, where the boot pre-pass launches for a
+    join-live launch at t0 > 0 and for no other, and with the plain
+    ``boot``'s aggregate carried in, which launches no pre-pass; the
+    pre-pass alone against the plain ``boot``."""
     from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import (
         grid_boot_rows, grid_overlay_ticks, grid_overlay_ticks_plain)
-    before = (grid_overlay_ticks.launches, grid_boot_rows.launches)
-    a = grid_overlay_ticks(plane, sp, **kw)
-    assert grid_overlay_ticks.launches == before[0] + 1
-    assert grid_boot_rows.launches == before[1] + kw["join_live"]
-    b = grid_overlay_ticks_plain(plane, sp, **kw)
-    torch.cuda.synchronize()
-    for x, y in zip(a, b):
-        assert torch.equal(x, y)
+    t0 = int(np.asarray(sp).reshape(kw.get("batch", 1), -1)[0, 0])
+    carried = boot[..., 1, :kw["k"]]
+    for agg in (None, carried):
+        before = (grid_overlay_ticks.launches, grid_boot_rows.launches)
+        a = grid_overlay_ticks(plane, sp, agg=agg, **kw)
+        assert grid_overlay_ticks.launches == before[0] + 1
+        assert grid_boot_rows.launches == before[1] + (
+            agg is None and kw["join_live"] and t0 > 0)
+        b = grid_overlay_ticks_plain(plane, sp, agg=agg, **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
     assert torch.equal(grid_boot_rows(
-        plane, sp, n=kw["n"], k=kw["k"], batch=kw.get("batch", 1),
-        join_live=kw["join_live"]), boot)
+        plane, sp, n=kw["n"], k=kw["k"], batch=kw.get("batch", 1)), carried)
 
 
 def test_grid_kernel_steady_state_powerlaw_f8(dev):
@@ -778,15 +789,163 @@ def test_grid_boot_prepass_equals_boot_rows(dev, name, n):
         before = grid_boot_rows.launches
         got = grid_boot_rows(lanes[0][0], lanes[0][2], n=n, k=k)
         assert grid_boot_rows.launches == before + 1
-        assert torch.equal(got, lanes[0][1]), t0
+        assert torch.equal(got, lanes[0][1][1, :k]), t0
         fleet = grid_boot_rows(torch.stack([x[0] for x in lanes]),
                                np.stack([x[2] for x in lanes]), n=n, k=k,
                                batch=2)
-        assert torch.equal(fleet, torch.stack([x[1] for x in lanes])), t0
-        dead = grid_boot_rows(lanes[0][0], lanes[0][2], n=n, k=k,
-                              join_live=False)
-        assert grid_boot_rows.launches == before + 2
-        assert torch.equal(dead[0], lanes[0][1][0]) and not dead[1:].any()
+        assert torch.equal(fleet, torch.stack([x[1][1, :k]
+                                               for x in lanes])), t0
+        # a plane whose joinreq bits are all clear has a zero aggregate
+        quiet = lanes[0][0].clone()
+        quiet[:, k + 1] &= ~(0x20 << 24)
+        assert not grid_boot_rows(quiet, lanes[0][2], n=n, k=k).any()
+        assert grid_boot_rows.launches == before + 3
+
+
+def _carry_run(monkeypatch, run):
+    """Run ``run()`` on the K5 route, recording each K5 call's ``sp``,
+    keywords and outputs."""
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    calls, real = [], pg.grid_overlay_ticks
+
+    def record(plane, sp, **kw):
+        out = real(plane, sp, **kw)
+        calls.append((np.asarray(sp), kw, out))
+        return out
+    monkeypatch.setattr(pg, "grid_overlay_ticks", record)
+    out = run()
+    monkeypatch.setattr(pg, "grid_overlay_ticks", real)
+    torch.cuda.synchronize()
+    return out, calls
+
+
+def _assert_carry(cfg, scheds, calls):
+    """Every K5 call took the aggregate the call before it returned, and
+    each returned aggregate (K5's slot S) equals row 1 of ``_boot_rows``
+    of the call's output plane at t0 + S, lane by lane."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    k = pov.resolved_dims(cfg)[0]
+    b = len(scheds)
+    for i, (sp, kw, (plane2, _, agg)) in enumerate(calls):
+        assert kw["agg"] is (calls[i - 1][2][2] if i else None)
+        s_ticks = kw["s_ticks"]
+        ends = plane2[..., s_ticks % 2, :, :].reshape(b, cfg.n, 128)
+        for lane, sched in enumerate(scheds):
+            t1 = int(sp.reshape(b, -1)[lane, 0]) + s_ticks
+            want = pg._boot_rows(cfg, sched, ends[lane], t1)[1, :k]
+            assert torch.equal(agg.reshape(b, k)[lane], want), (i, lane, t1)
+
+
+def test_grid_carry_over_a_churn_run(dev, monkeypatch):
+    """N=4096 churn, 608 ticks (38 K5 calls): K5's carried
+    aggregate equals the plain one of its output plane at every launch,
+    the route launches no boot pre-pass; resumed at tick 100 (join-live)
+    it launches the pre-pass once, for its first call."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_boot_rows
+    cfg = _grid_cfg("churn", 4096)
+    sched = pov.make_overlay_schedule(cfg)
+    before = grid_boot_rows.launches
+    (mid, _), calls = _carry_run(monkeypatch, lambda: pg.make_grid_run(
+        cfg, 100, start_tick=0)(pov.init_overlay_state(cfg, dev), sched))
+    assert grid_boot_rows.launches == before
+    assert [c[1]["s_ticks"] for c in calls] == [16] * 6 + [4]
+    _assert_carry(cfg, [sched], calls)
+    _, calls = _carry_run(monkeypatch, lambda: pg.make_grid_run(
+        cfg, 508, start_tick=100)(mid, sched))
+    assert grid_boot_rows.launches == before + 1
+    assert len(calls) == 32 and calls[-1][1]["s_ticks"] == 12
+    _assert_carry(cfg, [sched], calls)
+
+
+def test_grid_carry_over_a_fleet(dev, monkeypatch):
+    """A B=2 churn fleet at N=4096 (seeds 5 and 6), 300 ticks from tick
+    0: each lane's carried aggregate equals the plain one of its output
+    plane at every launch, and the fleet launches no boot pre-pass."""
+    from gossip_protocol_tpu_torch.models import overlay as pov
+    from gossip_protocol_tpu_torch.models import overlay_grid as pg
+    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
+        grid_boot_rows
+    cfg = _grid_cfg("churn", 4096)
+    scheds = [pov.make_overlay_schedule(cfg.replace(seed=s)) for s in (5, 6)]
+    before = grid_boot_rows.launches
+    _, calls = _carry_run(monkeypatch, lambda: pg.make_grid_fleet_run(
+        cfg, 300, 2)(pg.stack_states([pov.init_overlay_state(cfg, dev)] * 2),
+                     scheds))
+    assert grid_boot_rows.launches == before and len(calls) == 19
+    _assert_carry(cfg, scheds, calls)
+
+
+def _dirty(dev, nbytes):
+    """Leave the caching allocator a block of 0xFF bytes for the next
+    allocation of that size, so a byte a kernel does not write shows."""
+    torch.full((nbytes,), 0xFF, dtype=torch.uint8, device=dev)
+
+
+@pytest.mark.parametrize("gate", (False, True))
+@pytest.mark.parametrize("s_ticks", (1, 8))
+@pytest.mark.parametrize("n", (10, 13, 64, 1023, 2816))
+def test_drop_masks_closed_window(dev, n, s_ticks, gate):
+    """The draw's closed-window slices (nothing drawn, no partition gate:
+    16 zero bytes a thread over the flat plane and vectors) against the
+    plain version, N % 4 != 0 included (slices that start off 16 bytes):
+    S=1 with the window closed, S=8 with mixed windows; with the gate,
+    the partition open on some slices, closed on the others."""
+    from gossip_protocol_tpu_torch.ops.drop import drop_masks, drop_masks_plain
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    rng = np.random.default_rng(n + s_ticks)
+    active = [False] if s_ticks == 1 else \
+        [False, True, False, False, True, False, False, True]
+    part = [False] if s_ticks == 1 else \
+        [True, False, False, True, False, False, True, False]
+    kw = {}
+    if gate:
+        kw = dict(group=torch.from_numpy(rng.integers(0, 3, n)
+                                         .astype(np.int32)).to(dev),
+                  part_active=part)
+    _dirty(dev, s_ticks * n * n)
+    before = drop_masks.launches
+    got = drop_masks(prng_key(n), 100, active, np.float32(0.25), n,
+                     device=dev, **kw)
+    assert drop_masks.launches == before + 1
+    want = drop_masks_plain(prng_key(n), 100, active, np.float32(0.25), n,
+                            device=dev, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, w) for a, w in zip(got, want))
+    closed = [s for s in range(s_ticks)
+              if not active[s] and not (gate and part[s])]
+    assert closed and not any(x[closed].any() for x in got)
+
+
+@pytest.mark.parametrize("n", (10, 13, 896))
+def test_lane_axis_drop_closed_lanes(dev, n):
+    """The lane kernel with lanes whose window is closed (zeroed 16 bytes
+    a thread) beside a drawing lane and a gated one, N % 4 != 0
+    included, against its plain version."""
+    from gossip_protocol_tpu_torch.ops.drop import (LaneDrop,
+                                                    drop_masks_lanes,
+                                                    drop_masks_lanes_plain)
+    from gossip_protocol_tpu_torch.utils.threefry import prng_key
+    b = 4
+    rng = np.random.default_rng(n)
+    active = np.zeros((b, 400), bool)
+    active[1] = True
+    part = np.zeros((b, 400), bool)
+    part[2] = True
+    group = torch.from_numpy(rng.integers(0, 3, (b, n), dtype=np.int32)
+                             ).to(dev)
+    plan = LaneDrop(np.stack([prng_key(s) for s in range(b)]),
+                    np.float32([0.2] * b), active, part)
+    for grp in (None, group):
+        _dirty(dev, b * n * n)
+        got = drop_masks_lanes(plan, 300, n, device=dev, group=grp)
+        want = drop_masks_lanes_plain(plan, 300, n, device=dev, group=grp)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+        assert got[0][1].any() and not any(x[[0, 3]].any() for x in got)
 
 
 @pytest.mark.parametrize("view,fanout", [(128, 16), (20, 1)])
@@ -897,7 +1056,8 @@ def test_lane_axis_drop_equals_plain(dev, case):
                     np.float32([0.1, 0.2, 0.3, 0.4][:b]), active, part)
     for t in (0, 300):
         before = drop_masks_lanes.launches
-        got = drop_masks_lanes(plan, t, n, na, dev, link, group)
+        got = drop_masks_lanes(plan, t, n, na, device=dev, link_prob=link,
+                               group=group)
         assert drop_masks_lanes.launches == before + 1
         want = drop_masks_lanes_plain(plan, t, n, na, dev, link, group)
         torch.cuda.synchronize()
@@ -1030,7 +1190,7 @@ def test_drop_masks_corner_worlds(dev, n, na, worlds):
               part_active=part if grp is not None else None)
     before = drop_masks.launches
     got = drop_masks(prng_key(n), 100, active, np.float32(0.1), n, na,
-                     dev, **kw)
+                     device=dev, **kw)
     assert drop_masks.launches == before + 1
     want = drop_masks_plain(prng_key(n), 100, active, np.float32(0.1), n,
                             na, dev, **kw)
@@ -1048,7 +1208,8 @@ def test_drop_masks_corner_worlds(dev, n, na, worlds):
                     prt if grp is not None else None)
     for t in (100, 300):
         before = drop_masks_lanes.launches
-        got = drop_masks_lanes(plan, t, n, na, dev, lp, grp)
+        got = drop_masks_lanes(plan, t, n, na, device=dev, link_prob=lp,
+                               group=grp)
         assert drop_masks_lanes.launches == before + 1
         want = drop_masks_lanes_plain(plan, t, n, na, dev, lp, grp)
         torch.cuda.synchronize()

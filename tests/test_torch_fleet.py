@@ -376,7 +376,8 @@ def test_lane_axis_plain_drop(case):
     plan = LaneDrop(np.stack([prng_key(s) for s in seeds]), prob, active,
                     part)
     before = drop_masks_lanes.launches
-    g, q, p = drop_masks_lanes(plan, t, n, na, "cpu", link, group)
+    g, q, p = drop_masks_lanes(plan, t, n, na, device="cpu", link_prob=link,
+                               group=group)
     assert drop_masks_lanes.launches == before
     assert g.shape == (3, n, n) and q.shape == p.shape == (3, n)
     for i, s in enumerate(seeds):

@@ -246,7 +246,7 @@ def test_plain_k5_equals_jax_interpret_kernel(case):
     kw = dict(pgrid.grid_kernel_kwargs(pc, k, f), s_ticks=GRID_TICKS,
               **flags.as_kernel_kwargs())
     before = grid_overlay_ticks.launches
-    plane2, met = grid_overlay_ticks(p_plane, p_sp, **kw)
+    plane2, met, _ = grid_overlay_ticks(p_plane, p_sp, **kw)
     assert grid_overlay_ticks.launches == before      # CPU: plain version
     end = GRID_TICKS % 2
     assert np.array_equal(plane2[end].numpy(), np.asarray(plane2_j)[end])
@@ -400,35 +400,35 @@ def test_boot_prepass_plain_equals_boot_rows():
         k = pov.resolved_dims(pc)[0]
         before = grid_boot_rows.launches
         assert torch.equal(grid_boot_rows(lanes[0][0], lanes[0][2], n=64,
-                                          k=k), lanes[0][1])
+                                          k=k), lanes[0][1][1, :k])
         assert grid_boot_rows.launches == before
         fleet = grid_boot_rows_plain(
             torch.stack([x[0] for x in lanes]),
             np.stack([x[2] for x in lanes]), n=64, k=k, batch=2)
-        assert torch.equal(fleet, torch.stack([x[1] for x in lanes]))
+        assert torch.equal(fleet, torch.stack([x[1][1, :k] for x in lanes]))
 
 
 def test_grid_launch_without_boot():
-    """A K5 launch takes no boot block (its pre-pass builds one from the
-    plane): the plain K5 at tick 40 equals the per-tick overlay run over
-    the same 16 ticks, and the pre-pass's CPU route gives a join-dead
-    launch row 0 alone, as ``_boot_rows`` does, launching nothing."""
-    from gossip_protocol_tpu_torch.ops.cuda.overlay_grid import \
-        grid_boot_rows
+    """A K5 launch takes no boot block (the introducer's row is read from
+    the plane, the aggregate carried or built by the pre-pass): the plain
+    K5 at tick 40 equals the per-tick overlay run over the same 16 ticks,
+    with or without the carried aggregate, and returns the next launch's
+    aggregate, row 1 of ``_boot_rows`` of its end plane at tick 56; a
+    carry that is not the plane's is refused."""
     _, pc = _pair("churn")
     k, f = pov.resolved_dims(pc)
     ps = pov.make_overlay_schedule(pc)
     state, _ = pov.make_overlay_run(pc, 40)(pov.init_overlay_state(pc, "cpu"),
                                             ps)
     plane = pgrid.pack_grid_plane(pc, state)
-    boot, sp = pgrid.grid_launch_input(pc, ps, plane, 40, GRID_TICKS,
-                                       join_live=False)
-    before = grid_boot_rows.launches
-    assert torch.equal(grid_boot_rows(plane, sp, n=pc.n, k=k,
-                                      join_live=False), boot)
-    assert grid_boot_rows.launches == before and not boot[1:].any()
+    boot, sp = pgrid.grid_launch_input(pc, ps, plane, 40, GRID_TICKS)
+    assert boot[1].any()
     kw = dict(pgrid.grid_kernel_kwargs(pc, k, f), s_ticks=GRID_TICKS)
-    plane2, _ = grid_overlay_ticks_plain(plane, sp, **kw)
     want, _ = pov.make_overlay_run(pc, GRID_TICKS)(state, ps)
     got = pgrid.pack_grid_plane(pc, want)
-    assert torch.equal(plane2[GRID_TICKS % 2], got)
+    for agg in (None, boot[1, :k]):
+        plane2, _, nxt = grid_overlay_ticks_plain(plane, sp, agg=agg, **kw)
+        assert torch.equal(plane2[GRID_TICKS % 2], got)
+        assert torch.equal(nxt, pgrid._boot_rows(pc, ps, got, 56)[1, :k])
+    with pytest.raises(AssertionError, match="carried boot aggregate"):
+        grid_overlay_ticks_plain(plane, sp, agg=boot[1, :k] + 1, **kw)

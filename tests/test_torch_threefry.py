@@ -164,7 +164,8 @@ def test_drop_masks_embed_narrower_draw(n, na):
     assert np.array_equal(p[:na].numpy(), p_j)
     assert not g[na:].any() and not g[:, na:].any()
     assert not q[na:].any() and not p[na:].any()
-    g2, q2, p2 = drop_masks(rng, t - 1, (False, True), prob, n, n_active=na)
+    g2, q2, p2 = drop_masks(rng, t - 1, (False, True), prob, n, n_active=na,
+                            device="cpu")
     assert not g2[0].any() and not q2[0].any() and not p2[0].any()
     assert torch.equal(g2[1], g) and torch.equal(q2[1], q)
     assert torch.equal(p2[1], p)
