@@ -57,6 +57,7 @@ from ..config import SimConfig
 from ..ops.drop import LaneDrop
 from ..state import (SCHED_ARRAYS, WorldState, make_schedule_host,
                      pad_schedule_host, resolve_device, slice_schedule)
+from ..utils import spans
 from ..utils.threefry import prng_key
 from .sim import (SimResult, _finish_masks_host, _pack_sparse, sparse_cap,
                   to_host_async)
@@ -243,8 +244,13 @@ class FleetResult:
     its device; events, counters and metrics are host numpy.  Filler lanes (``n_real``) are never unstacked;
     ``padded_batch`` / ``occupancy`` record the padding.  ``wall_seconds
     == pack_seconds + device_seconds + fetch_seconds``: staging and
-    enqueueing the run, the wait for its end on the device, and the
-    copy back and unstack.
+    enqueueing the run, the launch's end to the host's wait for it
+    returning, and the copy back and unstack.  ``device_seconds`` is
+    not the run's device time: when the caller waits late (a pipelined
+    service resolving a batch only when a later one displaces it) it
+    also holds the wait behind earlier runs on the stream and the time
+    the finished run sat before the host came to wait.  The device time
+    is the ``fleet.device`` span (utils/spans.py).
     """
 
     lanes: list
@@ -457,12 +463,13 @@ class FleetLeg:
             fetch_seconds=self.fetch_seconds)
 
 
-def _record_event(device: torch.device):
+def _record_event(device: torch.device, timing: bool = False):
     """A CUDA event recorded on the device's stream (None on the CPU,
-    where every operation has finished when it returns)."""
+    where every operation has finished when it returns); ``timing``
+    makes it one that ``elapsed_time`` can read."""
     if device.type != "cuda":
         return None
-    ev = torch.cuda.Event()
+    ev = torch.cuda.Event(enable_timing=timing)
     ev.record(torch.cuda.current_stream(device))
     return ev
 
@@ -527,36 +534,79 @@ class PendingFleet:
     def resolve(self) -> FleetResult:
         if self._resolve_fn is not None:
             self.wait()
-            self._result = self._resolve_fn()
+            with spans.span("fleet.fetch"):
+                self._result = self._resolve_fn()
             self._resolve_fn = None
             self._hold = None
         return self._result
 
 
-def _async_box(device, stage_s: float, enqueue):
-    """The start / wait / probe closures of one launch: ``enqueue()``
+def _async_box(device, t0_ns: int, t1_ns: int, enqueue, ticks: int,
+               lanes: int, padded: int):
+    """The start / wait / probe closures of one launch staged from
+    ``t0_ns`` to ``t1_ns`` (``time.perf_counter_ns``): ``enqueue()``
     returns the run's outputs, which go into the box with the launch
-    times, and an event is recorded behind them."""
-    box: dict = {}
+    times, and an event is recorded behind them.
+
+    While spans record (utils/spans.py), the launch records
+    ``fleet.stage`` and, at its start, ``fleet.enqueue`` (the launches,
+    a block on a full launch queue included), each with ``ticks``,
+    ``lanes`` and ``padded`` and, as parent, the span open at staging (a
+    service dispatch); the run is then bracketed by two timing events,
+    which :func:`_resolved` reads into ``fleet.device``."""
+    box: dict = {"stage_s": (t1_ns - t0_ns) / 1e9}
+    if spans.recording():
+        box["span"] = (spans.next_id(), spans.current(),
+                       dict(ticks=ticks, lanes=lanes, padded=padded))
+        spans.record("fleet.stage", t0_ns, t1_ns, *box["span"])
 
     def start():
-        t_s0 = time.perf_counter()
-        box["out"] = enqueue()
-        box["event"] = _record_event(device)
-        box["t_launch"] = time.perf_counter()
-        box["pack"] = stage_s + (box["t_launch"] - t_s0)
+        sp = box.get("span")
+        ev0 = _record_event(device, timing=True) if sp else None
+        with spans.span("fleet.enqueue"):
+            t_s0 = time.perf_counter_ns()
+            box["out"] = enqueue()
+            box["event"] = _record_event(device, timing=sp is not None)
+            box["t_launch"] = time.perf_counter_ns()
+        box["pack"] = box["stage_s"] + (box["t_launch"] - t_s0) / 1e9
+        if sp:
+            box["ev0"], box["t_s0"] = ev0, t_s0
+            spans.record("fleet.enqueue", t_s0, box["t_launch"], *sp)
 
     def wait():
         if "t_ready" not in box:
             if box["event"] is not None:
                 box["event"].synchronize()
-            box["t_ready"] = time.perf_counter()
+            box["t_ready"] = time.perf_counter_ns()
 
     def probe():
         return "t_ready" in box or box["event"] is None \
             or box["event"].query()
 
     return box, start, wait, probe
+
+
+def _resolved(box: dict, t_f0: int) -> tuple:
+    """``(pack, execute, fetch)`` seconds of a resolved launch whose fetch
+    began at ``t_f0`` (``perf_counter_ns``) and ends now (``execute``:
+    :attr:`FleetResult.device_seconds`).  While the launch records
+    spans, this adds ``fleet.fetch`` and ``fleet.device``: the device
+    time between the launch's two events (read after the wait, so no
+    synchronization is added), placed to end when the wait returned; on
+    the CPU, where the run executes inside ``enqueue``, the enqueue's
+    own span."""
+    t_f1 = time.perf_counter_ns()
+    sp = box.get("span")
+    if sp is not None:
+        spans.record("fleet.fetch", t_f0, t_f1, *sp)
+        if box["ev0"] is None:
+            d0, d1 = box["t_s0"], box["t_launch"]
+        else:
+            d1 = box["t_ready"]
+            d0 = d1 - round(box["ev0"].elapsed_time(box["event"]) * 1e6)
+        spans.record("fleet.device", d0, d1, *sp)
+    return (box["pack"], (box["t_ready"] - box["t_launch"]) / 1e9,
+            (t_f1 - t_f0) / 1e9)
 
 
 class FleetSimulation:
@@ -785,23 +835,23 @@ class FleetSimulation:
             run(self._init_stacked(cfgs, width), st)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        scheds, staged = stage()
-        states0 = self._init_stacked(cfgs, width)
-        stage_s = time.perf_counter() - t0
+        with spans.span("fleet.stage"):
+            t0 = time.perf_counter_ns()
+            scheds, staged = stage()
+            states0 = self._init_stacked(cfgs, width)
+            t1 = time.perf_counter_ns()
 
         def enqueue():
             final, ev = run(states0, staged)
             sr = torch.stack([ev.sent, ev.recv])[:, :, :nr]
             return final, to_host_async(sr)
 
-        box, start, wait, probe = _async_box(self.device, stage_s, enqueue)
+        box, start, wait, probe = _async_box(self.device, t0, t1, enqueue,
+                                             total, nr, len(cfgs))
 
         def resolve():
             final, sr_h = box["out"]
-            pack = box["pack"]
-            execute = box["t_ready"] - box["t_launch"]
-            t_f0 = time.perf_counter()
+            t_f0 = time.perf_counter_ns()
             if final.tick != total:
                 raise RuntimeError("fleet bench did not complete all ticks")
             sr = sr_h.numpy()
@@ -821,7 +871,7 @@ class FleetSimulation:
                     final_state=fs, wall_seconds=0.0,
                     counter_stream_width=bench_stream_width(c)))
             _check_unstacked(lanes, nr)
-            fetch = time.perf_counter() - t_f0
+            pack, execute, fetch = _resolved(box, t_f0)
             wall = pack + execute + fetch
             for lane in lanes:
                 lane.wall_seconds = wall
@@ -831,7 +881,8 @@ class FleetSimulation:
                 device_seconds=execute, pack_seconds=pack,
                 fetch_seconds=fetch)
 
-        pending = PendingFleet(resolve, stage_s, hold=(states0, staged, box),
+        pending = PendingFleet(resolve, box["stage_s"],
+                               hold=(states0, staged, box),
                                start_fn=start, wait_fn=wait, probe_fn=probe)
         if not defer:
             pending.start()
@@ -930,15 +981,19 @@ class FleetSimulation:
         b = len(cfgs)
         end = start + length
         shared = _shared_drop(cfgs)
-        t0 = time.perf_counter()
-        scheds = self._lane_schedules(cfgs)
-        staged = self._stage_dense(cfgs, scheds, shared)
-        if cks is None:
-            states0 = self._init_stacked(cfgs, self.cfg.n)
-        else:
-            states0 = self._resume_states(cks + [cks[0]] * (b - nr),
-                                          WorldState, start)
-        chunk = self._chunk(length, b)
+        with spans.span("fleet.stage"):
+            t0 = time.perf_counter_ns()
+            scheds = self._lane_schedules(cfgs)
+            staged = self._stage_dense(cfgs, scheds, shared)
+            if cks is None:
+                states0 = self._init_stacked(cfgs, self.cfg.n)
+            else:
+                states0 = self._resume_states(cks + [cks[0]] * (b - nr),
+                                              WorldState, start)
+            chunk = self._chunk(length, b)
+            if chunk >= length:
+                run = self._dense_fn("trace", b, length, self.cfg.n, shared)
+            t1 = time.perf_counter_ns()
 
         def finish(final, chunks, pack, execute, fetch):
             if leg:
@@ -956,30 +1011,24 @@ class FleetSimulation:
                                fetch_seconds=fetch)
 
         if chunk >= length:
-            run = self._dense_fn("trace", b, length, self.cfg.n, shared)
-            stage_s = time.perf_counter() - t0
-
             def enqueue():
                 states, ev = run(states0, staged)
                 return states, self._dense_trace_stage_device(ev, length, nr)
 
-            box, start_fn, wait, probe = _async_box(self.device, stage_s,
-                                                    enqueue)
+            box, start_fn, wait, probe = _async_box(self.device, t0, t1,
+                                                    enqueue, length, nr, b)
 
             def resolve():
                 states, stage = box["out"]
-                pack = box["pack"]
-                execute = box["t_ready"] - box["t_launch"]
-                t_f0 = time.perf_counter()
+                t_f0 = time.perf_counter_ns()
                 if states.tick != end:
                     raise RuntimeError(
                         f"fleet trace stopped at tick {states.tick}, "
                         f"expected {end}")
                 chunk_h = self._dense_trace_finish_host(stage, nr)
-                fetch = time.perf_counter() - t_f0
-                return finish(states, [chunk_h], pack, execute, fetch)
+                return finish(states, [chunk_h], *_resolved(box, t_f0))
 
-            pending = PendingFleet(resolve, stage_s,
+            pending = PendingFleet(resolve, box["stage_s"],
                                    hold=(states0, staged, box),
                                    start_fn=start_fn, wait_fn=wait,
                                    probe_fn=probe)
@@ -987,7 +1036,7 @@ class FleetSimulation:
                 pending.start()
             return pending
         # multi-chunk: the chunk loop runs here
-        pack = time.perf_counter() - t0
+        pack = (t1 - t0) / 1e9
         chunks = []
         t_dev = 0.0
         states = states0
@@ -1006,7 +1055,7 @@ class FleetSimulation:
         if states.tick != end:
             raise RuntimeError(f"fleet trace stopped at tick {states.tick}, "
                                f"expected {end}")
-        wall = time.perf_counter() - t0
+        wall = (time.perf_counter_ns() - t0) / 1e9
         result = finish(states, chunks, pack, t_dev,
                         max(0.0, wall - pack - t_dev))
         return PendingFleet(lambda: result, pack)
@@ -1168,22 +1217,22 @@ class FleetSimulation:
                 [make_overlay_schedule(c) for c in cfgs])
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        scheds = [make_overlay_schedule(c) for c in cfgs]
-        states0 = self._overlay_init_stacked(b)
-        stage_s = time.perf_counter() - t0
+        with spans.span("fleet.stage"):
+            t0 = time.perf_counter_ns()
+            scheds = [make_overlay_schedule(c) for c in cfgs]
+            states0 = self._overlay_init_stacked(b)
+            t1 = time.perf_counter_ns()
 
         def enqueue():
             final, metrics = run(states0, scheds)
             return final, _metrics_to_host_async(metrics, nr)
 
-        box, start, wait, probe = _async_box(self.device, stage_s, enqueue)
+        box, start, wait, probe = _async_box(self.device, t0, t1, enqueue,
+                                             total, nr, b)
 
         def resolve():
             final, mets = box["out"]
-            execute = box["t_ready"] - box["t_launch"]
-            pack = box["pack"]
-            t_f0 = time.perf_counter()
+            t_f0 = time.perf_counter_ns()
             if final.tick != total:
                 raise RuntimeError("fleet overlay run did not complete")
             mets = _metrics_numpy(mets)
@@ -1192,7 +1241,7 @@ class FleetSimulation:
                 metrics=_lane_metrics(mets, i), wall_seconds=0.0)
                 for i, c in enumerate(cfgs[:nr])]
             _check_unstacked(lanes, nr)
-            fetch = time.perf_counter() - t_f0
+            pack, execute, fetch = _resolved(box, t_f0)
             wall = pack + execute + fetch
             for lane in lanes:
                 lane.wall_seconds = wall
@@ -1201,7 +1250,7 @@ class FleetSimulation:
                                device_seconds=execute,
                                pack_seconds=pack, fetch_seconds=fetch)
 
-        pending = PendingFleet(resolve, stage_s, hold=(states0, box),
+        pending = PendingFleet(resolve, box["stage_s"], hold=(states0, box),
                                start_fn=start, wait_fn=wait,
                                probe_fn=probe)
         if not defer:
@@ -1216,34 +1265,33 @@ class FleetSimulation:
         b = len(cfgs)
         end = start + length
         run = self._overlay_fleet_fn(b, length=length, start_tick=start)
-        t0 = time.perf_counter()
-        scheds = [make_overlay_schedule(c) for c in cfgs]
-        if cks is None:
-            states0 = self._overlay_init_stacked(b)
-        else:
-            states0 = self._resume_states(cks + [cks[0]] * (b - nr),
-                                          OverlayState, start)
-        stage_s = time.perf_counter() - t0
+        with spans.span("fleet.stage"):
+            t0 = time.perf_counter_ns()
+            scheds = [make_overlay_schedule(c) for c in cfgs]
+            if cks is None:
+                states0 = self._overlay_init_stacked(b)
+            else:
+                states0 = self._resume_states(cks + [cks[0]] * (b - nr),
+                                              OverlayState, start)
+            t1 = time.perf_counter_ns()
 
         def enqueue():
             final, metrics = run(states0, scheds)
             return final, _metrics_to_host_async(metrics, nr)
 
-        box, start_fn, wait, probe = _async_box(self.device, stage_s,
-                                                enqueue)
+        box, start_fn, wait, probe = _async_box(self.device, t0, t1,
+                                                enqueue, length, nr, b)
 
         def resolve():
             final, mets = box["out"]
-            execute = box["t_ready"] - box["t_launch"]
-            pack = box["pack"]
-            t_f0 = time.perf_counter()
+            t_f0 = time.perf_counter_ns()
             if final.tick != end:
                 raise RuntimeError(
                     f"fleet leg stopped at tick {final.tick}, "
                     f"expected {end}")
             mets = _metrics_numpy(mets)
             host = _state_to_host(final)
-            fetch = time.perf_counter() - t_f0
+            pack, execute, fetch = _resolved(box, t_f0)
             wall = pack + execute + fetch
             new = self._advance_checkpoints(
                 cks, cfgs, mode, end, nr,
@@ -1254,7 +1302,7 @@ class FleetSimulation:
                             device_seconds=execute, fetch_seconds=fetch,
                             padded_batch=b)
 
-        pending = PendingFleet(resolve, stage_s, hold=(states0, box),
+        pending = PendingFleet(resolve, box["stage_s"], hold=(states0, box),
                                start_fn=start_fn, wait_fn=wait,
                                probe_fn=probe)
         if not defer:

@@ -82,6 +82,7 @@ from ..core.fleet import FleetLeg
 from ..core.tick import run_build_count
 from ..models.segments import cut_for_budget
 from ..state import resolve_device
+from ..utils import spans
 from .bucket import bucket_key, pad_configs
 from .cache import ProgramCache
 from .faults import FaultInjector, InjectedCompileFailure, \
@@ -102,6 +103,11 @@ from .types import MODES, RequestHandle, RequestMetrics, SimRequest
 PAD_POLICIES = ("full", "pow2", "none")
 
 
+def _ns(t: float) -> int:
+    """Seconds of the service's clock as the nanoseconds of a span."""
+    return round(t * 1e9)
+
+
 @dataclass
 class _Inflight:
     """One launched-but-unresolved dispatch (one slot of a bucket's
@@ -120,6 +126,10 @@ class _Inflight:
     fault: Optional[str]
     builds: int                           # whole-run builds at launch
     t_q0: float
+    #: the program enqueued and its resolution begun, on the service's
+    #: clock (read only while spans record, utils/spans.py)
+    t_enq: Optional[float] = None
+    t_r: Optional[float] = None
 
 
 class FleetService:
@@ -1060,36 +1070,16 @@ class FleetService:
             self._degrade_batch(key, reqs, t_q0, retries=0)
             return
         idx, fault = self._draw_attempt()
-        builds0 = run_build_count()
-        try:
-            pending, width = self._attempt_launch(key, reqs, fault, idx,
-                                                  defer=True)
-        except Exception as e:
-            # staging failed before any overlap existed; resolve the
-            # independent in-flight batch FIRST so the retry/degrade
-            # path below (backoff sleeps, solo runs) cannot strand it
-            self.resolve_inflight()
+        with spans.span("serve.dispatch", idx):
+            builds0 = run_build_count()
             try:
-                self._recover_batch(key, reqs, t_q0, attempt=1,
-                                    last_err=e, last_idx=idx)
-            except BaseException:
-                self._requeue_unresolved(key, reqs)
-                raise
-            return
-        builds = run_build_count() - builds0
-        if pending.started:
-            # the engine could not defer this launch (multi-chunk
-            # dense traces execute eagerly inside launch()) — there is
-            # no overlap to orchestrate, so fall back to the
-            # synchronous beat: previous batch first, then this one,
-            # never two programs pretending to pipeline
-            self.resolve_inflight()
-            infl = _Inflight(key=key, reqs=reqs, pending=pending,
-                             width=width, idx=idx, fault=fault,
-                             builds=builds, t_q0=t_q0)
-            try:
-                fleet = self._finish_attempt(infl)
+                pending, width = self._attempt_launch(key, reqs, fault, idx,
+                                                      defer=True)
             except Exception as e:
+                # staging failed before any overlap existed; resolve the
+                # independent in-flight batch FIRST so the retry/degrade
+                # path below (backoff sleeps, solo runs) cannot strand it
+                self.resolve_inflight()
                 try:
                     self._recover_batch(key, reqs, t_q0, attempt=1,
                                         last_err=e, last_idx=idx)
@@ -1097,56 +1087,62 @@ class FleetService:
                     self._requeue_unresolved(key, reqs)
                     raise
                 return
-            except BaseException:
-                self._requeue_unresolved(key, reqs)
-                raise
-            self.breaker.record_success(self._base_key(key))
-            self._complete_batch(key, reqs, fleet, width, builds, t_q0,
-                                 retries=0)
-            return
-        for r in reqs:
-            self._handles[r.rid]._launched = True
-        infl = _Inflight(key=key, reqs=reqs, pending=pending,
-                         width=width, idx=idx, fault=fault,
-                         builds=builds, t_q0=t_q0)
-        rkey = self._ring_key(key)
-        ring = self._rings.setdefault(rkey, deque())
-        # the ring beat, in order: (1) if this batch's ring is full,
-        # wait for its OLDEST batch's program to finish WITHOUT
-        # fetching (a ring stall — the only point the pipeline ever
-        # blocks on the device), (2) dispatch this batch's program,
-        # (3) fetch + complete the displaced batch while this one
-        # executes.  A ring with a free slot skips (1) and (3)
-        # entirely: the program starts with zero waiting and
-        # resolution is deferred to a later displacement, harvest, or
-        # flush.
-        prev: Optional[_Inflight] = None
-        if len(ring) >= self.pipeline_depth:
-            prev = ring.popleft()
-            self._ring_stalls += 1
-        ring.append(infl)
-        if prev is not None:
+            builds = run_build_count() - builds0
+            infl = _Inflight(key=key, reqs=reqs, pending=pending,
+                             width=width, idx=idx, fault=fault,
+                             builds=builds, t_q0=t_q0)
+            if pending.started:
+                # the engine could not defer this launch (multi-chunk
+                # dense traces execute eagerly inside launch()) — there
+                # is no overlap to orchestrate, so fall back to the
+                # synchronous beat: previous batch first, then this one,
+                # never two programs pretending to pipeline
+                self._note_enqueued(infl, t_q0)
+                self.resolve_inflight()
+                self._resolve(infl)
+                return
+            for r in reqs:
+                self._handles[r.rid]._launched = True
+            rkey = self._ring_key(key)
+            ring = self._rings.setdefault(rkey, deque())
+            # the ring beat, in order: (1) if this batch's ring is full,
+            # wait for its OLDEST batch's program to finish WITHOUT
+            # fetching (a ring stall — the only point the pipeline ever
+            # blocks on the device), (2) dispatch this batch's program,
+            # (3) fetch + complete the displaced batch while this one
+            # executes.  A ring with a free slot skips (1) and (3)
+            # entirely: the program starts with zero waiting and
+            # resolution is deferred to a later displacement, harvest,
+            # or flush.
+            prev: Optional[_Inflight] = None
+            if len(ring) >= self.pipeline_depth:
+                prev = ring.popleft()
+                self._ring_stalls += 1
+            ring.append(infl)
+            if prev is not None:
+                try:
+                    prev.pending.wait()
+                except Exception:
+                    pass         # surfaces again inside _resolve below
+                except BaseException:
+                    self._requeue_unresolved(prev.key, prev.reqs)
+                    self._abort_inflight()
+                    raise
+            start_err: Optional[Exception] = None
             try:
-                prev.pending.wait()
-            except Exception:
-                pass             # surfaces again inside _resolve below
+                pending.start()
+            except Exception as e:
+                ring.pop()           # infl is the newest slot
+                if not ring:
+                    self._rings.pop(rkey, None)
+                start_err = e
             except BaseException:
-                self._requeue_unresolved(prev.key, prev.reqs)
+                if prev is not None:
+                    self._requeue_unresolved(prev.key, prev.reqs)
                 self._abort_inflight()
                 raise
-        start_err: Optional[Exception] = None
-        try:
-            pending.start()
-        except Exception as e:
-            ring.pop()           # infl is the newest slot
-            if not ring:
-                self._rings.pop(rkey, None)
-            start_err = e
-        except BaseException:
-            if prev is not None:
-                self._requeue_unresolved(prev.key, prev.reqs)
-            self._abort_inflight()
-            raise
+            if start_err is None:
+                self._note_enqueued(infl, t_q0)
         if prev is not None:
             self._resolve(prev)
         if start_err is not None:
@@ -1161,23 +1157,23 @@ class FleetService:
         """Finish one launched dispatch: block + fetch + validate +
         complete the handles; failures re-enter the shared recovery
         path (synchronous retries — the batch is no longer pipelined)."""
-        try:
-            fleet = self._finish_attempt(infl)
-        except Exception as e:
+        with spans.span("serve.collect", infl.idx):
             try:
-                self._recover_batch(infl.key, infl.reqs, infl.t_q0,
-                                    attempt=1, last_err=e,
-                                    last_idx=infl.idx)
+                fleet = self._finish_attempt(infl)
+            except Exception as e:
+                try:
+                    self._recover_batch(infl.key, infl.reqs, infl.t_q0,
+                                        attempt=1, last_err=e,
+                                        last_idx=infl.idx)
+                except BaseException:
+                    self._requeue_unresolved(infl.key, infl.reqs)
+                    raise
+                return
             except BaseException:
                 self._requeue_unresolved(infl.key, infl.reqs)
                 raise
-            return
-        except BaseException:
-            self._requeue_unresolved(infl.key, infl.reqs)
-            raise
-        self.breaker.record_success(self._base_key(infl.key))
-        self._complete_batch(infl.key, infl.reqs, fleet, infl.width,
-                             infl.builds, infl.t_q0, retries=0)
+            self.breaker.record_success(self._base_key(infl.key))
+            self._complete_batch(infl, fleet, retries=0)
 
     def _draw_attempt(self):
         """Allocate the next dispatch-attempt index and consult the
@@ -1199,19 +1195,27 @@ class FleetService:
         """One full synchronous attempt (launch + immediate resolve);
         returns ``(None, idx)`` on success or ``(error, idx)``."""
         idx, fault = self._draw_attempt()
+        t_a0 = self.clock() if retries and spans.recording() else t_q0
         builds0 = run_build_count()
         try:
-            pending, width = self._attempt_launch(key, reqs, fault, idx)
-            builds = run_build_count() - builds0
-            fleet = self._finish_attempt(_Inflight(
-                key=key, reqs=reqs, pending=pending, width=width,
-                idx=idx, fault=fault, builds=builds, t_q0=t_q0))
+            with spans.span("serve.dispatch", idx):
+                pending, width = self._attempt_launch(key, reqs, fault, idx)
+                infl = _Inflight(key=key, reqs=reqs, pending=pending,
+                                 width=width, idx=idx, fault=fault,
+                                 builds=run_build_count() - builds0,
+                                 t_q0=t_q0)
+                self._note_enqueued(infl, t_a0)
         except Exception as e:
             self._note_error(e)
             return e, idx
-        self.breaker.record_success(self._base_key(key))
-        self._complete_batch(key, reqs, fleet, width, builds, t_q0,
-                             retries=retries)
+        with spans.span("serve.collect", idx):
+            try:
+                fleet = self._finish_attempt(infl)
+            except Exception as e:
+                self._note_error(e)
+                return e, idx
+            self.breaker.record_success(self._base_key(key))
+            self._complete_batch(infl, fleet, retries=retries)
         return None, idx
 
     def _recover_batch(self, key: tuple, reqs: list, t_q0: float,
@@ -1320,6 +1324,8 @@ class FleetService:
         """The resolve half: block + fetch, apply the post-execution
         fault boundaries (latency stall, result poisoning), then
         validate.  Returns the FleetResult or raises."""
+        if spans.recording():
+            infl.t_r = self.clock()
         fleet = infl.pending.resolve()
         if infl.fault == "latency":
             dt = self.injector.latency_s(infl.idx)
@@ -1359,8 +1365,44 @@ class FleetService:
                 raise PoisonedLaneError(r.rid, why)
         return fleet
 
-    def _checkpoint_batch(self, key: tuple, reqs: list, leg: FleetLeg,
-                          width: int, builds: int, t_q0: float,
+    # ---- spans (utils/spans.py) ---------------------------------------
+    def _note_enqueued(self, infl: _Inflight, t_a0: float) -> None:
+        """While spans record: the attempt's program is enqueued now;
+        ``serve.dispatch`` runs from the attempt's start ``t_a0`` (the
+        queue's end on a first attempt) to here, under the attempt
+        index as id (the parent of the fleet's ``fleet.stage`` and
+        ``fleet.enqueue``)."""
+        if not spans.recording():
+            return
+        infl.t_enq = self.clock()
+        spans.record("serve.dispatch", _ns(t_a0), _ns(infl.t_enq), infl.idx,
+                     own_clock=self.clock is not time.perf_counter)
+
+    def _note_collected(self, infl: _Inflight, now: float,
+                        final: bool) -> None:
+        """While spans record: the dispatch is collected at ``now``.
+        Each request's ``serve.in_flight`` (the program enqueued to its
+        resolution begun) and, on its final dispatch, ``serve.queue``
+        (submission to the dispatch's first attempt, its
+        ``queue_wait_s``), under its rid with the dispatch's id as
+        parent; the dispatch's ``serve.collect`` (its resolution begun
+        to ``now``, the parent of ``fleet.fetch``).  With the dispatch's
+        ``serve.dispatch`` they tile a request's ``latency_s`` when no
+        attempt failed."""
+        if infl.t_enq is None or infl.t_r is None or not spans.recording():
+            return
+        own = self.clock is not time.perf_counter
+        enq, res = _ns(infl.t_enq), _ns(infl.t_r)
+        for r in infl.reqs:
+            if final:
+                spans.record("serve.queue", _ns(r.submit_s), _ns(infl.t_q0),
+                             r.rid, infl.idx, own_clock=own)
+            spans.record("serve.in_flight", enq, res, r.rid, infl.idx,
+                         own_clock=own)
+        spans.record("serve.collect", res, _ns(now), infl.idx,
+                     own_clock=own)
+
+    def _checkpoint_batch(self, infl: _Inflight, leg: FleetLeg,
                           retries: int) -> None:
         """A non-final leg resolved: snapshot taken.  Attach each
         lane's checkpoint to its request and re-queue the batch under
@@ -1369,6 +1411,10 @@ class FleetService:
         ``pump``/``flush`` dispatches the next leg.  Counted as a
         dispatch (it is one: a compiled program ran) with its own
         wall-decomposition row."""
+        key, reqs, width, builds, t_q0 = (infl.key, infl.reqs, infl.width,
+                                          infl.builds, infl.t_q0)
+        now = self.clock()
+        self._note_collected(infl, now, final=False)
         base = self._base_key(key)
         occupancy = len(reqs) / width
         wall = float(leg.wall_seconds)
@@ -1382,7 +1428,7 @@ class FleetService:
         # leg ran [prev cut, new cut) ticks
         leg_start = reqs[0].resume.tick if reqs[0].resume is not None \
             else 0
-        self._note_tick_wall(base, self.clock() - t_q0,
+        self._note_tick_wall(base, now - t_q0,
                              leg.checkpoints[0].tick - leg_start)
         sub = base + (("resume", leg.checkpoints[0].tick),)
         q = self._queues.setdefault(sub, deque())
@@ -1413,16 +1459,16 @@ class FleetService:
         bs["dispatches"] += 1
         bs["builds"] += builds
 
-    def _complete_batch(self, key: tuple, reqs: list, fleet, width: int,
-                        builds: int, t_q0: float,
+    def _complete_batch(self, infl: _Inflight, fleet,
                         retries: int) -> None:
         if isinstance(fleet, FleetLeg):
             # _finish_attempt converts final legs to FleetResults, so
             # a FleetLeg here is a non-final snapshot: checkpoint +
             # re-queue instead of completing
-            self._checkpoint_batch(key, reqs, fleet, width, builds,
-                                   t_q0, retries)
+            self._checkpoint_batch(infl, fleet, retries)
             return
+        key, reqs, width, builds, t_q0 = (infl.key, infl.reqs, infl.width,
+                                          infl.builds, infl.t_q0)
         occupancy = len(reqs) / width
         # the dispatch wall decomposes into pack (host staging +
         # dispatch) / execute (device wait — under pipelining this
@@ -1445,6 +1491,7 @@ class FleetService:
         # queue by ~the leg count
         leg_wall = pack + device_wait + fetch
         now = self.clock()
+        self._note_collected(infl, now, final=True)
         # fold this dispatch's wall into the bucket's EWMA — the
         # early-flush estimate (service/slo.py) for the NEXT partial
         # batch in this bucket
@@ -1792,6 +1839,14 @@ class FleetService:
         smear one class's tail into another's percentiles),
         ``slo_early_flushes``, and per-tenant shed counts under
         ``tenant_shed``.
+
+        ``mean_device_wait_s`` (each dispatch row's ``device_wait_s``,
+        ``FleetResult.device_seconds``) runs from the program's launch
+        to the host's wait for it returning: in the pipelined service
+        that holds the stream wait behind earlier dispatches and the
+        collection delay besides the run, so it is not device time (the
+        ``fleet.device`` span of utils/spans.py is).  The SLO wall EWMA
+        reads it as a part of the dispatch wall.
         """
         lat = np.asarray(self._latencies, dtype=np.float64)
         occ = np.asarray([d["occupancy"] for d in self._dispatches])
@@ -1833,9 +1888,11 @@ class FleetService:
             if self._dispatches else 0.0,
             # where the per-dispatch wall goes, decomposed honestly
             #: pack (host staging + async dispatch) / execute
-            # (device wait, ``mean_device_wait_s`` — the mesh lever
-            # moves this, and pipelining overlaps the NEXT pack under
-            # it) / fetch (host transfer + unstack).  ``mean_host_s``
+            # (``mean_device_wait_s``, launch to the host's wait
+            # returning: not device time, see the docstring — the mesh
+            # lever moves this, and pipelining overlaps the NEXT pack
+            # under it) / fetch (host transfer + unstack).
+            # ``mean_host_s``
             # = pack + fetch EXACTLY as reported: it is the sum of the
             # two rounded columns (independently rounding all three
             # breaks the identity by up to 1.5e-6); the old key is
