@@ -136,7 +136,9 @@ one line per phase:
    in ``/fleet`` rows: the merge and the epilogue at tick 699 and the
    draw at tick 300 of the B=4 N=4096 bench fleet, K5 on the B=8 fleet,
    each bound B times the per-lane one, the data-dependent terms summed
-   over the lanes), then a ``kernels`` JSON line: per kernel its
+   over the lanes; the K1 vector step (``fused_vector_step``) at tick
+   699 of the 700-tick corner, solo and in a B=8 ``/fleet`` row, bound by
+   the bytes it moves), then a ``kernels`` JSON line: per kernel its
    launches on the main path (phases 3-5, 7 and 8, counters zeroed
    before each path and read after it, bench warm-ups and
    kernel-vs-plain comparisons not counted), its times (``kernel_ms``
@@ -358,6 +360,20 @@ def max_abs_err(a, b) -> float:
     return float((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
+def epilogue_rows(fn, ops) -> dict:
+    """The ``rows=`` keyword of a ``tick_epilogue`` call outside a tick:
+    zeroed sent / recv rows of the ``ops`` shape, onto which the call adds
+    its gossip counts (a tick passes its join traffic).  Empty for a
+    checkout whose wrapper makes its own rows (``--turns``)."""
+    import inspect
+
+    import torch
+    if "rows" not in inspect.signature(fn).parameters:
+        return {}
+    return {"rows": tuple(torch.zeros(ops.shape, dtype=torch.int32,
+                                      device=ops.device) for _ in range(2))}
+
+
 # ------------------------------------------------------------ phase 2
 
 def compare_k1(x: dict, t_remove: int, events=(True, False)) -> dict:
@@ -376,7 +392,8 @@ def compare_k1(x: dict, t_remove: int, events=(True, False)) -> dict:
         e_args = (*m_k, x["gossip"], x["proc"], x["known"], x["hb"], x["ts"],
                   x["gdrop"], x["ops"], x["jrep"], x["jreq"], x["live_hold"],
                   x["t"])
-        o_k = tick_epilogue(*e_args, t_remove=t_remove, with_events=ev)
+        o_k = tick_epilogue(*e_args, t_remove=t_remove, with_events=ev,
+                            **epilogue_rows(tick_epilogue, x["ops"]))
         o_p = tick_epilogue_plain(*e_args, t_remove=t_remove, with_events=ev)
         err["tick_epilogue"] = max(
             err["tick_epilogue"],
@@ -497,6 +514,7 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
 KERNEL_FUNCS = {
     "masked_max3": {"merge_prep_kernel": 1, "masked_max3_kernel": 1},
     "tick_epilogue": {"tick_epilogue_kernel": 1},
+    "fused_vector_step": {"vector_step_kernel": 1},
     "dense_mega_ticks": {"dense_mega_kernel": 1},
     "drop_masks": {"drop_masks_kernel": 1},
     "drop_masks_lanes": {"drop_lanes_kernel": 1},
@@ -756,10 +774,11 @@ def time_k1(x: dict, t_remove: int, with_events: bool, reps: int,
         + 13 * n
     # the cell rule chain is about 40 integer operations per cell
     ep_ops = 40 * n * n
+    rows = epilogue_rows(tick_epilogue, x["ops"])
     out["tick_epilogue"] = dict(
         **kernel_time(lambda: tick_epilogue(*e_args, t_remove=t_remove,
-                                            with_events=with_events), reps,
-                      "tick_epilogue"),
+                                            with_events=with_events, **rows),
+                      reps, "tick_epilogue"),
         plain_ms=cuda_ms(lambda: tick_epilogue_plain(
             *e_args, t_remove=t_remove, with_events=with_events), 3),
         bound=bound(ep_bytes, ep_ops))
@@ -1455,7 +1474,8 @@ def compare_lane_k1(x: dict, t_remove: int) -> dict:
                   x["gdrop"], x["ops"], x["jrep"], x["jreq"], x["live_hold"],
                   x["t"])
         before = tick_epilogue.launches
-        got = tick_epilogue(*e_args, t_remove=t_remove, with_events=ev)
+        got = tick_epilogue(*e_args, t_remove=t_remove, with_events=ev,
+                            **epilogue_rows(tick_epilogue, x["ops"]))
         if tick_epilogue.launches != before + 1:
             raise AssertionError("lane-axis tick_epilogue was not one launch")
         want = tick_epilogue_lanes_plain(*e_args, t_remove=t_remove,
@@ -1613,7 +1633,8 @@ def victim_removal_ticks(res) -> dict:
 
 
 #: the dense fleet's lane-axis kernels (one launch a tick for the fleet)
-FLEET_K1 = ("drop_masks_lanes", "masked_max3", "tick_epilogue")
+FLEET_K1 = ("drop_masks_lanes", "fused_vector_step", "masked_max3",
+            "tick_epilogue")
 
 
 def fleet_runs(main_path) -> dict:
@@ -1817,6 +1838,7 @@ def fleet_runs(main_path) -> dict:
         configs=zcfgs), ("drop_masks_lanes", "masked_max3"), axis=False)
     calls = composable_lanes.calls - before
     if calls != 4 * base.total_ticks or counts.get("tick_epilogue") \
+            or counts.get("fused_vector_step") \
             or counts.get("drop_masks_lanes") != base.total_ticks:
         raise AssertionError(f"zombie fleet route: {calls} lane calls, "
                              f"launches {counts}")
@@ -1884,16 +1906,18 @@ def fleet_timing(dev) -> dict:
             *margs, t_remove=t_remove), 1, warm=0),
         bound=bound_tc(nbytes, 2 * macs))
     e_args = (*m, *a[3:14])
-    got = tick_epilogue(*e_args, t_remove=t_remove, with_events=False)
+    got = tick_epilogue(*e_args, t_remove=t_remove, with_events=False,
+                        **epilogue_rows(tick_epilogue, a[9]))
     want = tick_epilogue_lanes_plain(*e_args, t_remove=t_remove,
                                      with_events=False)
     ep_bytes = n * n * (12 + 8 + 3 + 8 + 2) + 13 * n
+    rows = epilogue_rows(tick_epilogue, a[9])
     out["tick_epilogue"] = dict(
         n=n, batch=b, tick=t_last,
         max_abs_err=max(max_abs_err(x, y) for x, y in zip(got, want)
                         if x is not None),
         **kernel_time(lambda: tick_epilogue(*e_args, t_remove=t_remove,
-                                            with_events=False), 20,
+                                            with_events=False, **rows), 20,
                       "tick_epilogue"),
         plain_ms=cuda_ms(lambda: tick_epilogue_lanes_plain(
             *e_args, t_remove=t_remove, with_events=False), 2),
@@ -1913,6 +1937,59 @@ def fleet_timing(dev) -> dict:
         plain_ms=cuda_ms(lambda: drop_masks_lanes_plain(*da, **dk), 2),
         bound=draw_bound(da[2], da[3], drawn, plan.batch))
     del ep, dr, sim, m, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+#: bytes a peer of the K1 vector step: nine [B, N] inputs (start, fail,
+#: rejoin, own_hb i32; in_group, joinreq, joinrep, qdrop, pdrop u8), ten
+#: output bytes and three output words (csrc/dense_tick.cu)
+VECTOR_BYTES = 4 * 4 + 5 + 10 + 3 * 4
+
+
+def vector_timing(dev) -> dict:
+    """Phase 6's K1 vector step (``fused_vector_step``) on the input of
+    the launches at tick 699 of the N=4096 700-tick bench corner (N=2816):
+    ``solo`` from a solo run, ``fleet`` from a B=8 fleet (the dense
+    sweep's batch); each held against ``vector_step`` on the same tensors
+    and timed, its bound the bytes it moves.  Empty for a checkout
+    without the kernel."""
+    import torch
+
+    from gossip_protocol_tpu_torch.core import tick as tick_mod
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    from gossip_protocol_tpu_torch.core.sim import Simulation
+    from gossip_protocol_tpu_torch.ops import vector as vector_ops
+    if not hasattr(vector_ops, "fused_vector_step"):
+        return {}
+    fused, plain = vector_ops.fused_vector_step, vector_ops.vector_step
+    cfg = bench_cfg(700)
+    t_last = cfg.total_ticks - 1
+    out = {}
+    for key, run in (
+            ("solo", lambda: Simulation(cfg, device="cuda").run_bench(
+                warmup=False)),
+            ("fleet", lambda: FleetSimulation(cfg, device="cuda").run_bench(
+                seeds=range(8), warmup=False))):
+        with capture_calls(tick_mod, "fused_vector_step",
+                           lambda a, k: a[0] == t_last) as seen:
+            run()
+        a, k = seen[0]
+        shape = tuple(a[4].shape)
+        b, n = (shape[0] if len(shape) == 2 else 1), shape[-1]
+        got, want = fused(*a, **k), plain(*a, **k)
+        err = max(max_abs_err(getattr(got, f), getattr(want, f))
+                  for f in vector_ops.VectorStep.__dataclass_fields__)
+        out[key] = dict(
+            n=n, batch=b, tick=t_last, max_abs_err=err,
+            **kernel_time(lambda: fused(*a, **k), 200, "fused_vector_step"),
+            plain_ms=cuda_ms(lambda: plain(*a, **k), 50),
+            bound=bound(VECTOR_BYTES * b * n, 0))
+        say(f"phase 6: fused_vector_step {key} B={b} N={n}: kernel "
+            f"{out[key]['kernel_ms']:.4f} ms, call {out[key]['call_ms']:.4f}"
+            f" ms, plain {out[key]['plain_ms']:.4f} ms, bound "
+            f"{out[key]['bound'][0]:.5f} ms; max abs err {err}")
+        del seen, got, want
     torch.cuda.empty_cache()
     return out
 
@@ -1945,6 +2022,10 @@ def wrappers() -> dict:
     # the fleet's lane-axis draw (a checkout before the fleet has none)
     if hasattr(drop_ops, "drop_masks_lanes"):
         out["drop_masks_lanes"] = drop_ops.drop_masks_lanes
+    # the K1 route's vector step (a checkout before it has none)
+    from gossip_protocol_tpu_torch.ops import vector as vector_ops
+    if hasattr(vector_ops, "fused_vector_step"):
+        out["fused_vector_step"] = vector_ops.fused_vector_step
     return out
 
 
@@ -2090,14 +2171,19 @@ def injected_only(tag: str, m: dict) -> None:
 
 
 class LaneAxisCount:
-    """Counts the K1 pair's lane-axis launches (3-D ``gossip``) by a spy
-    on ``core/tick.py``'s module globals; the wrappers' own counters
-    count every launch."""
+    """Counts the K1 route's lane-axis launches (3-D ``gossip``, 2-D
+    ``in_group``) by a spy on ``core/tick.py``'s module globals; the
+    wrappers' own counters count every launch."""
+
+    #: the lane-axis K1 wrappers: the argument whose rank shows the lane
+    #: axis, and that rank
+    ARG = {"masked_max3": (0, 3), "tick_epilogue": (3, 3),
+           "fused_vector_step": (4, 2)}
 
     def __init__(self):
         from gossip_protocol_tpu_torch.core import tick
         self.tick = tick
-        self.n = {"masked_max3": 0, "tick_epilogue": 0}
+        self.n = {k: 0 for k in self.ARG if hasattr(tick, k)}
 
     def __enter__(self):
         self.orig = {}
@@ -2106,8 +2192,8 @@ class LaneAxisCount:
             self.orig[name] = fn
 
             def spy(*a, _fn=fn, _name=name, **k):
-                g = a[0] if _name == "masked_max3" else a[3]
-                if g.dim() == 3 and g.is_cuda:
+                i, rank = self.ARG[_name]
+                if a[i].dim() == rank and a[i].is_cuda:
                     self.n[_name] += 1
                 return _fn(*a, **k)
             setattr(self.tick, name, spy)
@@ -2188,6 +2274,7 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
                                                           build_trace,
                                                           run_sequential)
     out = {"lane_axis": dict.fromkeys(("masked_max3", "tick_epilogue",
+                                       "fused_vector_step",
                                        "drop_masks_lanes",
                                        "grid_overlay_ticks"), 0)}
 
@@ -2195,8 +2282,8 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
         with LaneAxisCount() as la:
             res, counts = main_path.drive(fn, expect)
         if lane:
-            for k in ("masked_max3", "tick_epilogue"):
-                out["lane_axis"][k] += la.n[k]
+            for k, v in la.n.items():
+                out["lane_axis"][k] += v
             for k in ("drop_masks_lanes", "grid_overlay_ticks"):
                 out["lane_axis"][k] += counts[k]
         out.setdefault("launches", {})[tag] = {k: v for k, v in
@@ -3184,6 +3271,10 @@ def dense_numbers(details: dict) -> dict:
         elif key.startswith("k2"):
             for m in ("ms", "call_ms", "device_ms"):
                 out[f"dense_mega_ticks_n{v['n']}_{m}"] = v.get(m)
+        elif key == "vector":
+            for sub, x in v.items():
+                for m in ("ms", "call_ms"):
+                    out[f"fused_vector_step_{sub}_n{x['n']}_{m}"] = x[m]
         elif key.startswith("draw"):
             out[f"{key}_n{v['n']}_route_ms"] = v["route_ms"]
             for m in ("ms", "call_ms", "device_ms", "library_ms"):
@@ -3382,6 +3473,7 @@ def mesh_phase(main_path, dev, t_start: float, seq7b=None) -> dict:
     mesh's entries ``cuda:0`` (so P shards take turns on one H100: the
     walls here are those of P shards on one card, not of P cards)."""
     out = {"lane_axis": dict.fromkeys(("masked_max3", "tick_epilogue",
+                                       "fused_vector_step",
                                        "drop_masks_lanes",
                                        "grid_overlay_ticks"), 0)}
     label = "shards on one H100"
@@ -3394,8 +3486,8 @@ def mesh_phase(main_path, dev, t_start: float, seq7b=None) -> dict:
         def drive(self, fn, expect):
             with LaneAxisCount() as la:
                 res, counts = outer.drive(fn, expect)
-            for k in ("masked_max3", "tick_epilogue"):
-                out["lane_axis"][k] += la.n[k]
+            for k, v in la.n.items():
+                out["lane_axis"][k] += v
             for k in ("drop_masks_lanes", "grid_overlay_ticks"):
                 out["lane_axis"][k] += counts[k]
             return res, counts
@@ -3876,6 +3968,7 @@ def main(argv=None) -> int:
     if args.dense_only:
         main_path = MainPath()
         details["timing"] = dense_timing(dev, describe=False)
+        details["timing"]["vector"] = vector_timing(dev)
         details["phase3"] = graded_path(main_path)
         details["phase5"] = dense_runs(main_path)
         say(json.dumps(dense_numbers(details)))
@@ -4233,6 +4326,10 @@ def main(argv=None) -> int:
     for name, tm in timing["fleet"].items():
         key = "drop_masks_lanes" if name == "drop_masks" else name
         errs[key] = max(errs[key], tm["max_abs_err"])
+    timing["vector"] = vector_timing(dev)
+    for tm in timing["vector"].values():
+        errs["fused_vector_step"] = max(errs["fused_vector_step"],
+                                        tm["max_abs_err"])
     otiming, oerrs = overlay_timing(ocfg)
     timing.update(otiming)
     for name, e in oerrs.items():
@@ -4318,11 +4415,15 @@ def main(argv=None) -> int:
              {k: timing["boot_powerlaw1m"][k] for k in ("n", "tick")}),
             ("drop_masks", "gossip_protocol_tpu/ops/drop.py:26",
              timing["draw_t300"],
-             {k: timing["draw_t300"][k] for k in ("n", "tick", "s_ticks")})):
+             {k: timing["draw_t300"][k] for k in ("n", "tick", "s_ticks")}),
+            ("fused_vector_step",
+             "none: the vector step of gossip_protocol_tpu/core/tick.py "
+             "make_tick is XLA", timing["vector"]["solo"],
+             {k: timing["vector"]["solo"][k] for k in ("n", "tick")})):
         kernels.append({
             "name": name, "route": "cuda",
             "source": {"masked_max3": src, "tick_epilogue": src,
-                       "dense_mega_ticks": src,
+                       "dense_mega_ticks": src, "fused_vector_step": src,
                        "drop_masks": "gossip_protocol_tpu_torch/csrc/drop.cu"
                        }.get(name, osrc),
             "replaces": replaces, "launches": main_path.total[name],
@@ -4364,6 +4465,8 @@ def main(argv=None) -> int:
             ("tick_epilogue", "tick_epilogue",
              timing["fleet"]["tick_epilogue"]),
             ("drop_masks", "drop_masks_lanes", timing["fleet"]["drop_masks"]),
+            ("fused_vector_step", "fused_vector_step",
+             timing["vector"]["fleet"]),
             ("grid_overlay_ticks", "grid_overlay_ticks",
              timing["k5_fleet"])):
         base = next(k for k in kernels if k["name"] == name)

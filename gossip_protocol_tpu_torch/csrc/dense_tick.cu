@@ -14,6 +14,13 @@
 //                      whole ticks per call as one cooperative persistent
 //                      launch (vector step, churn wipe, masked_max3,
 //                      epilogue), its phases separated by grid barriers.
+//   gp_vector_step     the per-peer vector step of a K1 tick (ops/vector.py
+//                      vector_step).  It replaces no Pallas kernel: the JAX
+//                      package's vector step is XLA (core/tick.py
+//                      make_tick).  It exists for the host's launch budget:
+//                      in plain torch the step is ~50 elementwise launches
+//                      and two sums a tick, which the host issues slower
+//                      than the card runs them.
 //
 // The K1 pair also takes a leading lane axis: B independent N x N
 // simulations of a fleet at one shared clock (gossip_protocol_tpu_torch/
@@ -69,10 +76,18 @@
 //   the ragged tail masked); the transposed read of the gossip plane
 //   (receiver r consumes gossip[s, r]) goes through a shared-memory tile so
 //   every global read stays coalesced; the row sums are a warp reduction
-//   and one atomicAdd per row and block, onto rows K1's entry zeroes on
-//   the stream or K2 seeded with the join traffic.  Where one block spans
-//   a whole row (N <= 128: the graded N=10 runs) K1's kernel stores the
-//   sums instead, so such a tick issues no memset.
+//   and one atomicAdd per row and block, onto rows the vector step seeded
+//   with the join traffic (K1's vector_step_kernel, K2's vec_rows), so a
+//   tick issues no memset.
+// * the K1 vector step moves ~43 bytes a peer (nine [B, N] inputs of 21
+//   bytes, 10 output bytes and three output words): 0.97 MB a fleet tick at
+//   B=8, N=2816, under a microsecond at 3.35 TB/s, so a launch's latency
+//   bounds it.  Design: one block a lane, its threads striding over the
+//   peers; the introducer's two sums (JOINREP sent, JOINREQ consumed) are a
+//   block reduction added onto peer 0's rows by the thread that wrote them.
+//   It writes the join share of the tick's sent / recv rows, and the
+//   epilogue adds the gossip counts onto them.  Churn and flap are
+//   template flags, so a launch without them reads neither.
 // * K2 on the TPU kept the whole state in 110 MB of VMEM.  An SM has
 //   227 KB of shared memory, so here the state stays in HBM/L2 (the N=896
 //   planes are 9 MB) and a call is one cooperative launch of a persistent
@@ -108,9 +123,15 @@ constexpr int EP_ROWS = 32;     // epilogue tile rows (8 warps x 4)
 constexpr int EP_COLS = 128;    // epilogue tile columns (32 lanes x 4)
 constexpr int EP_THREADS = 256;
 constexpr int K2_THREADS = 256;   // = MM_THREADS = EP_THREADS
+constexpr int VS_THREADS = 1024;  // the K1 vector step: a lane's block
 
 // per-tick vector lanes written by the K2 vector step (u8[VEC_LANES, N])
 enum { V_PROC = 0, V_OPS, V_JREP, V_JREQ, V_HOLD, V_REJOIN, VEC_LANES };
+// outputs of the K1 route's vector step: bytes u8[S_LANES, B, N] and
+// words i32[I_LANES, B, N] (ops/vector.py fused_vector_step)
+enum { S_PROC = 0, S_FAILED, S_REJOIN, S_JREQ, S_JREP, S_HOLD, S_OPS,
+       S_IN_GROUP, S_JOINREQ, S_JOINREP, S_LANES };
+enum { I_OWN_HB = 0, I_SENT, I_RECV, I_LANES };
 // aux lanes (ops/pallas/dense_mega.py)
 enum { A_IN_GROUP = 0, A_OWN_HB, A_JOINREQ, A_JOINREP, A_START, A_FAIL,
        A_REJOIN, AUX_LANES = 8 };
@@ -503,8 +524,8 @@ __device__ __forceinline__ bool byte_of(uint32_t v, int e) {
 // One block owns a 32-row x 128-column tile: warp w takes rows w, w + 8,
 // w + 16, w + 24, lane l columns 4 l .. 4 l + 3.  known/hb/ts may alias
 // their outputs (each cell reads only itself); gossip must not (the
-// transposed read looks at other rows).  sent_row/recv_row are stored
-// when store_rows (one column block), else added to.
+// transposed read looks at other rows).  The tile's counts are added
+// onto sent_row/recv_row.
 template <bool VEC>
 __device__ __forceinline__ void epilogue_tile(
     const int32_t* m_all, const int32_t* m_fresh, const int32_t* t_fresh,
@@ -514,7 +535,7 @@ __device__ __forceinline__ void epilogue_tile(
     const uint8_t* hold, uint8_t* known_o, int32_t* hb_o, int32_t* ts_o,
     uint8_t* gossip_o, int32_t* sent_row, int32_t* recv_row,
     uint8_t* added_o, uint8_t* removed_o, int n, int t, int t_remove,
-    int store_rows, int bx, int by) {
+    int bx, int by) {
   __shared__ __align__(16) uint8_t gT[EP_ROWS][EP_COLS];  // gossip[j, r]
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int j0 = bx * EP_COLS, r0 = by * EP_ROWS;
@@ -584,13 +605,8 @@ __device__ __forceinline__ void epilogue_tile(
       recv += __shfl_down_sync(0xffffffffu, recv, off);
     }
     if (lane == 0) {
-      if (store_rows) {
-        sent_row[r] = sent;
-        recv_row[r] = recv;
-      } else {
-        if (sent) atomicAdd(&sent_row[r], sent);
-        if (recv) atomicAdd(&recv_row[r], recv);
-      }
+      if (sent) atomicAdd(&sent_row[r], sent);
+      if (recv) atomicAdd(&recv_row[r], recv);
     }
   }
 }
@@ -615,7 +631,7 @@ tick_epilogue_kernel(const int32_t* __restrict__ m_all,
                      int32_t* __restrict__ recv_row,
                      uint8_t* __restrict__ added_o,
                      uint8_t* __restrict__ removed_o,
-                     int n, int t, int t_remove, int store_rows) {
+                     int n, int t, int t_remove) {
   // lane blockIdx.z of a fleet (B = 1 solo): its planes, vectors and rows
   const size_t lane = blockIdx.z, o = lane * n * (size_t)n, v = lane * n;
   epilogue_tile<VEC>(m_all + o, m_fresh + o, t_fresh + o, gossip + o,
@@ -624,7 +640,46 @@ tick_epilogue_kernel(const int32_t* __restrict__ m_all,
                      ts_o + o, gossip_o + o, sent_row + v, recv_row + v,
                      added_o ? added_o + o : nullptr,
                      removed_o ? removed_o + o : nullptr, n, t, t_remove,
-                     store_rows, blockIdx.x, blockIdx.y);
+                     blockIdx.x, blockIdx.y);
+}
+
+// One peer's decisions at tick t (ops/vector.py vector_step, in its
+// order): peer i with its schedule column start, its fail and restart
+// flags this tick, its state lanes, its JOINREQ / JOINREP drop draws and
+// the introducer's gates proc0 / failed0.  K2's vector step and the K1
+// route's vector_step_kernel both apply it, so the rules cannot drift apart.
+struct PeerStep {
+  bool proc, hold, jreq, jrep, ops, in_group, joinreq, joinrep;
+  bool joinreq_sent, joinrep_sent;
+  int32_t own_hb;
+};
+
+__device__ __forceinline__ PeerStep peer_step(int i, int t, int32_t start,
+                                              bool failed, bool rejoining,
+                                              bool in_group, int32_t own_hb,
+                                              bool joinreq, bool joinrep,
+                                              bool qdrop, bool pdrop,
+                                              bool proc0, bool failed0) {
+  PeerStep s;
+  // recvLoop/nodeLoop gate; a rejoining peer restarts from a fresh nodeStart
+  s.proc = t > start && !failed;
+  const bool in_group0 = in_group && !rejoining;
+  const int32_t own_hb0 = rejoining ? 0 : own_hb;
+  // the join traffic consumed this tick
+  s.jreq = joinreq && proc0;
+  s.jrep = joinrep && s.proc;
+  const bool starting = t == start || rejoining;
+  s.in_group = in_group0 || s.jrep || (starting && i == 0);
+  s.ops = s.proc && s.in_group;
+  s.own_hb = own_hb0 + s.ops;
+  // ENsend drop injection; undelivered messages stay in flight while
+  // their receiver is not processing
+  s.joinreq_sent = starting && i != 0 && !qdrop;
+  s.joinrep_sent = s.jreq && !pdrop;
+  s.hold = !s.proc && !failed;
+  s.joinreq = s.joinreq_sent || (joinreq && !proc0 && !failed0);
+  s.joinrep = s.joinrep_sent || (joinrep && s.hold);
+  return s;
 }
 
 // K2's per-tick vector step (ops/pallas/dense_mega.py:146-207 and the
@@ -644,44 +699,108 @@ __device__ __forceinline__ void vec_rows(int32_t* aux, const uint8_t* qdrop,
   int my_rep = 0, my_req = 0;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     int32_t* a = aux + (size_t)i * AUX_LANES;
-    bool in_group0 = a[A_IN_GROUP] > 0;
-    int32_t own_hb0 = a[A_OWN_HB];
-    const bool joinreq0 = a[A_JOINREQ] > 0, joinrep0 = a[A_JOINREP] > 0;
-    const int32_t start = a[A_START], fail = a[A_FAIL], rejoin = a[A_REJOIN];
-    const bool failed = t > fail && t <= rejoin;
-    const bool proc = t > start && !failed;
+    const int32_t rejoin = a[A_REJOIN];
+    const bool failed = t > a[A_FAIL] && t <= rejoin;
     const bool rejoining = can_rejoin && t == rejoin;
-    if (rejoining) { in_group0 = false; own_hb0 = 0; }
-    const bool jreq = joinreq0 && proc0;
-    const bool jrep = joinrep0 && proc;
-    const bool starting = t == start || rejoining;
-    const bool joinreq_new = starting && i != 0;
-    const bool in_group = in_group0 || jrep || (starting && i == 0);
-    const bool ops = proc && in_group;
-    const bool joinreq_sent = joinreq_new && !qdrop[i];
-    const bool joinrep_sent = jreq && !pdrop[i];
-    const bool hold = !proc && !failed;
-    const bool joinreq_next = joinreq_sent || (joinreq0 && !proc0 && !failed0);
-    const bool joinrep_next = joinrep_sent || (joinrep0 && hold);
-    a[A_IN_GROUP] = in_group;
-    a[A_OWN_HB] = own_hb0 + ops;
-    a[A_JOINREQ] = joinreq_next;
-    a[A_JOINREP] = joinrep_next;
-    vec[V_PROC * n + i] = proc;
-    vec[V_OPS * n + i] = ops;
-    vec[V_JREP * n + i] = jrep;
-    vec[V_JREQ * n + i] = jreq;
-    vec[V_HOLD * n + i] = hold;
+    const PeerStep p = peer_step(i, t, a[A_START], failed, rejoining,
+                                 a[A_IN_GROUP] > 0, a[A_OWN_HB],
+                                 a[A_JOINREQ] > 0, a[A_JOINREP] > 0,
+                                 qdrop[i], pdrop[i], proc0, failed0);
+    a[A_IN_GROUP] = p.in_group;
+    a[A_OWN_HB] = p.own_hb;
+    a[A_JOINREQ] = p.joinreq;
+    a[A_JOINREP] = p.joinrep;
+    vec[V_PROC * n + i] = p.proc;
+    vec[V_OPS * n + i] = p.ops;
+    vec[V_JREP * n + i] = p.jrep;
+    vec[V_JREQ * n + i] = p.jreq;
+    vec[V_HOLD * n + i] = p.hold;
     vec[V_REJOIN * n + i] = rejoining;
-    sent_s[i] = joinreq_sent;
-    recv_s[i] = jrep;
-    my_rep += joinrep_sent;
-    my_req += jreq;
+    sent_s[i] = p.joinreq_sent;
+    recv_s[i] = p.jrep;
+    my_rep += p.joinrep_sent;
+    my_req += p.jreq;
   }
   atomicAdd(&rep_total, my_rep);
   atomicAdd(&req_total, my_req);
   __syncthreads();
   if (threadIdx.x == 0) { sent_s[0] += rep_total; recv_s[0] += req_total; }
+}
+
+// The K1 route's vector step (ops/vector.py fused_vector_step): one block a
+// lane (blockIdx.x), its threads striding over the N peers.  The schedule
+// columns, state lanes and draws are [B, N]; the outputs are the bytes
+// out[S_*][B][N] and the words iout[I_*][B][N].  The rows sent / recv get
+// the join traffic, the introducer's two sums added by a block reduction;
+// the epilogue then adds the gossip counts onto them.  CHURN: a peer
+// rejoins at its rejoin tick; FLAP: flap_down / flap_up ([B, N], the flap
+// world's down phase and up-edge at t) add to the failures and rejoins.
+template <bool CHURN, bool FLAP>
+__global__ void __launch_bounds__(VS_THREADS)
+vector_step_kernel(const int32_t* __restrict__ start,
+                   const int32_t* __restrict__ fail,
+                   const int32_t* __restrict__ rejoin,
+                   const uint8_t* __restrict__ in_group,
+                   const int32_t* __restrict__ own_hb,
+                   const uint8_t* __restrict__ joinreq,
+                   const uint8_t* __restrict__ joinrep,
+                   const uint8_t* __restrict__ qdrop,
+                   const uint8_t* __restrict__ pdrop,
+                   const uint8_t* __restrict__ flap_down,
+                   const uint8_t* __restrict__ flap_up,
+                   uint8_t* __restrict__ out, int32_t* __restrict__ iout,
+                   int n, int t) {
+  __shared__ int rep_s[VS_THREADS / 32], req_s[VS_THREADS / 32];
+  const size_t v = (size_t)blockIdx.x * n, plane = (size_t)gridDim.x * n;
+  // the introducer's gates
+  bool failed0 = t > fail[v] && t <= rejoin[v];
+  if (FLAP) failed0 = failed0 || flap_down[v];
+  const bool proc0 = t > start[v] && !failed0;
+  int my_rep = 0, my_req = 0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const size_t o = v + i;
+    bool failed = t > fail[o] && t <= rejoin[o];
+    if (FLAP) failed = failed || flap_down[o];
+    bool rejoining = CHURN && rejoin[o] == t;
+    if (FLAP) rejoining = rejoining || flap_up[o];
+    const PeerStep p = peer_step(i, t, start[o], failed, rejoining,
+                                 in_group[o], own_hb[o], joinreq[o],
+                                 joinrep[o], qdrop[o], pdrop[o], proc0,
+                                 failed0);
+    out[S_PROC * plane + o] = p.proc;
+    out[S_FAILED * plane + o] = failed;
+    out[S_REJOIN * plane + o] = rejoining;
+    out[S_JREQ * plane + o] = p.jreq;
+    out[S_JREP * plane + o] = p.jrep;
+    out[S_HOLD * plane + o] = p.hold;
+    out[S_OPS * plane + o] = p.ops;
+    out[S_IN_GROUP * plane + o] = p.in_group;
+    out[S_JOINREQ * plane + o] = p.joinreq;
+    out[S_JOINREP * plane + o] = p.joinrep;
+    iout[I_OWN_HB * plane + o] = p.own_hb;
+    iout[I_SENT * plane + o] = p.joinreq_sent;
+    iout[I_RECV * plane + o] = p.jrep;
+    my_rep += p.joinrep_sent;
+    my_req += p.jreq;
+  }
+  // the introducer's sums: a warp reduction, then one word a warp
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    my_rep += __shfl_down_sync(0xffffffffu, my_rep, off);
+    my_req += __shfl_down_sync(0xffffffffu, my_req, off);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) { rep_s[warp] = my_rep; req_s[warp] = my_req; }
+  __syncthreads();
+  if (threadIdx.x == 0) {   // the thread that wrote peer 0's rows
+    int rep = 0, req = 0;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) {
+      rep += rep_s[w];
+      req += req_s[w];
+    }
+    iout[I_SENT * plane + v] += rep;
+    iout[I_RECV * plane + v] += req;
+  }
 }
 
 // K2's launch: state planes updated in place (gossip ping-pongs with
@@ -797,7 +916,7 @@ dense_mega_kernel(const __grid_constant__ K2Args a) {
           a.sent + (size_t)s * n, a.recv + (size_t)s * n,
           a.added ? a.added + s * nn : nullptr,
           a.removed ? a.removed + s * nn : nullptr, n, a.t0 + s, a.t_remove,
-          0, i % a.ex, i / a.ex);
+          i % a.ex, i / a.ex);
     phase_sync(grid);
   }
   if (a.s_ticks & 1)   // an odd S leaves the last plane in gossip_tmp
@@ -887,30 +1006,47 @@ cudaError_t launch_epilogue(const int32_t* m_all, const int32_t* m_fresh,
                             int32_t* hb_o, int32_t* ts_o, uint8_t* gossip_o,
                             int32_t* sent_row, int32_t* recv_row,
                             uint8_t* added_o, uint8_t* removed_o, int n,
-                            int b, int t, int t_remove, cudaStream_t stream) {
+                            int b, int t, int t_remove,
+                            cudaStream_t stream) {
   if (b < 1 || b > 65535) return cudaErrorInvalidValue;
   const dim3 grid((n + EP_COLS - 1) / EP_COLS, (n + EP_ROWS - 1) / EP_ROWS,
                   b);
-  // the rows are stored by the kernel when one block spans a row (each
-  // lane's rows by that lane's blocks), else zeroed here, all b lanes'
-  // at once, and added to
-  const int store = grid.x == 1;
-  if (!store) {
-    const size_t row = (size_t)b * n * sizeof(int32_t);
-    cudaError_t err = cudaMemsetAsync(sent_row, 0, row, stream);
-    if (err == cudaSuccess) err = cudaMemsetAsync(recv_row, 0, row, stream);
-    if (err != cudaSuccess) return err;
-  }
   if (n % 4 == 0)
     tick_epilogue_kernel<true><<<grid, EP_THREADS, 0, stream>>>(
         m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop, ops,
         jrep, jreq, hold, known_o, hb_o, ts_o, gossip_o, sent_row, recv_row,
-        added_o, removed_o, n, t, t_remove, store);
+        added_o, removed_o, n, t, t_remove);
   else
     tick_epilogue_kernel<false><<<grid, EP_THREADS, 0, stream>>>(
         m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop, ops,
         jrep, jreq, hold, known_o, hb_o, ts_o, gossip_o, sent_row, recv_row,
-        added_o, removed_o, n, t, t_remove, store);
+        added_o, removed_o, n, t, t_remove);
+  return cudaGetLastError();
+}
+
+// b lanes of n peers, one block a lane; FLAP when flap_down is given
+cudaError_t launch_vector_step(const int32_t* start, const int32_t* fail,
+                               const int32_t* rejoin, const uint8_t* in_group,
+                               const int32_t* own_hb, const uint8_t* joinreq,
+                               const uint8_t* joinrep, const uint8_t* qdrop,
+                               const uint8_t* pdrop, const uint8_t* flap_down,
+                               const uint8_t* flap_up, uint8_t* out,
+                               int32_t* iout, int n, int b, int t, int churn,
+                               cudaStream_t stream) {
+  if (n < 1 || b < 1 || (flap_down == nullptr) != (flap_up == nullptr))
+    return cudaErrorInvalidValue;
+  const int threads = min(VS_THREADS, (n + 31) / 32 * 32);
+#define GP_VECTOR_STEP(C, F)                                              \
+  vector_step_kernel<C, F><<<b, threads, 0, stream>>>(                    \
+      start, fail, rejoin, in_group, own_hb, joinreq, joinrep, qdrop,     \
+      pdrop, flap_down, flap_up, out, iout, n, t)
+  if (flap_down)
+    GP_VECTOR_STEP(true, true);   // the flap world compiles churn in
+  else if (churn)
+    GP_VECTOR_STEP(true, false);
+  else
+    GP_VECTOR_STEP(false, false);
+#undef GP_VECTOR_STEP
   return cudaGetLastError();
 }
 
@@ -943,8 +1079,9 @@ int gp_masked_max3(const uint8_t* gossip, const uint8_t* proc,
       static_cast<cudaStream_t>(stream)));
 }
 
-// b lanes (1 solo), every plane [b, n, n] and vector [b, n]; sent_row and
-// recv_row i32[b, n] are written (zeroed on the stream, then added to)
+// b lanes (1 solo), every plane [b, n, n] and vector [b, n]; the gossip
+// counts are added onto sent_row and recv_row i32[b, n], which hold the
+// tick's join traffic (gp_vector_step's rows) or zeros
 int gp_tick_epilogue(const int32_t* m_all, const int32_t* m_fresh,
                      const int32_t* t_fresh, const uint8_t* gossip,
                      const uint8_t* proc, const uint8_t* known,
@@ -959,6 +1096,23 @@ int gp_tick_epilogue(const int32_t* m_all, const int32_t* m_fresh,
       m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop, ops, jrep,
       jreq, hold, known_o, hb_o, ts_o, gossip_o, sent_row, recv_row, added_o,
       removed_o, n, b, t, t_remove, static_cast<cudaStream_t>(stream)));
+}
+
+// The K1 route's vector step of tick t for b lanes (1 solo) of n peers:
+// start / fail / rejoin i32, in_group / joinreq / joinrep u8 and own_hb
+// i32, qdrop / pdrop u8, each [b, n]; flap_down / flap_up u8[b, n] or both
+// null; out u8[10, b, n] and iout i32[3, b, n] (the S_* and I_* lanes).
+int gp_vector_step(const int32_t* start, const int32_t* fail,
+                   const int32_t* rejoin, const uint8_t* in_group,
+                   const int32_t* own_hb, const uint8_t* joinreq,
+                   const uint8_t* joinrep, const uint8_t* qdrop,
+                   const uint8_t* pdrop, const uint8_t* flap_down,
+                   const uint8_t* flap_up, uint8_t* out, int32_t* iout, int n,
+                   int b, int t, int churn, void* stream) {
+  return static_cast<int>(launch_vector_step(
+      start, fail, rejoin, in_group, own_hb, joinreq, joinrep, qdrop, pdrop,
+      flap_down, flap_up, out, iout, n, b, t, churn,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K2: s_ticks whole ticks from t0 in one cooperative launch.  known/gossip

@@ -47,6 +47,7 @@ SOURCES = {
         "gp_merge_scratch_words": [_I] * 2,
         "gp_tick_epilogue": [_P] * 21 + [_I] * 4 + [_P],
         "gp_dense_mega_ticks": [_P] * 15 + [_I] * 6 + [_P],
+        "gp_vector_step": [_P] * 13 + [_I] * 4 + [_P],
     },
     "drop.cu": {
         "gp_drop_masks": [_P] * 5 + [_U, _U, _I, _U, _U, ctypes.c_float]

@@ -12,14 +12,15 @@ added/removed masks.
 Contract differences from the TPU kernel, both about data movement:
 the delivery is passed as ``gossip`` + ``proc`` (recv_from[r, s] is
 ``gossip[s, r] & proc[r]``, read transposed through shared memory in
-the kernel) instead of a materialized ``recv_from``, and the row's
-gossip receive count comes back beside the sent count.
+the kernel) instead of a materialized ``recv_from``, the row's gossip
+receive count comes back beside the sent count, and both are added onto
+the rows the caller passes (the tick's join traffic, from the K1 route's
+vector step).
 
 On the H100 the kernel is bound by bytes (~36 per cell, see
 csrc/dense_tick.cu): a 2-D grid of 32 x 128 tiles, 4 columns a thread
 (16-byte / 4-byte accesses where N % 4 == 0), the row sums added with
-one atomic per row and block onto rows the C entry zeroes on the stream
-(stored directly where one block spans a row, N <= 128).
+one atomic per row and block onto the rows passed in.
 """
 
 from __future__ import annotations
@@ -96,7 +97,7 @@ def tick_epilogue_lanes_plain(m_all, m_fresh, t_fresh, gossip, proc, known,
 
 def tick_epilogue(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
                   gdrop, ops, jrep, jreq, live_hold, t: int, *,
-                  t_remove: int, with_events: bool = True):
+                  rows, t_remove: int, with_events: bool = True):
     """One tick's post-merge update.
 
     Inputs: the merge maxima i32[N, N] (FILL=-1), ``gossip`` bool[N, N]
@@ -108,6 +109,11 @@ def tick_epilogue(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
     axis on every input ([B, N, N] planes, [B, N] vectors) it updates B
     lanes of a fleet at the shared clock, in one launch on a card.
 
+    ``rows`` is ``(sent, recv)`` i32 of the ``ops`` shape: the tick's
+    rows so far (its join traffic, ``ops/vector.py fused_vector_step``),
+    onto which the gossip counts are added; on a card the kernel adds in
+    place, so the tensors passed come back as the rows.
+
     Returns ``(known', hb', ts', gossip', sent_row, recv_row, added,
     removed)``; the event masks are None without ``with_events``.
     CPU tensors take the plain version; CUDA tensors launch the kernel
@@ -116,26 +122,29 @@ def tick_epilogue(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
     lanes = known.dim() == 3
     if known.device.type == "cpu":
         fn = tick_epilogue_lanes_plain if lanes else tick_epilogue_plain
-        return fn(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts,
-                  gdrop, ops, jrep, jreq, live_hold, t, t_remove=t_remove,
-                  with_events=with_events)
+        out = fn(m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop,
+                 ops, jrep, jreq, live_hold, t, t_remove=t_remove,
+                 with_events=with_events)
+        return out[:4] + tuple((r + s).to(torch.int32)
+                               for r, s in zip(out[4:6], rows)) + out[6:]
     n = known.shape[-1]
     b = known.shape[0] if lanes else 1
     dev = known.device
     ins = (m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop, ops,
            jrep, jreq, live_hold)
+    sent_row, recv_row = rows
     lead = (b,) if lanes else ()
     i32, b8, plane, vec = torch.int32, torch.bool, lead + (n, n), lead + (n,)
     check_args("tick_epilogue", *zip(
-        ins, (i32, i32, i32, b8, b8, b8, i32, i32, b8, b8, b8, b8, b8),
-        (plane,) * 4 + (vec,) + (plane,) * 4 + (vec,) * 4))
+        ins + (sent_row, recv_row),
+        (i32, i32, i32, b8, b8, b8, i32, i32, b8, b8, b8, b8, b8, i32, i32),
+        (plane,) * 4 + (vec,) + (plane,) * 4 + (vec,) * 6))
 
     def out(shape, dt):
         return torch.empty(shape, dtype=dt, device=dev)
 
     known_o, gossip_o = out(plane, torch.bool), out(plane, torch.bool)
     hb_o, ts_o = out(plane, torch.int32), out(plane, torch.int32)
-    sent_row, recv_row = out(vec, torch.int32), out(vec, torch.int32)
     added = out(plane, torch.bool) if with_events else None
     removed = out(plane, torch.bool) if with_events else None
     code = library().gp_tick_epilogue(

@@ -8,9 +8,12 @@ share of the tick's send/receive counters (EmulNet.cpp:111,172).
 
 Counterpart of the vector part of ``gossip_protocol_tpu/core/tick.py``
 ``make_tick`` and of ``ops/pallas/dense_mega.py:146-207, 271-280``.
-The per-tick path (core/tick.py) and K2's plain version
-(ops/cuda/dense_mega.py) both call :func:`vector_step`; K2's CUDA
-``mega_vec_kernel`` (csrc/dense_tick.cu) computes the same per peer.
+:func:`vector_step` is the plain version: the composable worlds, the
+peer-sharded tick and K2's plain version (ops/cuda/dense_mega.py) call
+it.  The K1 route (solo and fleet ticks) calls :func:`fused_vector_step`,
+which on a card is one launch of ``vector_step_kernel``
+(csrc/dense_tick.cu) for every lane; K2's CUDA vector step applies the
+same per-peer rule (``peer_step``).
 """
 
 from __future__ import annotations
@@ -107,3 +110,59 @@ def vector_step(t: int, start, fail, rejoin, in_group, own_hb, joinreq,
                       hold=hold, ops=ops, in_group=in_group_next,
                       own_hb=own_hb_next, joinreq=joinreq_next,
                       joinrep=joinrep_next, sent=sent, recv=recv)
+
+
+#: the kernel's output lanes, in the order of csrc/dense_tick.cu's S_*
+#: (bytes) and I_* (words) enums
+BYTE_LANES = ("proc", "failed", "rejoining", "jreq", "jrep", "hold", "ops",
+              "in_group", "joinreq", "joinrep")
+WORD_LANES = ("own_hb", "sent", "recv")
+
+
+def fused_vector_step(t: int, start, fail, rejoin, in_group, own_hb, joinreq,
+                      joinrep, qdrop, pdrop, *, churn: bool,
+                      flap=None) -> VectorStep:
+    """:func:`vector_step` as one kernel launch on a card, for B lanes
+    ([B, N] arguments) or one ([N]).
+
+    It replaces no TPU kernel (the JAX package's vector step is XLA); it
+    exists for the host's launch budget: the plain step is ~50 elementwise
+    launches and two sums a tick, which pace a dense fleet's host.  The
+    results are :func:`vector_step`'s bit for bit; ``sent`` / ``recv``
+    are the join share of the tick's rows, which ``tick_epilogue(rows=)``
+    completes.  ``churn`` and ``flap`` select the kernel's template flags.
+    CPU tensors take :func:`vector_step`; CUDA tensors launch the kernel
+    (or raise).  Counts every call on ``fused_vector_step.calls`` and
+    every launch on ``.launches``.
+    """
+    from .cuda._build import (check, check_args, count_launch, library,
+                              ptr, stream_ptr)
+    count_launch(fused_vector_step, "calls")
+    if in_group.device.type == "cpu":
+        return vector_step(t, start, fail, rejoin, in_group, own_hb, joinreq,
+                           joinrep, qdrop, pdrop, churn=churn, flap=flap)
+    shape = tuple(in_group.shape)
+    n = shape[-1]
+    b = shape[0] if len(shape) == 2 else 1
+    i32, b8 = torch.int32, torch.bool
+    down, up = (None, None) if flap is None else flap
+    ins = (start, fail, rejoin, in_group, own_hb, joinreq, joinrep, qdrop,
+           pdrop) + (() if flap is None else flap)
+    check_args("fused_vector_step", *zip(
+        ins, (i32, i32, i32, b8, i32) + (b8,) * 6, (shape,) * len(ins)))
+    dev = in_group.device
+    out = torch.empty((len(BYTE_LANES),) + shape, dtype=b8, device=dev)
+    iout = torch.empty((len(WORD_LANES),) + shape, dtype=i32, device=dev)
+    code = library().gp_vector_step(
+        ptr(start), ptr(fail), ptr(rejoin), ptr(in_group), ptr(own_hb),
+        ptr(joinreq), ptr(joinrep), ptr(qdrop), ptr(pdrop), ptr(down),
+        ptr(up), ptr(out), ptr(iout), n, b, int(t), int(churn),
+        stream_ptr(dev))
+    count_launch(fused_vector_step)
+    check(code, "fused_vector_step")
+    return VectorStep(**dict(zip(BYTE_LANES, out)),
+                      **dict(zip(WORD_LANES, iout)))
+
+
+fused_vector_step.launches = 0
+fused_vector_step.calls = 0

@@ -49,6 +49,12 @@ def _k1_inputs(n, case, seed, dev):
         jreq=b(0.2, n), live_hold=b(0.1, n))
 
 
+def _zero_rows(ops):
+    """Zeroed sent / recv rows for an epilogue call outside a tick."""
+    return tuple(torch.zeros(ops.shape, dtype=torch.int32, device=ops.device)
+                 for _ in range(2))
+
+
 def _check_k1(gossip, proc, known, hb, ts, v, t):
     """Both kernels equal their plain versions on one input, the
     epilogue with and without events; each wrapper counts its launch."""
@@ -68,7 +74,8 @@ def _check_k1(gossip, proc, known, hb, ts, v, t):
         args = (*m, gossip, proc, known, hb, ts, v["gdrop"], v["ops"],
                 v["jrep"], v["jreq"], v["live_hold"], t)
         before = tick_epilogue.launches
-        got = tick_epilogue(*args, t_remove=T_REMOVE, with_events=ev)
+        got = tick_epilogue(*args, t_remove=T_REMOVE, with_events=ev,
+                            rows=_zero_rows(v["ops"]))
         assert tick_epilogue.launches == before + 1
         want = tick_epilogue_plain(*args, t_remove=T_REMOVE, with_events=ev)
         torch.cuda.synchronize()
@@ -241,17 +248,19 @@ WORLD_ROUTES = {
                                  partition_groups=2,
                                  partition_open_tick=30,
                                  partition_close_tick=42),
-                   ("drop_masks", "masked_max3", "tick_epilogue"),
+                   ("drop_masks", "fused_vector_step", "masked_max3",
+                    "tick_epilogue"),
                    ("dense_mega_ticks",)),
     "dense_wave": ("dense", dict(max_nnb=64, single_failure=False,
                                  wave_size=6, wave_tick=40, wave_speed=2),
                    ("drop_masks", "dense_mega_ticks"),
-                   ("masked_max3", "tick_epilogue")),
+                   ("fused_vector_step", "masked_max3", "tick_epilogue")),
     "dense_byz_latency": ("dense", dict(max_nnb=32, byz_rate=0.2,
                                         byz_boost=8, link_latency=4,
                                         zombie=True),
                           ("drop_masks", "masked_max3"),
-                          ("tick_epilogue", "dense_mega_ticks")),
+                          ("fused_vector_step", "tick_epilogue",
+                           "dense_mega_ticks")),
     "overlay_gauntlet": ("overlay", dict(
         model="overlay", max_nnb=64, single_failure=False, wave_size=12,
         wave_tick=48, wave_speed=2, partition_groups=2,
@@ -260,7 +269,8 @@ WORLD_ROUTES = {
         flap_close_tick=128, link_latency=3, byz_rate=0.1, byz_boost=4,
         drop_msg=True, msg_drop_prob=0.06, asym_drop=True,
         step_rate=8.0 / 64), (),
-        ("fused_overlay_tick", "mega_overlay_ticks", "grid_overlay_ticks")),
+        ("fused_overlay_tick", "mega_overlay_ticks", "grid_overlay_ticks",
+         "fused_vector_step")),
 }
 
 
@@ -283,9 +293,11 @@ def test_world_routes_cuda_equals_cpu(dev, name):
     from gossip_protocol_tpu_torch.ops.cuda.tickfused import tick_epilogue
     from gossip_protocol_tpu_torch.ops.drop import drop_masks
     from gossip_protocol_tpu_torch.ops.merge import masked_max3
+    from gossip_protocol_tpu_torch.ops.vector import fused_vector_step
     fns = {f.__name__: f for f in (
         drop_masks, masked_max3, tick_epilogue, dense_mega_ticks,
-        fused_overlay_tick, mega_overlay_ticks, grid_overlay_ticks)}
+        fused_overlay_tick, mega_overlay_ticks, grid_overlay_ticks,
+        fused_vector_step)}
     model, kw, used, unused = WORLD_ROUTES[name]
     cfg = SimConfig(seed=3, total_ticks=140, **kw)
     before = {k: f.launches for k, f in fns.items()}
@@ -1020,13 +1032,139 @@ def test_lane_axis_k1_equals_plain(dev, b, n):
                 x["gdrop"], x["ops"], x["jrep"], x["jreq"], x["live_hold"],
                 T)
         before = tick_epilogue.launches
-        got = tick_epilogue(*args, t_remove=T_REMOVE, with_events=ev)
+        got = tick_epilogue(*args, t_remove=T_REMOVE, with_events=ev,
+                            rows=_zero_rows(x["ops"]))
         assert tick_epilogue.launches == before + 1
         want = tick_epilogue_lanes_plain(*args, t_remove=T_REMOVE,
                                          with_events=ev)
         torch.cuda.synchronize()
         for a, w in zip(got, want):
             assert (a is None and w is None) or torch.equal(a, w)
+
+
+@pytest.mark.parametrize("b,n", [(1, 10), (3, 10), (4, 64), (8, 2816)])
+def test_epilogue_adds_onto_seeded_rows(dev, b, n):
+    """``tick_epilogue(rows=)``: the gossip counts added in place onto the
+    seeded rows (N <= 128 too, where one block spans a row), equal to the
+    plain counts plus the seeds."""
+    from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
+        tick_epilogue, tick_epilogue_lanes_plain, tick_epilogue_plain)
+    from gossip_protocol_tpu_torch.ops.merge import masked_max3
+    x = _lane_k1(max(b, 2), n, dev, seed=n + b)
+    if b == 1:
+        x = {k: v[1] for k, v in x.items()}
+    m = masked_max3(x["gossip"], x["proc"], x["known"], x["hb"], x["ts"], T,
+                    t_remove=T_REMOVE)
+    args = (*m, x["gossip"], x["proc"], x["known"], x["hb"], x["ts"],
+            x["gdrop"], x["ops"], x["jrep"], x["jreq"], x["live_hold"], T)
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    seeds = [torch.randint(0, 50, x["ops"].shape, generator=gen,
+                           dtype=torch.int32).to(dev) for _ in range(2)]
+    rows = tuple(r.clone() for r in seeds)
+    got = tick_epilogue(*args, t_remove=T_REMOVE, with_events=True,
+                        rows=rows)
+    plain = tick_epilogue_plain if b == 1 else tick_epilogue_lanes_plain
+    want = plain(*args, t_remove=T_REMOVE, with_events=True)
+    torch.cuda.synchronize()
+    assert got[4] is rows[0] and got[5] is rows[1]
+    for i, (a, w) in enumerate(zip(got, want)):
+        if i in (4, 5):
+            w = w + seeds[i - 4]
+        assert torch.equal(a, w), i
+
+
+def _vector_inputs(b, n, t, dev, seed, churn=False, flap=False):
+    """Vector-step inputs of B lanes at tick ``t``: each lane's schedule
+    of the dense N=4096 10% drop bench run cut to its first ``n`` peers,
+    random state lanes and JOINREQ / JOINREP draws (numpy seed
+    ``seed``); with ``churn``, some peers (lane 0's introducer too) fail
+    and rejoin around ``t``; with ``flap``, random down phases and
+    up-edges."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.state import make_schedule_host
+    rng = np.random.default_rng(seed)
+    cols = []
+    for i in range(b):
+        s = make_schedule_host(SimConfig(
+            max_nnb=4096, single_failure=False, drop_msg=True,
+            msg_drop_prob=0.1, seed=seed + i))
+        cols.append([np.array(getattr(s, k)[:n], np.int32)
+                     for k in ("start_tick", "fail_tick", "rejoin_tick")])
+    start, fail, rejoin = (np.stack(c) for c in zip(*cols))
+    if churn:
+        back = rng.random((b, n)) < 0.2
+        fail[back], rejoin[back] = t - 4, t
+        fail[0, 0], rejoin[0, 0] = t - 1, t + 3
+    x = dict(start=start, fail=fail, rejoin=rejoin,
+             in_group=rng.random((b, n)) < 0.6,
+             own_hb=rng.integers(0, 700, (b, n), dtype=np.int32),
+             joinreq=rng.random((b, n)) < 0.3,
+             joinrep=rng.random((b, n)) < 0.3,
+             qdrop=rng.random((b, n)) < 0.5, pdrop=rng.random((b, n)) < 0.5)
+    x = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+         for k, v in x.items()}
+    flap_in = None
+    if flap:
+        flap_in = tuple(torch.from_numpy(rng.random((b, n)) < p).to(dev)
+                        for p in (0.2, 0.1))
+    return x, flap_in
+
+
+@pytest.mark.parametrize("b,n,t,flags", [
+    (8, 2816, t, "") for t in (0, 1, 100, 101, 300, 301, 699)] + [
+    (8, 2816, 101, "churn"), (8, 2816, 300, "churn"), (8, 2816, 1, "flap"),
+    (8, 2816, 300, "flap"), (1, 2816, 699, ""), (3, 10, 5, "churn"),
+    (2, 1025, 40, "flap")])
+def test_vector_step_kernel_equals_plain(dev, b, n, t, flags):
+    """The K1 route's vector step kernel (one launch for B lanes) ==
+    ``vector_step`` on the same tensors, every field, the introducer's
+    two sums in peer 0's sent / recv included; start, failure and drop
+    window edges of the bench run, churn and flap flags, a solo call."""
+    from gossip_protocol_tpu_torch.ops.vector import (VectorStep,
+                                                      fused_vector_step,
+                                                      vector_step)
+    x, flap = _vector_inputs(b, n, t, dev, seed=7 * t + n,
+                             churn=flags == "churn", flap=flags == "flap")
+    if b == 1:
+        x = {k: v[0] for k, v in x.items()}
+    args = (t, x["start"], x["fail"], x["rejoin"], x["in_group"],
+            x["own_hb"], x["joinreq"], x["joinrep"], x["qdrop"], x["pdrop"])
+    kw = dict(churn=bool(flags), flap=flap)
+    before = fused_vector_step.launches
+    got = fused_vector_step(*args, **kw)
+    assert fused_vector_step.launches == before + 1
+    want = vector_step(*args, **kw)
+    torch.cuda.synchronize()
+    for f in VectorStep.__dataclass_fields__:
+        a, w = getattr(got, f), getattr(want, f)
+        assert a.dtype == w.dtype and torch.equal(a, w), f
+
+
+def test_bench_fleet_whole_run_equals_solo_runs(dev):
+    """A whole 700-tick N=4096 10% drop bench fleet of 8 lanes (the dense
+    sweep's ``launch_bench``, corner 2816) == each lane's solo bench run
+    on the card; the vector step launches once a fleet tick."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    from gossip_protocol_tpu_torch.core.sim import Simulation
+    from gossip_protocol_tpu_torch.ops.vector import fused_vector_step
+    cfg = SimConfig(max_nnb=4096, single_failure=False, drop_msg=True,
+                    msg_drop_prob=0.1, seed=0)
+    seeds = [2_000_000_011 + 97 * i for i in range(8)]
+    before = fused_vector_step.launches
+    fr = FleetSimulation(cfg, device="cuda").launch_bench(
+        seeds=seeds, warmup=False).resolve()
+    assert fused_vector_step.launches - before == cfg.total_ticks
+    for i, s in enumerate(seeds):
+        solo = Simulation(cfg.replace(seed=s), device="cuda").run_bench(
+            warmup=False)
+        for f in ("sent", "recv"):
+            assert np.array_equal(getattr(fr.lanes[i], f),
+                                  getattr(solo, f)), (i, f)
+        for f in ("in_group", "own_hb", "known", "hb", "ts", "gossip",
+                  "gossip_age", "joinreq", "joinrep"):
+            assert torch.equal(getattr(fr.lanes[i].final_state, f).cpu(),
+                               getattr(solo.final_state, f).cpu()), (i, f)
 
 
 @pytest.mark.parametrize("case", ["b3_n10_one_open", "b4_n896_embedded",

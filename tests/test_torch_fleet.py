@@ -334,7 +334,9 @@ def test_lane_axis_plain_kernels(b, n):
                           x["ts"], now, t_remove=t_remove)
     out = tick_epilogue(*m, x["gossip"], x["proc"], x["known"], x["hb"],
                         x["ts"], x["gdrop"], x["ops"], x["jrep"], x["jreq"],
-                        x["hold"], now, t_remove=t_remove)
+                        x["hold"], now, t_remove=t_remove,
+                        rows=(torch.zeros(x["ops"].shape, dtype=torch.int32),
+                              torch.zeros(x["ops"].shape, dtype=torch.int32)))
     assert (merge.masked_max3.launches, tick_epilogue.launches) == before
     for i in range(b):
         recv_from = (x["gossip"][i] & x["proc"][i][None, :]).T.numpy()

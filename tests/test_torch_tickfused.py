@@ -51,13 +51,17 @@ def test_tick_epilogue_plain_equals_pallas_interpret(n, with_events):
         tile_r=64, with_events=with_events, interpret=True)
     t = {k: torch.from_numpy(np.array(v)) for k, v in x.items()}
     before = tick_epilogue.launches
+    seeds = (torch.arange(n, dtype=torch.int32),
+             torch.arange(n, 0, -1, dtype=torch.int32))
     got = tick_epilogue(
         t["m_all"], t["m_fresh"], t["t_fresh"], t["gossip"], t["proc"],
         t["known"], t["hb"], t["ts"], t["gdrop"], t["ops"], t["jrep"],
-        t["jreq"], t["live_hold"], T, t_remove=T_REMOVE,
+        t["jreq"], t["live_hold"], T, rows=seeds, t_remove=T_REMOVE,
         with_events=with_events)
     assert tick_epilogue.launches == before      # CPU: plain version
     known, hb, ts, gossip, sent, recv, added, removed = got
+    # the gossip counts are added onto the rows passed in
+    sent, recv = sent - seeds[0], recv - seeds[1]
     w_known, w_hb, w_ts, w_gossip, w_sent, w_added, w_removed = want
     for a, b in ((known, w_known), (hb, w_hb), (ts, w_ts),
                  (gossip, w_gossip), (sent, w_sent)):

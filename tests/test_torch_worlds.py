@@ -346,11 +346,16 @@ def test_overlay_world_run_equals_jax(name, monkeypatch):
     """Each overlay world: the final state (send_hist included), every
     per-tick metric (live_uncovered included) and the final coverage
     equal the JAX XLA tick's; K3's plain version is never reached."""
-    from gossip_protocol_tpu_torch.ops.cuda import overlay_exchange
+    from gossip_protocol_tpu_torch.ops.cuda import (overlay_exchange,
+                                                    overlay_grid,
+                                                    overlay_mega)
 
     def no_k3(*a, **k):
         raise AssertionError("a world config reached K3")
-    monkeypatch.setattr(overlay_exchange, "fused_overlay_tick_plain", no_k3)
+    # K4's and K5's plain versions hold K3's by name: patched there too,
+    # so each module gets its own function back afterwards
+    for mod in (overlay_exchange, overlay_mega, overlay_grid):
+        monkeypatch.setattr(mod, "fused_overlay_tick_plain", no_k3)
     kw = _overlay(**OVERLAY_WORLDS[name])
     j = jov.OverlaySimulation(JaxConfig(**kw), use_pallas=False).run()
     p = pov.OverlaySimulation(SimConfig(**kw), device="cpu").run()
