@@ -59,8 +59,8 @@ from ..state import (SCHED_ARRAYS, WorldState, make_schedule_host,
                      pad_schedule_host, resolve_device, slice_schedule)
 from ..utils import spans
 from ..utils.threefry import prng_key
-from .sim import (SimResult, _finish_masks_host, _pack_sparse, sparse_cap,
-                  to_host_async)
+from .sim import (SimResult, _finish_masks_host, _pack_sparse, record_event,
+                  sparse_cap, to_host_async)
 from .tick import TickEvents, make_fleet_tick, note_build
 
 
@@ -463,17 +463,6 @@ class FleetLeg:
             fetch_seconds=self.fetch_seconds)
 
 
-def _record_event(device: torch.device, timing: bool = False):
-    """A CUDA event recorded on the device's stream (None on the CPU,
-    where every operation has finished when it returns); ``timing``
-    makes it one that ``elapsed_time`` can read."""
-    if device.type != "cuda":
-        return None
-    ev = torch.cuda.Event(enable_timing=timing)
-    ev.record(torch.cuda.current_stream(device))
-    return ev
-
-
 class PendingFleet:
     """An in-flight fleet: the run is enqueued on the device, its results
     not yet fetched.
@@ -562,11 +551,11 @@ def _async_box(device, t0_ns: int, t1_ns: int, enqueue, ticks: int,
 
     def start():
         sp = box.get("span")
-        ev0 = _record_event(device, timing=True) if sp else None
+        ev0 = record_event(device, timing=True) if sp else None
         with spans.span("fleet.enqueue"):
             t_s0 = time.perf_counter_ns()
             box["out"] = enqueue()
-            box["event"] = _record_event(device, timing=sp is not None)
+            box["event"] = record_event(device, timing=sp is not None)
             box["t_launch"] = time.perf_counter_ns()
         box["pack"] = box["stage_s"] + (box["t_launch"] - t_s0) / 1e9
         if sp:

@@ -37,6 +37,17 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def record_event(device: torch.device, timing: bool = False):
+    """A CUDA event recorded on the device's stream (None on the CPU,
+    where every operation has finished when it returns); ``timing``
+    makes it one that ``elapsed_time`` can read."""
+    if device.type != "cuda":
+        return None
+    ev = torch.cuda.Event(enable_timing=timing)
+    ev.record(torch.cuda.current_stream(device))
+    return ev
+
+
 def to_host_async(x: torch.Tensor) -> torch.Tensor:
     """Start the copy of a device tensor into a pinned host buffer
     (non-blocking; valid once the stream reaches it).  A CPU tensor is

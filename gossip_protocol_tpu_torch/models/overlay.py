@@ -58,12 +58,13 @@ import numpy as np
 import torch
 
 from ..config import INTRODUCER, SimConfig
-from ..core.sim import _sync
+from ..core.sim import _sync, record_event
 from ..ops.cuda.overlay_exchange import fused_overlay_tick
 from ..ops.overlay_rules import (_SALT_DEGREE, ID_BITS, METRIC_FIELDS,
                                  OverlaySchedule, OverlayState, RowColumns,
                                  WorldFlags, exchange_mask, overlay_step)
 from ..state import NEVER, resolve_device
+from ..utils import spans
 from ..utils.hash32 import MASK32, mix32_t, threshold32
 
 #: track the live-coverage histogram per tick only up to this N
@@ -303,7 +304,13 @@ def make_overlay_run(cfg: SimConfig, length: int | None = None, *,
                      start_tick: int | None = None,
                      exchange=fused_overlay_tick):
     """``run(state, sched) -> (final, OverlayMetrics[length])`` with the
-    metrics as tensors on the run's device.
+    metrics as tensors on the run's device.  Its two host phases are
+    ``run.stage(state, sched)``, which builds the run's inputs on the
+    device (the schedule columns, a kernel's packed plane) and returns
+    them as a list, and ``run.enqueue(staged)``, which empties that list
+    (so a packed plane is freed once the first launch has replaced it,
+    as inside ``run``), launches the run and returns what ``run``
+    returns.
 
     Routing: K4 (16 ticks a call, ``models/overlay_mega.py``) where
     ``mega_supported(cfg)`` holds; else K5 (16 ticks a call,
@@ -339,8 +346,12 @@ def make_overlay_run(cfg: SimConfig, length: int | None = None, *,
         return make_grid_run(cfg, length, start_tick=start_tick)
     tick = make_overlay_tick(cfg, exchange)
 
-    def run(state: OverlayState, sched: OverlaySchedule):
-        cols = schedule_columns(sched, cfg.n, state.device)
+    def stage(state: OverlayState, sched: OverlaySchedule):
+        return [state, sched, schedule_columns(sched, cfg.n, state.device)]
+
+    def enqueue(staged):
+        state, sched, cols = staged
+        staged.clear()
         rows = []
         for _ in range(length):
             state, m = tick(state, sched, cols)
@@ -349,6 +360,10 @@ def make_overlay_run(cfg: SimConfig, length: int | None = None, *,
             (0, len(METRIC_FIELDS)), dtype=torch.int32, device=state.device)
         return state, OverlayMetrics.from_rows(met)
 
+    def run(state: OverlayState, sched: OverlaySchedule):
+        return enqueue(stage(state, sched))
+
+    run.stage, run.enqueue = stage, enqueue
     return run
 
 
@@ -544,7 +559,22 @@ class OverlaySimulation:
     ``cuda`` unless ``device="cpu"``.  ``per_tick=True`` takes the
     per-tick route (K3 a tick on a card) whatever the envelopes say, as
     the JAX ``OverlaySimulation(use_pallas=False)``; the default routes
-    as :func:`make_overlay_run`."""
+    as :func:`make_overlay_run`.
+
+    While spans record (utils/spans.py), a run records under one id:
+    ``solo.stage`` (the schedule, the initial state, the run closure and
+    its ``stage``: columns or the packed plane), ``solo.enqueue`` (its
+    ``enqueue``: the launches, the unpack and the metric rows enqueued
+    behind them, a block on a full launch queue included),
+    ``solo.fetch`` (after the wait: the metrics copied to the host) and
+    ``solo.device`` (two timing events around the enqueue, read after
+    the wait; on the CPU, where the run executes inside the enqueue, the
+    enqueue's own interval).  The first three are also profiler ranges.
+    The K5 route adds its calls (16 ticks each) and boot pre-passes to
+    the counters ``solo.k5_launches`` and ``solo.boot_prepass``
+    (``models/overlay_grid.py make_grid_run``).
+    Recording adds no synchronization and leaves ``wall_seconds`` as it
+    is: the stage's packing, the enqueue and the wait for the device."""
 
     def __init__(self, cfg: SimConfig, device=None, per_tick: bool = False):
         if cfg.model != "overlay":
@@ -564,29 +594,57 @@ class OverlaySimulation:
         if profile_dir is not None:
             return self._run_profiled(profile_dir, resume_from, ticks)
         cfg = self.cfg
-        sched = make_overlay_schedule(cfg)
-        state = init_overlay_state(cfg, self.device) if resume_from is None \
-            else resume_from.to(self.device)
-        first = state.tick
-        if first > cfg.total_ticks:
-            raise ValueError(f"resume_from is at tick {first}, past "
-                             f"total_ticks={cfg.total_ticks}")
-        if ticks is not None and ticks < 0:
-            raise ValueError(f"ticks must be >= 0, got {ticks}")
-        t_end = cfg.total_ticks if ticks is None \
-            else min(cfg.total_ticks, first + ticks)
-        # the start tick is known here, so the K5 route segments its plan
-        route = dict(mega=False, grid=False) if self.per_tick else {}
-        run = make_overlay_run(cfg, t_end - first, start_tick=first, **route)
-        _sync(self.device)
-        t0 = time.perf_counter()
-        final, metrics = run(state, sched)
+        timed = spans.recording()
+        t_s0 = time.perf_counter_ns()
+        with spans.span("solo.stage"):
+            sched = make_overlay_schedule(cfg)
+            state = init_overlay_state(cfg, self.device) \
+                if resume_from is None else resume_from.to(self.device)
+            first = state.tick
+            if first > cfg.total_ticks:
+                raise ValueError(f"resume_from is at tick {first}, past "
+                                 f"total_ticks={cfg.total_ticks}")
+            if ticks is not None and ticks < 0:
+                raise ValueError(f"ticks must be >= 0, got {ticks}")
+            t_end = cfg.total_ticks if ticks is None \
+                else min(cfg.total_ticks, first + ticks)
+            # the start tick is known here, so the K5 route segments its
+            # plan
+            route = dict(mega=False, grid=False) if self.per_tick else {}
+            run = make_overlay_run(cfg, t_end - first, start_tick=first,
+                                   **route)
+            _sync(self.device)
+            t0 = time.perf_counter()
+            staged = run.stage(state, sched)
+            t_s1 = time.perf_counter_ns()
+        ev0 = record_event(self.device, timing=True) if timed else None
+        with spans.span("solo.enqueue"):
+            t_e0 = time.perf_counter_ns()
+            final, metrics = run.enqueue(staged)
+            t_e1 = time.perf_counter_ns()
+        ev1 = record_event(self.device, timing=True) if timed else None
         _sync(self.device)
         wall = time.perf_counter() - t0
-        if final.tick != t_end:
-            raise RuntimeError("overlay run did not complete")
-        return OverlayResult(cfg=cfg, sched=sched, final_state=final,
-                             metrics=metrics.to_numpy(), wall_seconds=wall)
+        t_f0 = time.perf_counter_ns()
+        with spans.span("solo.fetch"):
+            if final.tick != t_end:
+                raise RuntimeError("overlay run did not complete")
+            res = OverlayResult(cfg=cfg, sched=sched, final_state=final,
+                                metrics=metrics.to_numpy(),
+                                wall_seconds=wall)
+            t_f1 = time.perf_counter_ns()
+        if spans.recording():
+            sp = (spans.next_id(), spans.current(),
+                  dict(start=first, ticks=t_end - first))
+            spans.record("solo.stage", t_s0, t_s1, *sp)
+            spans.record("solo.enqueue", t_e0, t_e1, *sp)
+            spans.record("solo.fetch", t_f0, t_f1, *sp)
+            d0, d1 = t_e0, t_e1
+            if ev0 is not None:
+                d1 = t_f0
+                d0 = d1 - round(ev0.elapsed_time(ev1) * 1e6)
+            spans.record("solo.device", d0, d1, *sp)
+        return res
 
     def _run_profiled(self, profile_dir: str, resume_from, ticks):
         from torch.profiler import ProfilerActivity, profile

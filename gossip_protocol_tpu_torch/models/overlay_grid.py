@@ -34,6 +34,7 @@ from ..ops.cuda.overlay_grid import (GRID_TICKS, MET_ADDS, MET_FALSE_REMOVALS,
                                      pack_plane, unpack_plane)
 from ..ops.overlay_rules import (ID_BITS, OverlaySchedule, OverlayState,
                                  as_i32, exchange_mask)
+from ..utils import spans
 from .overlay import OverlayMetrics, resolved_dims
 from .segments import plan_segments, step_fraction
 
@@ -180,20 +181,34 @@ def make_grid_run(cfg: SimConfig, length: int,
     not need; bit-identical to the all-live kernel); the returned run
     raises if called with a state at another clock.  ``start_tick=None``
     runs the single all-live segment, valid at any clock.
+
+    ``run.stage`` packs the plane and ``run.enqueue`` launches
+    (:func:`~.overlay.make_overlay_run`).  While spans record
+    (utils/spans.py), each call adds its K5 calls (``GRID_TICKS`` ticks
+    each, one kernel a tick) to the counter ``solo.k5_launches`` and its
+    boot pre-pass (one where the first launch is join-live at a tick >
+    0, which no carried aggregate feeds) to ``solo.boot_prepass``.
     """
     if not grid_supported(cfg):
         raise ValueError("config outside the K5 envelope (grid_supported)")
     f = resolved_dims(cfg)[1]
     kern_kw = grid_kernel_kwargs(cfg, *resolved_dims(cfg))
-    plan = plan_segments(cfg, length, start_tick, GRID_TICKS)
+    launches = list(_launches(plan_segments(cfg, length, start_tick,
+                                            GRID_TICKS)))
 
-    def run(state: OverlayState, sched: OverlaySchedule):
+    def stage(state: OverlayState, sched: OverlaySchedule):
         _clock_guard(start_tick, state.tick, "grid run")
-        plane = pack_grid_plane(cfg, state)
-        t = state.tick
+        return [pack_grid_plane(cfg, state), state.tick, sched]
+
+    def enqueue(staged):
+        plane, t, sched = staged
+        staged.clear()
+        spans.count("solo.k5_launches", len(launches))
+        spans.count("solo.boot_prepass", int(
+            bool(launches) and launches[0][1].join_live and t > 0))
         parts = []
         agg = None      # the boot aggregate carried between launches
-        for s_ticks, flags in _launches(plan):
+        for s_ticks, flags in launches:
             plane2, met, agg = grid_overlay_ticks(
                 plane, _sp_vector(sched, t, s_ticks, cfg.n, f),
                 s_ticks=s_ticks, agg=agg, **kern_kw,
@@ -205,6 +220,10 @@ def make_grid_run(cfg: SimConfig, length: int,
             (0, 128), dtype=torch.int32, device=plane.device)
         return unpack_grid_plane(cfg, plane, t), _metrics(met)
 
+    def run(state: OverlayState, sched: OverlaySchedule):
+        return enqueue(stage(state, sched))
+
+    run.stage, run.enqueue = stage, enqueue
     return run
 
 

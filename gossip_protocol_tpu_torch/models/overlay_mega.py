@@ -86,17 +86,22 @@ def mega_kernel_kwargs(cfg: SimConfig, sched: OverlaySchedule) -> dict:
 
 def make_mega_run(cfg: SimConfig, length: int):
     """``run(state, sched) -> (final, OverlayMetrics[length])`` through
-    whole-SLOT_EPOCH K4 launches and one remainder launch."""
+    whole-SLOT_EPOCH K4 launches and one remainder launch; ``run.stage``
+    packs the plane and ``run.enqueue`` launches
+    (:func:`~.overlay.make_overlay_run`)."""
     if not mega_supported(cfg):
         raise ValueError("config outside the K4 envelope (mega_supported)")
     n = cfg.n
     f = resolved_dims(cfg)[1]
     n_full, rem = divmod(length, MEGA_TICKS)
 
-    def run(state: OverlayState, sched: OverlaySchedule):
+    def stage(state: OverlayState, sched: OverlaySchedule):
+        return [_pack_state(cfg, state, sched), state.tick, sched]
+
+    def enqueue(staged):
+        plane, t, sched = staged
+        staged.clear()
         kern_kw = mega_kernel_kwargs(cfg, sched)
-        plane = _pack_state(cfg, state, sched)
-        t = state.tick
         parts = []
         for s_ticks in [MEGA_TICKS] * n_full + ([rem] if rem else []):
             sp = _sp_vector(cfg, sched, t, s_ticks, n, f)
@@ -116,4 +121,8 @@ def make_mega_run(cfg: SimConfig, length: int):
             sent=met[:, MET_SENT], recv=met[:, MET_RECV])
         return _unpack_state(cfg, plane, t), metrics
 
+    def run(state: OverlayState, sched: OverlaySchedule):
+        return enqueue(stage(state, sched))
+
+    run.stage, run.enqueue = stage, enqueue
     return run
