@@ -228,6 +228,14 @@ one line per phase:
    lap builds no run and starts no nvcc; a launched fleet's wait and
    resolve under the sync-debug mode "error"); any finding fails the run.
 
+Phase 6 also runs the merge's own timing (``merge_timing``): the
+witness ladder's depth, the shares of cells its rungs and its fallback
+close and of the tiles that fall back, and the kernel's
+``merge.tiles`` / ``merge.fallback_tiles`` counters, on every lane of
+the B=8 bench fleet's merges at ticks 300 and 699; the four
+``masked_max3`` rows of PERF.md's kernel table re-timed (solo, asym4096,
+``/fleet``, ``/rect``).  ``--merge-only`` runs phase 1 and that alone.
+
 ``--serving-only`` runs phase 1 and phase 7 alone; ``--mesh-only``
 phase 1, phase 8 and phase 9 (8e's replay then serves 8 seeds a
 template with a sequential leg of its own, 8f runs its single-device
@@ -512,7 +520,7 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
 #: names in a profiler trace) and how many times a call launches each:
 #: a call's kernel time is theirs (K5 is timed on 16-tick calls)
 KERNEL_FUNCS = {
-    "masked_max3": {"merge_prep_kernel": 1, "masked_max3_kernel": 1},
+    "masked_max3": {"merge_prep_kernel": 1, "masked_max3_": 1},
     "tick_epilogue": {"tick_epilogue_kernel": 1},
     "fused_vector_step": {"vector_step_kernel": 1},
     "dense_mega_ticks": {"dense_mega_kernel": 1},
@@ -660,37 +668,40 @@ def k2_launch_input(cfg, a: int, dev) -> tuple[dict, int]:
 def merge_stats(x: dict, t_remove: int) -> dict:
     """What the masked_max3 descent needs at one launch input, from its
     plain mirror (``ops/merge.py masked_max3_descent``, also held equal
-    to the plain version here): the deliveries; per plane the distinct
-    positive values a column holds among the senders that deliver at
-    all, the products the tiles run (pre-resolve included), and the
-    share of cells the pre-resolve finishes; the share of empty (so
-    skipped) 32-sender x 64-receiver delivery slabs in the earlier int32
-    product-max design; and two bounds.  ``bound`` is the descent's: the
-    bytes the function needs (gossip and proc read, known/hb/ts only in
-    the rows of senders that deliver, three i32 maxima written) over
-    3.35 TB/s, or the s8 MACs of the products the tiles run (tile x live
-    senders x products) at 1,979 T int8 operations/s, the larger.
-    ``int32_bound`` counts the same bytes beside the product-max's
-    3 D N maxima on the INT32 lanes."""
+    to the plain version here): the deliveries; whether the launch builds
+    the witness ladder and its depth (``ladder_rungs``); per plane the
+    distinct positive values a column holds among the senders that
+    deliver at all, the descent's products each tile runs (rungs, level
+    0 and any fallback level: ``descent_products``), the 32-sender words
+    they multiply, and the shares of the cells the rungs close, that the
+    fallback closes and that are FILL, and of the tiles that fall back;
+    the share of empty (so skipped) 32-sender x 64-receiver delivery
+    slabs in the earlier int32 product-max design; and two bounds.
+    ``bound`` is the descent's: the bytes the function needs (gossip and
+    proc read, known/hb/ts only in the rows of senders that deliver,
+    three i32 maxima written) over 3.35 TB/s, or the MACs of the products
+    the tiles run (tile x 32 senders a word x words) at 1,979 T int8
+    operations/s, the larger.  ``int32_bound`` counts the same bytes
+    beside the product-max's 3 D N maxima on the INT32 lanes."""
     import torch
 
     from gossip_protocol_tpu_torch.ops.merge import (
-        TILE_COLS, TILE_ROWS, WORD, masked_max3_descent, masked_max3_plain,
-        merge_payloads)
+        LADDER, TILE_COLS, TILE_ROWS, WORD, masked_max3_descent,
+        masked_max3_plain, merge_payloads)
     args = (x["gossip"], x["proc"], x["known"], x["hb"], x["ts"], x["t"])
     n = x["known"].shape[0]
-    (m, lv) = masked_max3_descent(*args, t_remove=t_remove)
+    desc = masked_max3_descent(*args, t_remove=t_remove)
     want = masked_max3_plain(*args, t_remove=t_remove)
-    if not all(torch.equal(a, b) for a, b in zip(m, want)):
+    if not all(torch.equal(a, b) for a, b in zip(desc.maxima, want)):
         raise AssertionError("masked_max3_descent != masked_max3_plain")
     d = x["gossip"] & x["proc"][None, :]                  # [s, r]
     sender = d.any(1)
     w = -(-n // WORD)
-    dpad = torch.zeros((w * WORD, n), dtype=torch.bool, device=d.device)
-    dpad[:n] = d
     out = {"n": n, "deliveries": int(d.sum()),
            "senders_delivering": int(sender.sum()),
-           "receivers_reached": int(d.any(0).sum())}
+           "receivers_reached": int(d.any(0).sum()),
+           "ladder": desc.ladder, "ladder_rungs": LADDER if desc.ladder
+           else 0}
     # the earlier product-max design skipped a (32-sender slab,
     # 64-receiver tile) pair with no delivery
     slabs = torch.zeros((w * WORD, -(-n // 64) * 64), dtype=torch.bool,
@@ -698,37 +709,38 @@ def merge_stats(x: dict, t_remove: int) -> dict:
     slabs[:n, :n] = d
     slab_any = slabs.view(w, WORD, -1, 64).any(3).any(1)
     out["product_max_slab_skip_share"] = 1.0 - float(slab_any.float().mean())
-    # live words per row tile and the MACs a product of each tile costs
-    rt = -(-n // TILE_ROWS)
-    live_words = dpad.view(w, WORD, n).any(1)              # [W, r]
-    k_live = torch.stack([live_words[:, i * TILE_ROWS:(i + 1) * TILE_ROWS]
-                          .any(1).sum() for i in range(rt)]) * WORD
+    rt, ct = -(-n // TILE_ROWS), -(-n // TILE_COLS)
     tile_r = torch.tensor([min(TILE_ROWS, n - i * TILE_ROWS)
                            for i in range(rt)], device=d.device)
-    ct = -(-n // TILE_COLS)
     tile_c = torch.tensor([min(TILE_COLS, n - j * TILE_COLS)
                            for j in range(ct)], device=d.device)
     macs = 0
-    for name, v in zip("aft", merge_payloads(x["known"], x["hb"], x["ts"],
-                                             x["t"], t_remove)):
-        p = lv[name]
+    cells = n * n
+    for i, (name, v) in enumerate(zip("aft", merge_payloads(
+            x["known"], x["hb"], x["ts"], x["t"], t_remove))):
+        p, nw = desc.products[name], desc.words[name]
         vs = v[sender].sort(0).values
         distinct = ((vs[1:] != vs[:-1]) & (vs[1:] > 0)).sum(0) \
             + (vs[:1] > 0).sum(0) if len(vs) else torch.zeros(n)
-        macs += int((p * (tile_r * k_live)[:, None] * tile_c[None, :]).sum())
+        macs += int((nw * WORD * tile_r[:, None] * tile_c[None, :]).sum())
+        fill = float((desc.maxima[i] == -1).float().mean())
         out[f"plane_{name}"] = {
             "levels_per_column_mean": float(distinct.float().mean()),
             "levels_per_column_max": int(distinct.max()),
-            "products_per_tile_mean": float(p.float().mean()),
-            "products_per_tile_max": int(p.max()),
-            "products_total": int(p.sum()),
-            "pre_resolve_fill_share": float((m["aft".index(name)] == -1)
-                                            .float().mean())}
+            "descent_products_per_tile_mean": float(p.float().mean()),
+            "descent_products_per_tile_max": int(p.max()),
+            "descent_products": int(p.sum()),
+            "descent_words": int(nw.sum()),
+            "rung_cell_share": desc.rung_cells[name] / cells,
+            "fallback_cell_share": desc.fallback_cells[name] / cells,
+            "fill_share": fill,
+            "fallback_tile_share": float(desc.fallback[name].float()
+                                         .mean())}
     # bytes: gossip and proc read, known/hb/ts (9 bytes a cell) of the
     # senders that deliver, the three maxima written
     nbytes = n * n * (1 + 12) + n + 9 * n * out["senders_delivering"]
     out["bytes"] = nbytes
-    out["tensor_core_macs"] = macs
+    out["descent_macs"] = macs
     out["bound"] = bound_tc(nbytes, 2 * macs)
     out["int32_bound"] = bound(nbytes, 3 * out["deliveries"] * n)
     return out
@@ -1897,7 +1909,7 @@ def fleet_timing(dev) -> dict:
         st = merge_stats(dict(gossip=a[3][i], proc=a[4][i], known=a[5][i],
                               hb=a[6][i], ts=a[7][i], t=a[13]), t_remove)
         nbytes += st["bytes"]
-        macs += st["tensor_core_macs"]
+        macs += st["descent_macs"]
     out["masked_max3"] = dict(
         n=n, batch=b, tick=t_last, max_abs_err=err,
         **kernel_time(lambda: masked_max3(*margs, t_remove=t_remove), 20,
@@ -3018,6 +3030,103 @@ def world_timing(dev) -> dict:
     return {"draw_asym4096": draw, "k1_asym4096": k1}
 
 
+def bench_merge_inputs(ticks=(300, 699), seeds=range(8)) -> dict:
+    """The lane-axis merge inputs of the B=8 N=4096 bench fleet (corner
+    2816) at ``ticks``: the sweep cell's fleet."""
+    from gossip_protocol_tpu_torch.core import tick as tick_mod
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    seen = {}
+    orig = tick_mod.masked_max3
+
+    def spy(*a, **k):
+        if a[5] in ticks:
+            seen[a[5]] = tuple(x.clone() for x in a[:5]) + (a[5],)
+        return orig(*a, **k)
+
+    tick_mod.masked_max3 = spy
+    try:
+        FleetSimulation(bench_cfg(700), device="cuda").run_bench(
+            seeds=seeds, warmup=False)
+    finally:
+        tick_mod.masked_max3 = orig
+    return seen
+
+
+def merge_timing(dev, main_path=None) -> dict:
+    """The merge alone: the witness ladder's statistics (merge_stats,
+    every lane) on the bench fleet's inputs at ticks 300 and 699; the
+    kernel table's four masked_max3 rows re-timed (solo at the N=2816
+    bench corner's tick 699, asym4096 at tick 699, the B=4 fleet at tick
+    699, the ring's last step of the 200-tick bench over 4 shards) and
+    the B=8 fleet launch at both ticks."""
+    import torch
+
+    from gossip_protocol_tpu_torch.ops.merge import (
+        masked_max3, masked_max3_lanes_plain, masked_max3_plain)
+    from gossip_protocol_tpu_torch.parallel.sharded import (
+        make_mesh, make_sharded_run, shard_state)
+    from gossip_protocol_tpu_torch.state import init_state, make_schedule
+    out = {"ladder": {}, "rows": {}}
+    t_remove = bench_cfg(700).t_remove
+    inputs = bench_merge_inputs()
+    for t, a in sorted(inputs.items()):
+        agg = {}
+        for i in range(a[2].shape[0]):
+            st = merge_stats(dict(gossip=a[0][i], proc=a[1][i],
+                                  known=a[2][i], hb=a[3][i], ts=a[4][i],
+                                  t=t), t_remove)
+            for name in "aft":
+                pl = agg.setdefault(f"plane_{name}", {})
+                for k, v in st[f"plane_{name}"].items():
+                    pl[k] = pl.get(k, 0) + v / a[2].shape[0]
+            agg["ladder_rungs"] = st["ladder_rungs"]
+        counts = torch.zeros((a[2].shape[0], 2), dtype=torch.int64,
+                             device=dev)
+        masked_max3(*a, t_remove=t_remove, counts=counts)
+        c = counts.sum(0).tolist()
+        agg["merge.tiles"], agg["merge.fallback_tiles"] = c
+        agg["fallback_share"] = c[1] / max(c[0], 1)
+        out["ladder"][f"t{t}"] = agg
+        say(f"merge: the ladder at tick {t} (B=8 bench fleet, lane "
+            f"means): {json.dumps(agg)}")
+    cases = {f"fleet_b8_t{t}": (a, f"B=8 N=2816 tick {t}")
+             for t, a in sorted(inputs.items())}
+    cases["fleet"] = (tuple(x[:4].contiguous() if torch.is_tensor(x) else x
+                            for x in inputs[699]), "B=4 N=2816 tick 699")
+    x = k1_launch_input(bench_cfg(700), 2816, dev)
+    cases["solo"] = ((x["gossip"], x["proc"], x["known"], x["hb"], x["ts"],
+                      x["t"]), "N=2816 tick 699")
+    x = k1_launch_input(asym4096_cfg(), 4096, dev)
+    cases["asym4096"] = ((x["gossip"], x["proc"], x["known"], x["hb"],
+                          x["ts"], x["t"]), "N=4096 asym tick 699")
+    del x
+    cfg = bench_cfg(200)
+    mesh4 = make_mesh(4)
+    with keep_last_merge() as merge_in:
+        make_sharded_run(cfg, mesh4, with_events=False)(
+            shard_state(init_state(cfg, dev), mesh4),
+            make_schedule(cfg, dev))
+    cases["rect"] = (tuple(merge_in["args"][:6]),
+                     "1024 x 1024 x 4096, ring step of tick 199")
+    for key, (args, shape) in cases.items():
+        m = masked_max3(*args[:5], args[5], t_remove=t_remove)
+        plain = masked_max3_lanes_plain if args[2].dim() == 3 \
+            else masked_max3_plain
+        want = plain(*args[:5], args[5], t_remove=t_remove)
+        err = max(max_abs_err(p, q) for p, q in zip(m, want))
+        if err:
+            raise AssertionError(f"merge {key}: kernel != plain")
+        tm = kernel_time(lambda: masked_max3(*args[:5], args[5],
+                                             t_remove=t_remove), 20,
+                         "masked_max3")
+        out["rows"][key] = dict(shape=shape, max_abs_err=err, **{
+            k: tm[k] for k in ("kernel_ms", "call_ms", "device_ms")})
+        say(f"merge: {key} ({shape}): {json.dumps(out['rows'][key])}")
+    del inputs, cases
+    torch.cuda.empty_cache()
+    return out
+
+
 def dense_timing(dev, describe: bool) -> dict:
     """Phase 6's dense kernels, each held against its plain version and
     timed on the input of a launch the main path makes: masked_max3 and
@@ -3913,6 +4022,12 @@ def main(argv=None) -> int:
     ap.add_argument("--serving-only", action="store_true",
                     help="run only phase 1 and phase 7 (the fleet "
                          "service); no kernels line and no result line")
+    ap.add_argument("--merge-only", action="store_true",
+                    help="run only phase 1 and the merge's timing "
+                         "(merge_timing: the witness ladder's statistics "
+                         "at the bench fleet's ticks 300 and 699, the "
+                         "four masked_max3 rows re-timed); no kernels "
+                         "line and no result line")
     ap.add_argument("--mesh-only", action="store_true",
                     help="run only phase 1, phase 8 (multi-device "
                          "execution on a mesh of cuda:0 entries) and "
@@ -3944,7 +4059,8 @@ def main(argv=None) -> int:
     details["nvidia_smi"] = smi
     tb = time.perf_counter()
     # K5's measurement variants only for this checkout's own full run
-    build_kw = {} if args.turns or only else {"variants": K5_VARIANTS}
+    build_kw = {} if args.turns or only or args.merge_only else {
+        "variants": K5_VARIANTS}
     libs = _build.build(verbose=True, **build_kw)
     for source in _build.SOURCES:
         _build.library(source)
@@ -3953,7 +4069,7 @@ def main(argv=None) -> int:
     say(f"phase 1: {torch.cuda.get_device_name(0)} (torch {torch.__version__},"
         f" CUDA {torch.version.cuda}); kernels built in {build_s:.1f} s "
         f"-> {', '.join(os.path.relpath(p, REPO) for p in libs)}")
-    if not (args.turns or only):
+    if not (args.turns or only or args.merge_only):
         # the native C++ engine phase 4b holds the port against
         from gossip_protocol_tpu_torch.compat import native
         tb = time.perf_counter()
@@ -3985,6 +4101,9 @@ def main(argv=None) -> int:
                                     args.sweep_seeds, t_start)
         details["phase7"].pop("_seq7b")
         mark("7", t_start)
+    if args.merge_only:
+        details["merge"] = merge_timing(dev)
+        mark("merge", t_start)
     if args.mesh_only:
         mp = MainPath()
         details["phase8"] = mesh_phase(mp, dev, t_start)
@@ -3992,7 +4111,8 @@ def main(argv=None) -> int:
             mesh_kernel_rows(details["phase8"], mp)))
         details["phase9"] = analysis_phase(dev)
         mark("9", t_start)
-    if args.turns or only or args.serving_only or args.mesh_only:
+    if args.turns or only or args.serving_only or args.mesh_only \
+            or args.merge_only:
         if args.details:
             write_details(args.details, details)
         return 0
@@ -4340,6 +4460,7 @@ def main(argv=None) -> int:
     details["k5_variants"] = k5_variant_timing(ocfg)
     say("phase 6: K5 variants (ms a call, in turns): "
         + json.dumps(details["k5_variants"]))
+    details["merge"] = merge_timing(dev)
     for key in ("k1", "k1_n1024", "k1_n10"):
         for name in ("masked_max3", "tick_epilogue"):
             errs[name] = max(errs[name], timing[key]["max_abs_err"][name])

@@ -620,6 +620,9 @@ class FleetSimulation:
     #: the drop stream's width (None: the fleet's N); a canonical fleet
     #: draws its lanes' real width inside the rung
     _stream_n: Optional[int] = None
+    #: a bench run's merges count their plane descents while spans
+    #: record (a mesh's shards do not)
+    _counts_merges: bool = True
 
     def __init__(self, cfg: SimConfig, device=None,
                  chunk_ticks: Optional[int] = None):
@@ -754,20 +757,21 @@ class FleetSimulation:
 
     def _dense_fn(self, mode: str, batch: int, length: int, width: int,
                   shared: bool):
-        """The cached run closure ``run(states, staged) -> (final,
-        TickEvents)`` of ``length`` fleet ticks at ``width`` (events
-        [L, B, N, N] in trace mode, counters [L, B, W])."""
+        """The cached run closure ``run(states, staged, counts=None) ->
+        (final, TickEvents)`` of ``length`` fleet ticks at ``width``
+        (events [L, B, N, N] in trace mode, counters [L, B, W]); every
+        tick's merge adds onto ``counts`` (see ``make_fleet_tick``)."""
         def build():
             cfg_w = self.cfg.replace(max_nnb=width)
             trace = mode == "trace"
             tick = make_fleet_tick(cfg_w, with_events=trace,
                                    n_active=self._stream_n)
 
-            def run(states: WorldState, staged):
+            def run(states: WorldState, staged, counts=None):
                 sched, drop, lanes = staged
                 evs = []
                 for _ in range(length):
-                    states, ev = tick(states, sched, drop, lanes)
+                    states, ev = tick(states, sched, drop, lanes, counts)
                     evs.append(ev)
                 return states, _stack_fleet_events(evs, trace, batch, width,
                                                    states.device)
@@ -830,33 +834,53 @@ class FleetSimulation:
             states0 = self._init_stacked(cfgs, width)
             t1 = time.perf_counter_ns()
 
+        m = 2 * nr * width * total
+
         def enqueue():
-            final, ev = run(states0, staged)
-            sr = torch.stack([ev.sent, ev.recv])[:, :, :nr]
-            return final, to_host_async(sr)
+            # one buffer and one copy to the host: the real lanes' sent /
+            # recv rows lane-major [2, nr, W, T], as a lane's result holds
+            # them (the host then copies blocks, not transposes), then,
+            # while spans record, the merges' counters i64[B, 2] (plane
+            # descents and fallbacks, which only the card's kernel adds)
+            rec = spans.recording() and self._counts_merges
+            buf = torch.empty(m + (4 * len(cfgs) if rec else 0),
+                              dtype=torch.int32, device=self.device)
+            counts = buf[m:].view(torch.int64).view(-1, 2) if rec else None
+            if rec:
+                counts.zero_()
+            final, ev = run(states0, staged) if counts is None else \
+                run(states0, staged, counts)
+            rows = buf[:m].view(2, nr, width, total)
+            rows[0].copy_(ev.sent[:, :nr].permute(1, 2, 0))
+            rows[1].copy_(ev.recv[:, :nr].permute(1, 2, 0))
+            return final, to_host_async(buf)
 
         box, start, wait, probe = _async_box(self.device, t0, t1, enqueue,
                                              total, nr, len(cfgs))
 
         def resolve():
-            final, sr_h = box["out"]
+            final, buf_h = box["out"]
             t_f0 = time.perf_counter_ns()
             if final.tick != total:
                 raise RuntimeError("fleet bench did not complete all ticks")
-            sr = sr_h.numpy()
+            rows = buf_h[:m].view(2, nr, width, total).numpy()
+            if len(buf_h) > m:
+                tiles, falls = buf_h[m:].view(torch.int64).view(-1, 2) \
+                    .sum(0).tolist()
+                spans.count("merge.tiles", tiles)
+                spans.count("merge.fallback_tiles", falls)
             lanes = []
             for i, (c, s) in enumerate(zip(cfgs[:nr], scheds[:nr])):
                 fs = _lane_state(final, i)
                 if corner:
                     fs = _embed_state(fs, n)
-                cnt = np.zeros((2, total, n), np.int32)
-                cnt[:, :, :width] = sr[:, :, i, :]
+                cnt = np.zeros((2, n, total), np.int32)
+                cnt[:, :width] = rows[:, i]
                 lanes.append(SimResult(
                     cfg=c, start_tick=np.asarray(s.start_tick),
                     fail_tick=np.asarray(s.fail_tick),
                     rejoin_tick=np.asarray(s.rejoin_tick),
-                    added=None, removed=None,
-                    sent=cnt[0].T.copy(), recv=cnt[1].T.copy(),
+                    added=None, removed=None, sent=cnt[0], recv=cnt[1],
                     final_state=fs, wall_seconds=0.0,
                     counter_stream_width=bench_stream_width(c)))
             _check_unstacked(lanes, nr)

@@ -351,8 +351,8 @@ composable_lanes.calls = 0
 
 def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
                     n_active: int | None = None, comm=None):
-    """Build ``tick(states, sched, drop, lane_scheds=None) -> (states',
-    TickEvents)`` over B lanes at one shared clock.
+    """Build ``tick(states, sched, drop, lane_scheds=None, counts=None)
+    -> (states', TickEvents)`` over B lanes at one shared clock.
 
     ``states`` is a stacked :class:`WorldState` (one host clock, tensors
     [B, ...], ``rng`` uint32[B, 2]); ``sched`` a stacked
@@ -365,7 +365,9 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
     state and schedule, bit for bit.  ``comm`` makes it one peer shard
     of each lane (a fleet on a 2-D lanes x peers mesh): the composable
     route over the stacked schedule, every lane at once, with the lane
-    axis of the rectangular ``masked_max3``.
+    axis of the rectangular ``masked_max3``.  ``counts`` (CUDA i64[B,
+    2]) goes to the K1 route's ``masked_max3``, which adds each lane's
+    plane descents and fallbacks onto it; the other routes ignore it.
     """
     n = cfg.n
     na = n if n_active is None else n_active
@@ -382,7 +384,8 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
         raise ValueError("peer count must divide the mesh axis")
     rows = comm.rows_of if sharded else (lambda x: x)
 
-    def tick(state: WorldState, sched: Schedule, drop, lane_scheds=None):
+    def tick(state: WorldState, sched: Schedule, drop, lane_scheds=None,
+             counts=None):
         t = state.tick
         dev = state.device
         # one launch for every lane's draw
@@ -415,7 +418,8 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
                     with_events)
         else:
             m_all, m_fresh, t_fresh = masked_max3(
-                state.gossip, v.proc, known, hb, ts, t, t_remove=t_remove)
+                state.gossip, v.proc, known, hb, ts, t, t_remove=t_remove,
+                counts=counts)
             known, hb, ts, gossip_next, sent, recv, added, \
                 removed = tick_epilogue(
                     m_all, m_fresh, t_fresh, state.gossip, v.proc, known,

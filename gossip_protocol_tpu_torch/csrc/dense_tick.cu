@@ -46,29 +46,44 @@
 // * masked_max3: m[r, j] = max over the senders s that deliver to r of
 //   payload[s, j], for three payload planes.  As a product-max on the
 //   INT32 lanes it needs 3 maxima per (delivery, column) pair, 3 D N.  The
-//   design is the TPU's level descent on the int8 tensor cores
-//   (mma.sync m16n8k32, s8 x s8 -> s32; counts are at most N, so exact):
-//   per plane, a block owns a 256-receiver x 64-column tile and runs its
-//   whole descent.  Level 0 is the pre-resolve product d @ (v > 0): a cell
-//   it misses has no contributing sender and is FILL.  Level k is the
-//   witness product d @ (v == cur), cur being each column's next distinct
-//   value below the last, found in the same pass; the cells it hits first
-//   take cur.  The block stops when no cell of its tile is open, so the
-//   loop ends on the device and a merge is two launches.  The prep launch
-//   packs the delivery d[r, s] = gossip[s, r] & proc[r] as bits (one
-//   32-sender word per receiver) and marks which words reach each
-//   32-receiver tile, so a block streams only the words that deliver to
-//   its rows: a dead or silent sender costs one bit.  Witnesses are built
-//   in shared memory from known/hb/ts of those words (never stored to
-//   device memory); delivery fragments expand from the bits in registers.
-//   At real ticks the levels are few (one or two a column, PERF.md), so
-//   the products cost little and the function's bytes (22 N^2) bound it.
-//   What holds this design above that bound is its own traffic: every
-//   block re-reads its live senders' known/hb/ts at each level, so the
-//   payload crosses L2 once per row tile, plane and level.  The loads of
-//   a word are issued together and each plane loads only what it reads;
-//   one block for all three planes, or compacted receivers, would cut
-//   the traffic further (later work).
+//   design is the TPU's level descent (level 0, the pre-resolve d @ (v >
+//   0), closes the cells it misses as FILL; level k, the witness product
+//   d @ (v == cur), closes those it hits with cur) on the tensor cores,
+//   its levels taken from a witness ladder built once a lane-tick.  Two
+//   launches: the prep packs the delivery d[r, s] = gossip[s, r] &
+//   proc[r] as bits (one 32-sender word per receiver) and marks which
+//   words reach each 32-receiver tile; its second block role, a 32-column
+//   strip a block, reads the payload of every sender row twice (a cell
+//   nobody knows only its known byte): once for each column's LADDER
+//   largest distinct values per plane, once for the witness bit-planes
+//   (v > 0 and v == rung k, per plane) as 32-sender words, with the words
+//   that hold a witness in each strip.  The rungs come from every sender,
+//   a superset of those that deliver, so for a cell no rung above its
+//   maximum has a witness among its senders, and its maximum is a rung or
+//   lies below the last: the descent stays exact for any data.  The
+//   descent launch runs one block a 256-receiver x 64-column tile for all
+//   three planes: a receiver that does not consume the tick is FILL at
+//   once; per plane, the rung products (a cell hit first takes rung - 1)
+//   over the tile's live words that hold a witness in its columns (none:
+//   no product), FILL for the columns whose ladder holds every value,
+//   level 0 if cells are still open, and past the ladder the per-tile
+//   level loop (descent_levels, whose witnesses come from known/hb/ts)
+//   from below the last rung.  A product is one mma.sync m16n8k256 b1
+//   (AND, popcount; counts are at most N, so exact) a 256-sender chunk,
+//   both operands the stored bits, the next chunk's loads in flight while
+//   one multiplies; a plane's cells keep a 2-bit code until one store pass
+//   through shared memory writes them row by row.  Nothing in a tile
+//   reads known/hb/ts while the ladder suffices: the payload crosses the
+//   chip twice a lane-tick, not once per row tile, plane and level.
+//   Bounded now by those two reads (9 bytes a known cell each), the three
+//   maxima written (12 bytes a cell) and the prep's tiles; at the bench's
+//   ticks the descent runs about one product a tile (PERF.md).  A launch
+//   of at most four row tiles (R <= 1024) re-reads its payload too few
+//   times to pay for a ladder (use_ladder): it runs
+//   masked_max3_plane_kernel, the per-tile descent from level 0 with s8
+//   products (mma.sync m16n8k32), a plane a block.  K2 has no phase for a ladder pass and keeps that per-tile
+//   descent (descent_tile): K2 and the K1 merge no longer share the
+//   descent, only its level loop.
 // * the epilogue is elementwise over ~36 bytes per cell (three i32 maxima,
 //   hb/ts in and out, six byte planes): bound by bytes.  Design: a 2-D
 //   grid of 32-row x 128-column tiles (N=2816: 1936 blocks), 4 columns a
@@ -96,14 +111,15 @@
 //   merge prep, (2) the descent tiles, (3) the epilogue tiles beside the
 //   next tick's vector step (one block; its lanes are double-buffered by
 //   tick parity, so the epilogue still reads this tick's).  The K1 pair
-//   and K2 call the same __device__ tile functions, so the cell rules
-//   cannot drift apart.  A phase with fewer tiles than blocks deals them
-//   out across the whole grid, since the runtime packs consecutive blocks
-//   onto one SM.  Buffers written inside the launch are read through plain
+//   and K2 call the same __device__ prep and epilogue tile functions, so
+//   the cell rules cannot drift apart.  A phase with fewer tiles than
+//   blocks deals them out across the whole grid, since the runtime packs
+//   consecutive blocks onto one SM.  Buffers written inside the launch are read through plain
 //   pointers (never const __restrict__), so no load takes the
 //   non-coherent read-only path.  At N=512 and 896 the descent takes
 //   most of a tick: a tile's levels and word chunks run one after
-//   another, latency-bound (PERF.md).
+//   another, latency-bound (PERF.md).  K2's tiles run the per-tile level
+//   descent (descent_tile), not the K1 merge's ladder.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -145,65 +161,425 @@ enum { A_IN_GROUP = 0, A_OWN_HB, A_JOINREQ, A_JOINREP, A_START, A_FAIL,
 //
 // Prep: dbits[w * R + r] has bit b set iff gossip[32 w + b, r] & proc[r];
 // tany[(r / 32) * words + w] says whether word w reaches any receiver of
-// r's 32-receiver tile.  Tile (w, rt) covers 32 senders x 32 receivers with
-// 256 threads as (tx, ty) = (32, 8).  SQ: the square block of a tick
-// (S = R), compiled as it was before the rectangular form.
+// r's 32-receiver tile.  A prep block takes the tiles (w0 + i, rt), i <
+// PREP_WORDS, each 32 senders x 32 receivers, with 256 threads as (tx, ty)
+// = (32, 8), their gossip bytes all loaded before any is used, so its
+// tiles cost one round trip.  SQ: the square block of a tick (S = R),
+// compiled as it was before the rectangular form.
+constexpr int PREP_WORDS = 4;
 template <bool SQ>
-__device__ __forceinline__ void merge_prep_tile(const uint8_t* gossip,
-                                                const uint8_t* proc,
-                                                uint32_t* dbits,
-                                                uint32_t* tany, int rn,
-                                                int sn, int words, int w,
-                                                int rt, int tx, int ty) {
+__device__ __forceinline__ void merge_prep_tiles(const uint8_t* gossip,
+                                                 const uint8_t* proc,
+                                                 uint32_t* dbits,
+                                                 uint32_t* tany, int rn,
+                                                 int sn, int words, int w0,
+                                                 int rt, int tx, int ty) {
   if (SQ) sn = rn;
-  __shared__ uint8_t g_s[WORD][WORD + 4];
-  __syncthreads();   // the block's previous tile is done with g_s
-  const int s0 = w * WORD, c0 = rt * WORD;
+  __shared__ uint8_t g_s[PREP_WORDS][WORD][WORD + 4];
+  const int c0 = rt * WORD, r = c0 + tx;
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int ss = ty + 8 * k, s = s0 + ss, r = c0 + tx;
-    g_s[ss][tx] = (s < sn && r < rn) ? gossip[(size_t)s * rn + r] : 0;
-  }
+  for (int i = 0; i < PREP_WORDS; ++i)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int ss = ty + 8 * k, s = (w0 + i) * WORD + ss;
+      g_s[i][ss][tx] = (s < sn && r < rn) ? gossip[(size_t)s * rn + r] : 0;
+    }
   __syncthreads();
-  uint32_t any = 0;
+  uint32_t any[PREP_WORDS] = {};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const int rr = ty + 8 * k, r = c0 + rr;   // uniform across the warp
-    if (r >= rn) continue;
-    const uint32_t bits =
-        __ballot_sync(0xffffffffu, g_s[tx][rr] != 0 && proc[r] != 0);
-    if (tx == 0) dbits[(size_t)w * rn + r] = bits;
-    any |= bits;
+    const int rr = ty + 8 * k, rk = c0 + rr;   // uniform across the warp
+    if (rk >= rn) continue;
+    const bool on = proc[rk] != 0;
+#pragma unroll
+    for (int i = 0; i < PREP_WORDS; ++i) {
+      if (w0 + i >= words) continue;
+      const uint32_t bits =
+          __ballot_sync(0xffffffffu, g_s[i][tx][rr] != 0 && on);
+      if (tx == 0) dbits[(size_t)(w0 + i) * rn + rk] = bits;
+      any[i] |= bits;
+    }
   }
-  any = __syncthreads_or(any != 0);
-  if (tx == 0 && ty == 0) tany[(size_t)rt * words + w] = any;
+#pragma unroll
+  for (int i = 0; i < PREP_WORDS; ++i) {
+    const uint32_t a = __syncthreads_or(any[i] != 0);
+    if (tx == 0 && ty == 0 && w0 + i < words)
+      tany[(size_t)rt * words + w0 + i] = a;
+  }
 }
 
 __host__ __device__ inline int words_for(int n) {
   return (n + WORD - 1) / WORD;
 }
 
-// the merge scratch of one lane: dbits u32[words_for(S), R], then tany
-// u32[words_for(R), words_for(S)] (a row per 32-receiver tile); a fleet's
-// lanes follow one another
+// the prep's part of a lane's merge scratch: dbits u32[words_for(S), R],
+// then tany u32[words_for(R), words_for(S)] (a row per 32-receiver tile)
 __host__ __device__ inline size_t merge_scratch_words(int rn, int sn) {
   const size_t words = words_for(sn);
   return words * rn + (size_t)words_for(rn) * words;
 }
 
-// grid (sender words, receiver tiles, B): lane blockIdx.z of a fleet
-// (B = 1 solo)
+// The witness ladder (K1's merge only).  Per lane, plane p and column j,
+// lad[p][k][j] (k < LADDER) are the LADDER largest distinct positive
+// values of the plane's shift-encoded payload over every sender row, 0
+// past the last; one witness bit a (sender, column) per bit-plane:
+// level 0 of plane p (v > 0) and rung k of plane p (v == lad[p][k][j],
+// lad > 0), as u32 sender words wbits[bp][w][j]; wany[bp][ls][w / 32]
+// marks the words with a witness in column strip ls (LD_COLS columns).
+// LADDER: at the bench's ticks 300 and 699 two rungs leave no tile to
+// fall back and one leaves some (PERF.md); a rung more costs a bit-plane
+// a plane.
+constexpr int LADDER = 2;
+constexpr int NBP = 3 + 3 * LADDER;   // witness bit-planes
+constexpr int WANY_MAX = 64;          // wany words a strip: S <= 65536
+// a ladder block: LD_COLS columns x LD_GROUPS sender groups, LD_U rows
+// a batch in flight a thread (a batch's rows: two sender words)
+constexpr int LD_COLS = 32;
+constexpr int LD_GROUPS = MM_THREADS / LD_COLS;
+constexpr int LD_U = 8;
+constexpr int LD_PER_TILE = MM_COLS / LD_COLS;   // strips a column tile
+static_assert(LD_COLS % WORD == 0 && MM_COLS % LD_COLS == 0,
+              "a warp's lanes share a sender group");
+__host__ __device__ inline int bp_level0(int p) { return p; }
+__host__ __device__ inline int bp_rung(int p, int k) {
+  return 3 + p * LADDER + k;
+}
+
+// A launch builds the ladder when its grid has more than LADDER_MIN_RT
+// row tiles, the sender words fit the word masks and the descent's word
+// lists (1 + NBP ints a sender word) fit 48 KB, which beside the
+// kernel's static LadderSmem takes an opt-in past S = 8,160.  The per-tile
+// descent reads the live senders' payload once a row tile and level, the
+// ladder all of it twice: with a few row tiles the two cost about the
+// same (the ring's 1024 x 1024 x 4096 blocks, four row tiles, ran 0.061
+// ms per-tile against 0.074 on the ladder; PERF.md).
+constexpr int LADDER_MIN_RT = 4;
+__host__ __device__ inline bool use_ladder(int rn, int sn) {
+  return rn > LADDER_MIN_RT * MM_ROWS &&
+         words_for(words_for(sn)) <= WANY_MAX &&
+         (1 + NBP) * words_for(sn) * sizeof(int) <= 48 * 1024;
+}
+
+// the ladder's part of a lane's scratch: lad i32[3, LADDER, C], wbits
+// u32[NBP, words, C], wany u32[NBP, strips, words_for(words)]
+__host__ __device__ inline size_t ladder_scratch_words(int sn, int cn) {
+  const size_t words = words_for(sn), ls = (cn + LD_COLS - 1) / LD_COLS;
+  return 3 * LADDER * (size_t)cn + NBP * words * cn +
+         NBP * ls * words_for((int)words);
+}
+
+// a lane's whole merge scratch (the lanes of a fleet follow one another)
+__host__ __device__ inline size_t lane_scratch_words(int rn, int sn, int cn) {
+  return merge_scratch_words(rn, sn) +
+         (use_ladder(rn, sn) ? ladder_scratch_words(sn, cn) : 0);
+}
+
+struct LadderPtrs {
+  int32_t* lad;
+  uint32_t* wbits;
+  uint32_t* wany;
+};
+
+__device__ __forceinline__ LadderPtrs ladder_ptrs(uint32_t* lane_scratch,
+                                                  int rn, int sn, int cn) {
+  LadderPtrs l;
+  l.lad = reinterpret_cast<int32_t*>(lane_scratch +
+                                     merge_scratch_words(rn, sn));
+  l.wbits = reinterpret_cast<uint32_t*>(l.lad + 3 * LADDER * (size_t)cn);
+  l.wany = l.wbits + NBP * (size_t)words_for(sn) * cn;
+  return l;
+}
+
+// the three shift-encoded payloads of one sender cell (merge_payloads):
+// a1 = known ? hb + 1 : 0, f1 = fresh ? hb + 1 : 0, t1 = fresh ? ts + 1 :
+// 0, fresh = known & now - ts < t_remove
+__device__ __forceinline__ void payload3(uint8_t kn, int32_t h, int32_t st,
+                                         int now, int t_remove,
+                                         int32_t (&v)[3]) {
+  const bool fresh = kn && now - st < t_remove;
+  v[0] = kn ? h + 1 : 0;
+  v[1] = fresh ? h + 1 : 0;
+  v[2] = fresh ? st + 1 : 0;
+}
+
+// insert v into a descending list of distinct positive values (0 past
+// the last): a duplicate or a value <= 0 leaves it as it was
+__device__ __forceinline__ void ladder_insert(int32_t (&t)[LADDER],
+                                              int32_t v) {
+#pragma unroll
+  for (int k = 0; k < LADDER; ++k) {
+    if (v == t[k]) v = 0;
+    const int32_t hi = max(t[k], v);
+    v = min(t[k], v);
+    t[k] = hi;
+  }
+}
+
+// The rows s = q, q + LD_GROUPS, ... of one column of a ladder strip, U
+// rows a batch: row(kn, h, st, s, u) for each (kn: known, h / st: hb / ts,
+// 0 where unknown, so an unknown cell's words stay unread; s the row; u
+// its place in the batch), after batch(base) at each batch's start (base:
+// the batch's first row of group 0, the same in every group).  A batch
+// for which skip(base) holds reads nothing: its rows count as unknown.
+// The next batch's known bytes are in flight while this one's words
+// load, so a batch costs one round trip.
+template <int U, class Skip, class Batch, class Row>
+__device__ __forceinline__ void ladder_rows(const uint8_t* known,
+                                            const int32_t* hb,
+                                            const int32_t* ts, int sn,
+                                            int cn, size_t jc, int q,
+                                            bool col, Skip skip, Batch batch,
+                                            Row row) {
+  constexpr int STEP = LD_GROUPS * U;
+  const size_t stride = (size_t)LD_GROUPS * cn;   // a group's next row
+  uint32_t kq[U / 4];                             // known bytes, packed
+  auto load_known = [&](int base) {
+#pragma unroll
+    for (int i = 0; i < U / 4; ++i) kq[i] = 0;
+    if (skip(base)) return;
+    const uint8_t* kp = known + (size_t)(base + q) * cn + jc;
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (col && base + q + LD_GROUPS * u < sn)
+        kq[u / 4] |= (uint32_t)kp[u * stride] << (8 * (u % 4));
+  };
+  load_known(0);
+  // every group runs the same batches (base is uniform); a row past S is
+  // unknown
+  for (int base = 0; base < sn; base += STEP) {
+    if (skip(base)) {   // nothing read: every row unknown, nothing to do
+      if (base + STEP < sn) load_known(base + STEP);
+      batch(base);
+      continue;
+    }
+    const int s0 = base + q;
+    const size_t o = (size_t)s0 * cn + jc;
+    uint32_t kn[U / 4];
+    int32_t h[U], st[U];
+#pragma unroll
+    for (int i = 0; i < U / 4; ++i) kn[i] = kq[i];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const bool k = (kn[u / 4] >> (8 * (u % 4))) & 0xFFu;
+      h[u] = k ? hb[o + u * stride] : 0;
+      st[u] = k ? ts[o + u * stride] : 0;
+    }
+    if (base + STEP < sn) load_known(base + STEP);
+    batch(base);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      row((kn[u / 4] >> (8 * (u % 4))) & 0xFFu, h[u], st[u],
+          s0 + LD_GROUPS * u, u);
+  }
+}
+
+// The ladder of column strip ls (LD_COLS columns) of one lane: 256
+// threads as (column c, sender group q) = (LD_COLS, LD_GROUPS), group q
+// taking the rows s = q mod LD_GROUPS (ladder_rows).  Sweep 1 finds each
+// column's ladder over every sender row (each group's, then the groups'
+// merged); sweep 2 reads the strip again and writes the witness words:
+// a batch's rows fall in two sender words, whose bits the groups OR into
+// shared memory, and every LD_CHUNK words the block writes them out with
+// the strip's word masks.
+constexpr int LD_CHUNK = 8;
+__device__ __forceinline__ void ladder_strip(const uint8_t* known,
+                                             const int32_t* hb,
+                                             const int32_t* ts, LadderPtrs l,
+                                             int sn, int cn, int now,
+                                             int t_remove, int ls) {
+  static_assert(LD_GROUPS * LD_U == 2 * WORD && LD_GROUPS * 4 == WORD,
+                "a batch of a group's rows: four in each of two words");
+  __shared__ int32_t part_s[LD_GROUPS][3 * LADDER][LD_COLS];
+  __shared__ uint32_t any_s[NBP][WANY_MAX];
+  __shared__ uint32_t wsm[LD_CHUNK][NBP][LD_COLS];
+  __shared__ uint32_t kw_s[WANY_MAX];   // the words holding a known cell
+  const int tid = threadIdx.y * WORD + threadIdx.x;
+  const int c = tid % LD_COLS, q = tid / LD_COLS;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int j = ls * LD_COLS + c;
+  const bool col = j < cn;
+  const size_t jc = min(j, cn - 1);
+  const int words = words_for(sn), wwords = words_for(words);
+  const int strips = (cn + LD_COLS - 1) / LD_COLS;
+  for (int i = tid; i < NBP * WANY_MAX; i += MM_THREADS)
+    any_s[i / WANY_MAX][i % WANY_MAX] = 0;
+  for (int i = tid; i < LD_CHUNK * NBP * LD_COLS; i += MM_THREADS)
+    (&wsm[0][0][0])[i] = 0;
+  for (int i = tid; i < WANY_MAX; i += MM_THREADS) kw_s[i] = 0;
+  int32_t t[3][LADDER];
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int k = 0; k < LADDER; ++k) t[p][k] = 0;
+  // sweep 1, noting the words that hold a known cell of the strip (this
+  // thread's flags of a batch's words, ORed in at the next batch)
+  constexpr int WB1 = LD_GROUPS * LD_U / WORD;   // words a batch
+  uint32_t kw = 0;
+  int kbase = 0;
+  auto known_words = [&]() {
+#pragma unroll
+    for (int i = 0; i < WB1; ++i) {
+      const bool any = __any_sync(0xffffffffu, (kw >> i) & 1u);
+      const int w = kbase / WORD + i;
+      if (any && lane == 0 && w < words)
+        atomicOr(&kw_s[w / WORD], 1u << (w % WORD));
+    }
+    kw = 0;
+  };
+  ladder_rows<LD_U>(known, hb, ts, sn, cn, jc, q, col,
+                    [](int) { return false; },
+                    [&](int base) { known_words(); kbase = base; },
+                    [&](uint32_t kn, int32_t h, int32_t st, int, int u) {
+    if (!kn) return;
+    kw |= 1u << (u * LD_GROUPS / WORD);
+    int32_t v[3];
+    payload3(kn, h, st, now, t_remove, v);
+    // a value at or below the last rung changes nothing
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      if (v[p] > t[p][LADDER - 1]) ladder_insert(t[p], v[p]);
+  });
+  known_words();
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int k = 0; k < LADDER; ++k) part_s[q][p * LADDER + k][c] = t[p][k];
+  __syncthreads();
+  if (q == 0) {
+    for (int g = 1; g < LD_GROUPS; ++g)
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int k = 0; k < LADDER; ++k)
+          ladder_insert(t[p], part_s[g][p * LADDER + k][c]);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int k = 0; k < LADDER; ++k) {
+        part_s[0][p * LADDER + k][c] = t[p][k];
+        if (col) l.lad[(size_t)(p * LADDER + k) * cn + j] = t[p][k];
+      }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int p = 0; p < 3; ++p)
+#pragma unroll
+    for (int k = 0; k < LADDER; ++k) t[p][k] = part_s[0][p * LADDER + k][c];
+  // sweep 2: the chunk's words out, their masks, the buffer zeroed
+  auto flush = [&](int w0) {
+    __syncthreads();
+    for (int i = warp; i < LD_CHUNK * NBP; i += MM_THREADS / WORD) {
+      const int wl = i / NBP, b = i % NBP, w = w0 + wl;
+      uint32_t* at = &wsm[wl][b][0];
+      for (int cc = lane; cc < LD_COLS; cc += WORD) {
+        const uint32_t x = at[cc];
+        at[cc] = 0;
+        const int jj = ls * LD_COLS + cc;
+        if (w < words && jj < cn)
+          l.wbits[((size_t)b * words + w) * cn + jj] = x;
+        if (__any_sync(0xffffffffu, x != 0) && lane == 0 && w < words)
+          atomicOr(&any_s[b][w / WORD], 1u << (w % WORD));
+      }
+    }
+    __syncthreads();
+  };
+  // a batch's rows fall in two words: this thread's bits of them, ORed
+  // into the buffer at the next batch's start
+  uint32_t bits[2][NBP];
+  int w0 = 0, wb = 0;
+  auto commit = [&]() {
+#pragma unroll
+    for (int wi = 0; wi < 2; ++wi)
+#pragma unroll
+      for (int b = 0; b < NBP; ++b) {
+        if (bits[wi][b]) atomicOr(&wsm[wb + wi - w0][b][c], bits[wi][b]);
+        bits[wi][b] = 0;
+      }
+  };
+#pragma unroll
+  for (int wi = 0; wi < 2; ++wi)
+#pragma unroll
+    for (int b = 0; b < NBP; ++b) bits[wi][b] = 0;
+  // sweep 2 reads no batch whose two words hold no known cell of the strip
+  auto unknown = [&](int base) {
+    const int w = base / WORD;
+    auto has = [&](int x) {
+      return x < words && ((kw_s[x / WORD] >> (x % WORD)) & 1u);
+    };
+    return !has(w) && !has(w + 1);
+  };
+  ladder_rows<LD_U>(known, hb, ts, sn, cn, jc, q, col, unknown,
+              [&](int base) {
+                commit();
+                if (base / WORD - w0 >= LD_CHUNK) {   // base is uniform
+                  flush(w0);
+                  w0 += LD_CHUNK;
+                }
+                wb = base / WORD;
+              },
+              [&](uint32_t kn, int32_t h, int32_t st, int s, int u) {
+    int32_t v[3];
+    payload3(kn, h, st, now, t_remove, v);
+    const uint32_t bit = 1u << (s % WORD);
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      if (v[p] > 0) bits[u / 4][bp_level0(p)] |= bit;
+#pragma unroll
+      for (int k = 0; k < LADDER; ++k)
+        if (t[p][k] > 0 && v[p] == t[p][k]) bits[u / 4][bp_rung(p, k)] |= bit;
+    }
+  });
+  commit();
+  flush(w0);
+  for (int i = tid; i < NBP * wwords; i += MM_THREADS) {
+    const int b = i / wwords, ww = i % wwords;
+    l.wany[((size_t)b * strips + ls) * wwords + ww] = any_s[b][ww];
+  }
+}
+
+// the prep blocks of one lane
+__host__ __device__ inline long long prep_blocks(int rn, int words) {
+  return (long long)words_for(rn) * ((words + PREP_WORDS - 1) / PREP_WORDS);
+}
+
+// grid (B (ladder strips + prep blocks)) of (32, 8) threads, B lanes (1
+// solo).  With a ladder, blocks i < B * nl (nl: column strips) build it,
+// strip i % nl of lane i / nl, and come first, so the long ladder blocks
+// of every lane start early; each remaining block k is the prep tiles (w,
+// rt) of PREP_WORDS words w of one receiver tile rt of lane k /
+// prep_blocks.  lane_words: lane_scratch_words(R, S, C).
+// (four blocks an SM: the ladder role's registers set the prep tiles'
+// occupancy too)
 template <bool SQ>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(256, 4)
 merge_prep_kernel(const uint8_t* __restrict__ gossip,
                   const uint8_t* __restrict__ proc,
-                  uint32_t* __restrict__ scratch, int rn, int sn, int words) {
-  if (SQ) sn = rn;
-  const size_t lane = blockIdx.z;
-  uint32_t* dbits = scratch + lane * merge_scratch_words(rn, sn);
-  merge_prep_tile<SQ>(gossip + lane * (size_t)sn * rn, proc + lane * rn,
-                      dbits, dbits + (size_t)words * rn, rn, sn, words,
-                      blockIdx.x, blockIdx.y, threadIdx.x, threadIdx.y);
+                  const uint8_t* __restrict__ known,
+                  const int32_t* __restrict__ hb,
+                  const int32_t* __restrict__ ts,
+                  uint32_t* __restrict__ scratch, size_t lane_words, int rn,
+                  int sn, int cn, int words, int ladder_tiles, int now,
+                  int t_remove) {
+  if (SQ) { sn = rn; cn = rn; }
+  const long long i = blockIdx.x, nl = ladder_tiles;
+  const long long prep = prep_blocks(rn, words);
+  const long long ladder_blocks = nl * (gridDim.x / (nl + prep));
+  if (i < ladder_blocks) {
+    const size_t lane = i / nl, o = lane * (size_t)sn * cn;
+    ladder_strip(known + o, hb + o, ts + o,
+                 ladder_ptrs(scratch + lane * lane_words, rn, sn, cn), sn,
+                 cn, now, t_remove, (int)(i % nl));
+    return;
+  }
+  const long long k = i - ladder_blocks;
+  const size_t lane = k / prep;
+  const int wq = (words + PREP_WORDS - 1) / PREP_WORDS;
+  const int unit = (int)(k % prep), rt = unit / wq;
+  uint32_t* dbits = scratch + lane * lane_words;
+  merge_prep_tiles<SQ>(gossip + lane * (size_t)sn * rn, proc + lane * rn,
+                       dbits, dbits + (size_t)words * rn, rn, sn, words,
+                       (unit % wq) * PREP_WORDS, rt, threadIdx.x,
+                       threadIdx.y);
 }
 
 // 4 delivery bits -> 4 bytes of 0/1 (bit e -> byte e)
@@ -232,33 +608,28 @@ __device__ __forceinline__ int32_t payload(int p, uint8_t kn, int32_t h,
   return (p == 0 ? kn != 0 : fresh) ? v : 0;
 }
 
-// The level descent of tile (bx, by) (rows 256 bx.., columns 64 by..) of
-// plane p; output shifted back down (FILL = -1 where no sender
-// contributes).  SQ: the square block (S = C = R).
-template <bool SQ>
-__device__ __forceinline__ void descent_tile(
-    const uint32_t* dbits, const uint32_t* tany, const uint8_t* known,
-    const int32_t* hb, const int32_t* ts, int32_t* m_all, int32_t* m_fresh,
-    int32_t* t_fresh, int rn, int sn, int cn, int words, int now,
-    int t_remove, int bx, int by, int p) {
-  if (SQ) { sn = rn; cn = rn; }
-  extern __shared__ int live[];                   // the tile's live words
-  __shared__ uint32_t a_s[MM_KW][MM_ROWS];        // delivery bits [kw][r]
-  __shared__ __align__(16) uint8_t w_s[MM_COLS][MM_WSTRIDE];  // witness [j][s]
-  __shared__ int cur_s[MM_COLS], nxt_s[MM_COLS];
-  __shared__ int nlive_s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int r0 = bx * MM_ROWS, j0 = by * MM_COLS;
-  __syncthreads();   // the block's previous tile is done with its buffers
-  int32_t* out = p == 0 ? m_all : (p == 1 ? m_fresh : t_fresh);
+// a descent block's shared buffers: the delivery bits of MM_KW words
+// [kw][r], their witness bytes [j][s], each column's level and the next,
+// a count handed to every thread
+struct DescentSmem {
+  uint32_t a_s[MM_KW][MM_ROWS];
+  __align__(16) uint8_t w_s[MM_COLS][MM_WSTRIDE];
+  int cur_s[MM_COLS], nxt_s[MM_COLS];
+  int n_s;
+};
 
-  // the words that reach one of the tile's 32-receiver tiles, compacted
-  const int rt0 = r0 / WORD;
-  const int rt1 = min(SQ ? words : words_for(rn), rt0 + MM_ROWS / WORD);
+// The tile's live words: those that reach one of its 32-receiver tiles,
+// compacted into live[] (returns their number)
+__device__ __forceinline__ int tile_live_words(DescentSmem& sm, int* live,
+                                               const uint32_t* tany,
+                                               int words, int nrt, int r0) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rt0 = r0 / WORD, rt1 = min(nrt, rt0 + MM_ROWS / WORD);
   for (int w = tid; w < words; w += MM_THREADS) {
     uint32_t any = 0;
-    for (int rt = rt0; rt < rt1; ++rt) any |= tany[(size_t)rt * words + w];
+#pragma unroll
+    for (int k = 0; k < MM_ROWS / WORD; ++k)   // all loads in flight
+      if (rt0 + k < rt1) any |= tany[(size_t)(rt0 + k) * words + w];
     live[w] = any != 0;
   }
   __syncthreads();
@@ -273,45 +644,318 @@ __device__ __forceinline__ void descent_tile(
       cnt += __popc(bal);
       __syncwarp();
     }
-    if (lane == 0) nlive_s = cnt;
+    if (lane == 0) sm.n_s = cnt;
   }
-  if (tid < MM_COLS) { cur_s[tid] = 0; nxt_s[tid] = 0; }
   __syncthreads();
-  const int nlive = nlive_s;
+  return sm.n_s;
+}
 
-  // this thread's cells: rows rw + 16 mi + g (+8), columns 8 ni + 2 t4
-  // (+1) of the tile, bit (mi * 8 + ni) * 4 + c of `open`
-  const int rw = warp * 32;
-  uint64_t open = 0;
+__device__ __forceinline__ void zero_acc(int (&acc)[2][8][4]) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0;
+}
+
+// acc += the staged delivery bits (a_s) of kws words x their witness
+// bytes (w_s): warp w's rows w * 32.., all 64 columns
+__device__ __forceinline__ void mma_chunk(const DescentSmem& sm, int kws,
+                                          int (&acc)[2][8][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, rw = warp * 32;
+  for (int kw = 0; kw < kws; ++kw) {
+    uint32_t a[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const uint32_t lo = sm.a_s[kw][rw + 16 * mi + g];
+      const uint32_t hi = sm.a_s[kw][rw + 16 * mi + g + 8];
+      a[mi][0] = nibble_bytes(lo >> (4 * t4));
+      a[mi][1] = nibble_bytes(hi >> (4 * t4));
+      a[mi][2] = nibble_bytes(lo >> (16 + 4 * t4));
+      a[mi][3] = nibble_bytes(hi >> (16 + 4 * t4));
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      const uint8_t* wr = &sm.w_s[8 * ni + g][kw * WORD + 4 * t4];
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wr);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wr + 16);
+      mma_s8(acc[0][ni], a[0], b0, b1);
+      mma_s8(acc[1][ni], a[1], b0, b1);
+    }
+  }
+}
+
+// c += a (16 x 256, b1, row) * b (256 x 8, b1, col): the bits ANDed and
+// counted, s32 accumulators
+__device__ __forceinline__ void mma_b1(int (&c)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t a2, uint32_t a3, uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// the ladder descent's product buffers: BK sender words of delivery bits
+// [kw][r] and witness bits [kw][j], rows padded so that a fragment's 32
+// reads fall in 32 banks
+constexpr int BK = 8;
+struct BitsSmem {
+  uint32_t a[BK][MM_ROWS + 8];
+  uint32_t w[BK][MM_COLS + 8];
+};
+
+// acc = d @ witness over the n words of list[], both as bits: per chunk of
+// BK words thread tid stages the delivery words of its row (tid) and two
+// witness words (column tid % 64, words tid / 64 and tid / 64 + 4); the
+// next chunk's loads are in flight while this one multiplies.  One
+// m16n8k256 b1 product (AND, popcount) takes the chunk's 256 senders.
+__device__ __forceinline__ void bits_product(BitsSmem& sb, const int* list,
+                                             int n, const uint32_t* dbits,
+                                             const uint32_t* wb, int rn,
+                                             int cn, int r0, int j0,
+                                             int (&acc)[2][8][4]) {
+  static_assert(BK * MM_COLS == 2 * MM_THREADS && MM_ROWS == MM_THREADS,
+                "a row and two witness words a thread");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3, rw = warp * 32;
+  const int bj = tid % MM_COLS, bk = tid / MM_COLS;
+  const bool row = r0 + tid < rn, col = j0 + bj < cn;
+  uint32_t d[BK], x[2];
+  auto load = [&](int c0) {
+#pragma unroll
+    for (int kw = 0; kw < BK; ++kw)
+      d[kw] = c0 + kw < n && row
+                  ? dbits[(size_t)list[c0 + kw] * rn + r0 + tid] : 0u;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kw = bk + 4 * e;
+      x[e] = c0 + kw < n && col
+                 ? wb[(size_t)list[c0 + kw] * cn + j0 + bj] : 0u;
+    }
+  };
+  zero_acc(acc);
+  load(0);
+  for (int c0 = 0; c0 < n; c0 += BK) {
+#pragma unroll
+    for (int kw = 0; kw < BK; ++kw) sb.a[kw][tid] = d[kw];
+    sb.w[bk][bj] = x[0];
+    sb.w[bk + 4][bj] = x[1];
+    __syncthreads();
+    if (c0 + BK < n) load(c0 + BK);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int r = rw + 16 * mi + g;
+      const uint32_t a0 = sb.a[t4][r], a1 = sb.a[t4][r + 8];
+      const uint32_t a2 = sb.a[t4 + 4][r], a3 = sb.a[t4 + 4][r + 8];
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        mma_b1(acc[mi][ni], a0, a1, a2, a3, sb.w[t4][8 * ni + g],
+               sb.w[t4 + 4][8 * ni + g]);
+    }
+    __syncthreads();
+  }
+}
+
+// this thread's cells of tile (r0, j0): rows rw + 16 mi + g + 8 h,
+// columns 8 ni + 2 t4 + e, bit (mi * 8 + ni) * 4 + c of an open mask (c =
+// 2 h + e), the layout of an mma accumulator; at(mi, ni, c) reaches the
+// cell in an output plane through one row pointer a (mi, h), so a store
+// takes its column offset as an immediate
+__device__ __forceinline__ int cell_row(int c, int mi) {
+  const int lane = threadIdx.x & 31;
+  return (threadIdx.x >> 5) * 32 + 16 * mi + (lane >> 2) + 8 * (c >> 1);
+}
+__device__ __forceinline__ int cell_col(int c, int ni) {
+  return 8 * ni + 2 * (threadIdx.x & 3) + (c & 1);
+}
+
+struct CellRows {
+  int32_t* row[2][2];
+  __device__ __forceinline__ CellRows(int32_t* plane, int r0, int j0, int rn,
+                                      int cn) {
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        row[mi][h] = plane + (size_t)min(r0 + cell_row(2 * h, mi), rn - 1) *
+                                 cn + j0 + cell_col(0, 0);
+  }
+  __device__ __forceinline__ int32_t& at(int mi, int ni, int c) const {
+    return row[mi][c >> 1][8 * ni + (c & 1)];
+  }
+};
+
+// for each open cell of this thread: if close(mi, ni, c, v) the cell takes
+// v and is closed
+template <class Close>
+__device__ __forceinline__ void close_cells(uint64_t& open,
+                                            const CellRows& out,
+                                            Close close) {
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni)
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        const int r = r0 + rw + 16 * mi + g + 8 * (c >> 1);
-        const int j = j0 + 8 * ni + 2 * t4 + (c & 1);
-        if (r < rn && j < cn) open |= 1ull << ((mi * 8 + ni) * 4 + c);
+        const int i = (mi * 8 + ni) * 4 + c;
+        int32_t v;
+        if (((open >> i) & 1) && close(mi, ni, c, v)) {
+          out.at(mi, ni, c) = v;
+          open &= ~(1ull << i);
+        }
       }
+}
+
+// the bits of an open mask in rows of half mi (mi * 8 + ni) * 4 + c
+__device__ __forceinline__ uint64_t row_half(int mi) {
+  return mi ? 0xffffffff00000000ull : 0xffffffffull;
+}
+
+// the cells whose accumulator is positive
+__device__ __forceinline__ uint64_t hit_mask(const int (&acc)[2][8][4]) {
+  uint32_t m[2] = {0u, 0u};
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        m[mi] |= (uint32_t)(acc[mi][ni][c] > 0) << (ni * 4 + c);
+  return (uint64_t)m[1] << 32 | m[0];
+}
+
+// the cells of the columns where v (this thread's column 0 of a row of
+// 64, as &row[cell_col(0, 0)]) is 0
+__device__ __forceinline__ uint64_t col_mask(const int32_t* v) {
+  uint32_t m = 0;
+#pragma unroll
+  for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (v[8 * ni + e] == 0) m |= 0x5u << (ni * 4 + e);
+  return (uint64_t)m << 32 | m;
+}
+
+// a warp's staging of 16 rows x 64 columns of an output plane (one half
+// mi of its rows), padded so that the 8-byte stores of a fragment and the
+// 16-byte reads of a row spread over the banks
+constexpr int ST_STRIDE = MM_COLS + 4;
+struct StageSmem {
+  int32_t v[MM_THREADS / WORD][16][ST_STRIDE];
+};
+
+// Store the tile of one plane: each cell by its code (2 bits, code[0] the
+// low): 0 is FILL, k + 1 rung k's value less 1 (lad: this thread's column
+// 0 of the plane's rungs, as &lad_s[p * LADDER][cell_col(0, 0)]), 3 a
+// placeholder the fallback overwrites.  A warp stages half of its rows at
+// a time in shared memory and writes them row by row, 16 bytes a lane
+// where C % 4 == 0 (vec).
+__device__ __forceinline__ void store_codes(StageSmem& stage, int32_t* plane,
+                                            int r0, int j0, int rn, int cn,
+                                            const uint64_t (&code)[2],
+                                            const int32_t* lad, bool vec) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  int32_t (*st)[ST_STRIDE] = stage.v[warp];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      int32_t val[2][3];   // [e][code], code 3 as FILL
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        val[e][0] = -1;
+#pragma unroll
+        for (int k = 0; k < LADDER; ++k)
+          val[e][k + 1] = lad[k * MM_COLS + 8 * ni + e] - 1;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = (mi * 8 + ni) * 4 + 2 * h;
+        int32_t v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int cd = (int)((code[0] >> (i + e)) & 1) |
+                         (int)((code[1] >> (i + e)) & 1) << 1;
+          v[e] = cd == 1 ? val[e][1] : (cd == 2 ? val[e][2] : -1);
+        }
+        *reinterpret_cast<int2*>(&st[g + 8 * h][8 * ni + 2 * t4]) =
+            make_int2(v[0], v[1]);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 8; ++it) {
+      const int idx = it * WORD + lane, rr = idx / 16, cq = idx % 16;
+      const int r = r0 + warp * 32 + 16 * mi + rr, j = j0 + 4 * cq;
+      if (r >= rn || j >= cn) continue;
+      int32_t* o = plane + (size_t)r * cn + j;
+      const int4 x = *reinterpret_cast<const int4*>(&st[rr][4 * cq]);
+      if (vec && j + 3 < cn) {
+        *reinterpret_cast<int4*>(o) = x;
+      } else {
+        const int32_t xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (j + e < cn) o[e] = xs[e];
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// the tile's cells inside the block (rn x cn)
+__device__ __forceinline__ uint64_t tile_cells(int r0, int j0, int rn,
+                                               int cn) {
+  uint64_t open = 0;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (r0 + cell_row(c, mi) < rn && j0 + cell_col(c, ni) < cn)
+          open |= 1ull << ((mi * 8 + ni) * 4 + c);
+  return open;
+}
+
+// The per-tile level descent of plane p over the tile's nlive live words
+// (K2's, and K1's past the ladder), output shifted back down.  From level
+// 0 (resume false): the pre-resolve d @ (v > 0) closes the cells it
+// misses as FILL = -1.  Resume: the open cells all have a contributing
+// sender below cur_s[j], which the caller set; a probe pass finds the
+// next value below it.  Level k: the witness product d @ (v == cur), cur
+// being each column's next distinct value below the last among the live
+// senders, found in the same pass; the cells it hits first take cur - 1.
+// The block stops when none of its cells is open.  SQ: the square block.
+template <bool SQ>
+__device__ __forceinline__ void descent_levels(
+    DescentSmem& sm, const int* live, int nlive, const uint32_t* dbits,
+    const uint8_t* known, const int32_t* hb, const int32_t* ts, int32_t* out,
+    int rn, int sn, int cn, int now, int t_remove, int r0, int j0, int p,
+    uint64_t open, bool resume) {
+  if (SQ) { sn = rn; cn = rn; }
+  const int tid = threadIdx.x;
   // witness builder: column bj, sender quads bq and bq + 4 of each word
   const int bj = tid & (MM_COLS - 1), bq = tid / MM_COLS;
   const int jb = j0 + bj;
-  bool first = true;
+  bool first = !resume, probe = resume;
+  const CellRows cells(out, r0, j0, rn, cn);
   for (;;) {
     int acc[2][8][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0;
-    const int cur = cur_s[bj];
+    const int cur = sm.cur_s[bj];
     int nxt = 0;
+    // acc = d @ witness over the live words, MM_KW at a time (a probe
+    // pass stages them without multiplying)
+    zero_acc(acc);
     for (int c0 = 0; c0 < nlive; c0 += MM_KW) {
       for (int i = tid; i < MM_KW * MM_ROWS; i += MM_THREADS) {
         const int kw = i / MM_ROWS, rr = i % MM_ROWS, r = r0 + rr;
-        a_s[kw][rr] = (c0 + kw < nlive && r < rn)
-                          ? dbits[(size_t)live[c0 + kw] * rn + r] : 0u;
+        sm.a_s[kw][rr] = (c0 + kw < nlive && r < rn)
+                             ? dbits[(size_t)live[c0 + kw] * rn + r] : 0u;
       }
 #pragma unroll
       for (int kw = 0; kw < MM_KW; ++kw) {
@@ -340,81 +984,249 @@ __device__ __forceinline__ void descent_tile(
           nxt = max(nxt, first ? v : (v < cur ? v : 0));
           bytes[e >> 2] |= (uint32_t)wit << (8 * (e & 3));
         }
-        uint8_t* wq = &w_s[bj][kw * WORD + 4 * bq];
+        uint8_t* wq = &sm.w_s[bj][kw * WORD + 4 * bq];
         *reinterpret_cast<uint32_t*>(wq) = bytes[0];
         *reinterpret_cast<uint32_t*>(wq + 16) = bytes[1];
       }
       __syncthreads();
-      const int kws = min(MM_KW, nlive - c0);
-      for (int kw = 0; kw < kws; ++kw) {
-        uint32_t a[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const uint32_t lo = a_s[kw][rw + 16 * mi + g];
-          const uint32_t hi = a_s[kw][rw + 16 * mi + g + 8];
-          a[mi][0] = nibble_bytes(lo >> (4 * t4));
-          a[mi][1] = nibble_bytes(hi >> (4 * t4));
-          a[mi][2] = nibble_bytes(lo >> (16 + 4 * t4));
-          a[mi][3] = nibble_bytes(hi >> (16 + 4 * t4));
-        }
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni) {
-          const uint8_t* wr = &w_s[8 * ni + g][kw * WORD + 4 * t4];
-          const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wr);
-          const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wr + 16);
-          mma_s8(acc[0][ni], a[0], b0, b1);
-          mma_s8(acc[1][ni], a[1], b0, b1);
-        }
-      }
+      if (!probe) mma_chunk(sm, min(MM_KW, nlive - c0), acc);
       __syncthreads();
     }
     // resolve: level 0 closes the cells it missed (FILL), level k the
     // cells its witnesses hit (cur - 1)
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const uint64_t bit = 1ull << ((mi * 8 + ni) * 4 + c);
-          const bool hit = acc[mi][ni][c] > 0;
-          if ((open & bit) && (first ? !hit : hit)) {
-            const int r = r0 + rw + 16 * mi + g + 8 * (c >> 1);
-            const int jj = 8 * ni + 2 * t4 + (c & 1);
-            out[(size_t)r * cn + j0 + jj] = first ? -1 : cur_s[jj] - 1;
-            open &= ~bit;
-          }
-        }
-    atomicMax(&nxt_s[bj], nxt);
+    if (!probe) {
+      const int* cur_t = &sm.cur_s[cell_col(0, 0)];
+      close_cells(open, cells, [&](int mi, int ni, int c, int32_t& v) {
+        const bool hit = acc[mi][ni][c] > 0;
+        v = first ? -1 : cur_t[8 * ni + (c & 1)] - 1;
+        return first ? !hit : hit;
+      });
+    }
+    atomicMax(&sm.nxt_s[bj], nxt);
     __syncthreads();
-    if (tid < MM_COLS) { cur_s[tid] = nxt_s[tid]; nxt_s[tid] = 0; }
-    first = false;
+    if (tid < MM_COLS) { sm.cur_s[tid] = sm.nxt_s[tid]; sm.nxt_s[tid] = 0; }
+    first = probe = false;
     // stop when no cell of the tile is open (or no column has a level
     // left, which cannot happen while a cell is open)
     if (!__syncthreads_or(open != 0)) break;
-    if (!__syncthreads_or(tid < MM_COLS && cur_s[tid] > 0)) break;
+    if (!__syncthreads_or(tid < MM_COLS && sm.cur_s[tid] > 0)) break;
   }
 }
 
+// The per-tile descent of tile (bx, by) (rows 256 bx.., columns 64 by..)
+// of plane p from level 0: K2's merge, and K1's for a launch without a
+// ladder (use_ladder).  SQ: the square block (S = C = R).
+template <bool SQ>
+__device__ __forceinline__ void descent_tile(
+    const uint32_t* dbits, const uint32_t* tany, const uint8_t* known,
+    const int32_t* hb, const int32_t* ts, int32_t* m_all, int32_t* m_fresh,
+    int32_t* t_fresh, int rn, int sn, int cn, int words, int now,
+    int t_remove, int bx, int by, int p) {
+  if (SQ) { sn = rn; cn = rn; }
+  extern __shared__ int live[];                   // the tile's live words
+  __shared__ DescentSmem sm;
+  const int r0 = bx * MM_ROWS, j0 = by * MM_COLS;
+  __syncthreads();   // the block's previous tile is done with its buffers
+  const int nlive = tile_live_words(sm, live, tany, words, words_for(rn),
+                                    r0);
+  if (threadIdx.x < MM_COLS) { sm.cur_s[threadIdx.x] = 0;
+                               sm.nxt_s[threadIdx.x] = 0; }
+  __syncthreads();
+  descent_levels<SQ>(sm, live, nlive, dbits, known, hb, ts,
+                     p == 0 ? m_all : (p == 1 ? m_fresh : t_fresh), rn, sn,
+                     cn, now, t_remove, r0, j0, p,
+                     tile_cells(r0, j0, rn, cn), false);
+}
+
 // grid (row tiles, column tiles, 3 B): plane blockIdx.z % 3 of lane
-// blockIdx.z / 3 (B = 1 solo); every lane reads its own scratch
+// blockIdx.z / 3 (B = 1 solo), for a launch without a ladder; every lane
+// reads its own scratch
 template <bool SQ>
 __global__ void __launch_bounds__(MM_THREADS, 2)
-masked_max3_kernel(const uint32_t* __restrict__ scratch,
+masked_max3_plane_kernel(const uint32_t* __restrict__ scratch,
                    const uint8_t* __restrict__ known,
                    const int32_t* __restrict__ hb,
                    const int32_t* __restrict__ ts,
                    int32_t* __restrict__ m_all, int32_t* __restrict__ m_fresh,
-                   int32_t* __restrict__ t_fresh, int rn, int sn, int cn,
-                   int words, int now, int t_remove) {
+                   int32_t* __restrict__ t_fresh, size_t lane_words, int rn,
+                   int sn, int cn, int words, int now, int t_remove) {
   if (SQ) { sn = rn; cn = rn; }
   const size_t lane = blockIdx.z / 3;
   const size_t o = lane * (size_t)sn * cn, q = lane * (size_t)rn * cn;
-  const uint32_t* dbits = scratch + lane * merge_scratch_words(rn, sn);
+  const uint32_t* dbits = scratch + lane * lane_words;
   descent_tile<SQ>(dbits, dbits + (size_t)words * rn, known + o, hb + o,
                    ts + o, m_all + q, m_fresh + q, t_fresh + q, rn, sn, cn,
                    words, now, t_remove, blockIdx.x, blockIdx.y,
                    blockIdx.z % 3);
+}
+
+// the fallback of masked_max3_kernel, out of line: it runs rarely, and
+// its registers stay off the kernel's main path
+template <bool SQ>
+__device__ __noinline__ void descent_fallback(
+    DescentSmem& sm, const int* live, int nlive, const uint32_t* dbits,
+    const uint8_t* known, const int32_t* hb, const int32_t* ts, int32_t* out,
+    int rn, int sn, int cn, int now, int t_remove, int r0, int j0, int p,
+    uint64_t open) {
+  descent_levels<SQ>(sm, live, nlive, dbits, known, hb, ts, out, rn, sn, cn,
+                     now, t_remove, r0, j0, p, open, true);
+}
+
+// masked_max3_kernel's static shared memory: the products, the store
+// pass and the fallback take turns in u; the tile's rungs, word masks,
+// list lengths and rows' proc stay
+struct LadderSmem {
+  union {
+    BitsSmem bits;
+    StageSmem stage;
+    DescentSmem descent;
+  } u;
+  int32_t lad_s[3 * LADDER][MM_COLS];
+  uint32_t any_s[NBP][WANY_MAX];
+  int np_s[NBP];
+  uint8_t row_s[MM_ROWS];
+};
+
+// K1's descent on the ladder: grid (row tiles, column tiles, B), one
+// block a tile of lane blockIdx.z running its three planes.  A receiver
+// that does not consume this tick (proc 0) has no delivery: its row is
+// FILL at once.  Per plane: the rung products d @ (v == lad[k]) in order
+// (a cell hit first takes lad[k] - 1), each over the live words with a
+// witness in the tile's columns (none: skipped); the open cells of a
+// column whose last rung is 0 (its ladder holds every value) are FILL;
+// level 0 d @ (v > 0) closes the cells it misses as FILL; a tile with
+// cells still open falls back to descent_levels from below the last
+// rung.  Every load the setup needs (the tile's live words, the rows'
+// proc, the rungs and the word masks) is in flight at once, and each
+// bit-plane's word list is built once.  counts (may be null): per lane
+// counts[lane * cstride] += 3 (the plane descents) and counts[lane *
+// cstride + 1] += the plane descents that fell back.
+template <bool SQ>
+__global__ void __launch_bounds__(MM_THREADS, 2)
+masked_max3_kernel(uint32_t* __restrict__ scratch,
+                   const uint8_t* __restrict__ proc,
+                   const uint8_t* __restrict__ known,
+                   const int32_t* __restrict__ hb,
+                   const int32_t* __restrict__ ts,
+                   int32_t* __restrict__ m_all, int32_t* __restrict__ m_fresh,
+                   int32_t* __restrict__ t_fresh, size_t lane_words, int rn,
+                   int sn, int cn, int words, int now, int t_remove,
+                   unsigned long long* __restrict__ counts, int cstride) {
+  if (SQ) { sn = rn; cn = rn; }
+  // live words, then each bit-plane's word list
+  extern __shared__ int live[];
+  __shared__ LadderSmem ls;
+  auto& u = ls.u;
+  DescentSmem& sm = u.descent;
+  BitsSmem& sb = u.bits;
+  auto& lad_s = ls.lad_s;
+  auto& any_s = ls.any_s;
+  auto& np_s = ls.np_s;
+  auto& row_s = ls.row_s;
+  const size_t lane = blockIdx.z;
+  const size_t o = lane * (size_t)sn * cn, q = lane * (size_t)rn * cn;
+  known += o; hb += o; ts += o;
+  uint32_t* dbits = scratch + lane * lane_words;
+  const LadderPtrs l = ladder_ptrs(dbits, rn, sn, cn);
+  const int tid = threadIdx.x, lane_id = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * MM_ROWS, j0 = blockIdx.y * MM_COLS;
+  const int strips = (cn + LD_COLS - 1) / LD_COLS, wwords = words_for(words);
+  const int ls0 = blockIdx.y * LD_PER_TILE;
+  const int nls = min(strips - ls0, LD_PER_TILE);
+  // the rows' proc, the tile's rungs and word masks (the strips' OR)
+  row_s[tid] = r0 + tid < rn && proc[lane * rn + r0 + tid];
+  for (int i = tid; i < 3 * LADDER * MM_COLS; i += MM_THREADS) {
+    const int pk = i / MM_COLS, c = i % MM_COLS, j = j0 + c;
+    lad_s[pk][c] = j < cn ? l.lad[(size_t)pk * cn + j] : 0;
+  }
+  for (int i = tid; i < NBP * wwords; i += MM_THREADS) {
+    const int bp = i / wwords, ww = i % wwords;
+    uint32_t any = 0;
+#pragma unroll
+    for (int k = 0; k < LD_PER_TILE; ++k)
+      if (k < nls)
+        any |= l.wany[((size_t)bp * strips + ls0 + k) * wwords + ww];
+    any_s[bp][ww] = any;
+  }
+  const int nlive = tile_live_words(sm, live, dbits + (size_t)words * rn,
+                                    words, words_for(rn), r0);
+  // each bit-plane's list: the live words with a witness in the tile
+  for (int bp = warp; bp < NBP; bp += MM_THREADS / WORD) {
+    int* list = live + (1 + bp) * words;
+    int cnt = 0;
+    for (int base = 0; base < nlive; base += WORD) {
+      const int k = base + lane_id;
+      const int w = k < nlive ? live[k] : 0;
+      const bool f = k < nlive && ((any_s[bp][w / WORD] >> (w % WORD)) & 1u);
+      const uint32_t bal = __ballot_sync(0xffffffffu, f);
+      if (f) list[cnt + __popc(bal & ((1u << lane_id) - 1u))] = w;
+      cnt += __popc(bal);
+    }
+    if (lane_id == 0) np_s[bp] = cnt;
+  }
+  __syncthreads();
+  // the cells of rows that consume this tick are open; the others FILL
+  const uint64_t cells = tile_cells(r0, j0, rn, cn);
+  uint64_t open0 = cells;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (!row_s[cell_row(2 * h, mi)])
+        open0 &= ~(0x3333333333333333ull << (2 * h) & row_half(mi));
+  // acc = the product of bit-plane bp over its list (false, acc untouched:
+  // the list is empty)
+  auto product = [&](int bp, int (&acc)[2][8][4]) -> bool {
+    if (np_s[bp] == 0) return false;
+    bits_product(sb, live + (1 + bp) * words, np_s[bp], dbits,
+                 l.wbits + (size_t)bp * words * cn, rn, cn, r0, j0, acc);
+    return true;
+  };
+  int fallbacks = 0;
+  for (int p = 0; p < 3; ++p) {
+    int32_t* out = (p == 0 ? m_all : (p == 1 ? m_fresh : t_fresh)) + q;
+    // a cell's code: 0 FILL, k + 1 rung k, 3 written by the fallback
+    static_assert(LADDER + 2 <= 4, "two code bits a cell");
+    uint64_t open = open0, code[2] = {0, 0};
+    int acc[2][8][4];
+    for (int k = 0; k < LADDER; ++k) {
+      if (!__syncthreads_or(open != 0)) break;
+      if (!product(bp_rung(p, k), acc)) continue;
+      const uint64_t hit = hit_mask(acc) & open;
+      if ((k + 1) & 1) code[0] |= hit;
+      if ((k + 1) & 2) code[1] |= hit;
+      open &= ~hit;
+    }
+    // FILL: the open cells of a column whose ladder holds every value
+    // (no contributor can be left), then those level 0 misses
+    open &= ~col_mask(&lad_s[p * LADDER + LADDER - 1][cell_col(0, 0)]);
+    if (__syncthreads_or(open != 0))
+      open &= product(bp_level0(p), acc) ? hit_mask(acc) : 0;
+    // every cell of the tile takes its code's value (the fallback's
+    // placeholders first, which it then overwrites)
+    const bool fall = __syncthreads_or(open != 0);
+    code[0] |= open;
+    code[1] |= open;
+    store_codes(u.stage, out, r0, j0, rn, cn, code,
+                &lad_s[p * LADDER][cell_col(0, 0)], cn % 4 == 0);
+    if (fall) {
+      ++fallbacks;
+      __syncthreads();   // cur_s / nxt_s overlay the rows store_codes read
+      if (tid < MM_COLS) {
+        sm.cur_s[tid] = lad_s[p * LADDER + LADDER - 1][tid];
+        sm.nxt_s[tid] = 0;
+      }
+      __syncthreads();
+      descent_fallback<SQ>(sm, live, nlive, dbits, known, hb, ts, out, rn,
+                           sn, cn, now, t_remove, r0, j0, p, open);
+    }
+    __syncthreads();   // the next plane's products reuse the buffers
+  }
+  if (counts && tid == 0) {
+    atomicAdd(&counts[lane * cstride], 3ull);
+    if (fallbacks) atomicAdd(&counts[lane * cstride + 1],
+                             (unsigned long long)fallbacks);
+  }
 }
 
 struct CellOut {
@@ -884,11 +1696,12 @@ dense_mega_kernel(const __grid_constant__ K2Args a) {
             const size_t o = (size_t)r * n + j;
             a.known[o] = 0; a.hb[o] = 0; a.ts[o] = 0;
           }
-    const int prep = a.words * a.words;
+    const int wq = (a.words + PREP_WORDS - 1) / PREP_WORDS;
+    const int prep = (int)prep_blocks(n, a.words);
     for (int i = tile_first(prep); i < prep; i += tile_step(prep))
-      merge_prep_tile<true>(cur, vec + V_PROC * n, a.dbits, a.tany, n, n,
-                            a.words, i % a.words, i / a.words, tid & 31,
-                            tid >> 5);
+      merge_prep_tiles<true>(cur, vec + V_PROC * n, a.dbits, a.tany, n, n,
+                             a.words, (i % wq) * PREP_WORDS, i / wq,
+                             tid & 31, tid >> 5);
     phase_sync(grid);
     // (2) the descent tiles of the three planes
     const int descent = a.rt * a.ct * 3;
@@ -927,7 +1740,8 @@ dense_mega_kernel(const __grid_constant__ K2Args a) {
 
 // The tiles of K2's widest phase: no block beyond them has work.
 int k2_work_tiles(const K2Args& a) {
-  return max(a.words * a.words, max(a.rt * a.ct * 3, a.ex * a.ey));
+  return max((int)prep_blocks(a.n, a.words),
+             max(a.rt * a.ct * 3, a.ex * a.ey));
 }
 
 // One cooperative launch of K2: `blocks` > 0 sets the grid (refused by the
@@ -958,41 +1772,72 @@ cudaError_t launch_dense_mega(K2Args& a, int blocks, cudaStream_t stream) {
 
 
 // b lanes, each an independent merge of an S x R delivery block against
-// S x C payload rows: the lane is one more grid coordinate of both launches
+// S x C payload rows: the lane is one more grid coordinate of both
+// launches.  With a ladder (use_ladder) the prep launch also builds it and
+// the descent is masked_max3_kernel; else masked_max3_plane_kernel.
 cudaError_t launch_masked_max3(const uint8_t* gossip, const uint8_t* proc,
                                const uint8_t* known, const int32_t* hb,
                                const int32_t* ts, int32_t* m_all,
                                int32_t* m_fresh, int32_t* t_fresh,
                                uint32_t* scratch, int rn, int sn, int cn,
                                int b, int t, int t_remove,
+                               unsigned long long* counts, int cstride,
                                cudaStream_t stream) {
   const int words = words_for(sn);
-  const size_t smem = (size_t)words * sizeof(int);
+  const bool ladder = use_ladder(rn, sn);
+  const size_t smem = (size_t)words * sizeof(int) * (ladder ? 1 + NBP : 1);
+  const long long prep = prep_blocks(rn, words);
+  const int ct = (cn + MM_COLS - 1) / MM_COLS;
+  const int nl = ladder ? (cn + LD_COLS - 1) / LD_COLS : 0;
   if (rn < 1 || sn < 1 || cn < 1 || b < 1 || b > 65535 / 3 ||
-      smem > 48 * 1024 || words_for(rn) > 65535 ||
-      (cn + MM_COLS - 1) / MM_COLS > 65535)
+      smem > 48 * 1024 || b * (prep + nl) > 0x7fffffffLL || ct > 65535)
     return cudaErrorInvalidValue;
+  const size_t lane_words = lane_scratch_words(rn, sn, cn);
   // the square block of a tick keeps its own instance (one extent)
   const bool sq = rn == sn && sn == cn;
-  const dim3 pgrid(words, words_for(rn), b), pblock(WORD, 8);
+  const dim3 pgrid((unsigned)(b * (prep + nl))), pblock(WORD, 8);
   if (sq)
     merge_prep_kernel<true><<<pgrid, pblock, 0, stream>>>(
-        gossip, proc, scratch, rn, sn, words);
+        gossip, proc, known, hb, ts, scratch, lane_words, rn, sn, cn, words,
+        nl, t, t_remove);
   else
     merge_prep_kernel<false><<<pgrid, pblock, 0, stream>>>(
-        gossip, proc, scratch, rn, sn, words);
+        gossip, proc, known, hb, ts, scratch, lane_words, rn, sn, cn, words,
+        nl, t, t_remove);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dim3 grid((rn + MM_ROWS - 1) / MM_ROWS, (cn + MM_COLS - 1) / MM_COLS,
-                  3 * b);
+  const int rt = (rn + MM_ROWS - 1) / MM_ROWS;
+  if (ladder) {
+    const dim3 grid(rt, ct, b);
+    // word lists past the 48 KB a block gets by default, beside the
+    // kernel's static part (S above 8,160), take an opt-in
+    const bool big = sizeof(LadderSmem) + smem > 48 * 1024;
+#define GP_MERGE(SQ_)                                                    \
+  if (big)                                                               \
+    err = cudaFuncSetAttribute(masked_max3_kernel<SQ_>,                 \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                               (int)smem);                               \
+  if (err != cudaSuccess) return err;                                    \
+  masked_max3_kernel<SQ_><<<grid, MM_THREADS, smem, stream>>>(         \
+      scratch, proc, known, hb, ts, m_all, m_fresh, t_fresh, lane_words,  \
+      rn, sn, cn, words, t, t_remove, counts, cstride)
+    if (sq) {
+      GP_MERGE(true);
+    } else {
+      GP_MERGE(false);
+    }
+#undef GP_MERGE
+    return cudaGetLastError();
+  }
+  const dim3 grid(rt, ct, 3 * b);
   if (sq)
-    masked_max3_kernel<true><<<grid, MM_THREADS, smem, stream>>>(
-        scratch, known, hb, ts, m_all, m_fresh, t_fresh, rn, sn, cn, words,
-        t, t_remove);
+    masked_max3_plane_kernel<true><<<grid, MM_THREADS, smem, stream>>>(
+        scratch, known, hb, ts, m_all, m_fresh, t_fresh, lane_words, rn, sn,
+        cn, words, t, t_remove);
   else
-    masked_max3_kernel<false><<<grid, MM_THREADS, smem, stream>>>(
-        scratch, known, hb, ts, m_all, m_fresh, t_fresh, rn, sn, cn, words,
-        t, t_remove);
+    masked_max3_plane_kernel<false><<<grid, MM_THREADS, smem, stream>>>(
+        scratch, known, hb, ts, m_all, m_fresh, t_fresh, lane_words, rn, sn,
+        cn, words, t, t_remove);
   return cudaGetLastError();
 }
 
@@ -1058,24 +1903,38 @@ const char* gp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// i32 words of the scratch gp_masked_max3 takes for one lane of r
-// receivers and s senders
+// i32 words of K2's merge scratch (the prep's dbits and tany) for n
+// peers: gp_merge_scratch_words(n, n)
 int gp_merge_scratch_words(int r, int s) {
   return static_cast<int>(merge_scratch_words(r, s));
 }
 
+// i32 words of the scratch gp_masked_max3 takes for one lane of r
+// receivers, s senders and c columns (the ladder's included); -1 past
+// what an int holds
+int gp_masked_max3_scratch_words(int r, int s, int c) {
+  const size_t w = lane_scratch_words(r, s, c);
+  return w > 0x7fffffff ? -1 : static_cast<int>(w);
+}
+
 // b lanes (1 solo): gossip u8[b, s, r] (sender, receiver), proc u8[b, r],
 // known u8 / hb, ts i32 [b, s, c], the three outputs i32[b, r, c]; scratch
-// b * gp_merge_scratch_words(r, s) i32 words.  now and t_remove are shared
-// by the lanes.  A tick's merge is the square r = s = c = N.
+// b * gp_masked_max3_scratch_words(r, s, c) i32 words.  now and t_remove
+// are shared by the lanes.  A tick's merge is the square r = s = c = N.
+// counts (i64, may be null): with a ladder, lane i adds its plane
+// descents (3 a tile) onto counts[i * cstride] and those that fell back
+// past the ladder onto counts[i * cstride + 1] (cstride 0: every lane
+// onto the same two).
 int gp_masked_max3(const uint8_t* gossip, const uint8_t* proc,
                    const uint8_t* known, const int32_t* hb, const int32_t* ts,
                    int32_t* m_all, int32_t* m_fresh, int32_t* t_fresh,
                    int32_t* scratch, int r, int s, int c, int b, int t,
-                   int t_remove, void* stream) {
+                   int t_remove, long long* counts, int cstride,
+                   void* stream) {
   return static_cast<int>(launch_masked_max3(
       gossip, proc, known, hb, ts, m_all, m_fresh, t_fresh,
       reinterpret_cast<uint32_t*>(scratch), r, s, c, b, t, t_remove,
+      reinterpret_cast<unsigned long long*>(counts), cstride,
       static_cast<cudaStream_t>(stream)));
 }
 

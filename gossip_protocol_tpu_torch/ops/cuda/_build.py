@@ -43,8 +43,9 @@ _U = ctypes.c_uint
 #: each source is one library: its C entry points and their arguments
 SOURCES = {
     "dense_tick.cu": {
-        "gp_masked_max3": [_P] * 9 + [_I] * 6 + [_P],
+        "gp_masked_max3": [_P] * 9 + [_I] * 6 + [_P, _I, _P],
         "gp_merge_scratch_words": [_I] * 2,
+        "gp_masked_max3_scratch_words": [_I] * 3,
         "gp_tick_epilogue": [_P] * 21 + [_I] * 4 + [_P],
         "gp_dense_mega_ticks": [_P] * 15 + [_I] * 6 + [_P],
         "gp_vector_step": [_P] * 13 + [_I] * 4 + [_P],

@@ -14,13 +14,19 @@ the JAX package's ``gossip_reductions``.
 ``gossip[s, r] & proc[r]`` (sender-major, as the state holds it), so no
 transposed copy is made.  On a CUDA tensor it launches the
 ``masked_max3`` kernels (csrc/dense_tick.cu): the TPU's level descent
-(``gossip_reductions_mxu`` / ``_masked_max_mxu``) on the int8 tensor
-cores, one tile-local descent per block, as
+(``gossip_reductions_mxu`` / ``_masked_max_mxu``) on the tensor cores,
+its levels taken from a witness ladder built once a call, as
 :func:`masked_max3_descent` runs it; on a CPU tensor it runs
 :func:`masked_max3_plain`.  All are exact, so they agree bit for bit.
+Given ``counts``, the kernel counts its plane descents and those that
+fell back past the ladder; a bench fleet passes them while spans record
+and adds them to the span counters ``merge.tiles`` and
+``merge.fallback_tiles`` (core/fleet.py).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -66,64 +72,184 @@ TILE_ROWS = 256
 TILE_COLS = 64
 #: senders per delivery word (one bit each; csrc/dense_tick.cu WORD)
 WORD = 32
+#: rungs of the witness ladder (csrc/dense_tick.cu LADDER)
+LADDER = 2
+#: a block of more row tiles than this builds the ladder when its sender
+#: words fit the kernel's word lists (csrc/dense_tick.cu use_ladder)
+LADDER_MIN_ROW_TILES = 4
+_LADDER_MAX_WORDS = (48 * 1024) // (4 * (1 + 3 + 3 * LADDER))
+PLANES = "aft"
+
+
+def uses_ladder(r_dim: int, s_dim: int) -> bool:
+    """Whether the ``masked_max3`` kernel builds a witness ladder for an
+    S x R delivery block (csrc/dense_tick.cu ``use_ladder``)."""
+    return (r_dim > LADDER_MIN_ROW_TILES * TILE_ROWS
+            and -(-s_dim // WORD) <= _LADDER_MAX_WORDS)
+
+
+class Descent(NamedTuple):
+    """What :func:`masked_max3_descent` computed and how.
+
+    ``maxima`` is ``(m_all, m_fresh, t_fresh)``; the other fields are
+    per plane (``"a"``, ``"f"``, ``"t"``): ``products`` and ``words``
+    i64[row tiles, column tiles], the tensor-core products each tile
+    ran and the 32-sender words they multiplied together; ``fallback``
+    bool[row tiles, column tiles], the tiles whose descent went on past
+    the ladder; ``rung_cells`` and ``fallback_cells``, the cells a rung
+    and the fallback closed (the rest are FILL).  ``ladder`` is False
+    for a block that runs the per-tile descent alone.
+    """
+    maxima: tuple
+    products: dict
+    words: dict
+    fallback: dict
+    rung_cells: dict
+    fallback_cells: dict
+    ladder: bool
+
+
+def witness_ladder(v, rungs: int = LADDER):
+    """i32[rungs, C]: the ``rungs`` largest distinct positive values of
+    each column of the payload plane ``v`` [S, C], 0 past the last."""
+    out = torch.zeros((rungs, v.shape[1]), dtype=v.dtype, device=v.device)
+    cur = v
+    for k in range(rungs):
+        out[k] = cur.amax(0).clamp_min(0)
+        cur = torch.where(cur < out[k], cur, 0)
+    return out
 
 
 def masked_max3_descent(gossip, proc, known, hb, ts, now: int, *,
-                        t_remove: int):
-    """Plain mirror of the ``masked_max3`` kernel's algorithm, the JAX
-    package's level descent (``_masked_max_mxu``) as the kernel runs it.
+                        t_remove: int, ladder: bool | None = None) -> Descent:
+    """Plain mirror of the ``masked_max3`` kernel's algorithm: the JAX
+    package's level descent (``_masked_max_mxu``) on a witness ladder.
 
-    Per row tile of ``TILE_ROWS`` receivers only the 32-sender words
-    with a delivery to one of its rows take part (the tile's live
-    words).  Per plane and column, the levels are the distinct positive
-    values of those senders in descending order.  Level 0 is the
-    pre-resolve product ``d @ (v > 0)``: cells it does not hit are FILL.
-    Level k > 0 is the witness product ``d @ (v == cur)``: the cells it
-    hits first take ``cur``.  A ``TILE_ROWS x TILE_COLS`` tile stops
-    after the first level that leaves none of its cells open.
+    ``gossip`` bool[S, R] delivers to R receivers, ``known`` / ``hb`` /
+    ``ts`` [S, C] are the senders' payload rows.  Per row tile of
+    ``TILE_ROWS`` receivers only the 32-sender words with a delivery to
+    one of its rows take part (the tile's live words).
 
-    Returns ``((m_all, m_fresh, t_fresh), levels)``: the same maxima as
-    :func:`masked_max3_plain`, and per plane (``"a"``, ``"f"``, ``"t"``)
-    the products each tile ran, i64[row tiles, column tiles] (0 for a
-    tile without live words).  Used by the tests and ``chip_smoke.py``.
+    The ladder is built once a call: per plane and column, the top
+    ``LADDER`` distinct positive values over every sender row
+    (:func:`witness_ladder`), with one witness bit a (sender, column)
+    for each rung (``v == rung``) and for level 0 (``v > 0``: known for
+    plane a, fresh for f and t).  Ladder values are those of a superset
+    of the senders that deliver, so for a cell no rung above its true
+    maximum has a witness among its senders, and the true maximum is a
+    rung or lies below the last.  A ``TILE_ROWS x TILE_COLS`` tile then
+    runs, per plane, the product ``d @ (v == rung k)`` for k = 1, 2, ...
+    (a cell it hits first takes ``rung - 1``), closes the cells of
+    columns whose ladder holds every value as FILL, runs level 0
+    ``d @ (v > 0)`` (a cell it misses is FILL) and, if cells are still
+    open, falls back to the per-tile descent from below the last rung:
+    each level is the next distinct value below the last among the
+    tile's live senders.  A product over no word with a witness in the
+    tile's columns is skipped, and a tile stops once none of its cells
+    is open.  A block of at most ``LADDER_MIN_ROW_TILES`` row tiles
+    builds no ladder (:func:`uses_ladder`; ``ladder`` overrides the rule,
+    so a test can run either at any size): its tiles run the per-tile
+    descent from level 0.
     """
-    n = known.shape[0]
+    s_dim, r_dim = gossip.shape
+    c_dim = known.shape[1]
     dev = known.device
-    d = (gossip & proc[None, :]).t()                       # [r, s]
-    w = -(-n // WORD)
-    dpad = torch.zeros((n, w * WORD), dtype=torch.bool, device=dev)
-    dpad[:, :n] = d
-    live_word = dpad.view(n, w, WORD).any(2)               # [r, W]
-    rt, ct = -(-n // TILE_ROWS), -(-n // TILE_COLS)
-    col_tile = torch.arange(n, device=dev) // TILE_COLS
-    outs, levels = [], {}
-    for name, v in zip("aft", merge_payloads(known, hb, ts, now, t_remove)):
-        m = torch.full((n, n), FILL, dtype=torch.int32, device=dev)
-        lv = torch.zeros((rt, ct), dtype=torch.int64, device=dev)
+    d = (gossip & proc[None, :]).t()                      # [r, s]
+    w = -(-s_dim // WORD)
+    dpad = torch.zeros((r_dim, w * WORD), dtype=torch.bool, device=dev)
+    dpad[:, :s_dim] = d
+    live_word = dpad.view(r_dim, w, WORD).any(2)          # [r, W]
+    rt, ct = -(-r_dim // TILE_ROWS), -(-c_dim // TILE_COLS)
+    col_tile = torch.arange(c_dim, device=dev) // TILE_COLS
+    if ladder is None:
+        ladder = uses_ladder(r_dim, s_dim)
+    vs = merge_payloads(known, hb, ts, now, t_remove)
+
+    def per_tile(mask):
+        """bool[R', C] -> bool[ct]: the column tiles with a set cell."""
+        out = torch.zeros(ct, dtype=torch.bool, device=dev)
+        out[col_tile[mask.any(0)]] = True
+        return out
+
+    def word_tiles(bits):
+        """bool[S, C] -> bool[W, ct]: the words with a set bit in each
+        column tile."""
+        pad = torch.zeros((w * WORD, ct * TILE_COLS), dtype=torch.bool,
+                          device=dev)
+        pad[:s_dim, :c_dim] = bits
+        return pad.view(w, WORD, ct, TILE_COLS).any(3).any(1)
+
+    maxima, products, words, fallback = [], {}, {}, {}
+    rung_cells, fallback_cells = {}, {}
+    for p, (name, v) in enumerate(zip(PLANES, vs)):
+        m = torch.full((r_dim, c_dim), FILL, dtype=torch.int32, device=dev)
+        prod = torch.zeros((rt, ct), dtype=torch.int64, device=dev)
+        nw = torch.zeros((rt, ct), dtype=torch.int64, device=dev)
+        fb = torch.zeros((rt, ct), dtype=torch.bool, device=dev)
+        n_rung = n_fb = 0
+        lad = witness_ladder(v) if ladder else None
         for i in range(rt):
-            rows = slice(i * TILE_ROWS, min(n, (i + 1) * TILE_ROWS))
-            live = live_word[rows].any(0).repeat_interleave(WORD)[:n]
-            if not live.any():
+            rows = slice(i * TILE_ROWS, min(r_dim, (i + 1) * TILE_ROWS))
+            lw = live_word[rows].any(0)                    # [W]
+            nlive = int(lw.sum())
+            if not nlive:
                 continue
+            live = lw.repeat_interleave(WORD)[:s_dim]
             dd = d[rows].to(torch.float32)
             vl = v * live[:, None]
-            # level 0: the pre-resolve product (exact: counts <= N < 2^24)
-            done = (dd @ (vl > 0).to(torch.float32)) == 0
-            lv[i] += 1
-            cur = vl.amax(0)
-            open_ = ~done
+            mi = m[rows]
+
+            def product(bits, tiles, skip_empty=True):
+                # exact: counts <= S < 2^24
+                k = (word_tiles(bits) & lw[:, None]).sum(0) if skip_empty \
+                    else torch.full((ct,), nlive, device=dev)
+                run = tiles & (k > 0)
+                prod[i] += run
+                nw[i] += k * run
+                return (dd @ bits.to(torch.float32)) > 0
+
+            if ladder:
+                open_ = proc[rows][:, None].expand(-1, c_dim).clone()
+                for k in range(LADDER):
+                    tiles = per_tile(open_)
+                    if not tiles.any():
+                        break
+                    hit = product((v == lad[k]) & (lad[k] > 0), tiles)
+                    newly = hit & open_
+                    mi[newly] = (lad[k] - 1).expand_as(mi)[newly]
+                    n_rung += int(newly.sum())
+                    open_ &= ~newly
+                # a column whose ladder holds all its values: FILL
+                open_ &= (lad[-1] > 0)[None, :]
+                tiles = per_tile(open_)
+                if tiles.any():
+                    open_ &= product(v > 0, tiles)
+                tiles = per_tile(open_)
+                fb[i] = tiles
+                if not tiles.any():
+                    continue
+                # the probe pass: the next value below the last rung
+                cur = torch.where(vl < lad[-1], vl, 0).amax(0)
+            else:
+                open_ = torch.ones_like(mi, dtype=torch.bool)
+                open_ &= product(v > 0, torch.ones(
+                    ct, dtype=torch.bool, device=dev), skip_empty=False)
+                cur = vl.amax(0)
             while open_.any():
-                tiles = torch.zeros(ct, dtype=torch.bool, device=dev)
-                tiles[col_tile[open_.any(0)]] = True
-                lv[i] += tiles
-                hit = (dd @ ((vl == cur) & (cur > 0)).to(torch.float32)) > 0
+                tiles = per_tile(open_)
+                hit = product((vl == cur) & (cur > 0), tiles,
+                              skip_empty=False)
                 newly = hit & open_
-                m[rows] = torch.where(newly, cur - 1, m[rows])
+                mi[newly] = (cur - 1).expand_as(mi)[newly]
+                if ladder:
+                    n_fb += int(newly.sum())
                 open_ &= ~newly
                 cur = torch.where(vl < cur, vl, 0).amax(0)
-        outs.append(m)
-        levels[name] = lv
-    return tuple(outs), levels
+        maxima.append(m)
+        products[name], words[name], fallback[name] = prod, nw, fb
+        rung_cells[name], fallback_cells[name] = n_rung, n_fb
+    return Descent(tuple(maxima), products, words, fallback, rung_cells,
+                   fallback_cells, ladder)
 
 
 def masked_max3_lanes_plain(gossip, proc, known, hb, ts, now: int, *,
@@ -137,7 +263,8 @@ def masked_max3_lanes_plain(gossip, proc, known, hb, ts, now: int, *,
     return tuple(torch.stack(planes) for planes in zip(*outs))
 
 
-def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int):
+def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int,
+                counts=None):
     """The three merge maxima of one tick (see the module docstring).
 
     ``gossip`` bool[S, R] (sender, receiver) delivers from S senders to R
@@ -152,6 +279,11 @@ def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int):
     tensors take the plain version; CUDA tensors launch the kernel (or
     raise).  A call whose block is not square also counts on
     ``masked_max3.rect_launches``.
+
+    ``counts`` (CUDA i64[B, 2], or [2] for every lane together): a launch
+    that builds a witness ladder (:func:`uses_ladder`) adds each lane's
+    plane descents, three a tile, and those that fell back past the
+    ladder.
     """
     lanes = known.dim() == 3
     if known.device.type == "cpu":
@@ -168,17 +300,30 @@ def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int):
                (proc, torch.bool, lead + (r_dim,)),
                (known, torch.bool, payload), (hb, torch.int32, payload),
                (ts, torch.int32, payload))
+    cstride = 0
+    if counts is not None:
+        check_args("masked_max3", (counts, torch.int64, tuple(counts.shape)),
+                   (known, torch.bool, payload))
+        if counts.shape not in ((2,), (b, 2)):
+            raise ValueError(f"masked_max3: counts must be [{b}, 2] or [2], "
+                             f"got {tuple(counts.shape)}")
+        cstride = 2 if counts.dim() == 2 else 0
     out = lead + (r_dim, c_dim)
     m_all, m_fresh, t_fresh = (torch.empty(out, dtype=torch.int32,
                                            device=known.device)
                                for _ in range(3))
     lib = library()
-    scratch = torch.empty(b * lib.gp_merge_scratch_words(r_dim, s_dim),
-                          dtype=torch.int32, device=known.device)
+    lane_words = lib.gp_masked_max3_scratch_words(r_dim, s_dim, c_dim)
+    if lane_words < 0:
+        raise ValueError(f"masked_max3: a {s_dim} x {r_dim} x {c_dim} "
+                         "block's scratch is too large")
+    scratch = torch.empty(b * lane_words, dtype=torch.int32,
+                          device=known.device)
     code = lib.gp_masked_max3(
         ptr(gossip), ptr(proc), ptr(known), ptr(hb), ptr(ts),
         ptr(m_all), ptr(m_fresh), ptr(t_fresh), ptr(scratch), r_dim, s_dim,
-        c_dim, b, int(now), int(t_remove), stream_ptr(known.device))
+        c_dim, b, int(now), int(t_remove), ptr(counts), cstride,
+        stream_ptr(known.device))
     count_launch(masked_max3)
     if not r_dim == s_dim == c_dim:
         count_launch(masked_max3, "rect_launches")

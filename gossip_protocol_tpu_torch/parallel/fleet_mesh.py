@@ -297,6 +297,8 @@ class MeshFleetSimulation(FleetSimulation):
     results land on the first entry's device.
     """
 
+    _counts_merges = False
+
     def __init__(self, cfg: SimConfig, mesh: Optional[Mesh] = None,
                  chunk_ticks: Optional[int] = None, device=None):
         mesh = mesh if mesh is not None else make_lane_mesh(device=device)

@@ -55,21 +55,40 @@ def _zero_rows(ops):
                  for _ in range(2))
 
 
+def _check_counts(counts, args, t):
+    """The merge's counters (i64[B, 2], or [2] for one block) equal its
+    plain mirror's, lane by lane: three plane descents a tile and those
+    that fell back past the ladder, or nothing without a ladder."""
+    from gossip_protocol_tpu_torch.ops.merge import masked_max3_descent
+    lanes = args[2].dim() == 3
+    for i in range(args[2].shape[0] if lanes else 1):
+        d = masked_max3_descent(*(a[i] if lanes else a for a in args), t,
+                                t_remove=T_REMOVE)
+        want = [3 * d.fallback["a"].numel(),
+                sum(int(v.sum()) for v in d.fallback.values())] \
+            if d.ladder else [0, 0]
+        assert (counts[i] if lanes else counts).tolist() == want
+
+
 def _check_k1(gossip, proc, known, hb, ts, v, t):
     """Both kernels equal their plain versions on one input, the
-    epilogue with and without events; each wrapper counts its launch."""
+    epilogue with and without events; each wrapper counts its launch,
+    and the merge's counters equal its plain mirror's."""
     from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
         tick_epilogue, tick_epilogue_plain)
     from gossip_protocol_tpu_torch.ops.merge import (masked_max3,
                                                      masked_max3_plain)
     before = masked_max3.launches
-    m = masked_max3(gossip, proc, known, hb, ts, t, t_remove=T_REMOVE)
+    counts = torch.zeros(2, dtype=torch.int64, device=known.device)
+    m = masked_max3(gossip, proc, known, hb, ts, t, t_remove=T_REMOVE,
+                    counts=counts)
     assert masked_max3.launches == before + 1
     m_p = masked_max3_plain(gossip, proc, known, hb, ts, t,
                             t_remove=T_REMOVE)
     torch.cuda.synchronize()
     for a, b in zip(m, m_p):
         assert torch.equal(a, b)
+    _check_counts(counts, (gossip, proc, known, hb, ts), t)
     for ev in (True, False):
         args = (*m, gossip, proc, known, hb, ts, v["gdrop"], v["ops"],
                 v["jrep"], v["jreq"], v["live_hold"], t)
@@ -87,7 +106,8 @@ def _check_k1(gossip, proc, known, hb, ts, v, t):
     (10, 0.6), (64, 0.6), (100, 0.6), (333, 0.6), (1024, 0.6),
     (64, "empty"), (64, "single_sender"), (100, "distinct"),
     (100, "fresh_spread"), (333, "no_fresh_cols"), (1024, "sparse_senders"),
-    (333, "distinct")])
+    (333, "distinct"), (1100, "mixed_fallback"), (2816, "ladder"),
+    (1280, "top_ties"), (1100, "ladder_dead_cols"), (2816, "spread")])
 def test_masked_max3_and_epilogue_kernels(dev, n, case):
     (gossip, proc, known, hb, ts), v = _k1_inputs(n, case, n, dev)
     _check_k1(gossip, proc, known, hb, ts, v, T)
@@ -1452,20 +1472,50 @@ def _rect(r, s, c, seed, dev, lanes=None):
             i(0, 600, (s, c)), i(T - 40, T + 1, (s, c)))
 
 
-@pytest.mark.parametrize("r,s,c", [(5, 5, 10), (7, 12, 30), (33, 2, 40),
-                                   (128, 128, 1024), (300, 257, 700),
-                                   (512, 512, 4096), (1024, 1024, 4096)])
-@pytest.mark.parametrize("lanes", [None, 2])
-def test_rect_masked_max3_equals_plain(dev, r, s, c, lanes):
+def _rect_case(case, r, s, c, seed, dev, lanes):
+    """A merge case (tests/test_torch_merge_cases.py) cut to an S x R
+    block against S x C rows; with lanes, lane i is its own seed, and the
+    case ``one_lane_over:<case>`` puts ``spread`` (past the ladder) in
+    lane 1 and ``case`` in every other."""
+    from test_torch_merge_cases import merge_case
+    n = max(r, s, c)
+
+    def one(name, sd):
+        g, p, kn, hb, ts = merge_case(name, n, sd)
+        return [torch.from_numpy(np.ascontiguousarray(x)) for x in (
+            g[:s, :r], p[:r], kn[:s, :c], hb[:s, :c], ts[:s, :c])]
+
+    if lanes is None:
+        return tuple(x.to(dev) for x in one(case, seed))
+    base = case.split(":")[-1]
+    parts = [one("spread" if case.startswith("one_lane_over") and i == 1
+                 else base, seed + i) for i in range(lanes)]
+    return tuple(torch.stack(x).to(dev) for x in zip(*parts))
+
+
+@pytest.mark.parametrize("r,s,c,lanes,case", [
+    (r, s, c, lanes, "random")
+    for r, s, c in [(5, 5, 10), (7, 12, 30), (33, 2, 40), (128, 128, 1024),
+                    (300, 257, 700), (512, 512, 4096), (1024, 1024, 4096)]
+    for lanes in (None, 2)] + [
+    (1100, 600, 1500, None, "mixed_fallback"),
+    (1100, 300, 700, 2, "mixed_fallback"),
+    (2816, 2816, 2816, 8, "one_lane_over:ladder")])
+def test_rect_masked_max3_equals_plain(dev, r, s, c, lanes, case):
     """The merge's rectangular form (an S x R delivery block against
     S x C payload rows), solo and with a lane axis, == its plain version;
-    it counts on ``rect_launches`` unless square."""
+    it counts on ``rect_launches`` unless square.  On inputs inside and
+    past the witness ladder (some columns, one lane of eight), the
+    merge's counters equal its plain mirror's."""
     from gossip_protocol_tpu_torch.ops.merge import (masked_max3,
                                                      masked_max3_lanes_plain,
                                                      masked_max3_plain)
-    x = _rect(r, s, c, r * 7 + c, dev, lanes)
+    x = _rect(r, s, c, r * 7 + c, dev, lanes) if case == "random" \
+        else _rect_case(case, r, s, c, r * 7 + c, dev, lanes)
+    counts = torch.zeros((lanes, 2) if lanes else (2,), dtype=torch.int64,
+                         device=dev)
     before = (masked_max3.launches, masked_max3.rect_launches)
-    got = masked_max3(*x, T, t_remove=T_REMOVE)
+    got = masked_max3(*x, T, t_remove=T_REMOVE, counts=counts)
     assert masked_max3.launches == before[0] + 1
     assert masked_max3.rect_launches == before[1] + int(not r == s == c)
     plain = masked_max3_lanes_plain if lanes else masked_max3_plain
@@ -1473,6 +1523,39 @@ def test_rect_masked_max3_equals_plain(dev, r, s, c, lanes):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert a.shape == b.shape and torch.equal(a, b)
+    if case != "random":
+        _check_counts(counts, x, T)
+        if case.startswith("one_lane_over"):
+            assert counts[1, 1] > 0 and counts[[0, 2, 3, 4, 5, 6, 7], 1] \
+                .eq(0).all()
+
+
+@pytest.mark.parametrize("r,s,c", [(8192, 8192, 8192), (1056, 39296, 160)])
+def test_masked_max3_long_word_lists(dev, r, s, c):
+    """Past S = 8,160 the descent's word lists and its static shared
+    memory pass the 48 KB a block gets by default, and the launch opts in
+    to more: the dense merge at N = 8192 and the largest S the ladder
+    admits (ops/merge.py ``uses_ladder``) each == plain (at N = 8192 on
+    three 64-column strips, which only their own payload columns feed),
+    three plane descents a tile counted."""
+    from gossip_protocol_tpu_torch.ops.merge import (masked_max3,
+                                                     masked_max3_plain,
+                                                     uses_ladder)
+    assert uses_ladder(r, s)
+    if r != s:
+        assert not uses_ladder(r, s + 32)
+    g, p, kn, hb, ts = _rect(r, s, c, r + c, dev)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = masked_max3(g, p, kn, hb, ts, T, t_remove=T_REMOVE, counts=counts)
+    strips = [slice(0, c)] if c <= 256 else [
+        slice(0, 64), slice(c // 2, c // 2 + 64), slice(c - 64, c)]
+    for cols in strips:
+        want = masked_max3_plain(g, p, kn[:, cols], hb[:, cols],
+                                 ts[:, cols], T, t_remove=T_REMOVE)
+        for a, b in zip(got, want):
+            assert torch.equal(a[:, cols], b)
+    tiles = -(-r // 256) * -(-c // 64)
+    assert counts[0] == 3 * tiles and 0 <= counts[1] <= counts[0]
 
 
 def _shard_k3(args, kw, p, s):
@@ -1659,3 +1742,31 @@ def test_sync_in_tick_loop_is_caught_on_cuda(dev):
     findings = runtime.check_observation(prog,
                                          runtime.observe(prog, "cuda"))
     assert [f.rule for f in findings] == ["no-transfer-in-scan"]
+
+
+def test_fleet_records_merge_counters(dev):
+    """While spans record, a bench fleet's merges count onto its counters
+    and its fetch adds them to ``merge.tiles`` (three plane descents a
+    tile a lane a tick: N=1536 runs 260 ticks on a 1152-wide corner, 5 x
+    18 tiles) and ``merge.fallback_tiles``; the lanes' results are those
+    of the same fleet with spans off."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.dense_corner import active_bound
+    from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
+    from gossip_protocol_tpu_torch.utils import spans
+    cfg = SimConfig(max_nnb=1536, single_failure=False, drop_msg=True,
+                    msg_drop_prob=0.1, seed=0, total_ticks=260)
+    assert active_bound(cfg) == 1152
+    sim = FleetSimulation(cfg, device="cuda")
+    off = sim.run_bench(seeds=[1, 2])
+    spans.clear()
+    with spans.enable():
+        on = sim.run_bench(seeds=[1, 2], warmup=False)
+        got = spans.snapshot()["counters"]
+    spans.clear()
+    assert got["merge.tiles"] == 260 * 2 * 5 * 18 * 3
+    assert 0 <= got["merge.fallback_tiles"] <= got["merge.tiles"]
+    for a, b in zip(off.lanes, on.lanes):
+        assert np.array_equal(a.sent, b.sent)
+        assert np.array_equal(a.recv, b.recv)
+        assert torch.equal(a.final_state.hb, b.final_state.hb)
