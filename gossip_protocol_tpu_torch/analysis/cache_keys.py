@@ -50,16 +50,17 @@ PKG = "gossip_protocol_tpu_torch"
 #: functions whose reads shape a run that a cache hands out
 BUILDER_FUNCS = {
     f"{PKG}/core/tick.py": (
-        "make_run", "make_tick", "make_tick_run", "make_fleet_tick"),
+        "make_run", "make_tick", "make_tick_run", "make_fleet_tick",
+        "_route", "_make_body"),
     f"{PKG}/core/dense_corner.py": (
         "make_corner_run", "active_bound", "bench_stream_width"),
     f"{PKG}/core/dense_mega.py": (
         "dense_mega_supported", "make_dense_mega_run"),
     f"{PKG}/core/fleet.py": (
         "_shared_drop", "fleet_shape_key", "_dense_fn", "launch",
-        "launch_bench", "launch_leg", "_overlay_launch",
-        "_overlay_leg_launch", "_dense_trace_launch", "_overlay_fleet_fn",
-        "_lane_cfgs", "_stage_dense", "_dense_trace_lanes"),
+        "launch_bench", "launch_leg", "_launch_run", "_overlay_launch",
+        "_dense_trace_launch", "_overlay_fleet_fn", "_lane_cfgs",
+        "_stage_dense", "_dense_trace_lanes"),
     f"{PKG}/models/overlay.py": (
         "make_overlay_run", "make_overlay_tick", "make_overlay_fleet_run",
         "build_overlay_fleet_run", "tick_flags", "world_flags"),
@@ -97,8 +98,10 @@ CANON_KEY_FUNCS = {
 #: what a canonical run builds on: the shared tick builder plus the
 #: canonical fleet's own staging
 CANON_BUILDER_FUNCS = {
-    f"{PKG}/core/tick.py": ("make_tick", "make_fleet_tick"),
-    f"{PKG}/core/fleet.py": ("_stage_dense", "_dense_trace_lanes"),
+    f"{PKG}/core/tick.py": (
+        "make_tick", "make_fleet_tick", "_route", "_make_body"),
+    f"{PKG}/core/fleet.py": ("_launch_run", "_stage_dense",
+                             "_dense_trace_lanes"),
 }
 
 #: functions whose reads flow through the schedule as data

@@ -30,7 +30,9 @@ What stands where the JAX package has ``jax.vmap`` of its XLA tick:
 * **Launch and resolve.**  :meth:`FleetSimulation.launch` enqueues the
   run on the device's stream and records a ``torch.cuda.Event``;
   nothing before :meth:`PendingFleet.resolve` synchronizes the device
-  (host tables cross through pinned memory, non-blocking).
+  (host tables cross through pinned memory, non-blocking).  Every
+  launch that enqueues its run whole, dense or overlay, whole run or
+  leg, goes through one protocol, :meth:`FleetSimulation._launch_run`.
 
 There is nothing to compile: the process-wide program cache holds the
 built run closures, keyed as the JAX package keys its compiled programs
@@ -422,11 +424,11 @@ class FleetLeg:
     checkpoints: list
     start: int
     ticks: int
-    wall_seconds: float
-    pack_seconds: float
-    device_seconds: float
-    fetch_seconds: float
-    padded_batch: int
+    wall_seconds: float = 0.0
+    pack_seconds: float = 0.0
+    device_seconds: float = 0.0
+    fetch_seconds: float = 0.0
+    padded_batch: int = 0
 
     @property
     def lanes(self) -> list:
@@ -530,72 +532,22 @@ class PendingFleet:
         return self._result
 
 
-def _async_box(device, t0_ns: int, t1_ns: int, enqueue, ticks: int,
-               lanes: int, padded: int):
-    """The start / wait / probe closures of one launch staged from
-    ``t0_ns`` to ``t1_ns`` (``time.perf_counter_ns``): ``enqueue()``
-    returns the run's outputs, which go into the box with the launch
-    times, and an event is recorded behind them.
-
-    While spans record (utils/spans.py), the launch records
-    ``fleet.stage`` and, at its start, ``fleet.enqueue`` (the launches,
-    a block on a full launch queue included), each with ``ticks``,
-    ``lanes`` and ``padded`` and, as parent, the span open at staging (a
-    service dispatch); the run is then bracketed by two timing events,
-    which :func:`_resolved` reads into ``fleet.device``."""
-    box: dict = {"stage_s": (t1_ns - t0_ns) / 1e9}
-    if spans.recording():
-        box["span"] = (spans.next_id(), spans.current(),
-                       dict(ticks=ticks, lanes=lanes, padded=padded))
-        spans.record("fleet.stage", t0_ns, t1_ns, *box["span"])
-
-    def start():
-        sp = box.get("span")
-        ev0 = record_event(device, timing=True) if sp else None
-        with spans.span("fleet.enqueue"):
-            t_s0 = time.perf_counter_ns()
-            box["out"] = enqueue()
-            box["event"] = record_event(device, timing=sp is not None)
-            box["t_launch"] = time.perf_counter_ns()
-        box["pack"] = box["stage_s"] + (box["t_launch"] - t_s0) / 1e9
-        if sp:
-            box["ev0"], box["t_s0"] = ev0, t_s0
-            spans.record("fleet.enqueue", t_s0, box["t_launch"], *sp)
-
-    def wait():
-        if "t_ready" not in box:
-            if box["event"] is not None:
-                box["event"].synchronize()
-            box["t_ready"] = time.perf_counter_ns()
-
-    def probe():
-        return "t_ready" in box or box["event"] is None \
-            or box["event"].query()
-
-    return box, start, wait, probe
+def _check_end(final, end: int) -> None:
+    if final.tick != end:
+        raise RuntimeError(
+            f"fleet run stopped at tick {final.tick}, expected {end}")
 
 
-def _resolved(box: dict, t_f0: int) -> tuple:
-    """``(pack, execute, fetch)`` seconds of a resolved launch whose fetch
-    began at ``t_f0`` (``perf_counter_ns``) and ends now (``execute``:
-    :attr:`FleetResult.device_seconds`).  While the launch records
-    spans, this adds ``fleet.fetch`` and ``fleet.device``: the device
-    time between the launch's two events (read after the wait, so no
-    synchronization is added), placed to end when the wait returned; on
-    the CPU, where the run executes inside ``enqueue``, the enqueue's
-    own span."""
-    t_f1 = time.perf_counter_ns()
-    sp = box.get("span")
-    if sp is not None:
-        spans.record("fleet.fetch", t_f0, t_f1, *sp)
-        if box["ev0"] is None:
-            d0, d1 = box["t_s0"], box["t_launch"]
-        else:
-            d1 = box["t_ready"]
-            d0 = d1 - round(box["ev0"].elapsed_time(box["event"]) * 1e6)
-        spans.record("fleet.device", d0, d1, *sp)
-    return (box["pack"], (box["t_ready"] - box["t_launch"]) / 1e9,
-            (t_f1 - t_f0) / 1e9)
+def _timed(res, pack: float, execute: float, fetch: float):
+    """``res`` (a :class:`FleetResult` or a :class:`FleetLeg`) with its
+    launch's seconds; the wall, their sum, is added onto each lane's (a
+    leg's checkpoints carry the wall of their earlier legs)."""
+    wall = pack + execute + fetch
+    for lane in res.lanes:
+        lane.wall_seconds += wall
+    res.wall_seconds, res.pack_seconds = wall, pack
+    res.device_seconds, res.fetch_seconds = execute, fetch
+    return res
 
 
 class FleetSimulation:
@@ -703,6 +655,87 @@ class FleetSimulation:
             n += len(stale)
         return n
 
+    # ---- the launch protocol ------------------------------------------
+    def _launch_run(self, stage, enqueue, finish, end: int, ticks: int,
+                    lanes: int, padded: int, defer: bool) -> PendingFleet:
+        """Launch one run that is enqueued whole; every launch but a
+        multi-chunk trace comes here.
+
+        ``stage()`` builds the run's inputs (timed); ``enqueue(staged)``
+        enqueues the run and returns its outputs ``(final state,
+        rest)``, and an event is recorded behind them.  At resolution,
+        after the wait for that event, the final clock is checked against
+        ``end`` and ``finish(staged, final, rest)`` unstacks the
+        :class:`FleetResult` or :class:`FleetLeg`, which :func:`_timed`
+        gives the launch's seconds: ``pack`` the staging and the enqueue,
+        ``execute`` the enqueue's end to the wait's return, ``fetch`` the
+        check and ``finish``.  The run is enqueued at once unless
+        ``defer``.
+
+        While spans record (utils/spans.py), the launch records under one
+        id, each with ``ticks``, ``lanes`` and ``padded`` and, as parent,
+        the span open at staging (a service dispatch): ``fleet.stage``,
+        ``fleet.enqueue`` (the launches, a block on a full launch queue
+        included), ``fleet.fetch`` and ``fleet.device``, the device time
+        between two timing events around the enqueue, read after the
+        wait (so no synchronization is added) and placed to end when the
+        wait returned (:func:`~..utils.spans.device_interval`)."""
+        with spans.span("fleet.stage"):
+            t0 = time.perf_counter_ns()
+            staged = stage()
+            t1 = time.perf_counter_ns()
+        stage_s = (t1 - t0) / 1e9
+        sp = None
+        if spans.recording():
+            sp = (spans.next_id(), spans.current(),
+                  dict(ticks=ticks, lanes=lanes, padded=padded))
+            spans.record("fleet.stage", t0, t1, *sp)
+        box: dict = {}
+
+        def start():
+            ev0 = record_event(self.device, timing=True) if sp else None
+            with spans.span("fleet.enqueue"):
+                t_s0 = time.perf_counter_ns()
+                box["out"] = enqueue(staged)
+                box["event"] = record_event(self.device,
+                                            timing=sp is not None)
+                box["t_launch"] = time.perf_counter_ns()
+            box["pack"] = stage_s + (box["t_launch"] - t_s0) / 1e9
+            if sp:
+                box["ev0"], box["t_s0"] = ev0, t_s0
+                spans.record("fleet.enqueue", t_s0, box["t_launch"], *sp)
+
+        def wait():
+            if "t_ready" not in box:
+                if box["event"] is not None:
+                    box["event"].synchronize()
+                box["t_ready"] = time.perf_counter_ns()
+
+        def probe():
+            return "t_ready" in box or box["event"] is None \
+                or box["event"].query()
+
+        def resolve():
+            final, rest = box["out"]
+            t_f0 = time.perf_counter_ns()
+            _check_end(final, end)
+            res = finish(staged, final, rest)
+            t_f1 = time.perf_counter_ns()
+            if sp:
+                spans.record("fleet.fetch", t_f0, t_f1, *sp)
+                spans.record("fleet.device", *spans.device_interval(
+                    box["ev0"], box["event"], box["t_ready"],
+                    (box["t_s0"], box["t_launch"])), *sp)
+            return _timed(res, box["pack"],
+                          (box["t_ready"] - box["t_launch"]) / 1e9,
+                          (t_f1 - t_f0) / 1e9)
+
+        pending = PendingFleet(resolve, stage_s, hold=(staged, box),
+                               start_fn=start, wait_fn=wait, probe_fn=probe)
+        if not defer:
+            pending.start()
+        return pending
+
     # ---- dense staging ----------------------------------------------
     def _init_stacked(self, cfgs, width: int) -> WorldState:
         """The stacked tick-0 dense world at ``width``: zero tables and
@@ -801,7 +834,8 @@ class FleetSimulation:
         cfgs = self._lane_cfgs(seeds, configs)
         nr = self._resolve_n_real(len(cfgs), n_real)
         if self.cfg.model == "overlay":
-            return self._overlay_launch(cfgs, warmup, nr, defer=defer)
+            return self._overlay_launch(cfgs, None, 0, self.cfg.total_ticks,
+                                        nr, defer, warmup=warmup)
         from .dense_corner import (_embed_state, active_bound,
                                    bench_stream_width)
         bounds = {active_bound(c) for c in cfgs}
@@ -821,27 +855,24 @@ class FleetSimulation:
             scheds = [make_schedule_host(c) for c in cfgs]
             lane_scheds = [slice_schedule(s, a) for s in scheds] \
                 if corner else scheds
-            return scheds, self._stage_dense(cfgs, lane_scheds, shared)
+            return (scheds, self._stage_dense(cfgs, lane_scheds, shared),
+                    self._init_stacked(cfgs, width))
 
         if warmup:            # first-use kernel builds outside the timing
-            _, st = stage()
-            run(self._init_stacked(cfgs, width), st)
+            _, st, states0 = stage()
+            run(states0, st)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        with spans.span("fleet.stage"):
-            t0 = time.perf_counter_ns()
-            scheds, staged = stage()
-            states0 = self._init_stacked(cfgs, width)
-            t1 = time.perf_counter_ns()
 
         m = 2 * nr * width * total
 
-        def enqueue():
+        def enqueue(st):
             # one buffer and one copy to the host: the real lanes' sent /
             # recv rows lane-major [2, nr, W, T], as a lane's result holds
             # them (the host then copies blocks, not transposes), then,
             # while spans record, the merges' counters i64[B, 2] (plane
             # descents and fallbacks, which only the card's kernel adds)
+            _, staged, states0 = st
             rec = spans.recording() and self._counts_merges
             buf = torch.empty(m + (4 * len(cfgs) if rec else 0),
                               dtype=torch.int32, device=self.device)
@@ -855,14 +886,7 @@ class FleetSimulation:
             rows[1].copy_(ev.recv[:, :nr].permute(1, 2, 0))
             return final, to_host_async(buf)
 
-        box, start, wait, probe = _async_box(self.device, t0, t1, enqueue,
-                                             total, nr, len(cfgs))
-
-        def resolve():
-            final, buf_h = box["out"]
-            t_f0 = time.perf_counter_ns()
-            if final.tick != total:
-                raise RuntimeError("fleet bench did not complete all ticks")
+        def finish(st, final, buf_h):
             rows = buf_h[:m].view(2, nr, width, total).numpy()
             if len(buf_h) > m:
                 tiles, falls = buf_h[m:].view(torch.int64).view(-1, 2) \
@@ -870,7 +894,7 @@ class FleetSimulation:
                 spans.count("merge.tiles", tiles)
                 spans.count("merge.fallback_tiles", falls)
             lanes = []
-            for i, (c, s) in enumerate(zip(cfgs[:nr], scheds[:nr])):
+            for i, (c, s) in enumerate(zip(cfgs[:nr], st[0][:nr])):
                 fs = _lane_state(final, i)
                 if corner:
                     fs = _embed_state(fs, n)
@@ -884,22 +908,12 @@ class FleetSimulation:
                     final_state=fs, wall_seconds=0.0,
                     counter_stream_width=bench_stream_width(c)))
             _check_unstacked(lanes, nr)
-            pack, execute, fetch = _resolved(box, t_f0)
-            wall = pack + execute + fetch
-            for lane in lanes:
-                lane.wall_seconds = wall
             return FleetResult(
-                lanes=lanes, wall_seconds=wall,
-                padded_batch=len(cfgs) if nr < len(cfgs) else 0,
-                device_seconds=execute, pack_seconds=pack,
-                fetch_seconds=fetch)
+                lanes=lanes, wall_seconds=0.0,
+                padded_batch=len(cfgs) if nr < len(cfgs) else 0)
 
-        pending = PendingFleet(resolve, box["stage_s"],
-                               hold=(states0, staged, box),
-                               start_fn=start, wait_fn=wait, probe_fn=probe)
-        if not defer:
-            pending.start()
-        return pending
+        return self._launch_run(stage, enqueue, finish, total, total, nr,
+                                len(cfgs), defer)
 
     # ---- dense trace ------------------------------------------------
     def _chunk(self, length: int, b: int) -> int:
@@ -981,8 +995,8 @@ class FleetSimulation:
         cfgs = self._lane_cfgs(seeds, configs)
         nr = self._resolve_n_real(len(cfgs), n_real)
         if self.cfg.model == "overlay":
-            return self._overlay_launch(cfgs, warmup=warmup, n_real=nr,
-                                        defer=defer)
+            return self._overlay_launch(cfgs, None, 0, self.cfg.total_ticks,
+                                        nr, defer, warmup=warmup)
         return self._dense_trace_launch(cfgs, None, 0, self.cfg.total_ticks,
                                         nr, defer, leg=False)
 
@@ -994,8 +1008,9 @@ class FleetSimulation:
         b = len(cfgs)
         end = start + length
         shared = _shared_drop(cfgs)
-        with spans.span("fleet.stage"):
-            t0 = time.perf_counter_ns()
+        chunk = self._chunk(length, b)
+
+        def stage():
             scheds = self._lane_schedules(cfgs)
             staged = self._stage_dense(cfgs, scheds, shared)
             if cks is None:
@@ -1003,73 +1018,54 @@ class FleetSimulation:
             else:
                 states0 = self._resume_states(cks + [cks[0]] * (b - nr),
                                               WorldState, start)
-            chunk = self._chunk(length, b)
-            if chunk >= length:
-                run = self._dense_fn("trace", b, length, self.cfg.n, shared)
-            t1 = time.perf_counter_ns()
+            run = self._dense_fn("trace", b, length, self.cfg.n, shared) \
+                if chunk >= length else None
+            return scheds, staged, states0, run
 
-        def finish(final, chunks, pack, execute, fetch):
+        def finish(st, final, chunks):
             if leg:
                 return self._dense_leg(cfgs, cks, _state_to_host(final),
-                                       chunks, start, length, nr, pack,
-                                       execute, fetch)
-            lanes = self._dense_trace_lanes(cfgs, scheds, final, nr,
+                                       chunks, start, length, nr)
+            lanes = self._dense_trace_lanes(cfgs, st[0], final, nr,
                                             *zip(*chunks))
-            wall = pack + execute + fetch
-            for lane in lanes:
-                lane.wall_seconds = wall
-            return FleetResult(lanes=lanes, wall_seconds=wall,
-                               padded_batch=b if nr < b else 0,
-                               device_seconds=execute, pack_seconds=pack,
-                               fetch_seconds=fetch)
+            return FleetResult(lanes=lanes, wall_seconds=0.0,
+                               padded_batch=b if nr < b else 0)
 
         if chunk >= length:
-            def enqueue():
+            def enqueue(st):
+                _, staged, states0, run = st
                 states, ev = run(states0, staged)
                 return states, self._dense_trace_stage_device(ev, length, nr)
 
-            box, start_fn, wait, probe = _async_box(self.device, t0, t1,
-                                                    enqueue, length, nr, b)
-
-            def resolve():
-                states, stage = box["out"]
-                t_f0 = time.perf_counter_ns()
-                if states.tick != end:
-                    raise RuntimeError(
-                        f"fleet trace stopped at tick {states.tick}, "
-                        f"expected {end}")
-                chunk_h = self._dense_trace_finish_host(stage, nr)
-                return finish(states, [chunk_h], *_resolved(box, t_f0))
-
-            pending = PendingFleet(resolve, box["stage_s"],
-                                   hold=(states0, staged, box),
-                                   start_fn=start_fn, wait_fn=wait,
-                                   probe_fn=probe)
-            if not defer:
-                pending.start()
-            return pending
+            return self._launch_run(
+                stage, enqueue,
+                lambda st, final, dev: finish(
+                    st, final, [self._dense_trace_finish_host(dev, nr)]),
+                end, length, nr, b, defer)
         # multi-chunk: the chunk loop runs here
+        with spans.span("fleet.stage"):
+            t0 = time.perf_counter_ns()
+            st = stage()
+            t1 = time.perf_counter_ns()
         pack = (t1 - t0) / 1e9
         chunks = []
         t_dev = 0.0
-        states = states0
+        states = st[2]
         done = 0
         while done < length:
             ln = min(chunk, length - done)
             run = self._dense_fn("trace", b, ln, self.cfg.n, shared)
             t_dev0 = time.perf_counter()
-            states, ev = run(states, staged)
-            stage = self._dense_trace_stage_device(ev, ln, nr)
+            states, ev = run(states, st[1])
+            stage_dev = self._dense_trace_stage_device(ev, ln, nr)
             if self.device.type == "cuda":
                 torch.cuda.current_stream(self.device).synchronize()
             t_dev += time.perf_counter() - t_dev0
-            chunks.append(self._dense_trace_finish_host(stage, nr))
+            chunks.append(self._dense_trace_finish_host(stage_dev, nr))
             done += ln
-        if states.tick != end:
-            raise RuntimeError(f"fleet trace stopped at tick {states.tick}, "
-                               f"expected {end}")
+        _check_end(states, end)
         wall = (time.perf_counter_ns() - t0) / 1e9
-        result = finish(states, chunks, pack, t_dev,
+        result = _timed(finish(st, states, chunks), pack, t_dev,
                         max(0.0, wall - pack - t_dev))
         return PendingFleet(lambda: result, pack)
 
@@ -1085,7 +1081,9 @@ class FleetSimulation:
         return cls(tick=int(tick), **kw)
 
     def _advance_checkpoints(self, cks, cfgs, mode: str, end: int,
-                             nr: int, snap, chunk_of, wall: float) -> list:
+                             nr: int, snap, chunk_of) -> list:
+        """Each real lane's checkpoint at ``end``; its wall is the earlier
+        legs', to which :func:`_timed` adds this leg's."""
         out = []
         for i in range(nr):
             prev = cks[i] if cks is not None else None
@@ -1093,28 +1091,23 @@ class FleetSimulation:
                 cfg=cfgs[i], mode=mode, tick=end, state=snap(i),
                 chunks=(list(prev.chunks) if prev is not None else [])
                 + [chunk_of(i)],
-                wall_seconds=(prev.wall_seconds if prev is not None
-                              else 0.0) + wall,
+                wall_seconds=prev.wall_seconds if prev is not None else 0.0,
                 legs=(prev.legs if prev is not None else 0) + 1,
                 mesh_desc=self._mesh_entry()))
         return out
 
-    def _dense_leg(self, cfgs, cks, final_h, chunks, start, length, nr,
-                   pack, execute, fetch) -> FleetLeg:
+    def _dense_leg(self, cfgs, cks, final_h, chunks, start, length,
+                   nr) -> FleetLeg:
         a_all = np.concatenate([c[0] for c in chunks], 0)
         r_all = np.concatenate([c[1] for c in chunks], 0)
         s_all = np.concatenate([c[2] for c in chunks], 0)
         r2_all = np.concatenate([c[3] for c in chunks], 0)
-        wall = pack + execute + fetch
         new = self._advance_checkpoints(
             cks, cfgs, "trace", start + length, nr,
             snap=lambda i: {k: np.array(v[i]) for k, v in final_h.items()},
             chunk_of=lambda i: (a_all[:, i], r_all[:, i], s_all[:, i],
-                                r2_all[:, i]),
-            wall=wall)
+                                r2_all[:, i]))
         return FleetLeg(checkpoints=new, start=start, ticks=length,
-                        wall_seconds=wall, pack_seconds=pack,
-                        device_seconds=execute, fetch_seconds=fetch,
                         padded_batch=len(cfgs))
 
     def run_leg(self, seeds=None, configs=None, resume=None,
@@ -1190,8 +1183,8 @@ class FleetSimulation:
                 "or the run's end; segment boundaries are the only "
                 "legal snapshot points (models/segments.py)")
         if self.cfg.model == "overlay":
-            return self._overlay_leg_launch(cfgs, cks, mode, start,
-                                            length, nr, defer)
+            return self._overlay_launch(cfgs, cks, start, length, nr, defer,
+                                        leg_mode=mode)
         if mode != "trace":
             raise NotImplementedError(
                 "dense bench-mode runs fix their active-corner width for "
@@ -1217,110 +1210,55 @@ class FleetSimulation:
                 (b,) + tuple(getattr(st, f.name).shape)).contiguous()
             for f in dataclasses.fields(type(st)) if f.name != "tick"})
 
-    def _overlay_launch(self, cfgs: Sequence[SimConfig], warmup: bool,
-                        n_real: Optional[int] = None,
-                        defer: bool = False) -> PendingFleet:
+    def _overlay_launch(self, cfgs: Sequence[SimConfig], cks, start: int,
+                        length: int, nr: int, defer: bool,
+                        warmup: bool = False,
+                        leg_mode: Optional[str] = None) -> PendingFleet:
+        """The overlay fleet over ticks ``[start, start + length)``, from
+        tick 0 (``cks`` None) or from checkpoints; resolves to a
+        :class:`FleetResult`, or with ``leg_mode`` to a :class:`FleetLeg`
+        whose checkpoints carry that mode."""
         from ..models.overlay import OverlayResult, make_overlay_schedule
+        from ..ops.overlay_rules import OverlayState
         b = len(cfgs)
-        nr = self._resolve_n_real(b, n_real)
-        total = self.cfg.total_ticks
-        run = self._overlay_fleet_fn(b)
+        run = self._overlay_fleet_fn(b, length=length, start_tick=start)
         if warmup:
             run(self._overlay_init_stacked(b),
                 [make_overlay_schedule(c) for c in cfgs])
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        with spans.span("fleet.stage"):
-            t0 = time.perf_counter_ns()
-            scheds = [make_overlay_schedule(c) for c in cfgs]
-            states0 = self._overlay_init_stacked(b)
-            t1 = time.perf_counter_ns()
 
-        def enqueue():
-            final, metrics = run(states0, scheds)
+        def stage():
+            scheds = [make_overlay_schedule(c) for c in cfgs]
+            if cks is None:
+                return scheds, self._overlay_init_stacked(b)
+            return scheds, self._resume_states(cks + [cks[0]] * (b - nr),
+                                               OverlayState, start)
+
+        def enqueue(st):
+            final, metrics = run(st[1], st[0])
             return final, _metrics_to_host_async(metrics, nr)
 
-        box, start, wait, probe = _async_box(self.device, t0, t1, enqueue,
-                                             total, nr, b)
-
-        def resolve():
-            final, mets = box["out"]
-            t_f0 = time.perf_counter_ns()
-            if final.tick != total:
-                raise RuntimeError("fleet overlay run did not complete")
+        def finish(st, final, mets):
             mets = _metrics_numpy(mets)
+            if leg_mode is not None:
+                host = _state_to_host(final)
+                return FleetLeg(checkpoints=self._advance_checkpoints(
+                    cks, cfgs, leg_mode, start + length, nr,
+                    snap=lambda i: {k: np.array(v[i])
+                                    for k, v in host.items()},
+                    chunk_of=lambda i: _lane_metrics(mets, i)),
+                    start=start, ticks=length, padded_batch=b)
             lanes = [OverlayResult(
-                cfg=c, sched=scheds[i], final_state=_lane_state(final, i),
+                cfg=c, sched=st[0][i], final_state=_lane_state(final, i),
                 metrics=_lane_metrics(mets, i), wall_seconds=0.0)
                 for i, c in enumerate(cfgs[:nr])]
             _check_unstacked(lanes, nr)
-            pack, execute, fetch = _resolved(box, t_f0)
-            wall = pack + execute + fetch
-            for lane in lanes:
-                lane.wall_seconds = wall
-            return FleetResult(lanes=lanes, wall_seconds=wall,
-                               padded_batch=b if nr < b else 0,
-                               device_seconds=execute,
-                               pack_seconds=pack, fetch_seconds=fetch)
+            return FleetResult(lanes=lanes, wall_seconds=0.0,
+                               padded_batch=b if nr < b else 0)
 
-        pending = PendingFleet(resolve, box["stage_s"], hold=(states0, box),
-                               start_fn=start, wait_fn=wait,
-                               probe_fn=probe)
-        if not defer:
-            pending.start()
-        return pending
-
-    def _overlay_leg_launch(self, cfgs, cks, mode: str, start: int,
-                            length: int, nr: int,
-                            defer: bool) -> PendingFleet:
-        from ..models.overlay import make_overlay_schedule
-        from ..ops.overlay_rules import OverlayState
-        b = len(cfgs)
-        end = start + length
-        run = self._overlay_fleet_fn(b, length=length, start_tick=start)
-        with spans.span("fleet.stage"):
-            t0 = time.perf_counter_ns()
-            scheds = [make_overlay_schedule(c) for c in cfgs]
-            if cks is None:
-                states0 = self._overlay_init_stacked(b)
-            else:
-                states0 = self._resume_states(cks + [cks[0]] * (b - nr),
-                                              OverlayState, start)
-            t1 = time.perf_counter_ns()
-
-        def enqueue():
-            final, metrics = run(states0, scheds)
-            return final, _metrics_to_host_async(metrics, nr)
-
-        box, start_fn, wait, probe = _async_box(self.device, t0, t1,
-                                                enqueue, length, nr, b)
-
-        def resolve():
-            final, mets = box["out"]
-            t_f0 = time.perf_counter_ns()
-            if final.tick != end:
-                raise RuntimeError(
-                    f"fleet leg stopped at tick {final.tick}, "
-                    f"expected {end}")
-            mets = _metrics_numpy(mets)
-            host = _state_to_host(final)
-            pack, execute, fetch = _resolved(box, t_f0)
-            wall = pack + execute + fetch
-            new = self._advance_checkpoints(
-                cks, cfgs, mode, end, nr,
-                snap=lambda i: {k: np.array(v[i]) for k, v in host.items()},
-                chunk_of=lambda i: _lane_metrics(mets, i), wall=wall)
-            return FleetLeg(checkpoints=new, start=start, ticks=length,
-                            wall_seconds=wall, pack_seconds=pack,
-                            device_seconds=execute, fetch_seconds=fetch,
-                            padded_batch=b)
-
-        pending = PendingFleet(resolve, box["stage_s"], hold=(states0, box),
-                               start_fn=start_fn, wait_fn=wait,
-                               probe_fn=probe)
-        if not defer:
-            pending.start()
-        return pending
+        return self._launch_run(stage, enqueue, finish, start + length,
+                                length, nr, b, defer)
 
 
 class CanonicalFleetSimulation(FleetSimulation):

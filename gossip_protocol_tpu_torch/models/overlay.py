@@ -639,11 +639,8 @@ class OverlaySimulation:
             spans.record("solo.stage", t_s0, t_s1, *sp)
             spans.record("solo.enqueue", t_e0, t_e1, *sp)
             spans.record("solo.fetch", t_f0, t_f1, *sp)
-            d0, d1 = t_e0, t_e1
-            if ev0 is not None:
-                d1 = t_f0
-                d0 = d1 - round(ev0.elapsed_time(ev1) * 1e6)
-            spans.record("solo.device", d0, d1, *sp)
+            spans.record("solo.device", *spans.device_interval(
+                ev0, ev1, t_f0, (t_e0, t_e1)), *sp)
         return res
 
     def _run_profiled(self, profile_dir: str, resume_from, ticks):

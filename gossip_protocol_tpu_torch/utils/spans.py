@@ -202,6 +202,17 @@ def record(name: str, start_ns: int, end_ns: int, id: Optional[int] = None,
                         MappingProxyType(attrs) if attrs else _NO_ATTRS))
 
 
+def device_interval(ev0, ev1, end_ns: int, enqueue: tuple) -> tuple:
+    """``(start_ns, end_ns)`` of a run's device span: as long as the time
+    between its two timing events ``ev0`` and ``ev1`` (read after the
+    wait, so no synchronization is added) and ending at ``end_ns``; on
+    the CPU (``ev0`` None), where the run executes inside its enqueue,
+    the enqueue's own interval ``enqueue``."""
+    if ev0 is None:
+        return enqueue
+    return end_ns - round(ev0.elapsed_time(ev1) * 1e6), end_ns
+
+
 def count(name: str, n: int = 1) -> None:
     """Add ``n`` to the counter ``name`` (while recording)."""
     if not (_S.enabled or _profiling()):

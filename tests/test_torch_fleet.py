@@ -10,6 +10,7 @@ package's own fleet tests' (tests/test_fleet.py, test_elastic.py).
 """
 
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -30,6 +31,12 @@ from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
     tick_epilogue, tick_epilogue_plain)
 from gossip_protocol_tpu_torch.ops.drop import (LaneDrop, drop_masks_lanes,
                                                 tick_drop_masks)
+from gossip_protocol_tpu_torch.parallel.fleet_mesh import (
+    MeshFleetSimulation, make_lane_peer_mesh)
+from gossip_protocol_tpu_torch.parallel.sharded import (make_mesh,
+                                                        make_sharded_run,
+                                                        shard_state)
+from gossip_protocol_tpu_torch.state import init_state, make_schedule
 from gossip_protocol_tpu_torch.utils.threefry import prng_key
 
 torch.set_num_threads(2)
@@ -146,27 +153,47 @@ def test_overlay_fleet_equals_jax_fleet_and_solo(make):
         _overlay_equal(got.lanes[i], solo, f"lane {i} vs solo")
 
 
-@pytest.mark.parametrize("world", ["asym", "zombie", "partition"])
+def _sharded_solo(cfg, p: int):
+    """A solo run on the peer-sharded tick (``make_tick(comm=RingComm)``)
+    over ``p`` shards, shaped as a result for :func:`_dense_equal`."""
+    mesh = make_mesh(p, device="cpu")
+    final, ev = make_sharded_run(cfg, mesh)(
+        shard_state(init_state(cfg, device="cpu"), mesh),
+        make_schedule(cfg, device="cpu"))
+    return SimpleNamespace(added=ev.added, removed=ev.removed,
+                           sent=ev.sent.T, recv=ev.recv.T, final_state=final)
+
+
+@pytest.mark.parametrize("world", ["asym", "zombie", "partition",
+                                   "zombie-sharded"])
 def test_world_fleet_equals_jax_fleet_and_solo(world):
     """A world on the K1 route (asym, partition: per-lane thresholds and
-    groups in the lane-axis draw) and a composable one (zombie: its lanes
-    one at a time, counted)."""
+    groups in the lane-axis draw), a composable one (zombie: its lanes
+    one at a time, counted), and the peer-sharded route, which a sharded
+    composable world takes (zombie-sharded: one lane of a lanes x peers
+    mesh, its peers over two shards, against the peer-sharded solo
+    tick)."""
     extra = {"asym": dict(drop_msg=True, msg_drop_prob=0.12, asym_drop=True,
                           drop_open_tick=10, drop_close_tick=90),
              "zombie": dict(zombie=True),
              "partition": dict(partition_groups=2, partition_open_tick=30,
-                               partition_close_tick=70)}[world]
+                               partition_close_tick=70),
+             "zombie-sharded": dict(zombie=True)}[world]
     cfg, jcfg = _both(_world(**extra))
-    seeds = [2, 3, 4]
+    sharded = world.endswith("-sharded")
+    seeds = [2] if sharded else [2, 3, 4]
+    sim = MeshFleetSimulation(cfg, make_lane_peer_mesh(1, 2, device="cpu")) \
+        if sharded else fleet.FleetSimulation(cfg, device="cpu")
     before = composable_lanes.calls
-    got = fleet.FleetSimulation(cfg, device="cpu").run(seeds=seeds)
+    got = sim.run(seeds=seeds)
     calls = composable_lanes.calls - before
     assert calls == (len(seeds) * cfg.total_ticks if world == "zombie"
                      else 0)
     want = jax_fleet.FleetSimulation(jcfg).run(seeds=seeds)
     for i, s in enumerate(seeds):
         _dense_equal(got.lanes[i], want.lanes[i], f"{world} lane {i} vs JAX")
-        solo = Simulation(cfg.replace(seed=s), device="cpu").run()
+        solo = _sharded_solo(cfg.replace(seed=s), 2) if sharded else \
+            Simulation(cfg.replace(seed=s), device="cpu").run()
         _dense_equal(got.lanes[i], solo, f"{world} lane {i} vs solo")
 
 
@@ -228,6 +255,26 @@ def test_launch_defer_start_resolve_and_no_rebuild():
         warmup=False)
     got = dsim.launch_bench(seeds=[5, 6], warmup=False, defer=True).resolve()
     _dense_equal(got.lanes[0], solo, "deferred bench lane 0", bench=True)
+    # a deferred leg waits for start(), or resolves without one; its
+    # lanes equal the whole run's
+    leg = sim.launch_leg(seeds=[7, 8], defer=True)
+    assert not leg.started and not leg.is_ready()
+    leg.start()
+    assert leg.started and leg.is_ready()
+    done = leg.resolve()
+    assert leg.resolve() is done and done.done
+    assert done.wall_seconds == pytest.approx(
+        done.pack_seconds + done.device_seconds + done.fetch_seconds,
+        rel=1e-6)
+    assert [ck.wall_seconds for ck in done.checkpoints] == \
+        [done.wall_seconds] * 2
+    for i in range(2):
+        _overlay_equal(done.results().lanes[i], ref.lanes[i], f"leg lane {i}")
+    dleg = dsim.launch_leg(seeds=[5, 6], defer=True)
+    assert not dleg.started
+    _dense_equal(dleg.resolve().results().lanes[0],
+                 Simulation(dcfg.replace(seed=5), device="cpu").run(),
+                 "deferred dense leg lane 0")
     # reseeded fleets of one shape reuse the cached run closure
     built = run_build_count()
     dsim.run_bench(seeds=[1, 2], warmup=False)

@@ -64,12 +64,21 @@ def _by_name(recs, name):
 
 
 def _launch(kind, seeds=(1, 2, 3), n_real=None):
-    cfg = SimConfig(**(DENSE if kind == "dense" else OVERLAY))
-    return FleetSimulation(cfg, device="cpu").launch_bench(
-        seeds=list(seeds), warmup=False, n_real=n_real).resolve()
+    """A resolved fleet of ``kind``: ``dense`` / ``overlay`` through
+    ``launch_bench``, ``dense-trace`` through ``launch`` (one chunk),
+    ``dense-leg`` / ``overlay-leg`` through ``launch_leg``."""
+    model, _, how = kind.partition("-")
+    cfg = SimConfig(**(DENSE if model == "dense" else OVERLAY))
+    sim = FleetSimulation(cfg, device="cpu")
+    kw = dict(seeds=list(seeds), n_real=n_real)
+    if how == "leg":
+        return sim.launch_leg(**kw).resolve()
+    launch = sim.launch if how == "trace" else sim.launch_bench
+    return launch(warmup=False, **kw).resolve()
 
 
-@pytest.mark.parametrize("kind", ["dense", "overlay"])
+@pytest.mark.parametrize("kind", ["dense", "overlay", "dense-trace",
+                                  "dense-leg", "overlay-leg"])
 def test_fleet_spans_sum_to_pack_and_fetch(kind):
     with spans.enable():
         fr = _launch(kind, n_real=2)
@@ -77,7 +86,7 @@ def test_fleet_spans_sum_to_pack_and_fetch(kind):
     got = {n: _by_name(recs, n) for n in FLEET}
     assert all(len(v) == 1 for v in got.values()), got
     fid = got["fleet.stage"][0].id
-    ticks = (DENSE if kind == "dense" else OVERLAY)["total_ticks"]
+    ticks = (DENSE if kind.startswith("dense") else OVERLAY)["total_ticks"]
     for r in (v[0] for v in got.values()):
         assert (r.id, r.parent) == (fid, None)
         assert dict(r.attrs) == dict(ticks=ticks, lanes=2, padded=3)
