@@ -131,7 +131,10 @@ one line per phase:
    (window open) and 699 (closed: the ``drop_masks/closed`` row, beside
    ``torch.zeros`` of its three outputs) of the 700-tick corner (N=2816,
    S=1) and for the last K2 launch of the 200-tick corner (N=896, S=8);
-   the threshold draw and the K1 pair at N=4096 on the ``asym4096``
+   the K1 pair's fused op ``merge_epilogue`` (the tick's merge above
+   N = 1024) beside the pair on the same inputs at N=2816 and on the B=4
+   fleet, against its bound of 21 bytes a cell, in rows of its own;
+   the threshold draw and the K1 merge at N=4096 on the ``asym4096``
    run's ticks 300 and 699, in rows of their own; the lane-axis kernels
    in ``/fleet`` rows: the merge and the epilogue at tick 699 and the
    draw at tick 300 of the B=4 N=4096 bench fleet, K5 on the B=8 fleet,
@@ -522,6 +525,7 @@ def cuda_ms(fn, reps: int, warm: int = 1) -> float:
 KERNEL_FUNCS = {
     "masked_max3": {"merge_prep_kernel": 1, "masked_max3_": 1},
     "tick_epilogue": {"tick_epilogue_kernel": 1},
+    "merge_epilogue": {"merge_prep_kernel": 1, "merge_epilogue_kernel": 1},
     "fused_vector_step": {"vector_step_kernel": 1},
     "dense_mega_ticks": {"dense_mega_kernel": 1},
     "drop_masks": {"drop_masks_kernel": 1},
@@ -794,7 +798,57 @@ def time_k1(x: dict, t_remove: int, with_events: bool, reps: int,
         plain_ms=cuda_ms(lambda: tick_epilogue_plain(
             *e_args, t_remove=t_remove, with_events=with_events), 3),
         bound=bound(ep_bytes, ep_ops))
+    if k1_merge(n) == ("merge_epilogue",):
+        # the op this width's tick launches in the pair's place
+        want = tick_epilogue_plain(*e_args, t_remove=t_remove,
+                                   with_events=with_events)
+        out["merge_epilogue"] = time_fused(
+            e_args[3:], want, t_remove, with_events, reps,
+            lambda: tick_epilogue_plain(
+                *masked_max3_plain(*args, t_remove=t_remove), *e_args[3:],
+                t_remove=t_remove, with_events=with_events))
+        out["max_abs_err"]["merge_epilogue"] = \
+            out["merge_epilogue"]["max_abs_err"]
     return out
+
+
+def fused_bound(n: int, with_events: bool,
+                batch: int = 1) -> tuple[float, str]:
+    """``merge_epilogue``'s bound for B lanes: 21 bytes a cell (hb / ts in
+    and out, known and gossip in and out, gdrop in; with events the two
+    masks out), the prep's delivery bits (one a cell) and the tile's
+    rungs (3 LADDER i32 a column) read, the epilogue's 13 bytes a peer of
+    row lanes; against the cell rules' 40 operations a cell.  The
+    descent's products are not counted (the ladder's product count
+    depends on the data: ``merge_stats``)."""
+    from gossip_protocol_tpu_torch.ops.merge import LADDER
+    per_lane = n * n * (21 + (2 if with_events else 0)) + n * n / 8 \
+        + 3 * LADDER * 4 * n + 13 * n
+    return bound(batch * per_lane, batch * 40 * n * n)
+
+
+def time_fused(f_args: tuple, want: tuple, t_remove: int, with_events: bool,
+               reps: int, plain) -> dict:
+    """``merge_epilogue`` on one real launch input (``f_args``: the
+    epilogue's inputs less the maxima, then the clock), held equal to
+    ``want`` (the pair's plain outputs), timed against
+    :func:`fused_bound`; ``plain`` runs the plain composition."""
+    from gossip_protocol_tpu_torch.ops.merge import merge_epilogue
+    known = f_args[2]
+    n, b = known.shape[-1], known.shape[0] if known.dim() == 3 else 1
+
+    def call(rows):
+        return merge_epilogue(*f_args, t_remove=t_remove,
+                              with_events=with_events, **rows)
+
+    err = max(max_abs_err(x, y) for x, y in zip(
+        call(epilogue_rows(merge_epilogue, f_args[6])), want))
+    # the timed calls add onto one pair of rows, as the epilogue's do
+    rows = epilogue_rows(merge_epilogue, f_args[6])
+    return dict(n=n, batch=b, tick=f_args[-1], max_abs_err=err,
+                **kernel_time(lambda: call(rows), reps, "merge_epilogue"),
+                plain_ms=cuda_ms(plain, 1, warm=0),
+                bound=fused_bound(n, with_events, b))
 
 
 def time_k2(x: dict, s_ticks: int, cfg, with_events: bool,
@@ -1451,12 +1505,15 @@ def lane_k1_inputs(n: int, lanes, dev) -> dict:
         st, sc = init_state(cfg, dev), make_schedule(cfg, dev)
         for _ in range(t):
             st, _ = tick(st, sc)
-        with capture_calls(tick_mod, "tick_epilogue") as seen:
+        # the epilogue's inputs follow the three maxima; the fused op's
+        # come first
+        fused = k1_merge(n) == ("merge_epilogue",)
+        with capture_calls(tick_mod, k1_merge(n)[-1]) as seen:
             tick(st, sc)
-        per_lane.append(seen[0][0])
+        per_lane.append(seen[0][0][0 if fused else 3:])
     names = ("gossip", "proc", "known", "hb", "ts", "gdrop", "ops", "jrep",
              "jreq", "live_hold")
-    x = {k: torch.stack([a[3 + i] for a in per_lane]).contiguous()
+    x = {k: torch.stack([a[i] for a in per_lane]).contiguous()
          for i, k in enumerate(names)}
     x["t"] = max(t for _, t in lanes)
     x["lanes"] = [{"seed": s, "tick": t} for s, t in lanes]
@@ -1645,6 +1702,7 @@ def victim_removal_ticks(res) -> dict:
 
 
 #: the dense fleet's lane-axis kernels (one launch a tick for the fleet)
+#: at N <= 1024; above, :func:`k1_merge` takes the merge's place
 FLEET_K1 = ("drop_masks_lanes", "fused_vector_step", "masked_max3",
             "tick_epilogue")
 
@@ -1666,7 +1724,8 @@ def fleet_runs(main_path) -> dict:
                                                             grade_config)
     from gossip_protocol_tpu_torch.models.segments import checkpoint_ticks
     out = {}
-    lane_axis = dict.fromkeys(FLEET_K1 + ("grid_overlay_ticks",), 0)
+    lane_axis = dict.fromkeys(FLEET_K1 + k1_merges()
+                              + ("grid_overlay_ticks",), 0)
 
     def drive(fn, expect, axis=True):
         res, counts = main_path.drive(fn, expect)
@@ -1702,8 +1761,8 @@ def fleet_runs(main_path) -> dict:
                 raise AssertionError(f"{key}: lane {i} != its solo run in "
                                      f"{bad}")
 
-    def one_each(ticks):
-        return {k: ticks for k in FLEET_K1}
+    def one_each(ticks, kernels=FLEET_K1):
+        return {k: ticks for k in kernels}
 
     # the grader's B=3 fleet: one draw, merge and epilogue a tick
     cfgs = [SimConfig.from_conf(os.path.join(REPO, "testcases", f"{s}.conf"))
@@ -1723,11 +1782,13 @@ def fleet_runs(main_path) -> dict:
 
     # BASELINE's dense N=4096 10% drop bench, B=4 seeds, corner 2816
     cfg = bench_cfg(700)
+    k1 = FLEET_K1[:2] + k1_merge(2816)
     sim = FleetSimulation(cfg, device="cuda")
     sim.run_bench(seeds=range(4), warmup=False)    # untimed, not counted
     fr, counts = drive(lambda: sim.run_bench(seeds=range(4), warmup=False),
-                       FLEET_K1)
-    if {k: counts.get(k) for k in FLEET_K1} != one_each(cfg.total_ticks):
+                       k1)
+    if {k: v for k, v in counts.items() if k in lane_axis
+            and k != "grid_overlay_ticks"} != one_each(cfg.total_ticks, k1):
         raise AssertionError(f"bench fleet launches {counts}")
     solos = [Simulation(cfg.replace(seed=s), device="cuda").run_bench(
         warmup=False) for s in range(4)]
@@ -1892,12 +1953,17 @@ def fleet_timing(dev) -> dict:
     cfg = bench_cfg(700)
     t_last, t_draw = cfg.total_ticks - 1, min(300, cfg.total_ticks - 1)
     sim = FleetSimulation(cfg, device="cuda")
-    with capture_calls(tick_mod, "tick_epilogue",
-                       lambda a, k: a[13] == t_last) as ep, \
+    # the tick's last merge op: the fused op takes the epilogue's inputs
+    # less the three maxima, which lead the pair's epilogue call
+    fused = k1_merge(2816) == ("merge_epilogue",)
+    lead = 0 if fused else 3
+    with capture_calls(tick_mod, k1_merge(2816)[-1],
+                       lambda a, k: a[lead + 10] == t_last) as ep, \
             capture_calls(tick_mod, "drop_masks_lanes",
                           lambda a, k: a[1] == t_draw) as dr:
         sim.run_bench(seeds=range(4), warmup=False)
     a, k = ep[0]
+    a = (None,) * (3 - lead) + tuple(a)
     b, n = a[5].shape[:2]
     t_remove = cfg.t_remove
     margs = (a[3], a[4], a[5], a[6], a[7], a[13])
@@ -1934,6 +2000,12 @@ def fleet_timing(dev) -> dict:
         plain_ms=cuda_ms(lambda: tick_epilogue_lanes_plain(
             *e_args, t_remove=t_remove, with_events=False), 2),
         bound=bound(b * ep_bytes, b * 40 * n * n))
+    if fused:
+        out["merge_epilogue"] = time_fused(
+            a[3:14], want, t_remove, False, 20,
+            lambda: tick_epilogue_lanes_plain(
+                *masked_max3_lanes_plain(*margs, t_remove=t_remove),
+                *a[3:14], t_remove=t_remove, with_events=False))
     da, dk = dr[0]
     plan = da[0]
     drawn = sum(plan.lane(plan.active, i, t_draw)
@@ -2038,7 +2110,31 @@ def wrappers() -> dict:
     from gossip_protocol_tpu_torch.ops import vector as vector_ops
     if hasattr(vector_ops, "fused_vector_step"):
         out["fused_vector_step"] = vector_ops.fused_vector_step
+    if "merge_epilogue" in k1_merges():
+        from gossip_protocol_tpu_torch.ops.merge import merge_epilogue
+        out["merge_epilogue"] = merge_epilogue
     return out
+
+
+def k1_merges() -> tuple:
+    """Every K1 merge wrapper of the checkout: the ``masked_max3`` /
+    ``tick_epilogue`` pair, and the merge and epilogue as one op where
+    the checkout has it (a checkout before it, timed by --turns, has
+    none)."""
+    from gossip_protocol_tpu_torch.ops import merge as merge_ops
+    fused = ("merge_epilogue",) if hasattr(merge_ops, "merge_epilogue") \
+        else ()
+    return ("masked_max3", "tick_epilogue") + fused
+
+
+def k1_merge(n: int) -> tuple:
+    """The wrappers of the K1 tick's merge at width ``n``: the one op
+    where the checkout has it and the merge builds a witness ladder (N >
+    1024), else the pair (:func:`k1_merges`)."""
+    from gossip_protocol_tpu_torch.ops.merge import uses_ladder
+    if "merge_epilogue" in k1_merges() and uses_ladder(n, n):
+        return ("merge_epilogue",)
+    return ("masked_max3", "tick_epilogue")
 
 
 def draw_kernel() -> tuple:
@@ -2190,7 +2286,7 @@ class LaneAxisCount:
     #: the lane-axis K1 wrappers: the argument whose rank shows the lane
     #: axis, and that rank
     ARG = {"masked_max3": (0, 3), "tick_epilogue": (3, 3),
-           "fused_vector_step": (4, 2)}
+           "merge_epilogue": (0, 3), "fused_vector_step": (4, 2)}
 
     def __init__(self):
         from gossip_protocol_tpu_torch.core import tick
@@ -2285,10 +2381,8 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
                                                           Template,
                                                           build_trace,
                                                           run_sequential)
-    out = {"lane_axis": dict.fromkeys(("masked_max3", "tick_epilogue",
-                                       "fused_vector_step",
-                                       "drop_masks_lanes",
-                                       "grid_overlay_ticks"), 0)}
+    out = {"lane_axis": dict.fromkeys(k1_merges() + (
+        "fused_vector_step", "drop_masks_lanes", "grid_overlay_ticks"), 0)}
 
     def drive(tag, fn, expect, lane=True):
         with LaneAxisCount() as la:
@@ -2362,8 +2456,8 @@ def serving(main_path, dev, profile: bool, sweep_seeds: int,
         return s, hs, time.perf_counter() - t0
 
     (wsvc, hs, wall), counts = drive(
-        "wide", serve_wide, ("masked_max3", "tick_epilogue",
-                             "drop_masks_lanes", "grid_overlay_ticks"))
+        "wide", serve_wide, k1_merge(2816) + ("drop_masks_lanes",
+                                              "grid_overlay_ticks"))
     st = wsvc.stats()
     no_failures("7c", st)
     if st["cache"]["buckets"] != 3:
@@ -2608,7 +2702,7 @@ def dense_runs(main_path) -> dict:
         say(f"phase {label}: {o}; wall {r.wall_seconds:.3f} s; "
             f"launches {counts}")
         del r
-    for ticks, expect in ((700, ("masked_max3", "tick_epilogue") + draw),
+    for ticks, expect in ((700, k1_merge(2816) + draw),
                           (200, ("dense_mega_ticks",) + draw)):
         sim = Simulation(bench_cfg(ticks), device="cuda")
         sim.run_bench(warmup=False)     # untimed warm-up, not counted
@@ -2689,20 +2783,21 @@ def world_route(cfg, with_events: bool = True) -> tuple[tuple, tuple]:
     """(kernels a world run must launch, kernels it must not): dense runs
     draw with ``drop_masks`` every tick or launch, then take K2 (the wave
     inside its envelope), the composable route (zombie, byz, latency:
-    ``masked_max3`` and torch) or the K1 pair; overlay runs none of
-    K3, K4, K5."""
+    ``masked_max3`` and torch) or the K1 merge (:func:`k1_merge`);
+    overlay runs none of K3, K4, K5."""
     from gossip_protocol_tpu_torch.core.dense_mega import \
         dense_mega_supported
     if cfg.model == "overlay":
         return (), OVERLAY_KERNELS
+    every = k1_merges()
     if dense_mega_supported(cfg, with_events):
-        return ("drop_masks", "dense_mega_ticks"), ("masked_max3",
-                                                    "tick_epilogue")
+        return ("drop_masks", "dense_mega_ticks"), every
     if cfg.zombie or cfg.byz_rate > 0 or cfg.link_latency > 0:
-        return ("drop_masks", "masked_max3"), ("tick_epilogue",
-                                               "dense_mega_ticks")
-    return ("drop_masks", "masked_max3", "tick_epilogue"), \
-        ("dense_mega_ticks",)
+        return ("drop_masks", "masked_max3"), ("dense_mega_ticks",) + tuple(
+            k for k in every if k != "masked_max3")
+    k1 = k1_merge(cfg.n)
+    return ("drop_masks",) + k1, ("dense_mega_ticks",) + tuple(
+        k for k in every if k not in k1)
 
 
 def drive_world(main_path, fn, cfg, with_events: bool = True):
@@ -3036,19 +3131,22 @@ def bench_merge_inputs(ticks=(300, 699), seeds=range(8)) -> dict:
     from gossip_protocol_tpu_torch.core import tick as tick_mod
     from gossip_protocol_tpu_torch.core.fleet import FleetSimulation
     seen = {}
-    orig = tick_mod.masked_max3
+    name = k1_merge(2816)[0]
+    orig = getattr(tick_mod, name)
+    # the clock follows the merge's inputs, or the fused op's ten
+    at = 10 if name == "merge_epilogue" else 5
 
     def spy(*a, **k):
-        if a[5] in ticks:
-            seen[a[5]] = tuple(x.clone() for x in a[:5]) + (a[5],)
+        if a[at] in ticks:
+            seen[a[at]] = tuple(x.clone() for x in a[:5]) + (a[at],)
         return orig(*a, **k)
 
-    tick_mod.masked_max3 = spy
+    setattr(tick_mod, name, spy)
     try:
         FleetSimulation(bench_cfg(700), device="cuda").run_bench(
             seeds=seeds, warmup=False)
     finally:
-        tick_mod.masked_max3 = orig
+        setattr(tick_mod, name, orig)
     return seen
 
 
@@ -3581,10 +3679,8 @@ def mesh_phase(main_path, dev, t_start: float, seq7b=None) -> dict:
     """Phase 8: multi-device execution on a mesh of one process, every
     mesh's entries ``cuda:0`` (so P shards take turns on one H100: the
     walls here are those of P shards on one card, not of P cards)."""
-    out = {"lane_axis": dict.fromkeys(("masked_max3", "tick_epilogue",
-                                       "fused_vector_step",
-                                       "drop_masks_lanes",
-                                       "grid_overlay_ticks"), 0)}
+    out = {"lane_axis": dict.fromkeys(k1_merges() + (
+        "fused_vector_step", "drop_masks_lanes", "grid_overlay_ticks"), 0)}
     label = "shards on one H100"
 
     class Drive:
@@ -4462,8 +4558,8 @@ def main(argv=None) -> int:
         + json.dumps(details["k5_variants"]))
     details["merge"] = merge_timing(dev)
     for key in ("k1", "k1_n1024", "k1_n10"):
-        for name in ("masked_max3", "tick_epilogue"):
-            errs[name] = max(errs[name], timing[key]["max_abs_err"][name])
+        for name, e in timing[key]["max_abs_err"].items():
+            errs[name] = max(errs[name], e)
     errs["dense_mega_ticks"] = max(errs["dense_mega_ticks"],
                                    timing["k2"]["max_abs_err"],
                                    timing["k2_trace512"]["max_abs_err"],
@@ -4472,9 +4568,8 @@ def main(argv=None) -> int:
                              *(timing[k]["max_abs_err"] for k in
                                ("draw_t300", "draw_t699", "draw_stack",
                                 "draw_asym4096")))
-    for name in ("masked_max3", "tick_epilogue"):
-        errs[name] = max(errs[name],
-                         timing["k1_asym4096"]["max_abs_err"][name])
+    for name, e in timing["k1_asym4096"]["max_abs_err"].items():
+        errs[name] = max(errs[name], e)
     if any(v != 0 for v in errs.values()):
         raise AssertionError(f"kernel != plain on a launch input: {errs}")
     details["timing"] = timing
@@ -4540,10 +4635,15 @@ def main(argv=None) -> int:
             ("fused_vector_step",
              "none: the vector step of gossip_protocol_tpu/core/tick.py "
              "make_tick is XLA", timing["vector"]["solo"],
-             {k: timing["vector"]["solo"][k] for k in ("n", "tick")})):
+             {k: timing["vector"]["solo"][k] for k in ("n", "tick")}),
+            ("merge_epilogue",
+             "gossip_protocol_tpu/ops/merge.py:179 with "
+             "gossip_protocol_tpu/ops/pallas/tickfused.py:137",
+             timing["k1"]["merge_epilogue"], {"n": timing["k1"]["n"]})):
         kernels.append({
             "name": name, "route": "cuda",
             "source": {"masked_max3": src, "tick_epilogue": src,
+                       "merge_epilogue": src,
                        "dense_mega_ticks": src, "fused_vector_step": src,
                        "drop_masks": "gossip_protocol_tpu_torch/csrc/drop.cu"
                        }.get(name, osrc),
@@ -4567,10 +4667,9 @@ def main(argv=None) -> int:
     for name, tm, shape in (
             ("drop_masks", timing["draw_asym4096"],
              {"n": 4096, "tick": 300, "s_ticks": 1, "world": "asym"}),
-            ("masked_max3", timing["k1_asym4096"]["masked_max3"],
-             {"n": 4096, "tick": 699, "world": "asym"}),
-            ("tick_epilogue", timing["k1_asym4096"]["tick_epilogue"],
-             {"n": 4096, "tick": 699, "world": "asym"})):
+            *((name, timing["k1_asym4096"][name],
+               {"n": 4096, "tick": 699, "world": "asym"})
+              for name in k1_merge(4096))):
         base = next(k for k in kernels if k["name"] == name)
         kernels.append({
             **base, "name": f"{name}/asym4096", "launches": asym[name],
@@ -4589,7 +4688,9 @@ def main(argv=None) -> int:
             ("fused_vector_step", "fused_vector_step",
              timing["vector"]["fleet"]),
             ("grid_overlay_ticks", "grid_overlay_ticks",
-             timing["k5_fleet"])):
+             timing["k5_fleet"]),
+            ("merge_epilogue", "merge_epilogue",
+             timing["fleet"]["merge_epilogue"])):
         base = next(k for k in kernels if k["name"] == name)
         if wrapper != "drop_masks_lanes":
             base["launches"] -= lane[wrapper]

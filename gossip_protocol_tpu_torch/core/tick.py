@@ -17,7 +17,10 @@ The adversarial worlds (worlds.py) take the JAX package's two routes:
   per-link thresholds, the cross-group gate), flap and wave only the
   schedule, so the tick is the TPU's fused path: ``masked_max3``
   (ops/merge.py), then ``tick_epilogue`` (ops/cuda/tickfused.py, K1) —
-  membership update, detection, dissemination, per-row counters;
+  membership update, detection, dissemination, per-row counters —, or,
+  where the merge builds its witness ladder (N > 1024), the two as one
+  op, ``merge_epilogue`` (ops/merge.py), whose kernel applies the cell
+  rules inside the merge's tiles;
 * **the composable route** (zombie, byz, latency; JAX
   ``core/tick.py:293-471``): ``masked_max3`` on the forged planes (byz)
   and the delivery plane (latency), then the direct credit, the byz
@@ -38,9 +41,10 @@ shared clock (core/fleet.py), where the JAX package runs the XLA tick
 under ``jax.vmap``: every state and schedule tensor carries a leading
 lane axis, and the K1 route makes five launches a tick for the whole
 fleet (``drop_masks_lanes``, ``fused_vector_step``, ``masked_max3``'s
-prep and descent, ``tick_epilogue``, each with a lane axis); the
-vector step seeds the tick's sent / recv rows with the join traffic and
-the epilogue adds the gossip counts onto them.  The composable worlds
+prep and descent, ``tick_epilogue``, each with a lane axis), four where
+``merge_epilogue`` takes the last three; the vector step seeds the
+tick's sent / recv rows with the join traffic and the epilogue adds the
+gossip counts onto them.  The composable worlds
 run their lanes one at a time through :func:`_composable_phases`
 (:func:`composable_lanes`, counted).  The two builders differ only in
 their draw: the route (:func:`_route`) and everything after the draw
@@ -64,7 +68,7 @@ from ..config import INTRODUCER, SimConfig
 from ..ops.cuda._build import count_launch
 from ..ops.cuda.tickfused import tick_epilogue
 from ..ops.drop import drop_masks_lanes, tick_drop_masks
-from ..ops.merge import masked_max3
+from ..ops.merge import masked_max3, merge_epilogue, uses_ladder
 from ..ops.vector import VectorStep, fused_vector_step, vector_step
 from ..state import Schedule, WorldState
 
@@ -131,7 +135,8 @@ def _make_body(cfg: SimConfig, with_events: bool, comm):
     lane axis.  ``phases`` is how the composable route runs its matrix
     phases, ``(fn, scheds)``: a solo tick's ``(_composable_phases,
     sched)``, a fleet's ``(composable_lanes, lane_scheds)``.  ``counts``
-    goes to the K1 route's ``masked_max3``."""
+    goes to the K1 route's merge (``masked_max3`` or
+    ``merge_epilogue``)."""
     t_remove = cfg.t_remove
     # flap up-edges are rejoin events (fresh-nodeStart wipes), so the
     # flap world compiles the churn path in (JAX core/tick.py:115)
@@ -143,6 +148,9 @@ def _make_body(cfg: SimConfig, with_events: bool, comm):
     rows = comm.rows_of if route == "sharded" else (lambda x: x)
     # the per-peer decisions: one launch on the K1 route's card
     step = fused_vector_step if route == "k1" else vector_step
+    # where the merge builds a witness ladder, its tiles apply the cell
+    # rules themselves (one op); a smaller tick keeps the pair
+    fused = route == "k1" and uses_ladder(cfg.n, cfg.n)
 
     def body(state: WorldState, sched: Schedule, gdrop, qdrop, pdrop,
              phases, counts=None):
@@ -156,7 +164,15 @@ def _make_body(cfg: SimConfig, with_events: bool, comm):
             keep = ~rows(v.rejoining)[..., None]
             known, hb, ts = known & keep, hb * keep, ts * keep
 
-        if route == "k1":
+        if fused:
+            known, hb, ts, gossip_next, sent, recv, added, \
+                removed = merge_epilogue(
+                    state.gossip, v.proc, known, hb, ts, gdrop, v.ops,
+                    v.jrep, v.jreq, v.hold, t, rows=(v.sent, v.recv),
+                    t_remove=t_remove, with_events=with_events,
+                    counts=counts)
+            gossip_age = state.gossip_age
+        elif route == "k1":
             # the two matrix phases (kernels on CUDA, plain on CPU);
             # gossip delivery is read inside them as gossip & proc, and
             # the epilogue adds the gossip counts onto the join rows
@@ -407,7 +423,7 @@ def make_fleet_tick(cfg: SimConfig, with_events: bool = True,
     of each lane (a fleet on a 2-D lanes x peers mesh): the composable
     route over the stacked schedule, every lane at once, with the lane
     axis of the rectangular ``masked_max3``.  ``counts`` (CUDA i64[B,
-    2]) goes to the K1 route's ``masked_max3``, which adds each lane's
+    2]) goes to the K1 route's merge, which adds each lane's
     plane descents and fallbacks onto it; the other routes ignore it.
     """
     n = cfg.n

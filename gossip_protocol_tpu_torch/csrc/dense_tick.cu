@@ -10,6 +10,10 @@
 //   gp_tick_epilogue   K1, ops/pallas/tickfused.py fused_tick_update: the
 //                      post-merge cell rules, detection, dissemination and
 //                      the per-row sent/recv counts of one tick.
+//   gp_merge_epilogue  the two above in one descent launch (after the
+//                      prep) where the merge builds a witness ladder
+//                      (N > 1024): each tile applies the cell rules to the
+//                      maxima it just found, so they never reach HBM.
 //   gp_dense_mega_ticks  K2, ops/pallas/dense_mega.py dense_mega_ticks: S
 //                      whole ticks per call as one cooperative persistent
 //                      launch (vector step, churn wipe, masked_max3,
@@ -84,6 +88,15 @@
 //   products (mma.sync m16n8k32), a plane a block.  K2 has no phase for a ladder pass and keeps that per-tile
 //   descent (descent_tile): K2 and the K1 merge no longer share the
 //   descent, only its level loop.
+// * merge_epilogue: a ladder tile's three planes of codes (2 bits a cell)
+//   stay in registers, cross shared memory as one byte a cell and are
+//   decoded against the tile's rungs where the epilogue's rules read them;
+//   dfull is a bit of the prep's delivery words, which the tile's products
+//   already read.  A cell moves 21 bytes past the descent's (hb/ts in and
+//   out, known and gossip in and out, gdrop in) against the pair's 46
+//   (the maxima written and read back, the transposed gossip read).  A
+//   tile that falls back past the ladder writes those cells' values into a
+//   scratch plane its own epilogue reads back after a barrier.
 // * the epilogue is elementwise over ~36 bytes per cell (three i32 maxima,
 //   hb/ts in and out, six byte planes): bound by bytes.  Design: a 2-D
 //   grid of 32-row x 128-column tiles (N=2816: 1936 blocks), 4 columns a
@@ -1072,13 +1085,15 @@ __device__ __noinline__ void descent_fallback(
                      now, t_remove, r0, j0, p, open, true);
 }
 
-// masked_max3_kernel's static shared memory: the products, the store
-// pass and the fallback take turns in u; the tile's rungs, word masks,
-// list lengths and rows' proc stay
+// The static shared memory of a ladder tile (masked_max3_kernel,
+// merge_epilogue_kernel): the products, the fallback and the kernel's own
+// output pass (Out) take turns in u; the tile's rungs, word masks, list
+// lengths and rows' proc stay
+template <class Out>
 struct LadderSmem {
   union {
     BitsSmem bits;
-    StageSmem stage;
+    Out out;
     DescentSmem descent;
   } u;
   int32_t lad_s[3 * LADDER][MM_COLS];
@@ -1087,54 +1102,42 @@ struct LadderSmem {
   uint8_t row_s[MM_ROWS];
 };
 
-// K1's descent on the ladder: grid (row tiles, column tiles, B), one
-// block a tile of lane blockIdx.z running its three planes.  A receiver
-// that does not consume this tick (proc 0) has no delivery: its row is
-// FILL at once.  Per plane: the rung products d @ (v == lad[k]) in order
-// (a cell hit first takes lad[k] - 1), each over the live words with a
-// witness in the tile's columns (none: skipped); the open cells of a
-// column whose last rung is 0 (its ladder holds every value) are FILL;
-// level 0 d @ (v > 0) closes the cells it misses as FILL; a tile with
-// cells still open falls back to descent_levels from below the last
-// rung.  Every load the setup needs (the tile's live words, the rows'
-// proc, the rungs and the word masks) is in flight at once, and each
-// bit-plane's word list is built once.  counts (may be null): per lane
-// counts[lane * cstride] += 3 (the plane descents) and counts[lane *
-// cstride + 1] += the plane descents that fell back.
-template <bool SQ>
-__global__ void __launch_bounds__(MM_THREADS, 2)
-masked_max3_kernel(uint32_t* __restrict__ scratch,
-                   const uint8_t* __restrict__ proc,
-                   const uint8_t* __restrict__ known,
-                   const int32_t* __restrict__ hb,
-                   const int32_t* __restrict__ ts,
-                   int32_t* __restrict__ m_all, int32_t* __restrict__ m_fresh,
-                   int32_t* __restrict__ t_fresh, size_t lane_words, int rn,
-                   int sn, int cn, int words, int now, int t_remove,
-                   unsigned long long* __restrict__ counts, int cstride) {
+// The ladder descent of one tile (rows r0.., columns j0..) of one lane,
+// its three planes in order.  A receiver that does not consume this tick
+// (proc 0) has no delivery: its row is FILL at once.  Per plane: the rung
+// products d @ (v == lad[k]) in order (a cell hit first takes lad[k] - 1),
+// each over the live words with a witness in the tile's columns (none:
+// skipped); the open cells of a column whose last rung is 0 (its ladder
+// holds every value) are FILL; level 0 d @ (v > 0) closes the cells it
+// misses as FILL; a tile with cells still open falls back to
+// descent_levels from below the last rung.  Every load the setup needs
+// (the tile's live words, the rows' proc, the rungs and the word masks) is
+// in flight at once, and each bit-plane's word list is built once.
+// codes(p, code) takes each plane's cell codes (2 bits, code[0] the low: 0
+// FILL, k + 1 rung k, 3 left to the fallback) before the fallback writes
+// the value of each code-3 cell into fb[p] (an R x C plane).  dbits is the
+// lane's merge scratch; proc, known, hb and ts are the lane's.  Returns
+// the plane descents that fell back.
+template <bool SQ, class Out, class Codes>
+__device__ __forceinline__ int ladder_tile(
+    LadderSmem<Out>& ls, int* live, const uint32_t* dbits,
+    const uint8_t* proc, const uint8_t* known, const int32_t* hb,
+    const int32_t* ts, int32_t* const (&fb)[3], int rn, int sn, int cn,
+    int words, int now, int t_remove, int r0, int j0, Codes codes) {
   if (SQ) { sn = rn; cn = rn; }
-  // live words, then each bit-plane's word list
-  extern __shared__ int live[];
-  __shared__ LadderSmem ls;
-  auto& u = ls.u;
-  DescentSmem& sm = u.descent;
-  BitsSmem& sb = u.bits;
+  DescentSmem& sm = ls.u.descent;
+  BitsSmem& sb = ls.u.bits;
   auto& lad_s = ls.lad_s;
   auto& any_s = ls.any_s;
   auto& np_s = ls.np_s;
   auto& row_s = ls.row_s;
-  const size_t lane = blockIdx.z;
-  const size_t o = lane * (size_t)sn * cn, q = lane * (size_t)rn * cn;
-  known += o; hb += o; ts += o;
-  uint32_t* dbits = scratch + lane * lane_words;
-  const LadderPtrs l = ladder_ptrs(dbits, rn, sn, cn);
+  const LadderPtrs l = ladder_ptrs(const_cast<uint32_t*>(dbits), rn, sn, cn);
   const int tid = threadIdx.x, lane_id = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * MM_ROWS, j0 = blockIdx.y * MM_COLS;
   const int strips = (cn + LD_COLS - 1) / LD_COLS, wwords = words_for(words);
-  const int ls0 = blockIdx.y * LD_PER_TILE;
+  const int ls0 = j0 / MM_COLS * LD_PER_TILE;
   const int nls = min(strips - ls0, LD_PER_TILE);
   // the rows' proc, the tile's rungs and word masks (the strips' OR)
-  row_s[tid] = r0 + tid < rn && proc[lane * rn + r0 + tid];
+  row_s[tid] = r0 + tid < rn && proc[r0 + tid];
   for (int i = tid; i < 3 * LADDER * MM_COLS; i += MM_THREADS) {
     const int pk = i / MM_COLS, c = i % MM_COLS, j = j0 + c;
     lad_s[pk][c] = j < cn ? l.lad[(size_t)pk * cn + j] : 0;
@@ -1184,8 +1187,6 @@ masked_max3_kernel(uint32_t* __restrict__ scratch,
   };
   int fallbacks = 0;
   for (int p = 0; p < 3; ++p) {
-    int32_t* out = (p == 0 ? m_all : (p == 1 ? m_fresh : t_fresh)) + q;
-    // a cell's code: 0 FILL, k + 1 rung k, 3 written by the fallback
     static_assert(LADDER + 2 <= 4, "two code bits a cell");
     uint64_t open = open0, code[2] = {0, 0};
     int acc[2][8][4];
@@ -1202,27 +1203,60 @@ masked_max3_kernel(uint32_t* __restrict__ scratch,
     open &= ~col_mask(&lad_s[p * LADDER + LADDER - 1][cell_col(0, 0)]);
     if (__syncthreads_or(open != 0))
       open &= product(bp_level0(p), acc) ? hit_mask(acc) : 0;
-    // every cell of the tile takes its code's value (the fallback's
-    // placeholders first, which it then overwrites)
     const bool fall = __syncthreads_or(open != 0);
     code[0] |= open;
     code[1] |= open;
-    store_codes(u.stage, out, r0, j0, rn, cn, code,
-                &lad_s[p * LADDER][cell_col(0, 0)], cn % 4 == 0);
+    codes(p, code);
     if (fall) {
       ++fallbacks;
-      __syncthreads();   // cur_s / nxt_s overlay the rows store_codes read
+      __syncthreads();   // cur_s / nxt_s overlay what codes() may have read
       if (tid < MM_COLS) {
         sm.cur_s[tid] = lad_s[p * LADDER + LADDER - 1][tid];
         sm.nxt_s[tid] = 0;
       }
       __syncthreads();
-      descent_fallback<SQ>(sm, live, nlive, dbits, known, hb, ts, out, rn,
+      descent_fallback<SQ>(sm, live, nlive, dbits, known, hb, ts, fb[p], rn,
                            sn, cn, now, t_remove, r0, j0, p, open);
     }
     __syncthreads();   // the next plane's products reuse the buffers
   }
-  if (counts && tid == 0) {
+  return fallbacks;
+}
+
+// K1's descent on the ladder, the maxima written out: grid (row tiles,
+// column tiles, B), one block a tile of lane blockIdx.z running its three
+// planes (ladder_tile), each plane's codes stored as values (store_codes,
+// the fallback's placeholders as FILL) before the fallback overwrites its
+// cells.  counts (may be null): per lane counts[lane * cstride] += 3 (the
+// plane descents) and counts[lane * cstride + 1] += the plane descents
+// that fell back.
+template <bool SQ>
+__global__ void __launch_bounds__(MM_THREADS, 2)
+masked_max3_kernel(uint32_t* __restrict__ scratch,
+                   const uint8_t* __restrict__ proc,
+                   const uint8_t* __restrict__ known,
+                   const int32_t* __restrict__ hb,
+                   const int32_t* __restrict__ ts,
+                   int32_t* __restrict__ m_all, int32_t* __restrict__ m_fresh,
+                   int32_t* __restrict__ t_fresh, size_t lane_words, int rn,
+                   int sn, int cn, int words, int now, int t_remove,
+                   unsigned long long* __restrict__ counts, int cstride) {
+  if (SQ) { sn = rn; cn = rn; }
+  // live words, then each bit-plane's word list
+  extern __shared__ int live[];
+  __shared__ LadderSmem<StageSmem> ls;
+  const size_t lane = blockIdx.z;
+  const size_t o = lane * (size_t)sn * cn, q = lane * (size_t)rn * cn;
+  const int r0 = blockIdx.x * MM_ROWS, j0 = blockIdx.y * MM_COLS;
+  int32_t* const out[3] = {m_all + q, m_fresh + q, t_fresh + q};
+  const int fallbacks = ladder_tile<SQ>(
+      ls, live, scratch + lane * lane_words, proc + lane * rn, known + o,
+      hb + o, ts + o, out, rn, sn, cn, words, now, t_remove, r0, j0,
+      [&](int p, const uint64_t (&code)[2]) {
+        store_codes(ls.u.out, out[p], r0, j0, rn, cn, code,
+                    &ls.lad_s[p * LADDER][cell_col(0, 0)], cn % 4 == 0);
+      });
+  if (counts && threadIdx.x == 0) {
     atomicAdd(&counts[lane * cstride], 3ull);
     if (fallbacks) atomicAdd(&counts[lane * cstride + 1],
                              (unsigned long long)fallbacks);
@@ -1453,6 +1487,279 @@ tick_epilogue_kernel(const int32_t* __restrict__ m_all,
                      added_o ? added_o + o : nullptr,
                      removed_o ? removed_o + o : nullptr, n, t, t_remove,
                      blockIdx.x, blockIdx.y);
+}
+
+// merge_epilogue_kernel's output pass: each cell's three 2-bit codes as
+// one byte (plane p at bits 2p, 2p + 1), the tile's two delivery words of
+// each row (dw[k][rr]: bit i is d[r0 + rr, j0 + 32 k + i]) and the rows'
+// ops / jrep.  A row of codes takes 68 bytes (17 words), so the 2-byte
+// writes of a fragment fall in 32 banks; dw's second row starts 8 banks
+// on, so that the four words two neighbouring rows read do too.
+constexpr int CS_STRIDE = MM_COLS + 4;
+struct EpiSmem {
+  __align__(16) uint8_t code[MM_ROWS][CS_STRIDE];
+  uint32_t dw[MM_COLS / WORD][MM_ROWS + 8];
+  uint8_t ops[MM_ROWS], jrep[MM_ROWS];
+};
+
+// The epilogue's inputs of EPC rows of a tile (hb, ts: 16 bytes a 4-column
+// quad; known, gossip, gdrop: 4), copied in by cp.async without registers:
+// EP_STAGES chunks in flight, the first ones issued before the descent so
+// that they land while it runs.  On the bench's B=8 ticks two 32-row
+// stages beat loads into registers (0.73 against 0.78 ms a launch); three
+// stages or 16-row chunks read no better, and four 32-row stages leave
+// one block an SM (PERF.md).
+constexpr int EPC = 32;
+constexpr int EP_STAGES = 2;
+constexpr int EP_QUADS = MM_COLS / 4;
+struct EpiStage {
+  int4 hb[EPC][EP_QUADS], ts[EPC][EP_QUADS];
+  uint32_t kn[EPC][EP_QUADS], gs[EPC][EP_QUADS], gd[EPC][EP_QUADS];
+};
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// the dynamic shared memory of merge_epilogue_kernel: the word lists, then
+// (VEC) the epilogue's stages, 16-byte aligned
+__host__ __device__ inline size_t fused_lists_bytes(int words) {
+  return ((size_t)words * sizeof(int) * (1 + NBP) + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t fused_smem(int words, bool vec) {
+  return fused_lists_bytes(words) + (vec ? EP_STAGES * sizeof(EpiStage) : 0);
+}
+
+// K1 on the ladder: the merge's descent and the tick's cell rules in one
+// launch, grid (row tiles, column tiles, B), one block a 256 x 64 tile of
+// lane blockIdx.z.  The tile's descent (ladder_tile) keeps each plane's
+// codes in registers, and a tile that falls back past the ladder writes
+// those cells' values into the lane's fallback planes (3 [N, N] i32, read
+// back by this block alone).  The codes then cross shared memory as one
+// byte a cell, and each half-warp takes a row of the tile, 4 columns a
+// lane: the maxima decoded against the tile's rungs, dfull read from the
+// prep's delivery bits (no transposed gossip read), cell_rule, the
+// outputs written, the row's sent / recv counts added with one atomic a
+// row and block onto the seeded rows.  A cell moves 21 bytes (hb / ts,
+// known and gossip in and out, gdrop in) where the masked_max3 and
+// tick_epilogue pair moves 46: the three maxima never reach HBM.  Where N
+// % 4 == 0 (VEC) the inputs come in by cp.async, 32-row chunks, the first
+// EP_STAGES issued before the descent: the descent keeps this block's
+// registers busy (two blocks an SM), so its loads could not be many in
+// flight.  counts as masked_max3_kernel's.
+template <bool VEC>
+__global__ void __launch_bounds__(MM_THREADS, 2)
+merge_epilogue_kernel(
+    uint32_t* __restrict__ scratch, const uint8_t* __restrict__ gossip,
+    const uint8_t* __restrict__ proc, const uint8_t* __restrict__ known,
+    const int32_t* __restrict__ hb, const int32_t* __restrict__ ts,
+    const uint8_t* __restrict__ gdrop, const uint8_t* __restrict__ ops,
+    const uint8_t* __restrict__ jrep, const uint8_t* __restrict__ jreq,
+    const uint8_t* __restrict__ hold, uint8_t* __restrict__ known_o,
+    int32_t* __restrict__ hb_o, int32_t* __restrict__ ts_o,
+    uint8_t* __restrict__ gossip_o, int32_t* __restrict__ sent_row,
+    int32_t* __restrict__ recv_row, uint8_t* __restrict__ added_o,
+    uint8_t* __restrict__ removed_o, int32_t* fallback, size_t lane_words,
+    int n, int words, int t, int t_remove,
+    unsigned long long* __restrict__ counts, int cstride) {
+  // live words, then each bit-plane's word list, then the stages
+  extern __shared__ __align__(16) uint8_t fused_dyn[];
+  int* live = reinterpret_cast<int*>(fused_dyn);
+  __shared__ LadderSmem<EpiSmem> ls;
+  EpiSmem& es = ls.u.out;
+  EpiStage* stage =
+      reinterpret_cast<EpiStage*>(fused_dyn + fused_lists_bytes(words));
+  const size_t lane = blockIdx.z, nn = (size_t)n * n;
+  const size_t o = lane * nn, v = lane * n;
+  const uint32_t* dbits = scratch + lane * lane_words;
+  // written by descent_fallback and read after a barrier: plain pointers
+  int32_t* const fb[3] = {fallback + 3 * o, fallback + 3 * o + nn,
+                          fallback + 3 * o + 2 * nn};
+  const int tid = threadIdx.x, lane_id = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.x * MM_ROWS, j0 = blockIdx.y * MM_COLS;
+  constexpr int NCH = MM_ROWS / EPC;
+  // chunk c's inputs into stage s, a 4-column quad inside the block at a
+  // time (N % 4 == 0)
+  auto stage_in = [&](int c, int s) {
+#pragma unroll
+    for (int i = tid; i < EPC * EP_QUADS; i += MM_THREADS) {
+      const int rl = i / EP_QUADS, qd = i % EP_QUADS;
+      const int r = r0 + c * EPC + rl, j = j0 + 4 * qd;
+      if (r >= n || j >= n) continue;
+      const size_t a = o + (size_t)r * n + j;
+      EpiStage& st = stage[s];
+      cp_async16(&st.hb[rl][qd], hb + a);
+      cp_async16(&st.ts[rl][qd], ts + a);
+      cp_async4(&st.kn[rl][qd], known + a);
+      cp_async4(&st.gs[rl][qd], gossip + a);
+      cp_async4(&st.gd[rl][qd], gdrop + a);
+    }
+  };
+  if (VEC) {
+#pragma unroll
+    for (int c = 0; c < EP_STAGES; ++c) {
+      stage_in(c, c);
+      cp_commit();
+    }
+  }
+  uint64_t cd[3][2] = {};
+  const int fallbacks = ladder_tile<true>(
+      ls, live, dbits, proc + v, known + o, hb + o, ts + o, fb, n, n, n,
+      words, t, t_remove, r0, j0, [&](int p, const uint64_t (&code)[2]) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k)   // constant indices: cd stays in regs
+          if (k == p) { cd[k][0] = code[0]; cd[k][1] = code[1]; }
+      });
+  if (counts && tid == 0) {
+    atomicAdd(&counts[lane * cstride], 3ull);
+    if (fallbacks) atomicAdd(&counts[lane * cstride + 1],
+                             (unsigned long long)fallbacks);
+  }
+  // ladder_tile ended on a barrier: the union is free for the codes
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = (mi * 8 + ni) * 4 + 2 * h;
+        uint32_t b2 = 0;
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+            b2 |= (uint32_t)(((cd[p][0] >> (i + e)) & 1u) |
+                             ((cd[p][1] >> (i + e)) & 1u) << 1)
+                  << (8 * e + 2 * p);
+        *reinterpret_cast<uint16_t*>(
+            &es.code[cell_row(2 * h, mi)][cell_col(0, ni)]) = (uint16_t)b2;
+      }
+  for (int i = tid; i < (MM_COLS / WORD) * MM_ROWS; i += MM_THREADS) {
+    const int k = i / MM_ROWS, rr = i % MM_ROWS, r = r0 + rr;
+    const int w = j0 / WORD + k;
+    es.dw[k][rr] = r < n && w < words ? dbits[(size_t)w * n + r] : 0u;
+  }
+  static_assert(MM_ROWS == MM_THREADS, "a row's lanes a thread");
+  es.ops[tid] = r0 + tid < n && ops[v + r0 + tid];
+  es.jrep[tid] = r0 + tid < n && jrep[v + r0 + tid];
+  __syncthreads();
+  // each half-warp a row, lane qc of the half columns 4 qc .. 4 qc + 3
+  const int half = lane_id >> 4, qc = lane_id & 15;
+  const int jl = 4 * qc, j = j0 + jl, lim = n - j;
+  uint32_t jreq_c = 0, hold_c = 0;
+  if (j < n) {
+    jreq_c = ld4b<VEC>(jreq + v, j, lim);
+    hold_c = ld4b<VEC>(hold + v, j, lim);
+  }
+  // row rr of the tile from its inputs: the cell rules, the outputs, and
+  // the row's counts onto the seeded rows
+  auto row = [&](int rr, const int32_t (&h0)[4], const int32_t (&s0)[4],
+                 uint32_t kn, uint32_t gs, uint32_t gd) {
+    const int r = r0 + rr;
+    int sent = 0, recv = 0;
+    if (r < n && j < n) {
+      const size_t oc = o + (size_t)r * n + j;
+      const uint32_t cw =
+          *reinterpret_cast<const uint32_t*>(&es.code[rr][jl]);
+      const uint32_t dw = es.dw[qc >> 3][rr] >> (jl % WORD);
+      const bool ops_r = es.ops[rr], jrep_r = es.jrep[rr];
+      int32_t h1[4], s1[4];
+      uint32_t ko = 0, go = 0, ao = 0, ro = 0;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int32_t m[3];
+#pragma unroll
+        for (int p = 0; p < 3; ++p) {
+          const int k = (cw >> (8 * e + 2 * p)) & 3u;
+          m[p] = k == 0 ? -1
+                        : (k == 3 ? fb[p][(size_t)r * n + j + e]
+                                  : ls.lad_s[p * LADDER + k - 1][jl + e] - 1);
+        }
+        const bool dfull = (dw >> e) & 1u;
+        const CellOut c = cell_rule(
+            r, j + e, t, t_remove, m[0], m[1], m[2], dfull, byte_of(kn, e),
+            h0[e], s0[e], byte_of(gs, e), byte_of(gd, e), ops_r, jrep_r,
+            byte_of(jreq_c, e), byte_of(hold_c, e));
+        h1[e] = c.hb;
+        s1[e] = c.ts;
+        ko |= (uint32_t)c.known << (8 * e);
+        go |= (uint32_t)c.gossip << (8 * e);
+        ao |= (uint32_t)c.added << (8 * e);
+        ro |= (uint32_t)c.removed << (8 * e);
+        if (e < lim) { sent += c.gsent; recv += dfull; }
+      }
+      st4<VEC>(hb_o, oc, lim, h1);
+      st4<VEC>(ts_o, oc, lim, s1);
+      st4b<VEC>(known_o, oc, lim, ko);
+      st4b<VEC>(gossip_o, oc, lim, go);
+      if (added_o) {
+        st4b<VEC>(added_o, oc, lim, ao);
+        st4b<VEC>(removed_o, oc, lim, ro);
+      }
+    }
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) {
+      sent += __shfl_down_sync(0xffffffffu, sent, off, 16);
+      recv += __shfl_down_sync(0xffffffffu, recv, off, 16);
+    }
+    if (qc == 0 && r < n) {
+      if (sent) atomicAdd(&sent_row[v + r], sent);
+      if (recv) atomicAdd(&recv_row[v + r], recv);
+    }
+  };
+  if (VEC) {
+    // chunk c: wait for its copies (one group a chunk, committed in
+    // order, empty past the last), take its rows from the stage, then
+    // refill the stage with chunk c + EP_STAGES
+    for (int c = 0; c < NCH; ++c) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(EP_STAGES - 1)
+                   : "memory");
+      __syncthreads();
+      const EpiStage& st = stage[c % EP_STAGES];
+#pragma unroll
+      for (int k = 0; k < EPC / 16; ++k) {
+        // a warp's halves on neighbouring rows: the byte planes' reads of
+        // the two rows fall in 32 banks
+        const int rl = 16 * k + 2 * warp + half;
+        const int4 hq = st.hb[rl][qc], sq = st.ts[rl][qc];
+        const int32_t h0[4] = {hq.x, hq.y, hq.z, hq.w};
+        const int32_t s0[4] = {sq.x, sq.y, sq.z, sq.w};
+        row(c * EPC + rl, h0, s0, st.kn[rl][qc], st.gs[rl][qc],
+            st.gd[rl][qc]);
+      }
+      __syncthreads();
+      if (c + EP_STAGES < NCH) stage_in(c + EP_STAGES, c % EP_STAGES);
+      cp_commit();
+    }
+  } else {
+    // N % 4 != 0: no aligned quads; each half-warp loads its row
+#pragma unroll 2
+    for (int it = 0; it < MM_ROWS / 16; ++it) {
+      const int rr = 16 * it + 2 * warp + half;
+      int32_t h0[4] = {}, s0[4] = {};
+      uint32_t kn = 0, gs = 0, gd = 0;
+      if (r0 + rr < n && j < n) {
+        const size_t oc = o + (size_t)(r0 + rr) * n + j;
+        ld4<VEC>(hb, oc, lim, h0);
+        ld4<VEC>(ts, oc, lim, s0);
+        kn = ld4b<VEC>(known, oc, lim);
+        gs = ld4b<VEC>(gossip, oc, lim);
+        gd = ld4b<VEC>(gdrop, oc, lim);
+      }
+      row(rr, h0, s0, kn, gs, gd);
+    }
+  }
 }
 
 // One peer's decisions at tick t (ops/vector.py vector_step, in its
@@ -1811,7 +2118,7 @@ cudaError_t launch_masked_max3(const uint8_t* gossip, const uint8_t* proc,
     const dim3 grid(rt, ct, b);
     // word lists past the 48 KB a block gets by default, beside the
     // kernel's static part (S above 8,160), take an opt-in
-    const bool big = sizeof(LadderSmem) + smem > 48 * 1024;
+    const bool big = sizeof(LadderSmem<StageSmem>) + smem > 48 * 1024;
 #define GP_MERGE(SQ_)                                                    \
   if (big)                                                               \
     err = cudaFuncSetAttribute(masked_max3_kernel<SQ_>,                 \
@@ -1838,6 +2145,60 @@ cudaError_t launch_masked_max3(const uint8_t* gossip, const uint8_t* proc,
     masked_max3_plane_kernel<false><<<grid, MM_THREADS, smem, stream>>>(
         scratch, known, hb, ts, m_all, m_fresh, t_fresh, lane_words, rn, sn,
         cn, words, t, t_remove);
+  return cudaGetLastError();
+}
+
+// b lanes (1 solo) of an N x N tick on the ladder: the prep launch (with
+// the ladder) and merge_epilogue_kernel.  A block without a ladder
+// (use_ladder) is refused: its tick keeps the masked_max3 / tick_epilogue
+// pair.
+cudaError_t launch_merge_epilogue(
+    const uint8_t* gossip, const uint8_t* proc, const uint8_t* known,
+    const int32_t* hb, const int32_t* ts, const uint8_t* gdrop,
+    const uint8_t* ops, const uint8_t* jrep, const uint8_t* jreq,
+    const uint8_t* hold, uint8_t* known_o, int32_t* hb_o, int32_t* ts_o,
+    uint8_t* gossip_o, int32_t* sent_row, int32_t* recv_row,
+    uint8_t* added_o, uint8_t* removed_o, uint32_t* scratch,
+    int32_t* fallback, int n, int b, int t, int t_remove,
+    unsigned long long* counts, int cstride, cudaStream_t stream) {
+  const int words = words_for(n);
+  if (n < 1 || b < 1 || b > 65535 || !use_ladder(n, n))
+    return cudaErrorInvalidValue;
+  const bool vec = n % 4 == 0;
+  const size_t smem = fused_smem(words, vec);
+  const long long prep = prep_blocks(n, words);
+  const int nl = (n + LD_COLS - 1) / LD_COLS;
+  const int rt = (n + MM_ROWS - 1) / MM_ROWS, ct = (n + MM_COLS - 1) / MM_COLS;
+  if (b * (prep + nl) > 0x7fffffffLL || ct > 65535)
+    return cudaErrorInvalidValue;
+  const size_t lane_words = lane_scratch_words(n, n, n);
+  merge_prep_kernel<true><<<dim3((unsigned)(b * (prep + nl))),
+                            dim3(WORD, 8), 0, stream>>>(
+      gossip, proc, known, hb, ts, scratch, lane_words, n, n, n, words, nl,
+      t, t_remove);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 grid(rt, ct, b);
+  // the stages (and word lists) past the 48 KB a block gets by default
+  // take an opt-in
+  const bool big = sizeof(LadderSmem<EpiSmem>) + smem > 48 * 1024;
+#define GP_FUSED(VEC_)                                                     \
+  if (big)                                                                 \
+    err = cudaFuncSetAttribute(merge_epilogue_kernel<VEC_>,               \
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, \
+                               (int)smem);                                 \
+  if (err != cudaSuccess) return err;                                      \
+  merge_epilogue_kernel<VEC_><<<grid, MM_THREADS, smem, stream>>>(         \
+      scratch, gossip, proc, known, hb, ts, gdrop, ops, jrep, jreq, hold,  \
+      known_o, hb_o, ts_o, gossip_o, sent_row, recv_row, added_o,          \
+      removed_o, fallback, lane_words, n, words, t, t_remove, counts,      \
+      cstride)
+  if (vec) {
+    GP_FUSED(true);
+  } else {
+    GP_FUSED(false);
+  }
+#undef GP_FUSED
   return cudaGetLastError();
 }
 
@@ -1955,6 +2316,31 @@ int gp_tick_epilogue(const int32_t* m_all, const int32_t* m_fresh,
       m_all, m_fresh, t_fresh, gossip, proc, known, hb, ts, gdrop, ops, jrep,
       jreq, hold, known_o, hb_o, ts_o, gossip_o, sent_row, recv_row, added_o,
       removed_o, n, b, t, t_remove, static_cast<cudaStream_t>(stream)));
+}
+
+// K1 on the ladder (use_ladder(n, n), else cudaErrorInvalidValue) for b
+// lanes (1 solo): gp_masked_max3's merge and gp_tick_epilogue's cell rules
+// in one descent launch after the prep; the maxima are never written.
+// Inputs and outputs as gp_tick_epilogue's, without the maxima; scratch
+// b * gp_masked_max3_scratch_words(n, n, n) i32 words; fallback 3 b n^2
+// i32, written only where a tile falls back past the ladder; counts and
+// cstride as gp_masked_max3's.
+int gp_merge_epilogue(const uint8_t* gossip, const uint8_t* proc,
+                      const uint8_t* known, const int32_t* hb,
+                      const int32_t* ts, const uint8_t* gdrop,
+                      const uint8_t* ops, const uint8_t* jrep,
+                      const uint8_t* jreq, const uint8_t* hold,
+                      uint8_t* known_o, int32_t* hb_o, int32_t* ts_o,
+                      uint8_t* gossip_o, int32_t* sent_row, int32_t* recv_row,
+                      uint8_t* added_o, uint8_t* removed_o, int32_t* scratch,
+                      int32_t* fallback, int n, int b, int t, int t_remove,
+                      long long* counts, int cstride, void* stream) {
+  return static_cast<int>(launch_merge_epilogue(
+      gossip, proc, known, hb, ts, gdrop, ops, jrep, jreq, hold, known_o,
+      hb_o, ts_o, gossip_o, sent_row, recv_row, added_o, removed_o,
+      reinterpret_cast<uint32_t*>(scratch), fallback, n, b, t, t_remove,
+      reinterpret_cast<unsigned long long*>(counts), cstride,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // The K1 route's vector step of tick t for b lanes (1 solo) of n peers:

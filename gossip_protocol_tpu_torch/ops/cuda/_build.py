@@ -47,6 +47,7 @@ SOURCES = {
         "gp_merge_scratch_words": [_I] * 2,
         "gp_masked_max3_scratch_words": [_I] * 3,
         "gp_tick_epilogue": [_P] * 21 + [_I] * 4 + [_P],
+        "gp_merge_epilogue": [_P] * 20 + [_I] * 4 + [_P, _I, _P],
         "gp_dense_mega_ticks": [_P] * 15 + [_I] * 6 + [_P],
         "gp_vector_step": [_P] * 13 + [_I] * 4 + [_P],
     },

@@ -20,7 +20,9 @@ vector step).
 On the H100 the kernel is bound by bytes (~36 per cell, see
 csrc/dense_tick.cu): a 2-D grid of 32 x 128 tiles, 4 columns a thread
 (16-byte / 4-byte accesses where N % 4 == 0), the row sums added with
-one atomic per row and block onto the rows passed in.
+one atomic per row and block onto the rows passed in.  Where the merge
+builds its witness ladder (N > 1024) the tick runs the same cell rules
+inside the merge's tiles instead (ops/merge.py ``merge_epilogue``).
 """
 
 from __future__ import annotations

@@ -22,6 +22,11 @@ Given ``counts``, the kernel counts its plane descents and those that
 fell back past the ladder; a bench fleet passes them while spans record
 and adds them to the span counters ``merge.tiles`` and
 ``merge.fallback_tiles`` (core/fleet.py).
+
+:func:`merge_epilogue` is the K1 tick's merge and epilogue as one op:
+where the merge builds a witness ladder (:func:`uses_ladder`), the card
+applies the tick's cell rules inside the descent's tiles, and the three
+maxima are never written.
 """
 
 from __future__ import annotations
@@ -300,14 +305,7 @@ def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int,
                (proc, torch.bool, lead + (r_dim,)),
                (known, torch.bool, payload), (hb, torch.int32, payload),
                (ts, torch.int32, payload))
-    cstride = 0
-    if counts is not None:
-        check_args("masked_max3", (counts, torch.int64, tuple(counts.shape)),
-                   (known, torch.bool, payload))
-        if counts.shape not in ((2,), (b, 2)):
-            raise ValueError(f"masked_max3: counts must be [{b}, 2] or [2], "
-                             f"got {tuple(counts.shape)}")
-        cstride = 2 if counts.dim() == 2 else 0
+    cstride = _counts_stride("masked_max3", counts, known, b)
     out = lead + (r_dim, c_dim)
     m_all, m_fresh, t_fresh = (torch.empty(out, dtype=torch.int32,
                                            device=known.device)
@@ -333,3 +331,85 @@ def masked_max3(gossip, proc, known, hb, ts, now: int, *, t_remove: int,
 
 masked_max3.launches = 0
 masked_max3.rect_launches = 0
+
+
+def _counts_stride(what: str, counts, known, b: int) -> int:
+    """Check a launch's merge counters (CUDA i64[B, 2] or [2], beside
+    ``known``); the kernel's lane stride into them (0: one pair)."""
+    if counts is None:
+        return 0
+    from .cuda._build import check_args
+    check_args(what, (counts, torch.int64, tuple(counts.shape)),
+               (known, torch.bool, tuple(known.shape)))
+    if counts.shape not in ((2,), (b, 2)):
+        raise ValueError(f"{what}: counts must be [{b}, 2] or [2], "
+                         f"got {tuple(counts.shape)}")
+    return 2 if counts.dim() == 2 else 0
+
+
+def merge_epilogue(gossip, proc, known, hb, ts, gdrop, ops, jrep, jreq,
+                   live_hold, t: int, *, rows, t_remove: int,
+                   with_events: bool = True, counts=None):
+    """One tick's merge and post-merge update in one op: what
+    :func:`masked_max3` and then ``ops/cuda/tickfused.py``
+    ``tick_epilogue`` compute, from the same inputs less the maxima,
+    returning what ``tick_epilogue`` returns (``rows`` added onto in
+    place on a card).  With or without a leading lane axis.
+
+    CPU tensors take the two plain versions in turn.  CUDA tensors launch
+    csrc/dense_tick.cu ``merge_epilogue`` (the merge's prep, then one
+    launch in which each ladder tile applies the cell rules to the maxima
+    it found, so they never reach HBM), which needs the merge's witness
+    ladder: an N x N tick with ``uses_ladder(N, N)`` (N > 1024); a
+    smaller one raises, as its tick runs the pair.  ``counts`` as
+    :func:`masked_max3`'s.  Adds one to ``merge_epilogue.launches`` a
+    launch (two kernels: the prep and the fused descent).
+    """
+    if known.device.type == "cpu":
+        from .cuda.tickfused import tick_epilogue
+        m = masked_max3(gossip, proc, known, hb, ts, t, t_remove=t_remove)
+        return tick_epilogue(*m, gossip, proc, known, hb, ts, gdrop, ops,
+                             jrep, jreq, live_hold, t, rows=rows,
+                             t_remove=t_remove, with_events=with_events)
+    from .cuda._build import (check, check_args, count_launch, library,
+                              ptr, stream_ptr)
+    n = known.shape[-1]
+    lanes = known.dim() == 3
+    b = known.shape[0] if lanes else 1
+    lead = (b,) if lanes else ()
+    if not uses_ladder(n, n):
+        raise ValueError(f"merge_epilogue: N={n} builds no witness ladder; "
+                         "its tick runs masked_max3 and tick_epilogue")
+    ins = (gossip, proc, known, hb, ts, gdrop, ops, jrep, jreq, live_hold)
+    sent_row, recv_row = rows
+    i32, b8, plane, vec = torch.int32, torch.bool, lead + (n, n), lead + (n,)
+    check_args("merge_epilogue", *zip(
+        ins + (sent_row, recv_row),
+        (b8, b8, b8, i32, i32, b8, b8, b8, b8, b8, i32, i32),
+        (plane, vec, plane, plane, plane, plane) + (vec,) * 6))
+    cstride = _counts_stride("merge_epilogue", counts, known, b)
+    dev = known.device
+
+    def out(shape, dt):
+        return torch.empty(shape, dtype=dt, device=dev)
+
+    known_o, gossip_o = out(plane, b8), out(plane, b8)
+    hb_o, ts_o = out(plane, i32), out(plane, i32)
+    added = out(plane, b8) if with_events else None
+    removed = out(plane, b8) if with_events else None
+    lib = library()
+    scratch = out(b * lib.gp_masked_max3_scratch_words(n, n, n), i32)
+    # the cells of tiles that fall back past the ladder: written and read
+    # back by their own block only
+    fallback = out(b * 3 * n * n, i32)
+    code = lib.gp_merge_epilogue(
+        *(ptr(x) for x in ins), ptr(known_o), ptr(hb_o), ptr(ts_o),
+        ptr(gossip_o), ptr(sent_row), ptr(recv_row), ptr(added),
+        ptr(removed), ptr(scratch), ptr(fallback), n, b, int(t),
+        int(t_remove), ptr(counts), cstride, stream_ptr(dev))
+    count_launch(merge_epilogue)
+    check(code, "merge_epilogue")
+    return known_o, hb_o, ts_o, gossip_o, sent_row, recv_row, added, removed
+
+
+merge_epilogue.launches = 0

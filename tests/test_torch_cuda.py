@@ -138,6 +138,132 @@ def test_kernels_on_a_real_tick_state(dev):
                    jreq=vs.jreq, live_hold=vs.hold), t)
 
 
+# ---- the merge and the epilogue as one op (N > 1024) ------------------
+
+def _fused_inputs(n, cases, seed, dev):
+    """Merge and epilogue inputs of one merge case (a solo input), or a
+    lane axis with one lane a case of the tuple ``cases``."""
+    if not isinstance(cases, tuple):
+        return _k1_inputs(n, cases, seed, dev)
+    xs = [_k1_inputs(n, c, seed + i, dev) for i, c in enumerate(cases)]
+    merge_in = tuple(torch.stack(col) for col in zip(*(m for m, _ in xs)))
+    return merge_in, {k: torch.stack([v[k] for _, v in xs])
+                      for k in xs[0][1]}
+
+
+def _check_fused(merge_in, v, t, with_events):
+    """``merge_epilogue`` (one launch) == the ``masked_max3`` /
+    ``tick_epilogue`` pair == their plain versions in turn, bit for bit,
+    with seeded sent / recv rows (added onto in place, the tensors
+    passed coming back); the merge counters equal the pair's.  Returns
+    the fused op's counters."""
+    from gossip_protocol_tpu_torch.ops.cuda.tickfused import (
+        tick_epilogue, tick_epilogue_lanes_plain, tick_epilogue_plain)
+    from gossip_protocol_tpu_torch.ops.merge import (
+        masked_max3, masked_max3_lanes_plain, masked_max3_plain,
+        merge_epilogue)
+    known = merge_in[2]
+    lanes = known.dim() == 3
+    cshape = (known.shape[0], 2) if lanes else (2,)
+    ep = (v["gdrop"], v["ops"], v["jrep"], v["jreq"], v["live_hold"])
+    gen = torch.Generator(device="cpu").manual_seed(known.shape[-1])
+    seeds = [torch.randint(0, 50, tuple(v["ops"].shape), generator=gen,
+                           dtype=torch.int32).to(known.device)
+             for _ in range(2)]
+    kw = dict(t_remove=T_REMOVE, with_events=with_events)
+    c_pair = torch.zeros(cshape, dtype=torch.int64, device=known.device)
+    m = masked_max3(*merge_in, t, t_remove=T_REMOVE, counts=c_pair)
+    pair = tick_epilogue(*m, *merge_in, *ep, t,
+                         rows=tuple(r.clone() for r in seeds), **kw)
+    c_fused = torch.zeros_like(c_pair)
+    rows = tuple(r.clone() for r in seeds)
+    before = merge_epilogue.launches
+    got = merge_epilogue(*merge_in, *ep, t, rows=rows, counts=c_fused, **kw)
+    assert merge_epilogue.launches == before + 1
+    mp = (masked_max3_lanes_plain if lanes else masked_max3_plain)(
+        *merge_in, t, t_remove=T_REMOVE)
+    want = (tick_epilogue_lanes_plain if lanes else tick_epilogue_plain)(
+        *mp, *merge_in, *ep, t, **kw)
+    want = want[:4] + tuple(r + s for r, s in zip(want[4:6], seeds)) \
+        + want[6:]
+    torch.cuda.synchronize()
+    assert got[4] is rows[0] and got[5] is rows[1]
+    for i, (a, p, w) in enumerate(zip(got, pair, want)):
+        if w is None:
+            assert a is None and p is None, i
+        else:
+            assert torch.equal(a, p) and torch.equal(a, w), i
+    assert torch.equal(c_fused, c_pair)
+    return c_fused
+
+
+#: the ladder inputs of the pair's test, a lane axis of eight (a silent
+#: lane, random lanes that fall back deep), and N % 4 != 0
+FUSED_CASES = [
+    (1100, "mixed_fallback"), (1100, "ladder_dead_cols"), (1280, "top_ties"),
+    (2816, "ladder"), (2816, "spread"), (1101, "mixed_fallback"),
+    (1030, "spread"),
+    (2816, ("ladder", "spread", "mixed_fallback", "top_ties", 0.6,
+            "ladder_dead_cols", 0.0, "ladder")),
+    (1101, ("mixed_fallback", 0.05, "spread"))]
+
+
+@pytest.mark.parametrize("with_events", (True, False))
+@pytest.mark.parametrize("n,cases", FUSED_CASES)
+def test_merge_epilogue_equals_pair_and_plain(dev, n, cases, with_events):
+    """The fused op on the ladder inputs == the pair == the plain
+    versions; on ``mixed_fallback`` its counters also equal the plain
+    mirror's (``masked_max3_descent``), with tiles past the ladder."""
+    merge_in, v = _fused_inputs(n, cases, n, dev)
+    counts = _check_fused(merge_in, v, T, with_events)
+    if cases == "mixed_fallback":
+        _check_counts(counts, merge_in, T)
+        assert int(counts[1]) > 0
+
+
+def test_merge_epilogue_refuses_a_block_without_ladder(dev):
+    """At N <= 1024 the merge builds no ladder: the fused op raises, as
+    its tick runs the pair."""
+    from gossip_protocol_tpu_torch.ops.merge import merge_epilogue
+    (gossip, proc, known, hb, ts), v = _k1_inputs(1024, "ladder", 0, dev)
+    with pytest.raises(ValueError, match="no witness ladder"):
+        merge_epilogue(gossip, proc, known, hb, ts, v["gdrop"], v["ops"],
+                       v["jrep"], v["jreq"], v["live_hold"], T,
+                       rows=_zero_rows(v["ops"]), t_remove=T_REMOVE)
+
+
+def test_merge_epilogue_on_the_bench_corner_tick_699(dev):
+    """The fused op on the input of tick 699 of the N=4096 10% drop bench
+    run's 2816 corner (the per-tick route stopped one tick early), with
+    and without events."""
+    from gossip_protocol_tpu_torch.config import SimConfig
+    from gossip_protocol_tpu_torch.core.dense_corner import (_slice_state,
+                                                             active_bound)
+    from gossip_protocol_tpu_torch.core.tick import make_tick_run
+    from gossip_protocol_tpu_torch.ops.drop import tick_drop_masks
+    from gossip_protocol_tpu_torch.ops.vector import vector_step
+    from gossip_protocol_tpu_torch.state import (init_state, make_schedule,
+                                                 slice_schedule)
+    cfg = SimConfig(max_nnb=4096, single_failure=False, drop_msg=True,
+                    msg_drop_prob=0.1, seed=0)
+    a, t = active_bound(cfg), cfg.total_ticks - 1
+    assert a == 2816
+    st = _slice_state(init_state(cfg, dev), a)
+    sched = slice_schedule(make_schedule(cfg, dev), a)
+    st, _ = make_tick_run(cfg.replace(max_nnb=a, total_ticks=t),
+                          with_events=False)(st, sched)
+    gdrop, qdrop, pdrop = tick_drop_masks(st.rng, t, a, sched.drop_on(t),
+                                          sched.drop_prob, dev)
+    vs = vector_step(t, sched.start_tick, sched.fail_tick, sched.rejoin_tick,
+                     st.in_group, st.own_hb, st.joinreq, st.joinrep, qdrop,
+                     pdrop, churn=False)
+    assert (st.gossip & vs.proc[None, :]).any()
+    for ev in (True, False):
+        _check_fused((st.gossip, vs.proc, st.known, st.hb, st.ts),
+                     dict(gdrop=gdrop.contiguous(), ops=vs.ops, jrep=vs.jrep,
+                          jreq=vs.jreq, live_hold=vs.hold), t, ev)
+
+
 def _k2_inputs(n, s_ticks, dev):
     """Random valid K2 inputs: a join ramp, failures and rejoins inside
     the launch (numpy seed ``n``)."""
